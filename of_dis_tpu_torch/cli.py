@@ -1,4 +1,9 @@
-"""Command-line driver of the port, mirroring the reference's run_OF_INT.
+"""Command line of the port, mirroring the reference's binaries.
+
+Modes: run_OF_INT / run_OF_RGB (optical flow from gray / colour input,
+writes .flo), run_DE_INT / run_DE_RGB (depth from a stereo pair: the left
+camera's disparity, writes .pfm), run_OF_GRD / run_DE_GRD (the same on the
+gradient magnitude of the gray input, kept as float).
 
 Usage (reference: README.md:46-86, run_dense.cpp:186-295):
 
@@ -11,9 +16,9 @@ Usage (reference: README.md:46-86, run_dense.cpp:186-295):
 
 Flags: `--quiet` silences the op-point form's default verbosity;
 `--device cuda|cpu` picks the device (default cuda; there is no silent
-fallback to the CPU). This slice ports run_OF_INT; the other modes and
-`--init-flow` raise NotImplementedError. Verbosity > 0 prints the total
-flow time; the per-stage breakdown of verbosity 2 is not ported yet.
+fallback to the CPU). `--init-flow` raises NotImplementedError.
+Verbosity > 0 prints the total flow time; the per-stage breakdown of
+verbosity 2 is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,9 +43,8 @@ def parse_args(argv):
     mode = argv[0]
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode}")
-    if mode != "run_OF_INT":
-        raise NotImplementedError(
-            f"{mode} is not ported yet (ROADMAP queue 1, items 9-11)")
+    nop = 2 if "OF" in mode else 1
+    noc = 3 if "RGB" in mode else 1
     img1, img2, outfile = argv[1], argv[2], argv[3]
     rest = list(argv[4:])
     if "--init-flow" in rest:
@@ -54,7 +58,7 @@ def parse_args(argv):
     quiet = "--quiet" in rest
     if quiet:
         rest.remove("--quiet")
-    return mode, img1, img2, outfile, rest, quiet, device
+    return mode, nop, noc, img1, img2, outfile, rest, quiet, device
 
 
 def build_params(width_org, nop, noc, rest) -> DISParams:
@@ -78,13 +82,22 @@ def build_params(width_org, nop, noc, rest) -> DISParams:
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     t0 = time.perf_counter()
-    mode, img1p, img2p, outfile, rest, quiet, device = parse_args(argv)
+    mode, nop, noc, img1p, img2p, outfile, rest, quiet, device = \
+        parse_args(argv)
     dev = dis.resolve_device(device)
-    nop, noc = 2, 1
 
-    # 8-bit sources are integer-valued: ship u8, as the reference reads CV_8U
-    img1 = torch.as_tensor(io.load_image(img1p, channels=noc).astype(np.uint8))
-    img2 = torch.as_tensor(io.load_image(img2p, channels=noc).astype(np.uint8))
+    img1 = io.load_image(img1p, channels=noc)
+    img2 = io.load_image(img2p, channels=noc)
+    if "GRD" in mode:
+        # gradient-magnitude input (run_dense.cpp:139-148): not
+        # integer-valued, stays float32
+        img1 = pyramid.gradient_magnitude(torch.as_tensor(img1))
+        img2 = pyramid.gradient_magnitude(torch.as_tensor(img2))
+    else:
+        # 8-bit sources are integer-valued: ship u8, as the reference
+        # reads CV_8U
+        img1 = torch.as_tensor(img1.astype(np.uint8))
+        img2 = torch.as_tensor(img2.astype(np.uint8))
     h_org, w_org = img1.shape[1], img1.shape[2]
 
     params = build_params(w_org, nop, noc, rest)
@@ -110,7 +123,11 @@ def main(argv=None):
     t0 = time.perf_counter()
 
     # crop divisibility padding (run_dense.cpp:415)
-    io.write_flo(outfile, flow[top:top + h_org, left:left + w_org])
+    flow = flow[top:top + h_org, left:left + w_org]
+    if nop == 2:
+        io.write_flo(outfile, flow)
+    else:
+        io.write_pfm(outfile, flow[:, :, 0])
     if verb > 1:
         print(f"TIME (Saving flow file  ) (ms): "
               f"{(time.perf_counter() - t0) * 1e3:3g}")

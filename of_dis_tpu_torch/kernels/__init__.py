@@ -3,4 +3,7 @@
 Each wrapper module holds one kernel: it checks its tensors, launches the
 kernel on the current stream for CUDA tensors (raising on any CUDA error),
 counts its launches in the module integer `launches`, and hands CPU
-tensors to the kernel's plain PyTorch twin."""
+tensors to the kernel's plain PyTorch twin. The two TV modules
+(`tv_of_inner`, `tv_de_inner`) also hold a single-pair entry that
+launches the same kernel with one block and counts in
+`launches_single`."""

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 import torch
 
-KERNELS = ("gn_fused", "tv_of_inner", "warp", "upscale")
+KERNELS = ("gn_fused", "tv_of_inner", "tv_de_inner", "warp", "upscale")
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "of_dis_tpu_torch"
 # --fmad=false: no fused multiply-add contraction, so each kernel rounds

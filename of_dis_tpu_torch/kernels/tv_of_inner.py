@@ -1,6 +1,8 @@
-"""K2: the TV fixed-point loop of one level for gray flow, one CUDA block
-per frame pair (csrc/tv_of_inner.cu), replacing `_of_inner_pallas_batched`
-of the JAX package.
+"""K2 and K2': the flow TV fixed-point loop of one level, gray or RGB, one
+CUDA block per frame pair (csrc/tv_of_inner.cu). `of_inner` replaces
+`_of_inner_pallas_batched` of the JAX package; `of_inner_single` launches
+the same kernel with one block for one unbatched pair and replaces
+`_of_inner_pallas`. Each entry keeps its own launch count.
 
 Plain twin: `ops.tv._of_inner_loop`."""
 
@@ -14,10 +16,11 @@ from of_dis_tpu_torch.kernels import build
 
 NAME = "tv_of_inner"
 N_SCRATCH = 10          # (H, W) scratch fields per pair, see the .cu
-launches = 0
+launches = 0            # batched launches (K2)
+launches_single = 0     # single-pair launches (K2')
 
 _f, _i, _p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
-_ARGTYPES = [_p] * 7 + [_i] * 7 + [_f] * 5 + [_p]
+_ARGTYPES = [_p] * 7 + [_i] * 8 + [_f] * 5 + [_p]
 
 
 def _fn():
@@ -27,34 +30,65 @@ def _fn():
     return fn
 
 
-def of_inner(wx: torch.Tensor, wy: torch.Tensor, mask: torch.Tensor,
-             deriv: torch.Tensor, *, quarter_alpha: float, hd3: float,
-             hg3: float, n_inner: int, n_solver: int, omega: float,
-             row_parity: int = 0):
-    """uu, vv (B, H, W) after `n_inner` fixed-point iterations.
+def _plain(wx, wy, mask, deriv, **kw):
+    """The twin on the wrapper's layout: deriv (B, 8, C, H, W)."""
+    from of_dis_tpu_torch.ops.tv import _of_inner_loop
+    return _of_inner_loop(wx, wy, mask,
+                          [d.movedim(1, 0) for d in deriv.unbind(1)],
+                          noc=deriv.shape[2], **kw)
 
-    wx, wy, mask (B, H, W); deriv (B, 8, H, W) holds the gray derivatives
-    (ix, iy, iz, ixx, ixy, iyy, ixz, iyz). CPU tensors run the plain twin."""
-    global launches
-    if wx.device.type == "cpu":
-        from of_dis_tpu_torch.ops.tv import _of_inner_loop
-        return _of_inner_loop(wx, wy, mask, [d[None] for d in deriv.unbind(1)],
-                              noc=1, quarter_alpha=quarter_alpha, hd3=hd3,
-                              hg3=hg3, n_inner=n_inner, n_solver=n_solver,
-                              omega=omega, row_parity=row_parity)
+
+def _launch(wx, wy, mask, deriv, *, quarter_alpha, hd3, hg3, n_inner,
+            n_solver, omega, row_parity=0):
     b, h, w = wx.shape
+    noc = deriv.shape[2] if deriv.ndim == 5 else 0
+    if noc not in (1, 3):
+        raise ValueError(f"{NAME}: deriv must be (B, 8, C, H, W) with C 1 "
+                         f"or 3, got {tuple(deriv.shape)}")
     for what, t in (("wx", wx), ("wy", wy), ("mask", mask)):
         build.check_tensor(NAME, what, t, (b, h, w))
-    build.check_tensor(NAME, "deriv", deriv, (b, 8, h, w))
+    build.check_tensor(NAME, "deriv", deriv, (b, 8, noc, h, w))
     uu = torch.empty_like(wx)
     vv = torch.empty_like(wx)
     scratch = torch.empty((b, N_SCRATCH, h, w), dtype=torch.float32,
                           device=wx.device)
     p = build.ptr
     err = _fn()(p(wx), p(wy), p(mask), p(deriv), p(uu), p(vv), p(scratch),
-                b, h, w, n_inner, n_solver, row_parity % 2, int(bool(hd3)),
-                quarter_alpha, hd3, hg3, omega, 1.0 - omega,
+                b, noc, h, w, n_inner, n_solver, row_parity % 2,
+                int(bool(hd3)), quarter_alpha, hd3, hg3, omega, 1.0 - omega,
                 build.stream_handle(wx.device))
     build.check(err, NAME)
-    launches += 1
     return uu, vv
+
+
+def of_inner(wx: torch.Tensor, wy: torch.Tensor, mask: torch.Tensor,
+             deriv: torch.Tensor, *, quarter_alpha: float, hd3: float,
+             hg3: float, n_inner: int, n_solver: int, omega: float,
+             row_parity: int = 0):
+    """uu, vv (B, H, W) after `n_inner` fixed-point iterations.
+
+    wx, wy, mask (B, H, W); deriv (B, 8, C, H, W) holds the derivatives
+    (ix, iy, iz, ixx, ixy, iyy, ixz, iyz) of C = 1 (gray) or 3 (RGB)
+    channels. CPU tensors run the plain twin."""
+    global launches
+    kw = dict(quarter_alpha=quarter_alpha, hd3=hd3, hg3=hg3, n_inner=n_inner,
+              n_solver=n_solver, omega=omega, row_parity=row_parity)
+    if wx.device.type == "cpu":
+        return _plain(wx, wy, mask, deriv, **kw)
+    out = _launch(wx, wy, mask, deriv, **kw)
+    launches += 1
+    return out
+
+
+def of_inner_single(wx: torch.Tensor, wy: torch.Tensor, mask: torch.Tensor,
+                    deriv: torch.Tensor, **kw):
+    """`of_inner` for one unbatched pair: wx, wy, mask (H, W); deriv
+    (8, C, H, W). Returns uu, vv (H, W). One block of the K2 kernel."""
+    global launches_single
+    args = (wx[None], wy[None], mask[None], deriv[None])
+    if wx.device.type == "cpu":
+        uu, vv = _plain(*args, **kw)
+    else:
+        uu, vv = _launch(*args, **kw)
+        launches_single += 1
+    return uu[0], vv[0]

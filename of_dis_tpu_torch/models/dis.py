@@ -7,13 +7,14 @@ Orchestrates the per-scale stages (reference: oflow.cpp:31-338):
 then the INTER_LINEAR upscale to full resolution (run_dense.cpp:408-412).
 
 Everything is natively batched over frame pairs (B, C, H, W). On CUDA the
-GN loop (K1), the warp (K3), the TV loop (K2) and the final upscale (K4)
-run as hand-written kernels; on the CPU their plain twins run. Entry
-points take `device="cuda"` by default and raise when CUDA is missing
-unless the caller asks for the CPU.
+GN loop (K1), the warp (K3), the TV loop (K2 for flow, K5 for depth) and
+the final upscale (K4) run as hand-written kernels; on the CPU their plain
+twins run. Entry points take `device="cuda"` by default and raise when
+CUDA is missing unless the caller asks for the CPU.
 
-This slice ports gray optical flow (noc=1, nop=2) without the
-forward-backward merge.
+Ported: optical flow (nop=2) and depth from stereo (nop=1, the disparity
+of the left camera, sign-clamped to <= 0), each on gray (noc=1) or RGB
+(noc=3) input; the forward-backward merge is not.
 """
 
 from __future__ import annotations
@@ -47,29 +48,33 @@ def _check_supported(params: DISParams) -> None:
         raise NotImplementedError(
             "forward-backward merge is not ported yet (ROADMAP queue 1, "
             "item 12)")
-    if params.nop != 2:
-        raise NotImplementedError(
-            "depth (nop=1) is not ported yet (ROADMAP queue 1, item 11)")
-    if params.noc != 1:
-        raise NotImplementedError(
-            "RGB (noc=3) is not ported yet (ROADMAP queue 1, item 9)")
+    if params.nop not in (1, 2) or params.noc not in (1, 3):
+        raise ValueError(f"nop must be 1 or 2 and noc 1 or 3, got "
+                         f"nop={params.nop}, noc={params.noc}")
 
 
 def _tv_refine(flow: torch.Tensor, im_a: torch.Tensor, im_b: torch.Tensor,
                spec, params: DISParams) -> torch.Tensor:
     """Batched variational refinement of one scale's dense flow
-    (VarRefClass, refine_variational.cpp:25-116). flow (B, H, W, 2);
+    (VarRefClass, refine_variational.cpp:25-116). flow (B, H, W, nop);
     im_a/im_b (B, C, ...) padded level images, de-padded here
-    (refine_variational.cpp:119-149)."""
+    (refine_variational.cpp:119-149). Depth clamps to the sign of
+    `spec.camlr`."""
     pad = spec.pad
     im1 = im_a[:, :, pad:-pad, pad:-pad].contiguous()
     im2 = im_b[:, :, pad:-pad, pad:-pad].contiguous()
     n_inner = params.tv_innerit * (spec.level + 1)  # refine_variational.cpp:36
-    wx, wy = tv.ref_level_of_batched(
-        flow[..., 0].contiguous(), flow[..., 1].contiguous(), im1, im2,
-        alpha=params.tv_alpha, gamma=params.tv_gamma, delta=params.tv_delta,
-        n_inner=n_inner, n_solver=params.tv_solverit, omega=params.tv_sor)
-    return torch.stack([wx, wy], dim=-1)
+    kw = dict(alpha=params.tv_alpha, gamma=params.tv_gamma,
+              delta=params.tv_delta, n_inner=n_inner,
+              n_solver=params.tv_solverit, omega=params.tv_sor)
+    if params.nop == 2:
+        wx, wy = tv.ref_level_of_batched(
+            flow[..., 0].contiguous(), flow[..., 1].contiguous(), im1, im2,
+            **kw)
+        return torch.stack([wx, wy], dim=-1)
+    wx = tv.ref_level_de_batched(flow[..., 0].contiguous(), im1, im2,
+                                 camlr=spec.camlr, **kw)
+    return wx[..., None]
 
 
 def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
@@ -85,7 +90,7 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
     batch = im_a.shape[0]
     flow = None
     for sl in range(params.sc_f, params.sc_l - 1, -1):
-        spec = make_level_spec(sl, full_w, full_h, params)
+        spec = make_level_spec(sl, full_w, full_h, params, camlr=0)
         ia, ib = ims_a[sl], ims_b[sl]
         tpl = patch_solver.extract_templates(spec, params, ia, dxs_a[sl],
                                              dys_a[sl])

@@ -8,17 +8,18 @@ mask that reproduces the reference's convergence predicate
 
 On CUDA tensors the whole per-level loop is one hand-written kernel
 (`kernels.gn_fused`, csrc/gn_fused.cu: one warp per patch, the bilinear
-window read straight from the target plane). `_gn_plain` below is its
-plain PyTorch twin, used for CPU tensors and held against the kernel on
-the card.
+window read straight from the target planes), for flow (nop 2) and depth
+(nop 1), gray and RGB. `_gn_plain` below is its plain PyTorch twin, used
+for CPU tensors and held against the kernel on the card.
 
 Numerics replicated from the reference:
   - template + gradient extraction at integer positions, optional patch
     mean-normalization (patch.cpp:298-343),
-  - 2x2 (flow) Hessian from template gradients with the det==0 -> +1e-10
-    guard (patch.cpp:69-86),
+  - 2x2 (flow) / 1x1 (depth) Hessian from template gradients with the
+    det==0 (h00==0) -> +1e-10 guard (patch.cpp:69-86),
   - steepest-descent projection + closed-form SPD solve and p -= dp update
-    (patch.cpp:170-184),
+    (patch.cpp:170-184), the depth disparity clamped to the camera's sign
+    before the reset test (patch.cpp:186-191),
   - outlier/bounds reset to the start parameters (patch.cpp:196-206),
   - bilinear patch extraction with ceil(pt+1e-5)/floor anchoring in float32
     (patch.cpp:346-413),
@@ -50,7 +51,7 @@ class PatchTemplates(NamedTuple):
     tmpl: torch.Tensor   # (..., D, N) template patch (mean-normalized if patnorm)
     tdx: torch.Tensor    # (..., D, N) template x-gradient (never normalized)
     tdy: torch.Tensor    # (..., D, N) template y-gradient
-    hes: torch.Tensor    # (..., 3, N) [H00, H01, H11]
+    hes: torch.Tensor    # (..., 3, N) [H00, H01, H11]; depth: (..., 1, N)
 
 
 class PatchResult(NamedTuple):
@@ -114,12 +115,23 @@ def extract_templates(spec: LevelSpec, params: DISParams, im: torch.Tensor,
     if params.patnorm > 0:
         tmpl = tmpl - tmpl.mean(dim=-2, keepdim=True)
     h00 = torch.sum(tdx * tdx, dim=-2)
-    h01 = torch.sum(tdx * tdy, dim=-2)
-    h11 = torch.sum(tdy * tdy, dim=-2)
-    det = h00 * h11 - h01 * h01
-    guard = (det == 0.0).to(h00.dtype) * 1e-10
-    hes = torch.stack([h00 + guard, h01, h11 + guard], dim=-2)
+    if params.nop == 2:
+        h01 = torch.sum(tdx * tdy, dim=-2)
+        h11 = torch.sum(tdy * tdy, dim=-2)
+        det = h00 * h11 - h01 * h01
+        guard = (det == 0.0).to(h00.dtype) * 1e-10
+        hes = torch.stack([h00 + guard, h01, h11 + guard], dim=-2)
+    else:
+        guard = (h00 == 0.0).to(h00.dtype) * 1e-10
+        hes = (h00 + guard).unsqueeze(-2)
     return PatchTemplates(tmpl, tdx, tdy, hes)
+
+
+def _true_div(t: torch.Tensor, den: float) -> torch.Tensor:
+    """t / den as a true division, as the kernel divides (on CUDA,
+    `Tensor / float` multiplies by the reciprocal, which rounds differently
+    unless den is a power of two: 192 = 8*8*3 is not)."""
+    return torch.div(t, torch.full_like(t, den))
 
 
 def loss_error_image(diff: torch.Tensor, costfct: int
@@ -133,7 +145,8 @@ def loss_error_image(diff: torch.Tensor, costfct: int
         return torch.where(diff >= 0.0, w, -w), w
     if costfct == COST_HUBER:
         bsq = NORMOUTLIER * NORMOUTLIER
-        w = torch.sqrt(2.0 * bsq * (torch.sqrt(1.0 + diff * diff / bsq) - 1.0))
+        w = torch.sqrt(2.0 * bsq * (torch.sqrt(
+            1.0 + _true_div(diff * diff, bsq)) - 1.0))
         return torch.where(diff >= 0.0, w, -w), w
     # outside {0,1,2} the reference computes nothing; defined as zeros
     return torch.zeros_like(diff), torch.zeros_like(diff)
@@ -141,13 +154,18 @@ def loss_error_image(diff: torch.Tensor, costfct: int
 
 def _pw_dense(pw: torch.Tensor, psz: int, noc: int) -> torch.Tensor:
     """Raw per-element cost weights (..., D, N) -> the densify splat-weight
-    denominator (..., psz*psz, N): sum_c max(w_c, MINERRVAL)
+    denominator (..., psz*psz, N): sum_c max(w_c, MINERRVAL), channels
+    added in order as the `gn_fused` kernel adds them
     (patchgrid.cpp:253-260)."""
     if noc == 1:
         return torch.clamp(pw, min=MINERRVAL)
     shp = pw.shape
-    p3 = pw.reshape(shp[:-2] + (psz * psz, noc, shp[-1]))
-    return torch.sum(torch.clamp(p3, min=MINERRVAL), dim=-2)
+    p3 = torch.clamp(pw.reshape(shp[:-2] + (psz * psz, noc, shp[-1])),
+                     min=MINERRVAL)
+    dense = p3[..., 0, :]
+    for c in range(1, noc):
+        dense = dense + p3[..., c, :]
+    return dense
 
 
 def _solve_step(hes: torch.Tensor, rhs: torch.Tensor, nop: int
@@ -196,25 +214,38 @@ def extract_bilinear(im: torch.Tensor, pts: torch.Tensor, psz: int,
     return px.permute(0, 2, 3, 1, 4).reshape(b, psz * psz * c, n)
 
 
-def _lane_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the patch axis of (B, D, N) in the `gn_fused` kernel's
-    float32 order: each of 32 lanes adds its pixels d = lane + 32k in k
-    order, then a butterfly halves the 32 partial sums. GN trips amplify
-    rounding differences (a few patches of a level drift apart over 12
-    trips), so the twin sums exactly as the kernel does."""
+def _lane_sum(x: torch.Tensor, noc: int = 1) -> torch.Tensor:
+    """Sum over the patch axis of (B, D, N), D = (pixel, channel), in the
+    `gn_fused` kernel's float32 order: each of 32 lanes owns the pixels
+    lane + 32k and adds their elements in (k, channel) order, then a
+    butterfly halves the 32 partial sums. GN trips amplify rounding
+    differences (a few patches of a level drift apart over 12 trips), so
+    the twin sums exactly as the kernel does."""
     b, d, n = x.shape
-    k = -(-d // 32)
-    if k * 32 != d:
-        x = torch.cat([x, x.new_zeros((b, k * 32 - d, n))], dim=1)
-    x = x.reshape(b, k, 32, n)
-    s = x[:, 0]
-    for j in range(1, k):
-        s = s + x[:, j]
+    pix = d // noc
+    k = -(-pix // 32)
+    x = x.reshape(b, pix, noc, n)
+    if k * 32 != pix:
+        x = torch.cat([x, x.new_zeros((b, k * 32 - pix, noc, n))], dim=1)
+    x = x.reshape(b, k, 32, noc, n)
+    s = x[:, 0, :, 0]
+    for j in range(k):
+        for c in range(noc):
+            if j or c:
+                s = s + x[:, j, :, c]
     w = 32
     while w > 1:
         w //= 2
         s = s[:, :w] + s[:, w:2 * w]
     return s[:, 0]
+
+
+def _to_pt(pt_ref_t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Patch positions (B, 2, N) of parameters p (B, nop, N): the depth
+    parameter moves a patch along x only."""
+    if p.shape[1] == 2:
+        return pt_ref_t + p
+    return pt_ref_t + torch.cat([p, torch.zeros_like(p)], dim=1)
 
 
 def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
@@ -227,9 +258,6 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
     pt_ref_t (1, 2, N). Returns (p (B, nop, N), pweight (B, psz*psz, N),
     iters () int32, trips (B, N) int32 — the trips each patch ran active)."""
     psz, pad, nop, noc = params.p_samp_s, spec.pad, params.nop, params.noc
-    if nop != 2:
-        raise NotImplementedError(
-            "depth GN is not ported yet (ROADMAP queue 1, item 11)")
     novals = float(params.novals)
     b, n = im_b.shape[0], tpl.tmpl.shape[-1]
 
@@ -240,13 +268,14 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
     def compute_err(pt):
         patch = extract_bilinear(im_b, pt.transpose(1, 2), psz, pad)
         if params.patnorm > 0:
-            patch = patch - (_lane_sum(patch) / float(patch.shape[1]))[:, None]
+            mean = _true_div(_lane_sum(patch, noc), float(patch.shape[1]))
+            patch = patch - mean[:, None]
         pdiff, pweight = loss_error_image(patch - tpl.tmpl, params.costfct)
-        mares = _lane_sum(pweight) / novals
+        mares = _true_div(_lane_sum(pweight, noc), novals)
         return pdiff, _pw_dense(pweight, psz, noc), mares
 
     # OptimizeStart (patch.cpp:118-154)
-    pt0 = pt_ref_t + p_init_t
+    pt0 = _to_pt(pt_ref_t, p_init_t)
     init_oob = oob(pt0)                                   # (B, N)
     pt0_safe = torch.where(init_oob[:, None, :], pt_ref_t, pt0)
     pdiff, pweight, mares = compute_err(pt0_safe)
@@ -265,16 +294,21 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
         it += 1
         trips += act.to(torch.int32)
         # steepest-descent projection (patch.cpp:175-180)
-        rhs = torch.stack([_lane_sum(tpl.tdx * pdiff),
-                           _lane_sum(tpl.tdy * pdiff)], dim=1)
-        dp = _solve_step(tpl.hes, rhs, nop)
+        rhs = [_lane_sum(tpl.tdx * pdiff, noc)]
+        if nop == 2:
+            rhs.append(_lane_sum(tpl.tdy * pdiff, noc))
+        dp = _solve_step(tpl.hes, torch.stack(rhs, dim=1), nop)
         p_new = p - dp
-        pt_new = pt_ref_t + p_new
+        if nop == 1:  # depth disparity sign clamp (patch.cpp:186-191)
+            p_new = (p_new.clamp(max=0.0) if spec.camlr == 0
+                     else p_new.clamp(min=0.0))
+        pt_new = _to_pt(pt_ref_t, p_new)
         # outlier / out-of-bounds reset (patch.cpp:196-206)
         moved = torch.sqrt(torch.sum((pt_new - pt0) ** 2, dim=1))
         reset = (moved > params.outlierthresh) | oob(pt_new)
         p_new = torch.where(reset[:, None, :], p_init_t, p_new)
-        pdiff_new, pweight_new, mares_new = compute_err(pt_ref_t + p_new)
+        pdiff_new, pweight_new, mares_new = compute_err(
+            _to_pt(pt_ref_t, p_new))
         dp_sqnorm = torch.sum(dp * dp, dim=1)
         dpn_new = dp_sqnorm if it == 1 else dpn_init
         # convergence predicate (patch.cpp:290-293)
@@ -308,7 +342,7 @@ def optimize_level_batched(spec: LevelSpec, params: DISParams,
     p_fin, pw, iters = gn_fused.gn_fused(spec, params, im_b, tpl, p_init_t,
                                          pt_ref_t)
     return PatchResult(p=p_fin.transpose(1, 2),
-                       pt=(pt_ref_t + p_fin).transpose(1, 2),
+                       pt=_to_pt(pt_ref_t, p_fin).transpose(1, 2),
                        pweight=pw.reshape(b, psz, psz, n),
                        iters=iters)
 

@@ -175,6 +175,16 @@ def build_pyramid(img: torch.Tensor, lv_f: int, pad: int, getgrad: bool = True,
     return imgs, dxs, dys
 
 
+def gradient_magnitude(img: torch.Tensor) -> torch.Tensor:
+    """Gradient-magnitude input mode (run_dense.cpp:139-148,
+    SELECTCHANNEL==2): sqrt(sobel_dx^2 + sobel_dy^2) of the raw float
+    (..., C, H, W) image."""
+    img = img.to(torch.float32)
+    dx = sobel_dx(img)
+    dy = sobel_dy(img)
+    return torch.sqrt(dx * dx + dy * dy)
+
+
 def resize_linear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """cv::INTER_LINEAR-compatible resize of a (..., C, H, W) image
     (half-pixel centers, edge clamp; run_dense.cpp:408-412)."""

@@ -1,4 +1,5 @@
-"""TV (DeepFlow-style) variational refinement of gray optical flow, in PyTorch.
+"""TV (DeepFlow-style) variational refinement of optical flow and of stereo
+disparity, gray or RGB, in PyTorch.
 
 Port of the JAX package's tv.py (the reference's refine_variational.{h,cpp}
 + FDF1.0.1 opticalflow_aux.c / solver.c):
@@ -7,18 +8,20 @@ Port of the JAX package's tv.py (the reference's refine_variational.{h,cpp}
   - 5-tap derivative convolutions [1,-8,0,8,-1]/12 with replicate borders
     (refine_variational.cpp:45-48, image.cpp:578-624),
   - TV diffusivity / smoothness edge weights (opticalflow_aux.c:138-187),
-  - robust gray data term assembling the per-pixel 2x2 system
-    (opticalflow_aux.c:408-594),
+  - robust data terms assembling the per-pixel system: 2x2 for flow
+    (opticalflow_aux.c:408-594), one unknown for depth
+    (opticalflow_aux.c:601-747), each gray or RGB,
   - sub_laplacian residual update (opticalflow_aux.c:194-223),
   - coupled SOR as a red-black (checkerboard) sweep with row parity: du
-    first, then dv from the fresh du. Red-black replaces the reference's
-    raster sweep exactly as in the JAX package (the golden budget depends
-    on the order).
+    first, then dv from the fresh du; the depth solver has du alone.
+    Red-black replaces the reference's raster sweep exactly as in the JAX
+    package (the golden budget depends on the order).
 
 Fields are (..., H, W) with any leading batch axes; images (..., C, H, W).
 On CUDA tensors the warp is kernel K3 (`kernels.warp`) and the fixed-point
-loop kernel K2 (`kernels.tv_of_inner`); the functions here are their plain
-twins and the CPU path.
+loop kernel K2 (`kernels.tv_of_inner`, flow) or K5 (`kernels.tv_de_inner`,
+depth), batched or for one pair; the functions here are their plain twins
+and the CPU path.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from of_dis_tpu_torch.kernels import tv_of_inner
+from of_dis_tpu_torch.kernels import tv_de_inner, tv_of_inner
 from of_dis_tpu_torch.kernels.warp import warp_image_batched
 
 DATANORM = 0.1 * 0.1          # opticalflow_aux.c:25
@@ -208,6 +211,119 @@ def compute_data_gray(mask, du, dv, I, half_delta_over3, half_gamma_over3):
     return 3.0 * a11, 3.0 * a12, 3.0 * a22, 3.0 * b1, 3.0 * b2
 
 
+def compute_data_rgb(mask, du, dv, I, half_delta_over3, half_gamma_over3):
+    """Robust data term, RGB (compute_data, opticalflow_aux.c:408-594,
+    SELECTCHANNEL==3 path; no x3 scaling). I entries (3, ..., H, W). Two
+    upstream quirks are kept, as the run_OF_RGB binary has them:
+      1. channel 0's colour term uses Iy of channel 1
+         (opticalflow_aux.c:496),
+      2. the gradient term's robust weight comes from channel 2's residuals
+         alone (opticalflow_aux.c:529, 538)."""
+    ix, iy, iz, ixx, ixy, iyy, ixz, iyz = I
+    zero = torch.zeros_like(mask)
+    a11 = zero
+    a12 = zero
+    a22 = zero
+    b1 = zero
+    b2 = zero
+    if half_delta_over3:
+        n = [DATANORM + ix[c] * ix[c] + iy[c] * iy[c] for c in range(3)]
+        tsum = zero
+        for c in range(3):
+            t2 = iz[c] + ix[c] * du + iy[c] * dv
+            tsum = tsum + t2 * t2 / n[c]
+        t = mask * half_delta_over3 / torch.sqrt(EPS_COLOR + tsum)
+        for c, iy_used in ((2, iy[2]), (1, iy[1]), (0, iy[1])):  # quirk 1
+            t3 = t / n[c]
+            tx = t3 * ix[c]
+            ty = t3 * iy_used
+            a11 = a11 + tx * ix[c]
+            a12 = a12 + tx * iy_used
+            a22 = a22 + ty * iy_used
+            b1 = b1 - tx * iz[c]
+            b2 = b2 - ty * iz[c]
+    nx = [ixy[c] * ixy[c] + DATANORM + ixx[c] * ixx[c] for c in range(3)]
+    ny = [ixy[c] * ixy[c] + DATANORM + iyy[c] * iyy[c] for c in range(3)]
+    t2 = ixz[2] + ixx[2] * du + ixy[2] * dv                      # quirk 2
+    t3 = iyz[2] + ixy[2] * du + iyy[2] * dv
+    tsum = t2 * t2 / nx[2] + t3 * t3 / ny[2]
+    t = mask * half_gamma_over3 / torch.sqrt(EPS_GRAD + tsum)
+    for c in (2, 1, 0):
+        tn2 = t / ny[c]
+        tn1 = t / nx[c]
+        a12 = a12 + (tn1 * ixx[c] + tn2 * iyy[c]) * ixy[c]
+        b1 = b1 - tn1 * ixx[c] * ixz[c] - tn2 * ixy[c] * iyz[c]
+        b2 = b2 - tn2 * iyy[c] * iyz[c] - tn1 * ixy[c] * ixz[c]
+        a11 = a11 + tn1 * ixx[c] * ixx[c] + tn2 * ixy[c] * ixy[c]
+        a22 = a22 + tn2 * iyy[c] * iyy[c] + tn1 * ixy[c] * ixy[c]
+    return a11, a12, a22, b1, b2
+
+
+def compute_data_de_gray(mask, du, I, half_delta_over3, half_gamma_over3):
+    """Depth data term (one unknown), single channel (compute_data_DE,
+    opticalflow_aux.c:601-747, SELECTCHANNEL==1 path with the x3 scaling).
+    Returns (a11, b1)."""
+    ix, iy, iz, ixx, ixy, iyy, ixz, iyz = [c[0] for c in I]
+    zero = torch.zeros_like(mask)
+    a11 = zero
+    b1 = zero
+    if half_delta_over3:
+        t2 = iz + ix * du
+        n1 = DATANORM + iy * iy + ix * ix
+        tsum = t2 * t2 / n1
+        t = mask * half_delta_over3 / torch.sqrt(EPS_COLOR + 3.0 * tsum)
+        tx = (t / n1) * ix
+        a11 = a11 + tx * ix
+        b1 = b1 - tx * iz
+    xy2 = ixy * ixy + DATANORM
+    n1 = xy2 + ixx * ixx
+    n2 = xy2 + iyy * iyy
+    t2y = iyz + ixy * du
+    t2x = ixz + ixx * du
+    tsum = t2y * t2y / n2 + t2x * t2x / n1
+    t = mask * half_gamma_over3 / torch.sqrt(EPS_GRAD + 3.0 * tsum)
+    t2 = (t / n2) * ixy
+    t3 = (t / n1) * ixx
+    a11 = a11 + t3 * ixx + t2 * ixy
+    b1 = b1 - t3 * ixz - t2 * iyz
+    return 3.0 * a11, 3.0 * b1
+
+
+def compute_data_de_rgb(mask, du, I, half_delta_over3, half_gamma_over3):
+    """Depth data term, RGB (compute_data_DE, opticalflow_aux.c:601-747,
+    SELECTCHANNEL==3 path): no x3 scaling, and both robust weights
+    accumulate all three channels (unlike the flow variant)."""
+    ix, iy, iz, ixx, ixy, iyy, ixz, iyz = I
+    zero = torch.zeros_like(mask)
+    a11 = zero
+    b1 = zero
+    if half_delta_over3:
+        n = [DATANORM + iy[c] * iy[c] + ix[c] * ix[c] for c in range(3)]
+        tsum = zero
+        for c in range(3):
+            t2 = iz[c] + ix[c] * du
+            tsum = tsum + t2 * t2 / n[c]
+        t = mask * half_delta_over3 / torch.sqrt(EPS_COLOR + tsum)
+        for c in (2, 1, 0):
+            tx = (t / n[c]) * ix[c]
+            a11 = a11 + tx * ix[c]
+            b1 = b1 - tx * iz[c]
+    nx = [ixy[c] * ixy[c] + DATANORM + ixx[c] * ixx[c] for c in range(3)]
+    ny = [ixy[c] * ixy[c] + DATANORM + iyy[c] * iyy[c] for c in range(3)]
+    tsum = zero
+    for c in range(3):
+        t2y = iyz[c] + ixy[c] * du
+        t2x = ixz[c] + ixx[c] * du
+        tsum = tsum + t2y * t2y / ny[c] + t2x * t2x / nx[c]
+    t = mask * half_gamma_over3 / torch.sqrt(EPS_GRAD + tsum)
+    for c in (2, 1, 0):
+        t2 = (t / ny[c]) * ixy[c]
+        t3 = (t / nx[c]) * ixx[c]
+        a11 = a11 + t3 * ixx[c] + t2 * ixy[c]
+        b1 = b1 - t3 * ixz[c] - t2 * iyz[c]
+    return a11, b1
+
+
 # ------------------------------------------------------------------- SOR
 
 def _weight_shifts(wh: torch.Tensor, wv: torch.Tensor):
@@ -225,16 +341,21 @@ def _neighbor_sum(x, wh, wv, up_w, left_w):
             + wv * _nbr(x, -2, 1) + wh * _nbr(x, -1, 1))
 
 
+def _red_mask(du: torch.Tensor, row_parity: int) -> torch.Tensor:
+    """(H, W) checkerboard: True where (y + x + row_parity) is even."""
+    h, w = du.shape[-2], du.shape[-1]
+    ii = (torch.arange(h, device=du.device)[:, None]
+          + torch.arange(w, device=du.device)[None, :])
+    return (ii + row_parity) % 2 == 0
+
+
 def sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int,
                    omega: float, row_parity: int = 0):
     """Coupled 2x2 SOR on the 5-point stencil, red-black ordering
     (sor_coupled_slow_but_readable, solver.c:34-78, per pixel: du then dv
     from the fresh du). row_parity offsets the checkerboard's colour for a
     block that starts at an odd global row."""
-    h, w = du.shape[-2], du.shape[-1]
-    ii = (torch.arange(h, device=du.device)[:, None]
-          + torch.arange(w, device=du.device)[None, :])
-    red = (ii + row_parity) % 2 == 0
+    red = _red_mask(du, row_parity)
     up_w, left_w, wsum = _weight_shifts(wh, wv)
     om_a11 = _sdiv(omega, a11 + wsum)
     om_a22 = _sdiv(omega, a22 + wsum)
@@ -254,6 +375,21 @@ def sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int,
     return du, dv
 
 
+def sor_de_rb(du, a11, b1, wh, wv, iterations: int, omega: float,
+              row_parity: int = 0):
+    """Depth SOR, one unknown (sor_coupled_slow_but_readable_DE,
+    solver.c:439-471), red-black ordering; row_parity as in
+    sor_coupled_rb."""
+    red = _red_mask(du, row_parity)
+    up_w, left_w, wsum = _weight_shifts(wh, wv)
+    om_a11 = _sdiv(omega, a11 + wsum)
+    for _ in range(iterations):
+        for mask in (red, ~red):
+            b1n = b1 + _neighbor_sum(du, wh, wv, up_w, left_w)
+            du = torch.where(mask, (1.0 - omega) * du + om_a11 * b1n, du)
+    return du
+
+
 # ------------------------------------------------------------ level glue
 
 def _of_inner_loop(wx, wy, mask, I, *, noc, quarter_alpha, hd3, hg3,
@@ -261,15 +397,13 @@ def _of_inner_loop(wx, wy, mask, I, *, noc, quarter_alpha, hd3, hg3,
     """The per-level fixed-point iteration of RefLevelOF
     (refine_variational.cpp:182-224): the plain twin of kernel K2. All
     fields (..., H, W); I entries (C, ..., H, W)."""
-    if noc != 1:
-        raise NotImplementedError(
-            "RGB TV is not ported yet (ROADMAP queue 1, item 9)")
+    data = compute_data_gray if noc == 1 else compute_data_rgb
     du = torch.zeros_like(wx)
     dv = torch.zeros_like(wx)
     uu, vv = wx, wy
     for _ in range(n_inner):
         wh, wv = compute_smoothness(uu, vv, quarter_alpha)
-        a11, a12, a22, b1, b2 = compute_data_gray(mask, du, dv, I, hd3, hg3)
+        a11, a12, a22, b1, b2 = data(mask, du, dv, I, hd3, hg3)
         b1 = sub_laplacian(b1, wx, wh, wv)
         b2 = sub_laplacian(b2, wy, wh, wv)
         du, dv = sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv,
@@ -278,22 +412,89 @@ def _of_inner_loop(wx, wy, mask, I, *, noc, quarter_alpha, hd3, hg3,
     return uu, vv
 
 
+def _de_inner_loop(wx, mask, I, *, noc, camlr, quarter_alpha, hd3, hg3,
+                   n_inner, n_solver, omega, row_parity=0):
+    """The per-level fixed-point iteration of RefLevelDE
+    (refine_variational.cpp:251-342): the plain twin of kernel K5. The
+    disparity uu = wx + du is clamped to the camera's sign after every
+    inner iteration (<= 0 for camlr 0, >= 0 for camlr 1); du itself is
+    not. Fields (..., H, W); I entries (C, ..., H, W)."""
+    data = compute_data_de_gray if noc == 1 else compute_data_de_rgb
+    wy0 = torch.zeros_like(wx)
+    du = torch.zeros_like(wx)
+    uu = wx
+    for _ in range(n_inner):
+        wh, wv = compute_smoothness(uu, wy0, quarter_alpha)
+        a11, b1 = data(mask, du, I, hd3, hg3)
+        b1 = sub_laplacian(b1, wx, wh, wv)
+        du = sor_de_rb(du, a11, b1, wh, wv, n_solver, omega, row_parity)
+        uu = wx + du
+        uu = uu.clamp(max=0.0) if camlr == 0 else uu.clamp(min=0.0)
+    return uu
+
+
 def tv_coefficients(alpha: float, gamma: float, delta: float):
-    """(quarter_alpha, hd3, hg3) of RefLevelOF's weights."""
+    """(quarter_alpha, hd3, hg3) of RefLevelOF's weights
+    (refine_variational.cpp:40-43)."""
     return 0.25 * alpha, delta * 0.5 / 3.0, gamma * 0.5 / 3.0
+
+
+def _warp_and_derivatives(wx, wy, im1, im2):
+    """Warp im2 (K3), then the derivative stack (B, 8, C, H, W) in the
+    order ix, iy, iz, ixx, ixy, iyy, ixz, iyz, and the in-bounds mask."""
+    w_im2, mask = warp_image_batched(im2, wx, wy)
+    deriv = torch.stack(get_derivatives(im1, w_im2), dim=1)
+    return mask, deriv
 
 
 def ref_level_of_batched(wx, wy, im1, im2, *, alpha, gamma, delta, n_inner,
                          n_solver, omega):
     """Batched flow refinement of one level: wx/wy (B, H, W), im1/im2
-    (B, C, H, W) unpadded level images. Returns (uu, vv) (B, H, W).
-    Warp (K3) and fixed-point loop (K2) run as kernels on CUDA tensors."""
-    if im1.shape[1] != 1:
-        raise NotImplementedError(
-            "RGB TV is not ported yet (ROADMAP queue 1, item 9)")
+    (B, C, H, W) unpadded level images, C 1 or 3. Returns (uu, vv)
+    (B, H, W). Warp (K3) and fixed-point loop (K2) run as kernels on CUDA
+    tensors."""
     quarter_alpha, hd3, hg3 = tv_coefficients(alpha, gamma, delta)
-    w_im2, mask = warp_image_batched(im2, wx, wy)
-    deriv = torch.cat(get_derivatives(im1, w_im2), dim=1)   # (B, 8, H, W)
+    mask, deriv = _warp_and_derivatives(wx, wy, im1, im2)
     return tv_of_inner.of_inner(
         wx, wy, mask, deriv, quarter_alpha=quarter_alpha, hd3=hd3, hg3=hg3,
         n_inner=n_inner, n_solver=n_solver, omega=omega)
+
+
+def ref_level_de_batched(wx, im1, im2, *, alpha, gamma, delta, n_inner,
+                         n_solver, omega, camlr: int):
+    """Batched depth refinement of one level: wx (B, H, W) disparity,
+    im1/im2 (B, C, H, W). Returns uu (B, H, W). Warp (K3, wy = 0) and
+    fixed-point loop (K5) run as kernels on CUDA tensors."""
+    quarter_alpha, hd3, hg3 = tv_coefficients(alpha, gamma, delta)
+    mask, deriv = _warp_and_derivatives(wx, torch.zeros_like(wx), im1, im2)
+    return tv_de_inner.de_inner(
+        wx, mask, deriv, camlr=camlr, quarter_alpha=quarter_alpha, hd3=hd3,
+        hg3=hg3, n_inner=n_inner, n_solver=n_solver, omega=omega)
+
+
+def ref_level_of(wx, wy, im1, im2, *, alpha, gamma, delta, n_inner,
+                 n_solver, omega):
+    """One pair's flow refinement of one level (RefLevelOF,
+    refine_variational.cpp:152-247): wx/wy (H, W), im1/im2 (C, H, W)
+    de-padded. Returns (uu, vv) (H, W). On CUDA tensors the loop is the
+    single-pair launch of kernel K2 (one block)."""
+    quarter_alpha, hd3, hg3 = tv_coefficients(alpha, gamma, delta)
+    mask, deriv = _warp_and_derivatives(wx[None], wy[None], im1[None],
+                                        im2[None])
+    return tv_of_inner.of_inner_single(
+        wx, wy, mask[0], deriv[0], quarter_alpha=quarter_alpha, hd3=hd3,
+        hg3=hg3, n_inner=n_inner, n_solver=n_solver, omega=omega)
+
+
+def ref_level_de(wx, im1, im2, *, alpha, gamma, delta, n_inner, n_solver,
+                 omega, camlr: int):
+    """One pair's depth refinement of one level (RefLevelDE,
+    refine_variational.cpp:250-342): wx (H, W), im1/im2 (C, H, W). Returns
+    uu (H, W). On CUDA tensors the loop is the single-pair launch of
+    kernel K5."""
+    quarter_alpha, hd3, hg3 = tv_coefficients(alpha, gamma, delta)
+    mask, deriv = _warp_and_derivatives(wx[None], torch.zeros_like(wx)[None],
+                                        im1[None], im2[None])
+    return tv_de_inner.de_inner_single(
+        wx, mask[0], deriv[0], camlr=camlr, quarter_alpha=quarter_alpha,
+        hd3=hd3, hg3=hg3, n_inner=n_inner, n_solver=n_solver, omega=omega)

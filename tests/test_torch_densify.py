@@ -44,6 +44,28 @@ def test_aggregate_flow_dense_matches_jax(op, level, size):
                                atol=1e-5 * np.abs(ref).max(), rtol=0)
 
 
+@pytest.mark.parametrize("level,size", [(1, (96, 80)), (0, (40, 56))])
+def test_aggregate_flow_dense_depth_matches_jax(level, size):
+    """nop=1: one parameter per patch, dense result (B, H, W, 1)."""
+    params = jparams.op_point_params(size[0], 2, nop=1)
+    spec = jparams.make_level_spec(level, size[0], size[1], params)
+    rng = np.random.default_rng(level)
+    b, n, psz = 2, spec.nopatches, params.p_samp_s
+    p = -np.abs(rng.standard_normal((b, n, 1))).astype(np.float32) * 3
+    pw = (2.0 + rng.random((b, psz, psz, n)) * 30).astype(np.float32)
+    pt = np.zeros((b, n, 2), np.float32)
+    ref = np.asarray(jax.vmap(lambda p_, pt_, pw_: jd.aggregate_flow_dense(
+        spec, params, jps.PatchResult(p_, pt_, pw_, jnp.int32(0))))(
+        jnp.asarray(p), jnp.asarray(pt), jnp.asarray(pw)))
+    tparams = convert.params_from_reference(dataclasses.asdict(params))
+    ours = td.aggregate_flow_dense(
+        make_level_spec(level, size[0], size[1], tparams), tparams,
+        convert.tensors_from_numpy(tps.PatchResult, p, pt, pw, np.int32(0)))
+    assert ours.shape == ref.shape == (b, spec.height, spec.width, 1)
+    np.testing.assert_allclose(ours.numpy(), ref,
+                               atol=1e-5 * np.abs(ref).max(), rtol=0)
+
+
 def test_cover_tables_match_jax():
     params = dataclasses.replace(jparams.op_point_params(1024, 2))
     spec = jparams.make_level_spec(3, 1024, 448, params)

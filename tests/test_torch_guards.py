@@ -22,7 +22,8 @@ from of_dis_tpu_torch.params import op_point_params
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "of_dis_tpu_torch")
 WRAPPERS = {"gn_fused": "gn_fused", "tv_of_inner": "of_inner",
-            "warp": "warp_image_batched", "upscale": "upscale_batched"}
+            "tv_de_inner": "de_inner", "warp": "warp_image_batched",
+            "upscale": "upscale_batched"}
 
 
 def _modules():
@@ -83,6 +84,38 @@ def test_each_kernel_has_source_entry_and_counter(name):
     assert name in build.KERNELS
 
 
+@pytest.mark.parametrize("name,entry", [("tv_of_inner", "of_inner_single"),
+                                        ("tv_de_inner", "de_inner_single")])
+def test_single_pair_entries_have_their_own_counter(name, entry):
+    """The single-pair TV entries count apart from the batched ones, and a
+    CPU tensor moves neither count."""
+    mod = importlib.import_module(f"of_dis_tpu_torch.kernels.{name}")
+    assert isinstance(mod.launches_single, int)
+    before = (mod.launches, mod.launches_single)
+    f = torch.zeros((4, 5))
+    args = (f, f, f) if name == "tv_of_inner" else (f, f)
+    kw = dict(quarter_alpha=2.5, hd3=0.8, hg3=1.6, n_inner=1, n_solver=1,
+              omega=1.6)
+    if name == "tv_de_inner":
+        kw["camlr"] = 0
+    out = getattr(mod, entry)(*args, torch.zeros((8, 1, 4, 5)), **kw)
+    out = out if torch.is_tensor(out) else out[0]
+    assert out.shape == (4, 5)
+    assert (mod.launches, mod.launches_single) == before
+
+
+@pytest.mark.parametrize("mode,channels,suffix", [
+    ("run_OF_INT", 1, ".flo"), ("run_OF_RGB", 3, ".flo"),
+    ("run_OF_GRD", 1, ".flo"), ("run_DE_INT", 1, ".pfm"),
+    ("run_DE_RGB", 3, ".pfm"), ("run_DE_GRD", 1, ".pfm")])
+def test_cli_mode_table(mode, channels, suffix):
+    """Every mode of the reference parses to its parameter and channel
+    counts; flow writes .flo (2 parameters), depth .pfm (1)."""
+    _, nop, noc, *_ = cli.parse_args([mode, "a", "b", "o" + suffix])
+    assert noc == channels
+    assert nop == (2 if suffix == ".flo" else 1)
+
+
 def test_kernel_wrappers_reject_cpu_kernel_launch_paths():
     """A CPU tensor takes the plain twin and leaves the count alone; the
     wrapper never tries to build or launch there."""
@@ -102,7 +135,9 @@ def test_build_command_targets_sm90a():
 
 
 def test_unported_cli_modes_raise(tmp_path):
-    for argv in (["run_OF_RGB", "a", "b", "o"],
+    for argv in (["run_DE_RGB", "a", "b", "o", "--init-flow", "x"],
                  ["run_OF_INT", "a", "b", "o", "--init-flow", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(argv)
+    with pytest.raises(ValueError, match="unknown mode"):
+        cli.main(["run_OF_XYZ", "a", "b", "o"])

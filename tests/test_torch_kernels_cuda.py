@@ -11,7 +11,9 @@ counts that are no multiple of a block, a level larger than one block's
 Tolerances are those of chip_smoke.py, with the same reasons: the GN
 twin sums each patch in the kernel's order and 12 dependent trips amplify
 the rounding left (1e-3 px, pweight 1e-4 relative); the others repeat
-their twin's float32 formulas (1e-4)."""
+their twin's float32 formulas (1e-4). The single-pair TV entries launch
+the batched kernel with one block, so they equal row 0 of the batched
+result bit for bit."""
 
 import dataclasses
 
@@ -19,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from of_dis_tpu_torch.kernels import gn_fused, tv_of_inner, upscale, warp
+from of_dis_tpu_torch.kernels import (gn_fused, tv_de_inner, tv_of_inner,
+                                      upscale, warp)
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
 from of_dis_tpu_torch.params import make_level_spec, op_point_params
@@ -34,9 +37,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _frames(b, h, w, seed):
+def _frames(b, h, w, seed, c=1):
     rng = np.random.default_rng(seed)
-    x = rng.random((b, 1, h + 8, w + 8)) * 255
+    x = rng.random((b, c, h + 8, w + 8)) * 255
     k = np.ones(5) / 5
     for ax in (-1, -2):
         x = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), ax, x)
@@ -45,18 +48,21 @@ def _frames(b, h, w, seed):
     return (np.rint(a).astype(np.uint8), np.rint(bb).astype(np.uint8))
 
 
+@pytest.mark.parametrize("nop,noc,camlr", [(2, 1, 0), (2, 3, 0), (1, 1, 0),
+                                           (1, 1, 1), (1, 3, 0)])
 @pytest.mark.parametrize("costfct,min_iter", [(0, 12), (1, 12), (2, 12),
                                               (0, 3)])
-def test_gn_kernel_matches_plain(cuda, costfct, min_iter):
-    params = dataclasses.replace(op_point_params(100, 2), costfct=costfct,
-                                 min_iter=min_iter)
-    a, b = (torch.as_tensor(x, device=cuda) for x in _frames(3, 44, 100, 1))
-    spec = make_level_spec(0, 100, 44, params)
+def test_gn_kernel_matches_plain(cuda, costfct, min_iter, nop, noc, camlr):
+    params = dataclasses.replace(op_point_params(100, 2, nop=nop, noc=noc),
+                                 costfct=costfct, min_iter=min_iter)
+    a, b = (torch.as_tensor(x, device=cuda)
+            for x in _frames(3, 44, 100, 1, noc))
+    spec = make_level_spec(0, 100, 44, params, camlr=camlr)
     ims, dxs, dys = pyramid.build_pyramid(a, 0, params.p_samp_s)
     imb, _, _ = pyramid.build_pyramid(b, 0, params.p_samp_s, getgrad=False)
     tpl = patch_solver.extract_templates(spec, params, ims[0], dxs[0], dys[0])
     rng = np.random.default_rng(costfct)
-    p0 = torch.as_tensor(rng.standard_normal((3, 2, spec.nopatches)) * 3,
+    p0 = torch.as_tensor(rng.standard_normal((3, nop, spec.nopatches)) * 3,
                          dtype=torch.float32, device=cuda)
     pt_ref = patch_solver.grid_ref_points(spec, cuda).T[None].contiguous()
     before = gn_fused.launches
@@ -64,33 +70,98 @@ def test_gn_kernel_matches_plain(cuda, costfct, min_iter):
     assert gn_fused.launches == before + 1
     p_p, pw_p, it_p, _ = patch_solver._gn_plain(spec, params, imb[0], tpl, p0,
                                                 pt_ref)
+    assert p_k.shape == (3, nop, spec.nopatches)
+    assert pw_k.shape == (3, 64, spec.nopatches)
     assert int(it_k) == int(it_p)
     assert float((p_k - p_p).abs().max()) <= 1e-3
     assert float((pw_k - pw_p).abs().max()) <= 1e-4 * float(pw_p.abs().max())
+    if nop == 1:
+        # the clamp holds wherever the parameter moved off its start
+        moved = p_k != p0
+        assert bool((p_k[moved] <= 0).all() if camlr == 0
+                    else (p_k[moved] >= 0).all())
 
 
-@pytest.mark.parametrize("h,w,delta,parity", [(14, 32, 5.0, 0),
-                                              (37, 61, 0.0, 1)])
-def test_tv_kernel_matches_plain(cuda, h, w, delta, parity):
-    rng = np.random.default_rng(h)
-    b = 3
-    im1, im2 = (torch.as_tensor(rng.random((b, 1, h, w)) * 255,
+def _tv_inputs(cuda, b, c, h, w, seed, depth=False):
+    rng = np.random.default_rng(seed)
+    im1, im2 = (torch.as_tensor(rng.random((b, c, h, w)) * 255,
                                 dtype=torch.float32, device=cuda)
                 for _ in range(2))
     wx, wy = (torch.as_tensor(rng.standard_normal((b, h, w)) * 1.5,
                               dtype=torch.float32, device=cuda)
               for _ in range(2))
-    qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, delta)
+    if depth:
+        wy = torch.zeros_like(wx)
     w_im2, mask = tv.warp_image(im2, wx, wy)
-    deriv = torch.cat(tv.get_derivatives(im1, w_im2), dim=1).contiguous()
+    deriv = torch.stack(tv.get_derivatives(im1, w_im2), dim=1).contiguous()
+    return im1, im2, wx, wy, mask, deriv
+
+
+def _i_list(deriv):
+    return [d.movedim(1, 0) for d in deriv.unbind(1)]
+
+
+@pytest.mark.parametrize("noc", [1, 3])
+@pytest.mark.parametrize("h,w,delta,parity", [(14, 32, 5.0, 0),
+                                              (37, 61, 0.0, 1)])
+def test_tv_kernel_matches_plain(cuda, h, w, delta, parity, noc):
+    _, _, wx, wy, mask, deriv = _tv_inputs(cuda, 3, noc, h, w, h)
+    qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, delta)
     kw = dict(quarter_alpha=qa, hd3=hd3, hg3=hg3, n_inner=3, n_solver=3,
               omega=1.6, row_parity=parity)
+    before = tv_of_inner.launches
     uu_k, vv_k = tv_of_inner.of_inner(wx, wy, mask, deriv, **kw)
-    uu_p, vv_p = tv._of_inner_loop(wx, wy, mask,
-                                   [d[None] for d in deriv.unbind(1)], noc=1,
+    assert tv_of_inner.launches == before + 1
+    uu_p, vv_p = tv._of_inner_loop(wx, wy, mask, _i_list(deriv), noc=noc,
                                    **kw)
     assert float((uu_k - uu_p).abs().max()) <= 1e-4
     assert float((vv_k - vv_p).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("noc", [1, 3])
+@pytest.mark.parametrize("h,w,delta,parity,camlr", [(14, 32, 5.0, 0, 0),
+                                                    (37, 61, 0.0, 1, 1),
+                                                    (33, 40, 5.0, 1, 0)])
+def test_tv_de_kernel_matches_plain(cuda, h, w, delta, parity, camlr, noc):
+    _, _, wx, _, mask, deriv = _tv_inputs(cuda, 3, noc, h, w, h + 1,
+                                          depth=True)
+    qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, delta)
+    kw = dict(camlr=camlr, quarter_alpha=qa, hd3=hd3, hg3=hg3, n_inner=3,
+              n_solver=3, omega=1.6, row_parity=parity)
+    before = tv_de_inner.launches
+    uu_k = tv_de_inner.de_inner(wx, mask, deriv, **kw)
+    assert tv_de_inner.launches == before + 1
+    uu_p = tv._de_inner_loop(wx, mask, _i_list(deriv), noc=noc, **kw)
+    assert float((uu_k - uu_p).abs().max()) <= 1e-4
+    assert bool((uu_k <= 0).all() if camlr == 0 else (uu_k >= 0).all())
+
+
+@pytest.mark.parametrize("noc", [1, 3])
+def test_single_pair_tv_entries_match_plain_and_batched_row(cuda, noc):
+    """ref_level_of / ref_level_de on one unbatched pair: one block of the
+    batched kernel, its own launch count, equal to the batched row."""
+    im1, im2, wx, wy, _, _ = _tv_inputs(cuda, 2, noc, 37, 61, 5)
+    kw = dict(alpha=10.0, gamma=10.0, delta=5.0, n_inner=2, n_solver=3,
+              omega=1.6)
+    counts = (tv_of_inner.launches, tv_of_inner.launches_single,
+              tv_de_inner.launches, tv_de_inner.launches_single)
+    uu, vv = tv.ref_level_of(wx[0], wy[0], im1[0], im2[0], **kw)
+    dd = tv.ref_level_de(-wx[0].abs(), im1[0], im2[0], camlr=0, **kw)
+    assert (tv_of_inner.launches, tv_of_inner.launches_single,
+            tv_de_inner.launches, tv_de_inner.launches_single) == (
+        counts[0], counts[1] + 1, counts[2], counts[3] + 1)
+    assert uu.shape == vv.shape == dd.shape == (37, 61)
+    bu, bv = tv.ref_level_of_batched(wx, wy, im1, im2, **kw)
+    bd = tv.ref_level_de_batched(-wx.abs(), im1, im2, camlr=0, **kw)
+    assert torch.equal(uu, bu[0]) and torch.equal(vv, bv[0])
+    assert torch.equal(dd, bd[0])
+    cu, cv = tv.ref_level_of(wx[0].cpu(), wy[0].cpu(), im1[0].cpu(),
+                             im2[0].cpu(), **kw)
+    cd = tv.ref_level_de(-wx[0].abs().cpu(), im1[0].cpu(), im2[0].cpu(),
+                         camlr=0, **kw)
+    assert float((uu.cpu() - cu).abs().max()) <= 1e-4
+    assert float((vv.cpu() - cv).abs().max()) <= 1e-4
+    assert float((dd.cpu() - cd).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("c", [1, 3])
@@ -108,26 +179,33 @@ def test_warp_kernel_matches_plain(cuda, c):
     assert torch.equal(m_k, m_p)
 
 
-def test_upscale_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("nop", [2, 1])
+def test_upscale_kernel_matches_plain(cuda, nop):
     flow = torch.as_tensor(np.random.default_rng(0).standard_normal(
-        (3, 7, 13, 2)), dtype=torch.float32, device=cuda)
+        (3, 7, 13, nop)), dtype=torch.float32, device=cuda)
     o_k = upscale.upscale_batched(flow, 3, 56, 104)
     o_p = dis.upscale_output(flow, 3, 56, 104)
     assert float((o_k - o_p).abs().max()) <= 1e-4
 
 
-def test_kernel_path_matches_cpu_path(cuda):
+@pytest.mark.parametrize("nop,noc", [(2, 1), (2, 3), (1, 1), (1, 3)])
+def test_kernel_path_matches_cpu_path(cuda, nop, noc):
     """dis_flow_batched on the card (every kernel) against the CPU plain
-    path: EPE ratio below 1e-3."""
-    a, b = _frames(2, 96, 256, 7)
-    params = op_point_params(256, 2)
+    path: EPE ratio below 1e-3, for flow and depth, gray and RGB."""
+    a, b = _frames(2, 96, 256, 7, noc)
+    if nop == 1:
+        a, b = b, a                       # disparity of the left camera <= 0
+    params = op_point_params(256, 2, nop=nop, noc=noc)
     assert params.sc_l > 0                # the upscale runs
-    counts = [m.launches for m in (gn_fused, tv_of_inner, warp, upscale)]
+    tv_mod = tv_of_inner if nop == 2 else tv_de_inner
+    mods = (gn_fused, tv_mod, warp, upscale)
+    counts = [m.launches for m in mods]
     ours = dis.dis_flow_batched(a, b, params, 256, 96, device="cuda").cpu()
-    grown = [m.launches - c for m, c in
-             zip((gn_fused, tv_of_inner, warp, upscale), counts)]
+    grown = [m.launches - c for m, c in zip(mods, counts)]
     n_lv = params.sc_f - params.sc_l + 1
     assert grown == [n_lv, n_lv, n_lv, 1]
     ref = dis.dis_flow_batched(a, b, params, 256, 96, device="cpu")
-    d = torch.hypot(*(ours - ref).unbind(-1)).mean()
-    assert float(d / torch.hypot(*ref.unbind(-1)).mean()) < 1e-3
+    assert ours.shape == ref.shape == (2, 96, 256, nop)
+    d = torch.linalg.vector_norm(ours - ref, dim=-1).mean()
+    assert float(d / torch.linalg.vector_norm(ref, dim=-1).mean()) < 1e-3
+    assert float(torch.linalg.vector_norm(ref, dim=-1).mean()) > 0.5

@@ -71,6 +71,47 @@ def test_sobel_matches_jax():
                                    atol=ATOL, rtol=0)
 
 
+def test_rgb_pyramid_matches_jax():
+    img = _img((3, 40, 48), seed=11)
+    ji, jdx, jdy = jp.build_pyramid(jnp.asarray(img), 2, 8, lv_l=1)
+    ti, tdx, tdy = tp.build_pyramid(torch.as_tensor(img)[None], 2, 8, lv_l=1)
+    for lv in (1, 2):
+        assert ti[lv].shape == (1, 3) + tuple(ji[lv].shape[1:])
+        for a, b in ((ji, ti), (jdx, tdx), (jdy, tdy)):
+            np.testing.assert_allclose(b[lv][0].numpy(), np.asarray(a[lv]),
+                                       atol=ATOL, rtol=0)
+
+
+def test_gradient_magnitude_matches_jax():
+    img = _img((1, 33, 47), seed=12).astype(np.float32)
+    ours = tp.gradient_magnitude(torch.as_tensor(img))
+    ref = np.asarray(jp.gradient_magnitude(jnp.asarray(img)))
+    assert ours.dtype == torch.float32 and ours.shape == (1, 33, 47)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=ATOL, rtol=0)
+    # u8 in, float out: the CLI feeds the loader's float image, but a u8
+    # tensor must not wrap around in the Sobel differences
+    np.testing.assert_array_equal(
+        tp.gradient_magnitude(torch.as_tensor(img.astype(np.uint8))).numpy(),
+        ours.numpy())
+
+
+def test_gradient_magnitude_pyramid_vs_jax_float_contraction():
+    """The GRD modes feed a float image to the pyramid. The JAX package
+    contracts floats through two bf16 planes (~16 mantissa bits, 2^-17 =
+    7.6e-6 relative), the port in float32: the levels agree to 2e-5 of
+    the level's largest value (measured 5e-6), where u8 input is exact in
+    both."""
+    img = _img((1, 40, 48), seed=13).astype(np.float32)
+    gj = jp.gradient_magnitude(jnp.asarray(img))
+    gt = tp.gradient_magnitude(torch.as_tensor(img))
+    ji, _, _ = jp.build_pyramid(gj, 2, 8)
+    ti, _, _ = tp.build_pyramid(gt, 2, 8)
+    for lv in (1, 2):
+        ref = np.asarray(ji[lv])
+        np.testing.assert_allclose(ti[lv].numpy(), ref,
+                                   atol=2e-5 * np.abs(ref).max(), rtol=0)
+
+
 @pytest.mark.parametrize("shape", [(1, 37, 50), (1, 32, 32)])
 def test_pad_to_divisible_matches_jax(shape):
     img = _img(shape, seed=1)

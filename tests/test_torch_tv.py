@@ -1,5 +1,6 @@
-"""Port's TV refinement (warp, derivatives, data term, SOR, level loop)
-against the JAX package.
+"""Port's TV refinement (warp, derivatives, data terms, SOR, level loops
+for flow and depth, gray and RGB, batched and single pair) against the JAX
+package.
 
 Tolerances, each with its reason:
   - warp: 1e-5 absolute on the 0-255 scale — the same four-term lerp in
@@ -7,7 +8,8 @@ Tolerances, each with its reason:
   - derivatives / smoothness / data term / sub_laplacian: 1e-5 relative to
     each field's largest value — the same elementwise formulas;
   - SOR and the level loop uu/vv: 1e-4 px absolute — float32 rounding
-    differences carried through the dependent sweeps."""
+    differences carried through the dependent sweeps; the same against
+    the JAX package's fused kernels run in Pallas interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from of_dis_tpu.ops import tv as jtv
-from of_dis_tpu_torch.kernels import tv_of_inner
+from of_dis_tpu_torch.kernels import tv_de_inner, tv_of_inner
 from of_dis_tpu_torch.ops import tv as ttv
 
 
@@ -116,3 +118,174 @@ def test_ref_level_of_batched_matches_jax(n_inner, delta):
     assert tv_of_inner.launches == launches     # CPU: plain twin, no kernel
     np.testing.assert_allclose(ou.numpy(), np.asarray(ru), atol=1e-4, rtol=0)
     np.testing.assert_allclose(ov.numpy(), np.asarray(rv), atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------ RGB and depth (nop=1)
+
+HD3 = 5.0 * 0.5 / 3.0
+HG3 = 10.0 * 0.5 / 3.0
+
+
+def _fields(noc, seed, h=12, w=16):
+    """mask, du, dv (H, W) and the 8 derivative fields (noc, H, W)."""
+    rng = np.random.default_rng(seed)
+    mask = (rng.random((h, w)) > 0.1).astype(np.float32)
+    du = rng.standard_normal((h, w)).astype(np.float32) * 0.3
+    dv = rng.standard_normal((h, w)).astype(np.float32) * 0.3
+    I = [rng.standard_normal((noc, h, w)).astype(np.float32) * s
+         for s in (8, 8, 20, 3, 3, 3, 6, 6)]
+    return mask, du, dv, I
+
+
+@pytest.mark.parametrize("hd3", [HD3, 0.0])
+@pytest.mark.parametrize("term", ["rgb", "de_gray", "de_rgb"])
+def test_rgb_and_depth_data_terms_match_jax(term, hd3):
+    noc = 1 if term == "de_gray" else 3
+    mask, du, dv, I = _fields(noc, seed=len(term))
+    state = (mask, du, dv) if term == "rgb" else (mask, du)
+    ref = getattr(jtv, f"compute_data_{term}")(
+        *map(jnp.asarray, state), [jnp.asarray(f) for f in I], hd3, HG3)
+    ours = getattr(ttv, f"compute_data_{term}")(
+        *_t(*state), _t(*I), hd3, HG3)
+    assert len(ours) == len(ref) == (5 if term == "rgb" else 2)
+    for a, b in zip(ours, ref):
+        _close(a, b)
+
+
+def _dump_inputs():
+    """The inputs of the compiled reference's data-term dumps: mask, du,
+    dv, then 8 derivative images x 3 channels, 16x24 float32 planes."""
+    import os
+    g = os.path.join(os.path.dirname(__file__), "goldens")
+    w, h = 24, 16
+    n = w * h
+    raw = np.fromfile(os.path.join(g, "data_term_inputs.bin"), np.float32)
+    planes = raw.reshape(-1, h, w)
+    return g, planes[0], planes[1], planes[2], [
+        planes[3 + 3 * f:6 + 3 * f] for f in range(8)]
+
+
+@pytest.mark.parametrize("term,n_out", [("rgb", 5), ("de_rgb", 2)])
+def test_rgb_data_terms_match_reference_dump(term, n_out):
+    """The two upstream quirks of the RGB flow term and the scalings of
+    both RGB terms are pinned by raw dumps of the C functions; 1e-5 of
+    each field's largest value, the budget of the JAX package's own test."""
+    import os
+    g, mask, du, dv, I = _dump_inputs()
+    state = (mask, du, dv) if term == "rgb" else (mask, du)
+    ours = getattr(ttv, f"compute_data_{term}")(
+        *_t(*(x.copy() for x in state)), _t(*(f.copy() for f in I)), HD3, HG3)
+    ref = np.fromfile(os.path.join(g, f"data_term_{term}.bin"),
+                      np.float32).reshape(n_out, 16, 24)
+    for a, b in zip(ours, ref):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("row_parity", [0, 1])
+def test_sor_de_matches_jax(row_parity):
+    rng = np.random.default_rng(10 + row_parity)
+    shape = (2, 14, 32)
+    f = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+    wh = np.abs(rng.standard_normal(shape)).astype(np.float32)
+    wv = np.abs(rng.standard_normal(shape)).astype(np.float32)
+    wh[..., -1] = 0.0
+    wv[..., -1, :] = 0.0
+    args = (np.zeros(shape, np.float32), np.abs(f[0]) + 1.0, f[1], wh, wv)
+    ref = jtv.sor_de_rb(*map(jnp.asarray, args), 3, 1.6,
+                        row_parity=row_parity)
+    ours = ttv.sor_de_rb(*_t(*args), 3, 1.6, row_parity=row_parity)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=0)
+
+
+def _data_c(noc, seed, b=2, h=14, w=32):
+    rng = np.random.default_rng(seed)
+    im1 = (rng.random((b, noc, h, w)) * 255).astype(np.float32)
+    im2 = (rng.random((b, noc, h, w)) * 255).astype(np.float32)
+    wx = (rng.standard_normal((b, h, w)) * 1.5).astype(np.float32)
+    wy = (rng.standard_normal((b, h, w)) * 1.5).astype(np.float32)
+    return im1, im2, wx, wy
+
+
+KW = dict(alpha=10.0, gamma=10.0, delta=5.0, n_inner=3, n_solver=3,
+          omega=1.6)
+
+
+@pytest.mark.parametrize("n_inner,delta", [(4, 5.0), (2, 0.0)])
+def test_ref_level_of_batched_rgb_matches_jax(n_inner, delta):
+    im1, im2, wx, wy = _data_c(3, seed=20 + n_inner)
+    kw = dict(KW, n_inner=n_inner, delta=delta)
+    ru, rv = jtv.ref_level_of_batched(*map(jnp.asarray, (wx, wy, im1, im2)),
+                                      **kw)
+    ou, ov = ttv.ref_level_of_batched(*_t(wx, wy, im1, im2), **kw)
+    np.testing.assert_allclose(ou.numpy(), np.asarray(ru), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(ov.numpy(), np.asarray(rv), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("noc", [1, 3])
+@pytest.mark.parametrize("camlr", [0, 1])
+def test_ref_level_de_batched_matches_jax(camlr, noc):
+    im1, im2, wx, _ = _data_c(noc, seed=30 + camlr + noc)   # both signs
+    ref = jtv.ref_level_de_batched(*map(jnp.asarray, (wx, im1, im2)),
+                                   camlr=camlr, **KW)
+    before = tv_de_inner.launches
+    ours = ttv.ref_level_de_batched(*_t(wx, im1, im2), camlr=camlr, **KW)
+    assert tv_de_inner.launches == before       # CPU: plain twin, no kernel
+    assert ours.shape == (2, 14, 32)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=0)
+    # the sign clamp acts, and part of the field sits on it
+    assert (ours <= 0).all() if camlr == 0 else (ours >= 0).all()
+    assert int((ours == 0).sum()) > 0
+
+
+def _interp_pallas(monkeypatch):
+    """Run the JAX package's fused TV kernels themselves, in Pallas
+    interpret mode, as its own tests do on the CPU."""
+    from jax.experimental import pallas as pl
+    orig = pl.pallas_call
+
+    def patched(*args, **kw):
+        kw.setdefault("interpret", True)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+    monkeypatch.setattr(jtv, "_use_pallas", lambda h, w, noc: True)
+
+
+@pytest.mark.parametrize("noc", [1, 3])
+def test_ref_level_of_single_pair_matches_jax_kernel(monkeypatch, noc):
+    """`ref_level_of` on one unbatched pair against `_of_inner_pallas`."""
+    im1, im2, wx, wy = _data_c(noc, seed=40 + noc, b=1, h=24, w=32)
+    _interp_pallas(monkeypatch)
+    ru, rv = jtv.ref_level_of(*map(jnp.asarray,
+                                   (wx[0], wy[0], im1[0], im2[0])), **KW)
+    counts = (tv_of_inner.launches, tv_of_inner.launches_single)
+    ou, ov = ttv.ref_level_of(*_t(wx[0], wy[0], im1[0], im2[0]), **KW)
+    assert (tv_of_inner.launches, tv_of_inner.launches_single) == counts
+    assert ou.shape == ov.shape == (24, 32)
+    np.testing.assert_allclose(ou.numpy(), np.asarray(ru), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(ov.numpy(), np.asarray(rv), atol=1e-4, rtol=0)
+    # one pair through the batched entry is the same computation
+    bu, bv = ttv.ref_level_of_batched(*_t(wx, wy, im1, im2), **KW)
+    np.testing.assert_array_equal(ou.numpy(), bu[0].numpy())
+    np.testing.assert_array_equal(ov.numpy(), bv[0].numpy())
+
+
+@pytest.mark.parametrize("noc", [1, 3])
+@pytest.mark.parametrize("camlr", [0, 1])
+def test_ref_level_de_single_pair_matches_jax_kernel(monkeypatch, camlr, noc):
+    """`ref_level_de` on one unbatched pair against `_de_inner_pallas`."""
+    im1, im2, wx, _ = _data_c(noc, seed=50 + camlr + noc, b=1, h=24, w=32)
+    wx = -np.abs(wx) if camlr == 0 else np.abs(wx)
+    _interp_pallas(monkeypatch)
+    ref = jtv.ref_level_de(*map(jnp.asarray, (wx[0], im1[0], im2[0])),
+                           camlr=camlr, **KW)
+    counts = (tv_de_inner.launches, tv_de_inner.launches_single)
+    ours = ttv.ref_level_de(*_t(wx[0], im1[0], im2[0]), camlr=camlr, **KW)
+    assert (tv_de_inner.launches, tv_de_inner.launches_single) == counts
+    assert ours.shape == (24, 32)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=0)
+    batched = ttv.ref_level_de_batched(*_t(wx, im1, im2), camlr=camlr, **KW)
+    np.testing.assert_array_equal(ours.numpy(), batched[0].numpy())

@@ -8,19 +8,26 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: CUDA present, the `nvidia-smi` name / power-limit line;
   2. build: every kernel of `of_dis_tpu_torch/csrc/` compiled with nvcc for
      sm_90a, one process per source, all at once;
-  3. per path (see PATHS: A gray flow, B gray depth, C RGB flow, D RGB
-     depth; op-point 2, Sintel 1024x436 padded to 1024x448): each kernel
-     against its plain PyTorch twin on the card, on the inputs the path
-     hands it, with kernel / plain / library times and the bound the card
-     could reach;
+  3. per path (see PATHS: at op-point 2 A gray flow, B gray depth, C RGB
+     flow, D RGB depth, G gray flow with the forward-backward merge; E
+     op-point 3 and F op-point 4 gray flow; H gray flow at patch size 16
+     through the 20-parameter form, the unfused GN route; Sintel 1024x436
+     padded to 1024x448): each kernel against its plain PyTorch twin on
+     the card, on the inputs the path hands it (the whole batch), with
+     kernel / plain / library times and the bound the card could reach;
+     on paths A, E and F every GN level is also timed on both fused
+     routes (templates gathered by plain torch plus `gn_fused`, against
+     `gn_tiled`), the measurement behind `patch_solver.TILED_MIN_PATCHES`;
   4. per path, end to end: `dis_flow_batched`, launch counts of every
      kernel (asserted), the result against the known synthetic field and
-     against the plain path, pairs/s, one profile with the busy share;
+     against the plain path, pairs/s, one profile with the busy share; the
+     merge's result equal to the bit between two calls;
   5. the single-pair TV entries `ops.tv.ref_level_of` / `ref_level_de` on
      pair 0 of the finest level of paths A and B: launch counts, against
      their twins, and equal to row 0 of the batched result;
   6. the compiled-reference goldens through the port's `cli.main` on the
-     card (all six modes);
+     card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
+     the merge for flow and depth, the TV-free pseudo-Huber run);
   7. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
      last line `{"ok": true, "device": {...}}`.
 
@@ -34,6 +41,7 @@ u8), generated on the card from a seed. Flow pairs move by a field of mean
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -47,7 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from of_dis_tpu_torch import cli
-from of_dis_tpu_torch.kernels import (build, gn_fused, tv_de_inner, tv_of_inner,
+from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
+                                      gn_tiled, tv_de_inner, tv_of_inner,
                                       upscale, warp)
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
@@ -63,18 +72,47 @@ OUT_DIR = os.path.join(ROOT, "build", "of_dis_tpu_torch", "smoke")
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
-H_ORG, W_ORG, OP = 436, 1024, 2
+H_ORG, W_ORG = 436, 1024
 # The paths driven end to end, each with its expected launches per
-# `dis_flow_batched` call (three levels at op-2, one final upscale).
+# `dis_flow_batched` call. op-2: three levels (5..3), one final upscale.
+# op-3: five levels (5..1), of which levels 3 to 1 run the large-level GN
+# kernel. op-4: six levels (5..0), levels 3..0 on the large-level kernel,
+# and no upscale (the last level is full resolution). The merge (fbcon)
+# runs a second GN per level and a backward TV at all but the last level.
+# `plain_pairs`: pairs of the kernel-path / plain-path comparison; `routes`:
+# time every GN level on both fused routes; `args`: the CLI's 20-parameter
+# form in place of an op-point; `at_least`: kernels whose launch count
+# depends on the data (one extraction at the start of a level and one per
+# trip), with the fewest launches a call must show.
 PATHS = [
-    dict(name="A", what="flow, gray", nop=2, noc=1, batch=64,
+    dict(name="A", what="flow, gray", op=2, nop=2, noc=1, batch=64,
+         routes=True,
          launches={"gn_fused": 3, "tv_of_inner": 3, "warp": 3, "upscale": 1}),
-    dict(name="B", what="depth, gray", nop=1, noc=1, batch=64,
+    dict(name="B", what="depth, gray", op=2, nop=1, noc=1, batch=64,
          launches={"gn_fused": 3, "tv_de_inner": 3, "warp": 3, "upscale": 1}),
-    dict(name="C", what="flow, RGB", nop=2, noc=3, batch=64,
+    dict(name="C", what="flow, RGB", op=2, nop=2, noc=3, batch=64,
          launches={"gn_fused": 3, "tv_of_inner": 3, "warp": 3, "upscale": 1}),
-    dict(name="D", what="depth, RGB", nop=1, noc=3, batch=16,
+    dict(name="D", what="depth, RGB", op=2, nop=1, noc=3, batch=16,
          launches={"gn_fused": 3, "tv_de_inner": 3, "warp": 3, "upscale": 1}),
+    dict(name="E", what="flow, gray, op-3", op=3, nop=2, noc=1, batch=16,
+         plain_pairs=2, routes=True,
+         launches={"gn_fused": 2, "gn_tiled": 3, "tv_of_inner": 5, "warp": 5,
+                   "upscale": 1}),
+    dict(name="F", what="flow, gray, op-4", op=4, nop=2, noc=1, batch=4,
+         plain_pairs=2, routes=True,
+         launches={"gn_fused": 2, "gn_tiled": 4, "tv_of_inner": 6,
+                   "warp": 6}),
+    dict(name="G", what="flow, gray, forward-backward merge", op=2, nop=2,
+         noc=1, batch=64, fbcon=True,
+         launches={"gn_fused": 6, "tv_of_inner": 5, "warp": 5, "upscale": 1}),
+    # op-3's settings (16 trips, overlap 0.75, TV on) at patch size 16,
+    # levels 4..1: 256 pixels a patch, more than a warp of either GN
+    # kernel holds, so every level takes the unfused route
+    dict(name="H", what="flow, gray, patch size 16 (20-parameter form)",
+         op=None, args="4 1 16 16 0.05 0.95 0 16 0.75 0 1 0 1 10 10 5 1 3 "
+         "1.6 0", nop=2, noc=1, batch=4, plain_pairs=2,
+         launches={"tv_of_inner": 4, "warp": 4, "upscale": 1},
+         at_least={"bilerp_extract": 8}),
 ]
 # name -> where the main path looks the wrapper up (`entry`), the module
 # and attribute of its launch count, its source and the TPU kernel(s) it
@@ -86,6 +124,19 @@ KERNELS = {
                      replaces="of_dis_tpu/ops/patch_solver.py:584",
                      tpu_kernels=["of_dis_tpu/ops/patch_solver.py:584 "
                                   "_gn_fused_pallas"]),
+    "gn_tiled": dict(module=gn_tiled, entry=(gn_tiled, "gn_tiled"),
+                     counter="launches",
+                     source="of_dis_tpu_torch/csrc/gn_tiled.cu",
+                     replaces="of_dis_tpu/ops/patch_solver.py:1228",
+                     tpu_kernels=["of_dis_tpu/ops/patch_solver.py:1228 "
+                                  "_gn_tiled_pallas"]),
+    "bilerp_extract": dict(module=bilerp_extract,
+                           entry=(bilerp_extract, "bilerp_extract"),
+                           counter="launches",
+                           source="of_dis_tpu_torch/csrc/bilerp_extract.cu",
+                           replaces="of_dis_tpu/ops/patch_solver.py:312",
+                           tpu_kernels=["of_dis_tpu/ops/patch_solver.py:312 "
+                                        "_bilerp_select_pallas"]),
     "tv_of_inner": dict(module=tv_of_inner,
                         entry=(tv_of_inner, "of_inner"), counter="launches",
                         source="of_dis_tpu_torch/csrc/tv_of_inner.cu",
@@ -131,6 +182,11 @@ TOL = {
     # px: the twin sums each patch in the kernel's order, so the two agree
     # to rounding; 12 dependent Gauss-Newton trips amplify what is left
     "gn_fused": 1e-3,
+    # px: as gn_fused, the template mean and the Hessian summed in the
+    # kernel's order too; up to 128 dependent trips at op-4
+    "gn_tiled": 1e-3,
+    # 0-255 scale: the twin's three float32 lerps term by term
+    "bilerp_extract": 1e-4,
     # px: the same float32 formulas; the only freedom is rounding of the
     # compiler's division / square root, carried through the SOR sweeps
     "tv_of_inner": 1e-4,
@@ -296,6 +352,8 @@ def _single(plain):
 # path through the twins on whatever device the tensors are
 PLAIN = {
     "gn_fused": lambda *args: patch_solver._gn_plain(*args)[:3],
+    "gn_tiled": lambda *args: patch_solver._gn_tiled_plain(*args)[:3],
+    "bilerp_extract": patch_solver.extract_bilinear,
     "tv_of_inner": tv_of_inner._plain,
     "tv_of_inner_single": _single(tv_of_inner._plain),
     "tv_de_inner": tv_de_inner._plain,
@@ -320,39 +378,108 @@ def read_launches():
 
 # ------------------------------------------------- per-kernel comparisons
 
-def check_gn(args, kernel_fn):
-    spec, params, im_b, tpl, p_init_t, pt_ref_t = args
+def check_gn(name, args, kernel_fn):
+    """One GN call against its twin. `gn_fused` takes materialised
+    templates (spec, params, im_b, tpl, p_init_t, pt_ref_t), `gn_tiled`
+    the source planes in their place."""
+    spec, params, im_b, tpl_or_src, p_init_t, pt_ref_t = args
+    twin = (patch_solver._gn_plain if name == "gn_fused"
+            else patch_solver._gn_tiled_plain)
     p_k, pw_k, it_k = kernel_fn(*args)
-    p_p, pw_p, it_p, trips = patch_solver._gn_plain(*args)
+    p_p, pw_p, it_p, trips = twin(*args)
     torch.cuda.synchronize()
     err = float((p_k - p_p).abs().max())
     pw_err = float((pw_k - pw_p).abs().max()) / float(pw_p.abs().max())
     if int(it_k) != int(it_p):
-        raise AssertionError(f"gn_fused iters {int(it_k)} != plain "
+        raise AssertionError(f"{name} iters {int(it_k)} != plain "
                              f"{int(it_p)} at level {spec.level}")
-    if not (err <= TOL["gn_fused"] and pw_err <= PWEIGHT_REL_TOL):
-        raise AssertionError(f"gn_fused level {spec.level}: p err {err}, "
+    if not (err <= TOL[name] and pw_err <= PWEIGHT_REL_TOL):
+        raise AssertionError(f"{name} level {spec.level}: p err {err}, "
                              f"pweight rel err {pw_err}")
-    b, d, n = tpl.tmpl.shape
-    c, hp, wp = im_b.shape[1:]
-    nop = params.nop
-    # each input read once (C planes, tmpl/tdx and for flow tdy, hes,
-    # p_init, pt_ref), each output written once (p, the channel-summed
-    # pweight, iters)
-    nbytes = 4 * (b * c * hp * wp + (1 + nop) * b * d * n
-                  + (3 if nop == 2 else 1) * b * n + nop * b * n + 2 * n
-                  + nop * b * n + b * (d // c) * n + 1)
-    # per element: 15 flops per extraction (9 bilinear, 2 mean-normalise,
-    # 3 residual / weight / clamp, 1 residual sum), one extraction at the
-    # start and one per trip, plus 2 per trip and projection (two for
-    # flow, one for depth); trips are the ones this run's data needed
+    b, c, hp, wp = im_b.shape
+    n, nop = spec.nopatches, params.nop
+    d = params.novals
+    nh = 3 if nop == 2 else 1
+    # trips are the ones this run's data needed
     n_trips = float(trips.sum())
-    flops = d * (15.0 * (b * n + n_trips) + 2.0 * nop * n_trips)
+    # outputs written once: p, the channel-summed pweight, iters; inputs
+    # read once: the target planes, p_init, pt_ref and the templates
+    nbytes = 4 * (b * c * hp * wp + nop * b * n + 2 * n
+                  + nop * b * n + b * (d // c) * n + 1)
+    if name == "gn_fused":
+        # tmpl, tdx and for flow tdy, and the Hessians
+        nbytes += 4 * ((1 + nop) * b * d * n + nh * b * n)
+        # per element: 15 flops per extraction (9 bilinear, 2
+        # mean-normalise, 3 residual / weight / clamp, 1 residual sum), one
+        # extraction at the start and one per trip, plus 2 per trip and
+        # projection (two for flow, one for depth)
+        flops = d * (15.0 * (b * n + n_trips) + 2.0 * nop * n_trips)
+    else:
+        # the source image and its x- (for flow also y-) gradient planes
+        nbytes += 4 * (1 + nop) * b * c * hp * wp
+        # as gn_fused, with the projections taken inside every error
+        # evaluation, one more extraction for the weight after the loop,
+        # and per patch the template mean (2 per element) and the Hessian
+        # entries (2 each)
+        flops = d * (15.0 * (2 * b * n + n_trips)
+                     + 2.0 * nop * (b * n + n_trips)
+                     + (2.0 + 2.0 * nh) * b * n)
     return dict(
         shape=f"B{b} N{n} D{d} nop{nop} planes {c}x{hp}x{wp}",
         max_abs_err=err, pweight_rel_err=pw_err, iters=int(it_k),
+        twin_pairs=b, trips=n_trips,
         kernel_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
-        plain_ms=cuda_ms(lambda: patch_solver._gn_plain(*args), 3, 2),
+        plain_ms=cuda_ms(lambda: twin(*args), 2, 1),
+        library_ms=None, bound=bound(nbytes, flops))
+
+
+def check_routes(label, spec, params, im_b, src, p_init):
+    """One GN level on both fused routes, for the routing rule
+    (`patch_solver.uses_tiled`): templates gathered into device memory by
+    plain torch and then `gn_fused`, against `gn_tiled` on the source
+    planes. Prints the two times and how far their results lie apart."""
+    pt_ref_t = patch_solver.grid_ref_points(spec, im_b.device).T[None] \
+        .contiguous()
+    p_init_t = p_init.transpose(1, 2).contiguous()
+
+    def fused_route():
+        tpl = patch_solver.extract_templates(spec, params, *src)
+        return gn_fused.gn_fused(spec, params, im_b, tpl, p_init_t, pt_ref_t)
+
+    def tiled_route():
+        return gn_tiled.gn_tiled(spec, params, im_b, src, p_init_t, pt_ref_t)
+
+    diff = float((fused_route()[0] - tiled_route()[0]).abs().max())
+    print(json.dumps({
+        "path": label, "routes_level": spec.level, "grid": spec.camlr,
+        "patches": spec.nopatches, "batch": im_b.shape[0],
+        "psz": params.p_samp_s, "trips": params.max_iter,
+        "uses_tiled": patch_solver.uses_tiled(spec),
+        "fused_route_ms": cuda_ms(fused_route, 3, 2),
+        "tiled_route_ms": cuda_ms(tiled_route, 3, 2),
+        "routes_max_abs_diff": diff}), flush=True)
+
+
+def check_extract(args, kernel_fn):
+    """One patch extraction against its twin."""
+    im, pts, psz, pad = args
+    o_k = kernel_fn(*args)
+    o_p = patch_solver.extract_bilinear(*args)
+    torch.cuda.synchronize()
+    err = float((o_k - o_p).abs().max())
+    if not (o_k.shape == o_p.shape and err <= TOL["bilerp_extract"]):
+        raise AssertionError(f"bilerp_extract {tuple(o_k.shape)}: err {err}")
+    b, c, hp, wp = im.shape
+    n = pts.shape[1]
+    d = psz * psz * c
+    # planes and positions read once, the patches written once; per element
+    # two y-lerps and one x-lerp of three operations each
+    nbytes = 4 * (b * c * hp * wp + 2 * b * n + b * d * n)
+    flops = 9.0 * b * d * n
+    return dict(
+        shape=f"B{b} N{n} D{d} planes {c}x{hp}x{wp}", max_abs_err=err,
+        kernel_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
+        plain_ms=cuda_ms(lambda: patch_solver.extract_bilinear(*args), 2, 1),
         library_ms=None, bound=bound(nbytes, flops))
 
 
@@ -397,7 +524,7 @@ def check_tv(name, args, kw, kernel_fn):
         shape=f"B{b} C{noc} {h}x{w} n_inner {kw['n_inner']}",
         max_abs_err=err,
         kernel_ms=cuda_ms(lambda: kernel_fn(*args, **kw), 5, 10),
-        plain_ms=cuda_ms(plain, 3, 2), library_ms=None,
+        plain_ms=cuda_ms(plain, 2, 1), library_ms=None,
         bound=bound(nbytes, flops))
 
 
@@ -487,26 +614,60 @@ def epe_ratio(ours, ref):
     return float(d.mean() / torch.linalg.vector_norm(ref, dim=-1).mean())
 
 
-CHECKS = {"gn_fused": lambda name, args, kw, fn: check_gn(args, fn),
+CHECKS = {"gn_fused": lambda name, args, kw, fn: check_gn(name, args, fn),
+          "gn_tiled": lambda name, args, kw, fn: check_gn(name, args, fn),
+          "bilerp_extract": lambda name, args, kw, fn: check_extract(args, fn),
           "warp": lambda name, args, kw, fn: check_warp(args, fn),
           "upscale": lambda name, args, kw, fn: check_upscale(args, fn)}
 
 
-def check_calls(label, calls, wrappers, rows, levels):
+def call_level(name, args, full_w, finest):
+    """The pyramid level of a recorded call, and for a GN call the grid
+    (camlr 1 is the merge's backward grid): from the level spec of a GN
+    call, from the field width of a TV or warp call; the upscale follows
+    the finest level."""
+    if name.startswith("gn_"):
+        return args[0].level, args[0].camlr
+    if name == "upscale":
+        return finest, 0
+    if name == "bilerp_extract":
+        # (im, pts, psz, pad): the padded planes' width
+        width = args[0].shape[-1] - 2 * args[3]
+        return int(round(math.log2(full_w / width))), 0
+    return int(round(math.log2(full_w / args[0].shape[-1]))), 0
+
+
+def check_calls(label, calls, wrappers, rows, full_w, finest):
     """Hold every recorded call of every kernel against its twin, time it,
     print one JSON line per call and append the rows to rows[name]."""
     for name, recorded in calls.items():
-        for i, (args, kw) in enumerate(recorded):
+        seen = {}
+        for args, kw in recorded:
             r = CHECKS.get(name, check_tv)(name, args, kw, wrappers[name])
             b_ms, by_ms, op_ms = r.pop("bound")
             r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
             rows[name].append(r)
-            # calls run coarse to fine; the upscale follows the finest level
-            level = levels[-1] if name == "upscale" else levels[i]
+            level, _ = call_level(name, args, full_w, finest)
+            # with the merge a level's second call is the backward grid's;
+            # the extraction runs many times a level: its calls are numbered
+            seen[level] = seen.get(level, 0) + 1
+            if name == "bilerp_extract":
+                grid = f"call {seen[level]}"
+            else:
+                grid = "forward" if seen[level] == 1 else "backward"
             # each recorded call is one launch of the kernel on the path
             print(json.dumps({"path": label, "kernel": name, "level": level,
-                              "launches": 1, "tolerance": TOL[name], **r}),
-                  flush=True)
+                              "grid": grid, "launches": 1,
+                              "tolerance": TOL[name], **r}), flush=True)
+
+
+def launches_as_expected(counts, cfg) -> bool:
+    """Whether one call's launch counts are the path's: exact for every
+    kernel but those of `at_least`, which must reach their floor."""
+    floor = cfg.get("at_least", {})
+    exact = {name: n for name, n in counts.items() if name not in floor}
+    return exact == cfg["launches"] and all(
+        counts.get(name, 0) >= n for name, n in floor.items())
 
 
 def run_path(cfg, dev, rows, totals):
@@ -514,7 +675,13 @@ def run_path(cfg, dev, rows, totals):
     of the finest level's batched TV call, for the single-pair phase, and
     that level."""
     label, nop, noc, batch = cfg["name"], cfg["nop"], cfg["noc"], cfg["batch"]
-    params = op_point_params(W_ORG, OP, nop=nop, noc=noc)
+    op = cfg["op"]
+    if op is None:
+        params = cli.build_params(W_ORG, nop, noc, cfg["args"].split())
+    else:
+        params = op_point_params(W_ORG, op, nop=nop, noc=noc)
+    if cfg.get("fbcon"):
+        params = dataclasses.replace(params, usefbcon=True)
     t0 = time.perf_counter()
     field = _flow_field if nop == 2 else _disparity_field
     a_u8, b_u8, u_true, v_true = make_pairs(batch, H_ORG, W_ORG, 0, dev,
@@ -542,21 +709,34 @@ def run_path(cfg, dev, rows, totals):
         tv_calls.append((args, kw, out))
         return out
 
+    gn_level = patch_solver.optimize_level_batched
+    gn_levels = []
+
+    def gn_recorded(spec, prm, target, tpl, p_init, src=None):
+        gn_levels.append((spec, prm, target, src, p_init))
+        return gn_level(spec, prm, target, tpl, p_init, src=src)
+
     calls = {name: [] for name in KERNELS}
     setattr(tv, tv_entry, tv_recorded)
+    patch_solver.optimize_level_batched = gn_recorded
     try:
         with swapped(_recorder(calls)) as wrappers:
             run()
     finally:
         setattr(tv, tv_entry, tv_fn)
+        patch_solver.optimize_level_batched = gn_level
     torch.cuda.synchronize()
     recorded = {name: len(c) for name, c in calls.items() if c}
-    if recorded != cfg["launches"]:
+    if not launches_as_expected(recorded, cfg):
         raise AssertionError(f"path {label}: calls {recorded}, expected "
-                             f"{cfg['launches']}")
-    levels = list(range(params.sc_f, params.sc_l - 1, -1))
+                             f"{cfg['launches']}, at least "
+                             f"{cfg.get('at_least', {})}")
     first = {name: len(rs) for name, rs in rows.items()}
-    check_calls(label, calls, wrappers, rows, levels)
+    check_calls(label, calls, wrappers, rows, full_w, params.sc_l)
+    if cfg.get("routes"):
+        for level_args in gn_levels:
+            check_routes(label, *level_args)
+    del gn_levels
 
     # 4. end to end, counted
     reset_launches()
@@ -565,9 +745,10 @@ def run_path(cfg, dev, rows, totals):
     launches = read_launches()
     print(f"path {label}: launches in one dis_flow_batched call: "
           f"{json.dumps(launches)}", flush=True)
-    if launches != cfg["launches"]:
+    if not launches_as_expected(launches, cfg):
         raise AssertionError(f"path {label}: launches {launches} != expected "
-                             f"{cfg['launches']}")
+                             f"{cfg['launches']}, at least "
+                             f"{cfg.get('at_least', {})}")
     for name, n in launches.items():
         totals[name] = totals.get(name, 0) + n
     if tuple(flow.shape) != (batch, full_h, full_w, nop) or \
@@ -582,20 +763,24 @@ def run_path(cfg, dev, rows, totals):
     epe_true = float(torch.linalg.vector_norm(crop - true, dim=-1).mean())
     print(f"path {label}: median {med.tolist()} vs true {med_true.tolist()}; "
           f"mean EPE vs the true field {epe_true:.4f} px", flush=True)
-    # op-2 stops at 1/8 resolution; tests/test_torch_dis.py holds the JAX
-    # reference to the same limits on this workload
+    # op-2 stops at 1/8 resolution (op-3 at 1/2, op-4 at full);
+    # tests/test_torch_dis.py holds the JAX reference to the same limits
+    # on this workload at op-2
     if float((med - med_true).abs().max()) > 0.25 or epe_true > 0.6:
         raise AssertionError(f"path {label}: result does not follow the "
                              "synthetic field")
     if nop == 1 and float(flow.max()) > 0.0:
         raise AssertionError(f"path {label}: positive disparity "
                              f"{float(flow.max())} for the left camera")
+    if cfg.get("fbcon") and not torch.equal(flow, run()):
+        raise AssertionError(f"path {label}: two calls with the merge differ")
+    few = cfg.get("plain_pairs", 4)
     with swapped(lambda name, _: PLAIN[name]):
-        ref4 = run(im_a[:4], im_b[:4])
-    ours4 = run(im_a[:4], im_b[:4])
+        ref4 = run(im_a[:few], im_b[:few])
+    ours4 = run(im_a[:few], im_b[:few])
     ratio = epe_ratio(ours4, ref4)
     print(f"path {label}: EPE ratio, kernel path vs plain path on the card, "
-          f"4 pairs: {ratio:.3e}", flush=True)
+          f"{few} pairs: {ratio:.3e}", flush=True)
     if not ratio < 1e-3:
         raise AssertionError(f"path {label}: kernel path EPE ratio {ratio} "
                              ">= 1e-3")
@@ -607,7 +792,8 @@ def run_path(cfg, dev, rows, totals):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    print(json.dumps({"e2e": "dis_flow_batched", "path": label, "op": OP,
+    print(json.dumps({"e2e": "dis_flow_batched", "path": label, "op": op,
+                      "fbcon": bool(cfg.get("fbcon")),
                       "nop": nop, "noc": noc, "batch": batch,
                       "size": f"{W_ORG}x{H_ORG}", "wall_s": walls,
                       "median_wall_s": wall, "pairs_per_s": batch / wall}),
@@ -634,7 +820,7 @@ def run_single(label, finest, rows, totals):
     with swapped(_recorder(calls)) as wrappers:
         entry(*pair0, **kw)
     check_calls(label + "'", {n: calls[n] for n in expected}, wrappers, rows,
-                [level])
+                W_ORG, level)
     reset_launches()
     out = entry(*pair0, **kw)
     torch.cuda.synchronize()
@@ -656,15 +842,32 @@ def run_single(label, finest, rows, totals):
           "pair equals row 0 of the batched result", flush=True)
 
 
-# (mode, first image, second image, golden, op-point); budget 1e-2 each
+# The explicit 20-parameter forms of the merge and TV-free goldens
+# (tests/test_golden_parity.py): levels 3..1, 12 trips, patch size 8,
+# overlap 0.4, then usefbcon, patnorm, costfct, usetvref.
+_FB = "3 1 12 12 0.05 0.95 0 8 0.4 1 1 {cost} 1 10 10 5 1 3 1.6 0"
+_HUBER_NOTV = "3 1 12 12 0.05 0.95 0 8 0.4 0 1 2 0 10 10 5 1 3 1.6 0"
+# (mode, first image, second image, golden, trailing arguments, budget):
+# the budgets of tests/test_golden_parity.py
 GOLDENS = [
-    ("run_OF_INT", "a.png", "b.png", "of_int_op1.flo", 1),
-    ("run_OF_INT", "a.png", "b.png", "of_int_op2.flo", 2),
-    ("run_OF_RGB", "ac.png", "bc.png", "of_rgb_op2.flo", 2),
-    ("run_OF_GRD", "a.png", "b.png", "of_grd_op2.flo", 2),
-    ("run_DE_INT", "a.png", "bs.png", "de_int_op2.pfm", 2),
-    ("run_DE_RGB", "asc.png", "bsc.png", "de_rgb_op2.pfm", 2),
-    ("run_DE_GRD", "a.png", "bs.png", "de_grd_op2.pfm", 2),
+    ("run_OF_INT", "a.png", "b.png", "of_int_op1.flo", "1", 1e-2),
+    ("run_OF_INT", "a.png", "b.png", "of_int_op2.flo", "2", 1e-2),
+    ("run_OF_RGB", "ac.png", "bc.png", "of_rgb_op2.flo", "2", 1e-2),
+    ("run_OF_GRD", "a.png", "b.png", "of_grd_op2.flo", "2", 1e-2),
+    ("run_DE_INT", "a.png", "bs.png", "de_int_op2.pfm", "2", 1e-2),
+    ("run_DE_RGB", "asc.png", "bsc.png", "de_rgb_op2.pfm", "2", 1e-2),
+    ("run_DE_GRD", "a.png", "bs.png", "de_grd_op2.pfm", "2", 1e-2),
+    ("run_OF_INT", "a.png", "b.png", "of_int_op3.flo", "3", 1e-2),
+    ("run_OF_INT", "a.png", "b.png", "of_int_op4.flo", "4", 1e-2),
+    ("run_OF_RGB", "ac.png", "bc.png", "of_rgb_op3.flo", "3", 1e-2),
+    ("run_OF_GRD", "a.png", "b.png", "of_grd_op3.flo", "3", 1e-2),
+    ("run_DE_INT", "a.png", "bs.png", "de_int_op3.pfm", "3", 1e-2),
+    ("run_OF_INT", "a.png", "b.png", "of_int_l1_fb.flo",
+     _FB.format(cost=1), 1e-2),
+    ("run_DE_INT", "a.png", "bs.png", "de_int_l2_fb.pfm",
+     _FB.format(cost=0), 1e-2),
+    ("run_OF_INT", "a.png", "b.png", "of_int_huber_notv.flo", _HUBER_NOTV,
+     1e-3),
 ]
 
 
@@ -672,10 +875,12 @@ def run_goldens():
     """Phase 6: the compiled reference's outputs through `cli.main`."""
     os.makedirs(OUT_DIR, exist_ok=True)
     gold = os.path.join(ROOT, "tests", "goldens")
-    for mode, img1, img2, golden, op in GOLDENS:
+    for mode, img1, img2, golden, args, budget in GOLDENS:
         out = os.path.join(OUT_DIR, golden)
+        reset_launches()
         cli.main([mode, os.path.join(gold, img1), os.path.join(gold, img2),
-                  out, str(op), "--quiet"])
+                  out] + args.split() + ["--quiet"])
+        launches = read_launches()
         if golden.endswith(".flo"):
             ours, ref = io.read_flo(out), io.read_flo(
                 os.path.join(gold, golden))
@@ -684,10 +889,14 @@ def run_goldens():
                          for f in (out, os.path.join(gold, golden)))
         r = epe_ratio(torch.as_tensor(ours.copy()),
                       torch.as_tensor(ref.copy()))
-        print(f"golden {golden} ({mode}): EPE ratio {r:.3e} (budget 1e-2)",
-              flush=True)
-        if not r < 1e-2:
+        print(f"golden {golden} ({mode}): EPE ratio {r:.3e} (budget "
+              f"{budget:g}); launches {json.dumps(launches)}", flush=True)
+        if not r < budget:
             raise AssertionError(f"golden {golden} EPE ratio {r}")
+        # op-3 / op-4: the 192x160 frame's finest level holds 3,456 patches
+        if args in ("3", "4") and not launches.get("gn_tiled"):
+            raise AssertionError(f"golden {golden}: the finest level did "
+                                 "not run gn_tiled")
 
 
 # -------------------------------------------------------------------- main

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exports plain C functions (no PyTorch headers, so a
 build takes seconds) and compiles on first use into
 `build/of_dis_tpu_torch/lib<name>-<hash>.so` at the repository root; the
-hash covers the source and the flags, so an edited source rebuilds.
+hash covers the source, the shared headers (`csrc/*.cuh`) and the flags, so
+an edited source rebuilds.
 `build()` starts one nvcc per missing library, all at once, and waits for
 all of them. Nothing here runs at import time.
 """
@@ -20,7 +21,8 @@ from typing import Dict, Iterable
 
 import torch
 
-KERNELS = ("gn_fused", "tv_of_inner", "tv_de_inner", "warp", "upscale")
+KERNELS = ("gn_fused", "gn_tiled", "bilerp_extract", "tv_of_inner",
+           "tv_de_inner", "warp", "upscale")
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "of_dis_tpu_torch"
 # --fmad=false: no fused multiply-add contraction, so each kernel rounds
@@ -46,7 +48,8 @@ def source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source(name).read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -7,14 +7,18 @@ Orchestrates the per-scale stages (reference: oflow.cpp:31-338):
 then the INTER_LINEAR upscale to full resolution (run_dense.cpp:408-412).
 
 Everything is natively batched over frame pairs (B, C, H, W). On CUDA the
-GN loop (K1), the warp (K3), the TV loop (K2 for flow, K5 for depth) and
-the final upscale (K4) run as hand-written kernels; on the CPU their plain
-twins run. Entry points take `device="cuda"` by default and raise when
-CUDA is missing unless the caller asks for the CPU.
+GN loop (K1 on small levels, K6 with in-kernel templates on large ones;
+for patches above 12 pixels a side the unfused loop around the extraction
+kernel K7), the warp (K3), the TV loop (K2 for flow, K5 for depth) and the
+final upscale (K4) run as hand-written kernels; on the CPU their plain
+twins run. Entry points take `device="cuda"` by default and raise when CUDA is
+missing unless the caller asks for the CPU.
 
 Ported: optical flow (nop=2) and depth from stereo (nop=1, the disparity
 of the left camera, sign-clamped to <= 0), each on gray (noc=1) or RGB
-(noc=3) input; the forward-backward merge is not.
+(noc=3) input, at all four op-points, with or without the forward-backward
+merge (`usefbcon`: a second patch grid on the second image, the right
+camera's for depth, merged into the forward densification).
 """
 
 from __future__ import annotations
@@ -44,10 +48,6 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_supported(params: DISParams) -> None:
-    if params.usefbcon:
-        raise NotImplementedError(
-            "forward-backward merge is not ported yet (ROADMAP queue 1, "
-            "item 12)")
     if params.nop not in (1, 2) or params.noc not in (1, 3):
         raise ValueError(f"nop must be 1 or 2 and noc 1 or 3, got "
                          f"nop={params.nop}, noc={params.noc}")
@@ -83,27 +83,46 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
     device. Returns (B, H/2^sc_l, W/2^sc_l, nop)."""
     _check_supported(params)
     pad = params.p_samp_s
+    fb = params.usefbcon
     ims_a, dxs_a, dys_a = pyramid.build_pyramid(im_a, params.sc_f, pad,
                                                 lv_l=params.sc_l)
-    ims_b, _, _ = pyramid.build_pyramid(im_b, params.sc_f, pad,
-                                        getgrad=False, lv_l=params.sc_l)
+    # the second image's gradients serve the backward grid only
+    ims_b, dxs_b, dys_b = pyramid.build_pyramid(im_b, params.sc_f, pad,
+                                                getgrad=fb, lv_l=params.sc_l)
     batch = im_a.shape[0]
-    flow = None
-    for sl in range(params.sc_f, params.sc_l - 1, -1):
-        spec = make_level_spec(sl, full_w, full_h, params, camlr=0)
-        ia, ib = ims_a[sl], ims_b[sl]
-        tpl = patch_solver.extract_templates(spec, params, ia, dxs_a[sl],
-                                             dys_a[sl])
-        if flow is None:
+
+    def optimize(spec, target, src, flow_prev):
+        if flow_prev is None:
             p_init = torch.zeros((batch, spec.nopatches, params.nop),
                                  dtype=torch.float32, device=im_a.device)
         else:
-            p_init = patch_solver.init_from_coarser(spec, params, flow)
-        res = patch_solver.optimize_level_batched(spec, params, ib, tpl,
-                                                  p_init)
-        flow = densify.aggregate_flow_dense(spec, params, res)
+            p_init = patch_solver.init_from_coarser(spec, params, flow_prev)
+        return patch_solver.optimize_level_batched(spec, params, target,
+                                                   None, p_init, src=src)
+
+    flow = flow_bw = None
+    for sl in range(params.sc_f, params.sc_l - 1, -1):
+        spec = make_level_spec(sl, full_w, full_h, params, camlr=0)
+        ia, ib = ims_a[sl], ims_b[sl]
+        res = optimize(spec, ib, (ia, dxs_a[sl], dys_a[sl]), flow)
+        res_bw = None
+        if fb:
+            # the backward grid: the images swap roles, depth takes the
+            # right camera's sign
+            spec_bw = make_level_spec(sl, full_w, full_h, params, camlr=1)
+            res_bw = optimize(spec_bw, ia, (ib, dxs_b[sl], dys_b[sl]),
+                              flow_bw)
+        flow = densify.aggregate_flow_dense(spec, params, res, res_bw)
+        # no backward flow at the last scale: nothing reads it
+        # (oflow.cpp:266)
+        bw_next = fb and sl > params.sc_l
+        if bw_next:
+            flow_bw = densify.aggregate_flow_dense(spec_bw, params, res_bw,
+                                                   res)
         if params.usetvref:
             flow = _tv_refine(flow, ia, ib, spec, params)
+            if bw_next:
+                flow_bw = _tv_refine(flow_bw, ib, ia, spec_bw, params)
     return flow
 
 

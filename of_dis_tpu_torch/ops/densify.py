@@ -1,18 +1,27 @@
 """Densification: patch displacements -> dense flow, deterministic
-(PatGridClass::AggregateFlowDense, patchgrid.cpp:213-397), forward path.
+(PatGridClass::AggregateFlowDense, patchgrid.cpp:213-397).
 
-Each valid patch splats its displacement over its p x p integer footprint,
-weighted per pixel by 1/max(minerrval, residual) (patchgrid.cpp:223-275),
-and every pixel is normalised by its accumulated weight
-(patchgrid.cpp:377-394). The grid is regular, so coverage is separable
-per axis: densification is two float32 contractions against static 0/1
-cover matrices, with no scatter and no atomics. The backward merge
-(fbcon) is not ported yet (ROADMAP queue 1, item 12).
+Forward: each valid patch splats its displacement over its p x p integer
+footprint, weighted per pixel by 1/max(minerrval, residual)
+(patchgrid.cpp:223-275). The grid is regular, so coverage is separable per
+axis: two float32 contractions against static 0/1 cover matrices.
+
+Backward merge (`usefbcon`): the complementary grid's patches splat their
+NEGATED displacement bilinearly at their converged position
+(patchgrid.cpp:278-375). The positions are run-time values, so the 0/1
+cover matrices become soft one-hot matrices built from them (the two
+bilinear taps of an axis folded in), and the placement is again two
+float32 contractions.
+
+Neither path scatters or uses atomics: two runs give the same bits. Every
+pixel is finally normalised by its accumulated weight
+(patchgrid.cpp:377-394).
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,10 +70,75 @@ def _cover_pair(spec: LevelSpec, psz: int, device: str):
     return u4, torch.as_tensor(v, device=device)
 
 
+# Bytes of the backward merge's soft one-hot operands held at once; more
+# patches than fit are merged in chunks.
+_MERGE_CHUNK_BYTES = 512 << 20
+
+
+def _merge_chunk(b: int, n: int, psz: int, h: int, w: int) -> int:
+    """Patches per chunk of the backward merge: its operands are the
+    (B, n, psz, H) row and the two (B, n, psz, W) column arrays."""
+    return max(1, min(n, _MERGE_CHUNK_BYTES // (4 * b * psz * (h + 2 * w))))
+
+
+def _backward_splat(spec: LevelSpec, params: DISParams, compl: PatchResult
+                    ) -> torch.Tensor:
+    """(B, 1 + nop, H, W): the accumulated weight and the weighted negated
+    displacements of the complementary grid's patches, each splat
+    bilinearly at its converged position (patchgrid.cpp:278-375).
+
+    Per patch: anchor ceil(pt + 1e-5) and residual against floor(pt) in
+    float32; footprint pixel (j, i) lands on the cell (anchor + j - psz/2,
+    anchor + i - psz/2) and is valid for 1 <= x < W-1, 1 <= y < H-1; its
+    weight 1 / pweight goes to that cell and its upper / left neighbours
+    by the bilinear weights. Both taps of an axis fold into one soft
+    one-hot matrix, so the placement is `rows^T @ (weights @ columns)`."""
+    psz, nop = params.p_samp_s, params.nop
+    h, w = spec.height, spec.width
+    dev = compl.p.device
+    b, n = compl.p.shape[:2]
+    lb = -psz // 2
+    ar = torch.arange(psz, device=dev)
+    yio = torch.arange(h, device=dev)
+    xio = torch.arange(w, device=dev)
+    out = torch.zeros((b, 1 + nop, h, w), dtype=torch.float32, device=dev)
+    step = _merge_chunk(b, n, psz, h, w)
+    for lo in range(0, n, step):
+        pt = compl.pt[:, lo:lo + step]                       # (B, n, 2)
+        pos_c = torch.ceil(pt + 1e-5).to(torch.int64)
+        resid = pt - torch.floor(pt)
+        rx, ry = resid[..., 0, None, None], resid[..., 1, None, None]
+        xt = pos_c[..., 0, None] + ar + lb                   # (B, n, P)
+        yt = pos_c[..., 1, None] + ar + lb
+        xv = ((xt >= 1) & (xt < w - 1)).to(torch.float32)
+        yv = ((yt >= 1) & (yt < h - 1)).to(torch.float32)
+        # (B, n, j, i) weights of the valid footprint pixels
+        wgt = (torch.reciprocal(compl.pweight[..., lo:lo + step])
+               .permute(0, 3, 1, 2) * yv[..., :, None] * xv[..., None, :])
+        # cell t takes the pixel weighted (1 - r) at t - 1 and r at t
+        ycell = (yt - 1)[..., None]
+        xcell = (xt - 1)[..., None]
+        ysoft = ((yio == ycell).to(torch.float32) * (1.0 - ry)
+                 + (yio == ycell + 1).to(torch.float32) * ry)  # (B,n,P,H)
+        xsoft = ((xio == xcell).to(torch.float32) * (1.0 - rx)
+                 + (xio == xcell + 1).to(torch.float32) * rx)  # (B,n,P,W)
+        vrow = torch.matmul(wgt, xsoft)                        # (B,n,P,W)
+        ysoft_t = ysoft.reshape(b, -1, h).transpose(1, 2)      # (B,H,nP)
+        p_neg = -compl.p[:, lo:lo + step]                      # (B, n, nop)
+        for f in range(1 + nop):
+            rows = vrow if f == 0 else vrow * p_neg[..., f - 1, None, None]
+            out[:, f] += torch.matmul(ysoft_t, rows.reshape(b, -1, w))
+    return out
+
+
 def aggregate_flow_dense(spec: LevelSpec, params: DISParams,
-                         res: PatchResult) -> torch.Tensor:
+                         res: PatchResult,
+                         compl_res: Optional[PatchResult] = None
+                         ) -> torch.Tensor:
     """Dense flow (B, H, W, nop) from per-patch results with fields
-    p (B, N, nop) and pweight (B, P, P, N) (patchgrid.cpp:213-397).
+    p (B, N, nop) and pweight (B, P, P, N) (patchgrid.cpp:213-397); with
+    compl_res, the complementary grid's results (pt (B, N, 2) too) are
+    merged in by `_backward_splat`.
 
     pweight (P, P, N) with the column-major patch axis N = ix*noph + iy
     reshapes for free to (oy, (ox, ix), iy): the vertical contraction runs
@@ -87,5 +161,9 @@ def aggregate_flow_dense(spec: LevelSpec, params: DISParams,
         [dens(q * p4[:, None, :, :, ch].expand(b, psz, nopw, noph)
               .reshape(b, 1, psz * nopw, noph))
          for ch in range(nop)], dim=-1)
+    if compl_res is not None:
+        back = _backward_splat(spec, params, compl_res)
+        we = we + back[:, 0]
+        flow = flow + back[:, 1:].movedim(1, -1)
     we = we[..., None]
     return torch.where(we > 0, flow / we, flow)

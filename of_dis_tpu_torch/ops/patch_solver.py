@@ -6,11 +6,18 @@ masked Gauss-Newton iterations, and per-patch early stopping is an `active`
 mask that reproduces the reference's convergence predicate
 (patch.cpp:287-293, with min_iter gating).
 
-On CUDA tensors the whole per-level loop is one hand-written kernel
-(`kernels.gn_fused`, csrc/gn_fused.cu: one warp per patch, the bilinear
-window read straight from the target planes), for flow (nop 2) and depth
-(nop 1), gray and RGB. `_gn_plain` below is its plain PyTorch twin, used
-for CPU tensors and held against the kernel on the card.
+On CUDA tensors the whole per-level loop is one hand-written kernel, for
+flow (nop 2) and depth (nop 1), gray and RGB: `kernels.gn_fused`
+(csrc/gn_fused.cu: one warp per patch, templates read from device memory,
+the bilinear window read straight from the target planes) for small
+levels, `kernels.gn_tiled` (csrc/gn_tiled.cu: the same loop with the
+templates built in the kernel from the source planes) for large ones;
+`uses_tiled` is the rule between them. `_gn_plain` and `_gn_tiled_plain`
+below are their plain PyTorch twins, used for CPU tensors and held against
+the kernels on the card. A patch too large for either kernel
+(`uses_unfused`) takes the unfused route `gn_unfused`: the loop in
+PyTorch, its extraction the kernel `kernels.bilerp_extract`
+(csrc/bilerp_extract.cu), whose plain twin is `extract_bilinear`.
 
 Numerics replicated from the reference:
   - template + gradient extraction at integer positions, optional patch
@@ -32,12 +39,13 @@ template (the reference leaves it uninitialized).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from of_dis_tpu_torch.kernels import gn_fused
+from of_dis_tpu_torch.kernels import bilerp_extract, gn_fused, gn_tiled
 from of_dis_tpu_torch.params import (COST_HUBER, COST_L1, COST_L2, DISParams,
                                      LevelSpec, MINERRVAL, NORMOUTLIER,
                                      grid_points)
@@ -66,12 +74,23 @@ class PatchResult(NamedTuple):
     iters: torch.Tensor
 
 
+@lru_cache(maxsize=64)
+def _grid_tables(spec: LevelSpec, device: str):
+    """Static per-level tables on `device`, built once per level and device
+    (a level of 51,300 patches costs tens of host milliseconds to list):
+    the (N, 2) float32 reference positions and the (N,) row / column
+    indices of each patch's pixel in the next coarser level's flow."""
+    xs, ys = (np.asarray(v) for v in grid_points(spec))
+    ref = torch.as_tensor(np.stack([xs, ys], axis=1), dtype=torch.float32,
+                          device=device)
+    return (ref, torch.as_tensor(ys // 2, device=device),
+            torch.as_tensor(xs // 2, device=device))
+
+
 def grid_ref_points(spec: LevelSpec, device="cpu") -> torch.Tensor:
     """(N, 2) float32 patch reference positions, column-major patch order
-    i = x*noph + y (patchgrid.cpp:61-75)."""
-    xs, ys = grid_points(spec)
-    return torch.as_tensor(np.stack([xs, ys], axis=1), dtype=torch.float32,
-                           device=device)
+    i = x*noph + y (patchgrid.cpp:61-75). Shared between calls: read only."""
+    return _grid_tables(spec, str(device))[0]
 
 
 def _template_indices(spec: LevelSpec, psz: int, device):
@@ -250,14 +269,23 @@ def _to_pt(pt_ref_t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
               tpl: PatchTemplates, p_init_t: torch.Tensor,
-              pt_ref_t: torch.Tensor):
+              pt_ref_t: torch.Tensor, carry_pweight: bool = True,
+              extract=None):
     """Plain PyTorch masked Gauss-Newton loop with the semantics of the JAX
     package's `_gn_xla_path` (the twin of the `gn_fused` kernel).
 
     im_b (B, C, Hp, Wp); tpl fields (B, D, N); p_init_t (B, nop, N);
     pt_ref_t (1, 2, N). Returns (p (B, nop, N), pweight (B, psz*psz, N),
-    iters () int32, trips (B, N) int32 — the trips each patch ran active)."""
+    iters () int32, trips (B, N) int32 — the trips each patch ran active).
+
+    With carry_pweight the loop carries each patch's splat weight from its
+    last active trip, as `gn_fused` does; without, the weight comes from one
+    extraction at the final position after the loop, as `gn_tiled` takes it.
+    Extraction is a pure function of the position, so both give the same
+    bits. `extract` is the patch extraction, `extract_bilinear` unless the
+    unfused route hands in the kernel's wrapper."""
     psz, pad, nop, noc = params.p_samp_s, spec.pad, params.nop, params.noc
+    extract = extract or extract_bilinear
     novals = float(params.novals)
     b, n = im_b.shape[0], tpl.tmpl.shape[-1]
 
@@ -266,23 +294,27 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
                 | (pt[:, 0] > spec.tmp_ubw) | (pt[:, 1] > spec.tmp_ubh))
 
     def compute_err(pt):
-        patch = extract_bilinear(im_b, pt.transpose(1, 2), psz, pad)
+        patch = extract(im_b, pt.transpose(1, 2).contiguous(), psz, pad)
         if params.patnorm > 0:
             mean = _true_div(_lane_sum(patch, noc), float(patch.shape[1]))
             patch = patch - mean[:, None]
         pdiff, pweight = loss_error_image(patch - tpl.tmpl, params.costfct)
         mares = _true_div(_lane_sum(pweight, noc), novals)
-        return pdiff, _pw_dense(pweight, psz, noc), mares
+        return pdiff, pweight, mares
+
+    def dense(pweight):
+        return _pw_dense(pweight, psz, noc)
 
     # OptimizeStart (patch.cpp:118-154)
     pt0 = _to_pt(pt_ref_t, p_init_t)
     init_oob = oob(pt0)                                   # (B, N)
     pt0_safe = torch.where(init_oob[:, None, :], pt_ref_t, pt0)
-    pdiff, pweight, mares = compute_err(pt0_safe)
-    _, tmpl_pw = loss_error_image(tpl.tmpl, params.costfct)
+    pdiff, pw_raw, mares = compute_err(pt0_safe)
+    tmpl_pw = dense(loss_error_image(tpl.tmpl, params.costfct)[1])
     m = init_oob[:, None, :]
     pdiff = torch.where(m, tpl.tmpl, pdiff)
-    pweight = torch.where(m, _pw_dense(tmpl_pw, psz, noc), pweight)
+    pweight = torch.where(m, tmpl_pw, dense(pw_raw)) if carry_pweight \
+        else None
     active = (~init_oob) & (params.max_iter > 0) & (mares > params.res_thresh)
     p = p_init_t
     dpn_init = torch.full((b, n), 1e-10, dtype=torch.float32,
@@ -307,8 +339,7 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
         moved = torch.sqrt(torch.sum((pt_new - pt0) ** 2, dim=1))
         reset = (moved > params.outlierthresh) | oob(pt_new)
         p_new = torch.where(reset[:, None, :], p_init_t, p_new)
-        pdiff_new, pweight_new, mares_new = compute_err(
-            _to_pt(pt_ref_t, p_new))
+        pdiff_new, pw_raw, mares_new = compute_err(_to_pt(pt_ref_t, p_new))
         dp_sqnorm = torch.sum(dp * dp, dim=1)
         dpn_new = dp_sqnorm if it == 1 else dpn_init
         # convergence predicate (patch.cpp:290-293)
@@ -319,28 +350,135 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
         a3 = act[:, None, :]
         p = torch.where(a3, p_new, p)
         pdiff = torch.where(a3, pdiff_new, pdiff)
-        pweight = torch.where(a3, pweight_new, pweight)
+        if carry_pweight:
+            pweight = torch.where(a3, dense(pw_raw), pweight)
         mares = torch.where(act, mares_new, mares)
         dpn_init = torch.where(act, dpn_new, dpn_init)
         active = act & keep & (~reset)
+    if not carry_pweight:
+        pt_fin = torch.where(m, pt_ref_t, _to_pt(pt_ref_t, p))
+        pweight = torch.where(m, tmpl_pw, dense(compute_err(pt_fin)[1]))
     iters = torch.tensor(it, dtype=torch.int32, device=im_b.device)
     return p, pweight, iters, trips
 
 
+def _tiled_templates(spec: LevelSpec, params: DISParams, src
+                     ) -> PatchTemplates:
+    """Templates, gradients and Hessians from src = (im_a, dx_a, dy_a), each
+    (B, C, Hp, Wp), as the `gn_tiled` kernel builds them: the same integer
+    gathers as `extract_templates`, with the template mean and the Hessian
+    entries summed in the kernel's lane order and the mean a true
+    division. nop 1 reads no y-gradient (tdy is zero)."""
+    psz, noc = params.p_samp_s, params.noc
+    tmpl = _gather_templates(spec, psz, src[0])
+    tdx = _gather_templates(spec, psz, src[1])
+    if params.patnorm > 0:
+        mean = _true_div(_lane_sum(tmpl, noc), float(tmpl.shape[-2]))
+        tmpl = tmpl - mean[:, None]
+    h00 = _lane_sum(tdx * tdx, noc)
+    if params.nop == 2:
+        tdy = _gather_templates(spec, psz, src[2])
+        h01 = _lane_sum(tdx * tdy, noc)
+        h11 = _lane_sum(tdy * tdy, noc)
+        det = h00 * h11 - h01 * h01
+        guard = (det == 0.0).to(h00.dtype) * 1e-10
+        hes = torch.stack([h00 + guard, h01, h11 + guard], dim=-2)
+    else:
+        tdy = torch.zeros_like(tdx)
+        guard = (h00 == 0.0).to(h00.dtype) * 1e-10
+        hes = (h00 + guard).unsqueeze(-2)
+    return PatchTemplates(tmpl, tdx, tdy, hes)
+
+
+def _gn_tiled_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
+                    src, p_init_t: torch.Tensor, pt_ref_t: torch.Tensor):
+    """The plain twin of the `gn_tiled` kernel: templates from the source
+    planes in the kernel's sum order, the loop of `_gn_plain` without a
+    carried splat weight, the weight from one extraction at the final
+    position. Arguments as `kernels.gn_tiled.gn_tiled`; returns as
+    `_gn_plain`."""
+    return _gn_plain(spec, params, im_b, _tiled_templates(spec, params, src),
+                     p_init_t, pt_ref_t, carry_pweight=False)
+
+
+# A level with more patches than this a pair runs `gn_tiled`, the others
+# `gn_fused`. `gn_fused` reads templates that plain gathers have written to
+# device memory: three (D, N) float32 arrays a pair, psz^2 / steps^2 times
+# the source planes (16 times at op-3/4's patch size 12, overlap 0.75 — 88
+# MB a pair at 1024x436 level 0); `gn_tiled` reads the source planes
+# instead. Measured on an H100 (chip_smoke.py, `check_routes`, both routes
+# on the same inputs at 1024x436): `gn_tiled` is the faster route at every
+# level size tried, 32 to 51,300 patches a pair — 0.08-0.21 ms against
+# 0.78-1.16 ms up to 817 patches (the gathers' dozen small launches and
+# their index uploads cost more than either kernel), 1.25 to 3 times
+# faster from 3,268 patches on — so no crossover sets this mark. It keeps
+# op-1 / op-2 on `gn_fused`, the kernel written for them (their largest
+# level has 448 patches at 1024x436, 480 at 192x160), and sends every
+# larger level to `gn_tiled`: op-3/4's levels 3 to 0 at 1024x436 (817 to
+# 51,300 patches) and levels 1 and 0 of a 192x160 frame (864 and 3,456).
+TILED_MIN_PATCHES = 512
+
+
+def uses_tiled(spec: LevelSpec) -> bool:
+    """Whether `optimize_level_batched` sends this level to `gn_tiled`: a
+    function of the level's static patch count alone."""
+    return spec.nopatches > TILED_MIN_PATCHES
+
+
+# Both GN kernels keep a patch in a warp's registers, at most 5 pixels a
+# lane: 160 pixels, patch sizes up to 12 (every op-point). A larger patch
+# (the 20-parameter form takes any size) runs the unfused route.
+FUSED_MAX_PIXELS = 32 * 5
+
+
+def uses_unfused(params: DISParams) -> bool:
+    """Whether a level of these parameters takes `gn_unfused`: a function
+    of the patch size alone."""
+    return params.p_samp_s * params.p_samp_s > FUSED_MAX_PIXELS
+
+
+def gn_unfused(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
+               tpl: PatchTemplates, p_init_t: torch.Tensor,
+               pt_ref_t: torch.Tensor):
+    """The unfused GN route, for patches no fused kernel holds: the masked
+    loop of `_gn_plain` in PyTorch, one host round trip per trip, with
+    every patch extraction — one at the start, one per trip — the
+    `bilerp_extract` kernel (as the JAX package's `_gn_xla_path` calls its
+    extraction kernel). Arguments and results as `kernels.gn_fused
+    .gn_fused`. CPU tensors make it `_gn_plain`: the kernel's wrapper runs
+    its plain twin there."""
+    return _gn_plain(spec, params, im_b, tpl, p_init_t, pt_ref_t,
+                     extract=bilerp_extract.bilerp_extract)[:3]
+
+
 def optimize_level_batched(spec: LevelSpec, params: DISParams,
-                           im_b: torch.Tensor, tpl: PatchTemplates,
-                           p_init: torch.Tensor) -> PatchResult:
+                           im_b: torch.Tensor, tpl, p_init: torch.Tensor,
+                           src=None) -> PatchResult:
     """Optimize all patches of one level for a batch of frame pairs.
 
-    im_b (B, C, Hp, Wp) padded target level; tpl fields (B, D, N);
-    p_init (B, N, nop). CUDA tensors run the `gn_fused` kernel, CPU
-    tensors its plain twin `_gn_plain`."""
+    im_b (B, C, Hp, Wp) padded target level; p_init (B, N, nop); tpl
+    fields (B, D, N), or None when src = (im_a, dx_a, dy_a) — the source
+    level and its gradients, each (B, C, Hp, Wp) — is given instead. A
+    large level (`uses_tiled`) with src runs `gn_tiled`, which builds its
+    templates itself; any other level runs `gn_fused` on tpl, extracted
+    from src here when it is None; patches above 12 pixels a side
+    (`uses_unfused`) run `gn_unfused` on tpl at any level size. CUDA
+    tensors launch the kernels, CPU tensors their plain twins."""
     psz = params.p_samp_s
-    b, n = im_b.shape[0], tpl.tmpl.shape[-1]
+    b, n = im_b.shape[0], spec.nopatches
     pt_ref_t = grid_ref_points(spec, im_b.device).T[None].contiguous()
     p_init_t = p_init.transpose(1, 2).contiguous()        # (B, nop, N)
-    p_fin, pw, iters = gn_fused.gn_fused(spec, params, im_b, tpl, p_init_t,
-                                         pt_ref_t)
+    unfused = uses_unfused(params)
+    if src is not None and uses_tiled(spec) and not unfused:
+        p_fin, pw, iters = gn_tiled.gn_tiled(spec, params, im_b, src,
+                                             p_init_t, pt_ref_t)
+    else:
+        if tpl is None:
+            if src is None:
+                raise ValueError("optimize_level_batched needs tpl or src")
+            tpl = extract_templates(spec, params, *src)
+        route = gn_unfused if unfused else gn_fused.gn_fused
+        p_fin, pw, iters = route(spec, params, im_b, tpl, p_init_t, pt_ref_t)
     return PatchResult(p=p_fin.transpose(1, 2),
                        pt=_to_pt(pt_ref_t, p_fin).transpose(1, 2),
                        pweight=pw.reshape(b, psz, psz, n),
@@ -352,7 +490,5 @@ def init_from_coarser(spec: LevelSpec, params: DISParams,
     """InitializeFromCoarserOF (patchgrid.cpp:195-211): nearest-pixel lookup
     of the coarser level's dense flow (..., h/2, w/2, nop), scaled x2.
     Returns (..., N, nop)."""
-    xs, ys = grid_points(spec)
-    px = torch.as_tensor(np.asarray(xs) // 2, device=flow_prev.device)
-    py = torch.as_tensor(np.asarray(ys) // 2, device=flow_prev.device)
+    _, py, px = _grid_tables(spec, str(flow_prev.device))
     return flow_prev[..., py, px, :] * 2.0

@@ -12,7 +12,8 @@ Tolerances:
     amplify that to an EPE ratio of 7e-6 — far inside the budget;
   - goldens through the port's cli.main: op-1 < 1e-4 (no TV, sweep-order
     free) and op-2 < 1% (the red-black SOR order), the budgets of
-    test_golden_parity.py, for all six modes."""
+    test_golden_parity.py, for all six modes (op-3/4 and the
+    forward-backward merge: tests/test_torch_dis_op34.py)."""
 
 import dataclasses
 import os
@@ -227,16 +228,6 @@ def test_unknown_mode_shapes_raise(change):
             dataclasses.asdict(j_op_point_params(64, 2))), **change)
     x = np.zeros((1, p.noc, 32, 64), np.uint8)
     with pytest.raises(ValueError, match="nop must be 1 or 2"):
-        tdis.dis_flow_batched(x, x, p, 64, 32, device="cpu")
-
-
-@pytest.mark.parametrize("change", [dict(usefbcon=True)])
-def test_unported_modes_raise(change):
-    p = dataclasses.replace(
-        convert.params_from_reference(
-            dataclasses.asdict(j_op_point_params(64, 2))), **change)
-    x = np.zeros((1, p.noc, 32, 64), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdis.dis_flow_batched(x, x, p, 64, 32, device="cpu")
 
 

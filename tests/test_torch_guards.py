@@ -21,7 +21,9 @@ from of_dis_tpu_torch.params import op_point_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "of_dis_tpu_torch")
-WRAPPERS = {"gn_fused": "gn_fused", "tv_of_inner": "of_inner",
+WRAPPERS = {"gn_fused": "gn_fused", "gn_tiled": "gn_tiled",
+            "bilerp_extract": "bilerp_extract",
+            "tv_of_inner": "of_inner",
             "tv_de_inner": "de_inner", "warp": "warp_image_batched",
             "upscale": "upscale_batched"}
 
@@ -126,6 +128,40 @@ def test_kernel_wrappers_reject_cpu_kernel_launch_paths():
     out, mask = warp.warp_image_batched(src, f, f)
     assert warp.launches == before and out.shape == src.shape
     assert not build._libs
+
+
+def test_gn_tiled_cpu_tensors_take_the_twin_and_count_nothing():
+    from of_dis_tpu_torch.kernels import gn_tiled
+    from of_dis_tpu_torch.ops import patch_solver
+    from of_dis_tpu_torch.params import make_level_spec
+    p = op_point_params(64, 3)
+    spec = make_level_spec(0, 64, 32, p)
+    rng = np.random.default_rng(0)
+    planes = [torch.as_tensor(rng.random((1, 1, 32 + 24, 64 + 24)) * 255,
+                              dtype=torch.float32) for _ in range(4)]
+    pt_ref = patch_solver.grid_ref_points(spec).T[None].contiguous()
+    before = gn_tiled.launches
+    out = gn_tiled.gn_tiled(spec, p, planes[0], planes[1:],
+                            torch.zeros((1, 2, spec.nopatches)), pt_ref)
+    assert gn_tiled.launches == before and not build._libs
+    assert out[0].shape == (1, 2, spec.nopatches)
+    assert out[1].shape == (1, 144, spec.nopatches)
+    assert 0 < int(out[2]) <= p.max_iter
+
+
+def test_shared_header_is_part_of_each_library_hash(tmp_path, monkeypatch):
+    """An edit to a shared header under csrc/ rebuilds the kernels."""
+    before = build.library_path("gn_tiled")
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in build.SRC_DIR.iterdir():
+        (src / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "SRC_DIR", src)
+    assert build.library_path("gn_tiled") == before
+    with open(src / "gn_common.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert build.library_path("gn_tiled") != before
+    assert '#include "gn_common.cuh"' in build.source("gn_fused").read_text()
 
 
 def test_build_command_targets_sm90a():

@@ -21,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from of_dis_tpu_torch.kernels import (gn_fused, tv_de_inner, tv_of_inner,
-                                      upscale, warp)
+from of_dis_tpu_torch.kernels import (bilerp_extract, gn_fused, gn_tiled,
+                                      tv_de_inner, tv_of_inner, upscale,
+                                      warp)
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
 from of_dis_tpu_torch.params import make_level_spec, op_point_params
@@ -37,7 +38,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _frames(b, h, w, seed, c=1):
+def _frames(b, h, w, seed, c=1, half=False):
     rng = np.random.default_rng(seed)
     x = rng.random((b, c, h + 8, w + 8)) * 255
     k = np.ones(5) / 5
@@ -45,6 +46,9 @@ def _frames(b, h, w, seed, c=1):
         x = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), ax, x)
     a = x[:, :, 4:4 + h, 4:4 + w]
     bb = x[:, :, 3:3 + h, 2:2 + w]          # shifted by (2, 1) px
+    if half:                                # by (1.5, 0.5) px
+        bb = (bb + x[:, :, 3:3 + h, 3:3 + w] + x[:, :, 4:4 + h, 2:2 + w]
+              + x[:, :, 4:4 + h, 3:3 + w]) / 4
     return (np.rint(a).astype(np.uint8), np.rint(bb).astype(np.uint8))
 
 
@@ -80,6 +84,130 @@ def test_gn_kernel_matches_plain(cuda, costfct, min_iter, nop, noc, camlr):
         moved = p_k != p0
         assert bool((p_k[moved] <= 0).all() if camlr == 0
                     else (p_k[moved] >= 0).all())
+
+
+@pytest.mark.parametrize("nop,noc,camlr", [(2, 1, 0), (2, 3, 0), (1, 1, 0),
+                                           (1, 1, 1), (1, 3, 0)])
+@pytest.mark.parametrize("psz,costfct,patnorm,min_iter", [
+    (12, 0, 1, 16), (12, 1, 1, 16), (12, 2, 0, 16), (12, 0, 1, 3),
+    (8, 0, 1, 16), (4, 0, 1, 16), (9, 0, 1, 16)])
+def test_gn_tiled_kernel_matches_plain(cuda, psz, costfct, patnorm, min_iter,
+                                       nop, noc, camlr):
+    """K6 against `_gn_tiled_plain` for every template instance the
+    wrapper can reach (pixels per lane 1, 2, 3, 5; gray and RGB), on a
+    ragged patch count, with starts large enough to reset and to begin
+    outside. The twin sums in the kernel's order: 1e-3 px over 16 trips."""
+    params = dataclasses.replace(
+        op_point_params(100, 3, nop=nop, noc=noc), sc_f=0, sc_l=0,
+        p_samp_s=psz, costfct=costfct, patnorm=patnorm, min_iter=min_iter)
+    a, b = (torch.as_tensor(x, device=cuda)
+            for x in _frames(3, 44, 100, 1, noc))
+    spec = make_level_spec(0, 100, 44, params, camlr=camlr)
+    src = tuple(f[0] for f in pyramid.build_pyramid(a, 0, psz))
+    imb, _, _ = pyramid.build_pyramid(b, 0, psz, getgrad=False)
+    rng = np.random.default_rng(costfct + psz)
+    p0 = torch.as_tensor(rng.standard_normal((3, nop, spec.nopatches)) * 4,
+                         dtype=torch.float32, device=cuda)
+    pt_ref = patch_solver.grid_ref_points(spec, cuda).T[None].contiguous()
+    before = gn_tiled.launches
+    p_k, pw_k, it_k = gn_tiled.gn_tiled(spec, params, imb[0], src, p0, pt_ref)
+    assert gn_tiled.launches == before + 1
+    p_p, pw_p, it_p, _ = patch_solver._gn_tiled_plain(spec, params, imb[0],
+                                                      src, p0, pt_ref)
+    assert p_k.shape == (3, nop, spec.nopatches)
+    assert pw_k.shape == (3, psz * psz, spec.nopatches)
+    assert int(it_k) == int(it_p)
+    assert float((p_k - p_p).abs().max()) <= 1e-3
+    assert float((pw_k - pw_p).abs().max()) <= 1e-4 * float(pw_p.abs().max())
+    if nop == 1:
+        moved = p_k != p0
+        assert bool((p_k[moved] <= 0).all() if camlr == 0
+                    else (p_k[moved] >= 0).all())
+
+
+def test_gn_tiled_rejects_what_the_kernel_does_not_take(cuda):
+    params = dataclasses.replace(op_point_params(100, 3), sc_f=0, sc_l=0)
+    spec = make_level_spec(0, 100, 44, params)
+    planes = torch.zeros((1, 1, 44 + 24, 100 + 24), device=cuda)
+    pt_ref = patch_solver.grid_ref_points(spec, cuda).T[None].contiguous()
+    p0 = torch.zeros((1, 2, spec.nopatches), device=cuda)
+    with pytest.raises(ValueError, match="im_a"):
+        gn_tiled.gn_tiled(spec, params, planes, (planes[:, :, 1:],) * 3, p0,
+                          pt_ref)
+    with pytest.raises(ValueError, match="above 12"):
+        gn_tiled.gn_tiled(spec, dataclasses.replace(params, p_samp_s=13),
+                          planes, (planes,) * 3, p0, pt_ref)
+
+
+@pytest.mark.parametrize("psz,noc,n", [(16, 1, 1000), (16, 3, 37),
+                                       (12, 1, 33), (8, 3, 257), (5, 1, 1)])
+def test_bilerp_extract_kernel_matches_plain(cuda, psz, noc, n):
+    """K7 against `extract_bilinear` on ragged patch counts: positions in
+    the interior, on both validity borders, on whole pixels, and far
+    outside (clamped window). The same three float32 lerps: equal."""
+    rng = np.random.default_rng(psz + noc + n)
+    h, w = 44, 100
+    im = torch.as_tensor(rng.random((3, noc, h + 2 * psz, w + 2 * psz)) * 255,
+                         dtype=torch.float32, device=cuda)
+    pts = np.stack([rng.uniform(-psz / 2, w + psz // 2 - 2, (3, n)),
+                    rng.uniform(-psz / 2, h + psz // 2 - 2, (3, n))], -1)
+    pts[0, 0] = (-psz / 2, -psz / 2)
+    pts[1, 0] = (w + psz // 2 - 2, h + psz // 2 - 2)
+    pts[2, 0] = (-500.0, 1e4)
+    pts[:, n // 2:n // 2 + 5] = np.rint(pts[:, n // 2:n // 2 + 5])
+    pts = torch.as_tensor(pts, dtype=torch.float32, device=cuda)
+    before = bilerp_extract.launches
+    o_k = bilerp_extract.bilerp_extract(im, pts, psz, psz)
+    assert bilerp_extract.launches == before + 1
+    o_p = patch_solver.extract_bilinear(im, pts, psz, psz)
+    assert o_k.shape == o_p.shape == (3, psz * psz * noc, n)
+    assert float((o_k - o_p).abs().max()) <= 1e-4
+    with pytest.raises(ValueError, match="contiguous"):
+        bilerp_extract.bilerp_extract(im, torch.cat([pts, pts], 1)[:, ::2],
+                                      psz, psz)
+
+
+@pytest.mark.parametrize("nop,noc", [(2, 1), (1, 3)])
+def test_unfused_route_on_the_card_matches_cpu_path(cuda, nop, noc):
+    """Patch size 16 through `dis_flow_batched`: neither GN kernel
+    launches, the extraction kernel once at the start of a level and once
+    per trip, and the result follows the CPU plain path (half-pixel
+    frames, see the op-3 test below)."""
+    a, b = _frames(2, 96, 256, 7, noc, half=True)
+    if nop == 1:
+        a, b = b, a
+    params = dataclasses.replace(op_point_params(256, 3, nop=nop, noc=noc),
+                                 p_samp_s=16, sc_f=3, sc_l=1)
+    assert patch_solver.uses_unfused(params)
+    counts = (gn_fused.launches, gn_tiled.launches, bilerp_extract.launches)
+    ours = dis.dis_flow_batched(a, b, params, 256, 96, device="cuda")
+    grown = (gn_fused.launches - counts[0], gn_tiled.launches - counts[1],
+             bilerp_extract.launches - counts[2])
+    assert grown[:2] == (0, 0)
+    assert 3 * 2 <= grown[2] <= 3 * (1 + params.max_iter)
+    ref = dis.dis_flow_batched(a, b, params, 256, 96, device="cpu")
+    d = torch.linalg.vector_norm(ours.cpu() - ref, dim=-1).mean()
+    assert float(d / torch.linalg.vector_norm(ref, dim=-1).mean()) < 1e-3
+
+
+def test_kernel_path_matches_cpu_path_op3_fbcon(cuda):
+    """op-3 with the forward-backward merge on the card against the CPU
+    plain path, and two calls on the card equal to the bit. The frames
+    move by half pixels: at full resolution a whole-pixel shift parks the
+    converged patches on the boundary between two bilinear anchors, where
+    one ulp of the CPU's and the card's matrix products decides the cell."""
+    a, b = _frames(2, 96, 256, 7, half=True)
+    params = dataclasses.replace(op_point_params(256, 3), usefbcon=True)
+    counts = (gn_fused.launches, gn_tiled.launches)
+    ours = dis.dis_flow_batched(a, b, params, 256, 96, device="cuda")
+    n_lv = params.sc_f - params.sc_l + 1
+    grown = (gn_fused.launches - counts[0], gn_tiled.launches - counts[1])
+    assert sum(grown) == 2 * n_lv and grown[1] >= 2
+    assert torch.equal(ours, dis.dis_flow_batched(a, b, params, 256, 96,
+                                                  device="cuda"))
+    ref = dis.dis_flow_batched(a, b, params, 256, 96, device="cpu")
+    d = torch.linalg.vector_norm(ours.cpu() - ref, dim=-1).mean()
+    assert float(d / torch.linalg.vector_norm(ref, dim=-1).mean()) < 1e-3
 
 
 def _tv_inputs(cuda, b, c, h, w, seed, depth=False):

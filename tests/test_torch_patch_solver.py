@@ -280,3 +280,378 @@ def test_lane_sum_follows_the_kernel_order(noc, d):
             w //= 2
             lanes = [np.float32(lanes[i] + lanes[i + w]) for i in range(w)]
         assert ours[0, n] == lanes[0]
+
+
+# ------------------------- the large-level route: `gn_tiled` and its twin
+#
+# Tolerances: `iters` equal; `p` within 2e-3 px and `pweight` within rtol
+# 1e-3 (atol 5e-2) — the budget the JAX package holds its own tiled kernel
+# to against its XLA path (tests/test_gn_tiled.py): the twin sums the
+# template mean, the Hessian and every patch sum in the CUDA kernel's lane
+# order, the JAX path in XLA's, and 16 dependent trips amplify the ulps.
+
+def _assert_tiled_close(ref, ours):
+    assert int(ours.iters) == int(ref.iters)
+    np.testing.assert_allclose(ours.p.numpy(), np.asarray(ref.p), rtol=1e-4,
+                               atol=2e-3)
+    np.testing.assert_allclose(ours.pt.numpy(), np.asarray(ref.pt),
+                               rtol=1e-4, atol=2e-3)
+    np.testing.assert_allclose(ours.pweight.numpy(), np.asarray(ref.pweight),
+                               rtol=1e-3, atol=5e-2)
+
+
+def _op3_level_params(**changes):
+    """op-3's patch geometry (size 12, grid step 3) and its 16 trips."""
+    return dataclasses.replace(jparams.op_point_params(48, 3), sc_f=0,
+                               sc_l=0, **changes)
+
+
+def _tiled_both(monkeypatch, params, camlr=0, seed=0, init_scale=1.0,
+                shift=(1.6, -0.7)):
+    """The same level through JAX's optimize_level_batched(tpl=None,
+    src=...) on the CPU (its XLA route) and through the port's large-level
+    route (the twin of `gn_tiled`)."""
+    spec, tparams, ja, jb, ta, tb = _setup(params, seed=seed, camlr=camlr,
+                                           shift=shift)
+    rng = np.random.default_rng(13)
+    p_init = (rng.standard_normal((2, spec.nopatches, params.nop))
+              * init_scale).astype(np.float32)
+    ref = jps.optimize_level_batched(spec, params, jb, None,
+                                     jnp.asarray(p_init), src=tuple(ja))
+    monkeypatch.setattr(tps, "TILED_MIN_PATCHES", 0)
+    assert tps.uses_tiled(spec)
+    calls = []
+    monkeypatch.setattr(tps.gn_fused, "gn_fused",
+                        lambda *a: calls.append("gn_fused"))
+    ours = tps.optimize_level_batched(spec, tparams, tb, None,
+                                      torch.as_tensor(p_init), src=tuple(ta))
+    assert not calls
+    return spec, p_init, ref, ours
+
+
+@pytest.mark.parametrize("nop,noc,camlr,costfct,patnorm", [
+    (2, 1, 0, 0, 1), (2, 1, 0, 1, 1), (2, 1, 0, 2, 0), (2, 1, 0, 0, 0),
+    (2, 3, 0, 0, 1), (2, 3, 0, 2, 1), (1, 1, 0, 0, 1), (1, 1, 1, 0, 1),
+    (1, 1, 1, 1, 0), (1, 3, 0, 0, 1), (1, 3, 1, 2, 1)])
+def test_gn_tiled_plain_matches_jax(monkeypatch, nop, noc, camlr, costfct,
+                                    patnorm):
+    params = _op3_level_params(nop=nop, noc=noc, costfct=costfct,
+                               patnorm=patnorm)
+    assert (params.p_samp_s, params.steps, params.max_iter) == (12, 3, 16)
+    shift = (1.6, -0.7) if nop == 2 else \
+        ((-1.6, 0.0) if camlr == 0 else (1.6, 0.0))
+    spec, p_init, ref, ours = _tiled_both(
+        monkeypatch, params, camlr=camlr,
+        seed=nop + noc + camlr + costfct + patnorm, shift=shift)
+    _assert_tiled_close(ref, ours)
+    assert ours.pweight.shape == (2, 12, 12, spec.nopatches)
+    if nop == 1:
+        vals = ours.p.numpy()[ours.p.numpy() != p_init]
+        assert (vals <= 0).all() if camlr == 0 else (vals >= 0).all()
+
+
+@pytest.mark.parametrize("nop", [1, 2])
+def test_gn_tiled_plain_out_of_bounds_starts_match_jax(monkeypatch, nop):
+    """Large starts: patches that begin outside keep p_init and take the
+    template's cost weight; others reset on the way."""
+    params = _op3_level_params(nop=nop)
+    spec, p_init, ref, ours = _tiled_both(monkeypatch, params, seed=4,
+                                          init_scale=12.0)
+    pt0 = tps.grid_ref_points(spec).numpy()[None] + (
+        p_init if nop == 2 else np.concatenate(
+            [p_init, np.zeros_like(p_init)], -1))
+    oob = ((pt0 < spec.tmp_lb).any(-1) | (pt0[..., 0] > spec.tmp_ubw)
+           | (pt0[..., 1] > spec.tmp_ubh))
+    assert 0 < oob.sum() < oob.size
+    _assert_tiled_close(ref, ours)
+    np.testing.assert_array_equal(ours.p.numpy()[oob], p_init[oob])
+
+
+def test_gn_tiled_plain_matches_the_pallas_kernel_in_interpret_mode(
+        monkeypatch):
+    """The twin against `_gn_tiled_pallas` itself (in-kernel templates,
+    interpret mode on the CPU), set up as the JAX package's own test of it
+    (patch size 8, 8 trips, a 60x120 level forced onto the tiled route)."""
+    from jax.experimental import pallas as pl
+    params = dataclasses.replace(
+        jparams.op_point_params(120, 2), sc_f=0, sc_l=0, max_iter=8,
+        min_iter=8, usetvref=False)
+    rng = np.random.default_rng(1)
+    a, b = _level(0, b=1, h=60, w=120)
+    spec = jparams.make_level_spec(0, 120, 60, params)
+    pyr = [jpyr.build_pyramid(jnp.asarray(x[0]), 0, params.p_samp_s)
+           for x in (a, b)]
+    ja = tuple(pyr[0][f][0][None] for f in range(3))
+    jb = pyr[1][0][0][None]
+    p_init = rng.normal(0, 1.5, (1, spec.nopatches, 2)).astype(np.float32)
+    with monkeypatch.context() as m:
+        orig = pl.pallas_call
+        m.setattr(pl, "pallas_call",
+                  lambda *args, **kw: orig(*args, **{"interpret": True,
+                                                     **kw}))
+        m.setattr(jps, "_use_pallas_bilerp", lambda: True)
+        m.setattr(jps, "_pick_gn_bb", lambda *args, **kw: None)
+        geom = jps._pick_tile_geom(spec, params, inkernel=True)
+        assert geom is not None and geom.ybs > 0
+        ref = jps.optimize_level_batched.__wrapped__(
+            spec, params, jb, None, jnp.asarray(p_init), src=ja,
+            src_exact=True)
+    tparams = convert.params_from_reference(dataclasses.asdict(params))
+    pt_ref = tps.grid_ref_points(spec).T[None].contiguous()
+    p, pw, iters, _ = tps._gn_tiled_plain(
+        spec, tparams, torch.as_tensor(np.array(jb)),
+        tuple(torch.as_tensor(np.array(x)) for x in ja),
+        torch.as_tensor(p_init).transpose(1, 2).contiguous(), pt_ref)
+    assert int(iters) == int(ref.iters)
+    np.testing.assert_allclose(p.transpose(1, 2).numpy(), np.asarray(ref.p),
+                               rtol=1e-4, atol=2e-3)
+    np.testing.assert_allclose(pw.reshape(1, 8, 8, -1).numpy(),
+                               np.asarray(ref.pweight), rtol=1e-3, atol=5e-2)
+
+
+@pytest.mark.parametrize("nop,noc,min_iter", [(2, 1, 16), (2, 3, 2),
+                                              (1, 1, 2)])
+def test_epilogue_pweight_equals_the_carried_pweight(nop, noc, min_iter):
+    """One extraction at the final position gives, bit for bit, the splat
+    weight `_gn_plain` carries from each patch's last active trip — on the
+    same templates, with patches that stop early, reset, or start outside."""
+    params = _op3_level_params(nop=nop, noc=noc, min_iter=min_iter)
+    spec, tparams, _, _, ta, tb = _setup(params, seed=2)
+    tpl = tps._tiled_templates(spec, tparams, ta)
+    rng = np.random.default_rng(3)
+    p0 = torch.as_tensor((rng.standard_normal((2, nop, spec.nopatches)) * 6
+                          ).astype(np.float32))
+    pt_ref = tps.grid_ref_points(spec).T[None].contiguous()
+    carried = tps._gn_plain(spec, tparams, tb, tpl, p0, pt_ref)
+    tiled = tps._gn_tiled_plain(spec, tparams, tb, ta, p0, pt_ref)
+    for c, t in zip(carried, tiled):
+        assert torch.equal(c, t)
+    assert int(carried[3].min()) < int(carried[3].max())
+
+
+def test_tiled_templates_match_extract_templates():
+    """The kernel-order template mean and Hessian against
+    `extract_templates` (1e-5 relative: another float32 sum order); the
+    gathers themselves are the same bits."""
+    for nop, noc in ((2, 1), (1, 3)):
+        params = _op3_level_params(nop=nop, noc=noc)
+        spec, tparams, _, _, ta, _ = _setup(params)
+        a = tps.extract_templates(spec, tparams, *ta)
+        b = tps._tiled_templates(spec, tparams, ta)
+        assert torch.equal(a.tdx, b.tdx)
+        if nop == 2:
+            assert torch.equal(a.tdy, b.tdy)
+        _scaled_close(b.tmpl.numpy(), a.tmpl.numpy(), 1e-5)
+        _scaled_close(b.hes.numpy(), a.hes.numpy(), 1e-5)
+
+
+def test_integer_starts_beyond_128_anchor_as_jax(monkeypatch):
+    """On a 320 px wide level, integer start positions on both sides of 128
+    and 256 px: `pt + 1e-5` keeps the 1e-5 below 256 px in float32 and
+    loses it from there on, which moves the bilinear anchor by one pixel.
+    With zero residuals, no mean-normalisation and no trips, pweight is
+    max(|im_b[anchor] - im_a[grid]|, 2) exactly, so the anchors of the port
+    and of the JAX package can be held equal to the bit."""
+    params = dataclasses.replace(jparams.op_point_params(320, 2), sc_f=0,
+                                 sc_l=0, patnorm=0, max_iter=0, min_iter=0)
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 256, (1, 1, 24, 320)).astype(np.uint8)
+    b = rng.integers(0, 256, (1, 1, 24, 320)).astype(np.uint8)
+    spec = jparams.make_level_spec(0, 320, 24, params)
+    pyr = [jpyr.build_pyramid(jnp.asarray(x[0]), 0, params.p_samp_s)
+           for x in (a, b)]
+    ja = tuple(pyr[0][f][0][None] for f in range(3))
+    jb = pyr[1][0][0][None]
+    grid = np.asarray(jps.grid_ref_points(spec))
+    assert grid[:, 0].min() < 128 < 256 < grid[:, 0].max()
+    p_init = np.zeros((1, spec.nopatches, 2), np.float32)
+    p_init[0, :, 0] = rng.integers(-3, 4, spec.nopatches)
+    p_init[0, :, 1] = rng.integers(-2, 3, spec.nopatches)
+    ref = jps.optimize_level_batched(spec, params, jb, None,
+                                     jnp.asarray(p_init), src=ja)
+    tparams = convert.params_from_reference(dataclasses.asdict(params))
+    monkeypatch.setattr(tps, "TILED_MIN_PATCHES", 0)
+    ours = tps.optimize_level_batched(
+        spec, tparams, torch.as_tensor(np.array(jb)), None,
+        torch.as_tensor(p_init),
+        src=tuple(torch.as_tensor(np.array(x)) for x in ja))
+    np.testing.assert_array_equal(ours.pweight.numpy(),
+                                  np.asarray(ref.pweight))
+    # the anchor does move: an integer position below 256 px reads the
+    # pixel at that position, one from 256 px on reads its left neighbour
+    tb = np.array(jb)[0, 0]
+    pad, half = spec.pad, params.p_samp_s // 2
+    pw = ours.pweight.numpy()[0]
+    inb = ((grid + p_init[0] >= spec.tmp_lb).all(-1)
+           & (grid[:, 0] + p_init[0, :, 0] <= spec.tmp_ubw)
+           & (grid[:, 1] + p_init[0, :, 1] <= spec.tmp_ubh))
+    seen = set()
+    for n in np.flatnonzero(inb):
+        x, y = (grid[n] + p_init[0, n]).astype(int)
+        gx, gy = grid[n].astype(int)
+        left = int(x >= 256)
+        up = int(y >= 256)
+        want = max(abs(float(tb[y + pad - half - up, x + pad - half - left])
+                       - float(np.array(ja[0])[0, 0, gy + pad - half,
+                                                  gx + pad - half])), 2.0)
+        assert pw[0, 0, n] == want
+        seen.add(left)
+    assert seen == {0, 1}
+
+
+@pytest.mark.parametrize("op,w,h,levels", [
+    (3, 1024, 448, {5: False, 4: False, 3: True, 2: True, 1: True}),
+    (4, 1024, 448, {5: False, 4: False, 3: True, 2: True, 1: True,
+                    0: True}),
+    (2, 1024, 448, {5: False, 4: False, 3: False}),
+    (1, 1024, 448, {5: False, 4: False, 3: False}),
+    (3, 192, 160, {2: False, 1: True, 0: True}),
+    (4, 192, 160, {2: False, 1: True, 0: True}),
+    (2, 192, 160, {3: False, 2: False, 1: False})])
+def test_large_level_routing_rule(op, w, h, levels):
+    """Which levels go to `gn_tiled`: op-3/4's levels 3, 2, 1, 0 at 1024x436
+    (817 / 3,268 / 12,825 / 51,300 patches) and the two finest levels of
+    the 192x160 goldens (864, 3,456); every level of op-1/op-2 (at most 448
+    and 480 patches) stays on `gn_fused`."""
+    from of_dis_tpu_torch.params import make_level_spec, op_point_params
+    params = op_point_params(w, op)
+    assert sorted(levels) == list(range(params.sc_l, params.sc_f + 1))
+    for sl, tiled in levels.items():
+        spec = make_level_spec(sl, w, h, params)
+        assert tps.uses_tiled(spec) is tiled, (sl, spec.nopatches)
+    if op >= 3 and w == 1024:
+        counts = [make_level_spec(sl, w, h, params).nopatches
+                  for sl in (2, 1, 0)]
+        assert counts == [3268, 12825, 51300]
+
+
+def test_optimize_level_needs_templates_or_source():
+    params = jparams.op_point_params(48, 2)
+    spec, tparams, _, _, ta, tb = _setup(params)
+    p0 = torch.zeros((2, spec.nopatches, 2))
+    with pytest.raises(ValueError, match="tpl or src"):
+        tps.optimize_level_batched(spec, tparams, tb, None, p0)
+    # a small level with src alone extracts its templates and takes the
+    # route of `gn_fused`
+    assert not tps.uses_tiled(spec)
+    a = tps.optimize_level_batched(spec, tparams, tb, None, p0, src=ta)
+    b = tps.optimize_level_batched(
+        spec, tparams, tb, tps.extract_templates(spec, tparams, *ta), p0)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# ------------ the unfused route: `gn_unfused` and the extraction kernel's twin
+#
+# Tolerances: an extraction within 1e-4 on the 0-255 scale — three float32
+# lerps against the JAX package's one-hot sums of the same terms (a few
+# ulps at 255); the route as the other GN routes against JAX (`iters`
+# equal, `p` 1e-3 px, `pweight` 1e-4 of the level's largest weight).
+
+def _extract_inputs(psz, noc, seed):
+    """Integer-valued padded planes (2, noc, Hp, Wp) of a 40x48 level and
+    positions that cover the interior, both validity borders (tmp_lb and
+    tmp_ub, where the window ends on the padding's last row and column)
+    and whole-pixel positions."""
+    rng = np.random.default_rng(seed)
+    h, w = 40, 48
+    im = rng.integers(0, 256, (2, noc, h + 2 * psz, w + 2 * psz)).astype(
+        np.float32)
+    n = 37                                   # ragged on purpose
+    pts = np.stack([rng.uniform(-psz / 2, w + psz // 2 - 2, (2, n)),
+                    rng.uniform(-psz / 2, h + psz // 2 - 2, (2, n))], -1)
+    pts[:, 0] = (-psz / 2, -psz / 2)
+    pts[:, 1] = (w + psz // 2 - 2, h + psz // 2 - 2)
+    pts[:, 2:8] = np.rint(pts[:, 2:8])
+    return im, pts.astype(np.float32), h + 2 * psz, w + 2 * psz
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("psz,noc", [(16, 1), (16, 3), (12, 1), (8, 3),
+                                     (5, 1)])
+def test_bilerp_extract_matches_jax(monkeypatch, psz, noc, pallas):
+    """The extraction wrapper (its plain twin, on CPU tensors) against the
+    JAX package's `extract_bilinear_mxu_batched`: through its plain
+    row-select (`_bilerp_select_pure`) and through the Pallas kernel
+    `_bilerp_select_pallas` itself in interpret mode."""
+    import jax
+    from jax.experimental import pallas as pl
+    from of_dis_tpu_torch.kernels import bilerp_extract
+    im, pts, hp, wp = _extract_inputs(psz, noc, psz + noc)
+    planes = jax.vmap(lambda x: jps._shifted_planes(x, psz))(jnp.asarray(im))
+    with monkeypatch.context() as m:
+        orig = pl.pallas_call
+        m.setattr(pl, "pallas_call",
+                  lambda *args, **kw: orig(*args, **{"interpret": True,
+                                                     **kw}))
+        if pallas:
+            assert jps._bilerp_block(2, psz + 1, noc, hp, pts.shape[1])
+        ref = jps.extract_bilinear_mxu_batched(planes, jnp.asarray(pts), psz,
+                                               psz, noc, hp, wp, pallas)
+    before = bilerp_extract.launches
+    ours = bilerp_extract.bilerp_extract(torch.as_tensor(im),
+                                         torch.as_tensor(pts), psz, psz)
+    assert bilerp_extract.launches == before       # CPU: the twin, no count
+    assert ours.shape == (2, psz * psz * noc, pts.shape[1])
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=0)
+    # whole-pixel positions read single pixels: exact
+    np.testing.assert_array_equal(ours.numpy()[:, :, 2:8],
+                                  np.asarray(ref)[:, :, 2:8])
+
+
+def _psz16_level_params(**changes):
+    """op-3's settings at patch size 16 (grid step 4), one level."""
+    return dataclasses.replace(jparams.op_point_params(48, 3), sc_f=0,
+                               sc_l=0, p_samp_s=16, **changes)
+
+
+@pytest.mark.parametrize("nop,noc,camlr,costfct,init_scale", [
+    (2, 1, 0, 0, 1.0), (2, 1, 0, 1, 1.0), (2, 1, 0, 2, 1.0),
+    (2, 3, 0, 0, 1.0), (1, 1, 0, 0, 1.0), (1, 1, 1, 0, 3.0),
+    (1, 3, 0, 2, 1.0), (2, 1, 0, 0, 14.0)])
+def test_unfused_route_matches_jax(monkeypatch, nop, noc, camlr, costfct,
+                                   init_scale):
+    """A level of 16x16 patches through `optimize_level_batched`: neither
+    GN kernel's wrapper is called, the extraction wrapper once at the start
+    and once per trip, and the result follows the JAX package's."""
+    from of_dis_tpu_torch.kernels import bilerp_extract
+    params = _psz16_level_params(nop=nop, noc=noc, costfct=costfct)
+    assert tps.uses_unfused(params) and params.steps == 4
+    shift = (1.6, -0.7) if nop == 2 else \
+        ((-1.6, 0.0) if camlr == 0 else (1.6, 0.0))
+    spec, tparams, ja, jb, ta, tb = _setup(params, seed=nop + noc + costfct,
+                                           camlr=camlr, shift=shift)
+    rng = np.random.default_rng(17)
+    p_init = (rng.standard_normal((2, spec.nopatches, nop)) * init_scale
+              ).astype(np.float32)
+    ref = jps.optimize_level_batched(spec, params, jb, None,
+                                     jnp.asarray(p_init), src=tuple(ja))
+    calls = []
+    for mod, name in ((tps.gn_fused, "gn_fused"), (tps.gn_tiled, "gn_tiled")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name: calls.append(_n))
+    extract = bilerp_extract.bilerp_extract
+    monkeypatch.setattr(
+        bilerp_extract, "bilerp_extract",
+        lambda *a: (calls.append("extract"), extract(*a))[1])
+    monkeypatch.setattr(tps, "TILED_MIN_PATCHES", 0)   # size does not matter
+    ours = tps.optimize_level_batched(spec, tparams, tb, None,
+                                      torch.as_tensor(p_init), src=tuple(ta))
+    assert calls == ["extract"] * (1 + int(ours.iters))
+    _assert_gn_close(ref, ours)
+    assert ours.pweight.shape == (2, 16, 16, spec.nopatches)
+    if init_scale > 10:
+        assert (ours.p.numpy() == p_init).any()        # starts outside stay
+
+
+@pytest.mark.parametrize("psz,unfused", [(4, False), (8, False), (12, False),
+                                         (13, True), (16, True)])
+def test_unfused_routing_rule(psz, unfused):
+    """Patches of more than 160 pixels (a side above 12) go to the unfused
+    route, whatever the level's size; every op-point stays on the fused
+    kernels."""
+    from of_dis_tpu_torch.params import op_point_params
+    assert tps.uses_unfused(dataclasses.replace(
+        op_point_params(1024, 3), p_samp_s=psz)) is unfused
+    assert not any(tps.uses_unfused(op_point_params(1024, op))
+                   for op in (1, 2, 3, 4))

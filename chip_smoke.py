@@ -27,8 +27,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      their twins, and equal to row 0 of the batched result;
   6. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
-     the merge for flow and depth, the TV-free pseudo-Huber run);
-  7. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
+     the merge for flow and depth, the TV-free pseudo-Huber run), and the
+     op-2 and op-4 gray-flow goldens again at the CLI's default verbosity 2:
+     the per-scale lines printed, the file equal to the quiet one;
+  7. the tensor-core dot microbenchmark (T1): `tools.bench_i8_dot` at its
+     defaults, launches counted, both products equal to their exact twin,
+     times beside the bound and one PyTorch product of the same function;
+  8. the per-stage ablation of the GN iteration (T2): `tools
+     .bench_gn_stages` at op-2's finest level (batch 384) and at op-4's
+     level 0 (batch 4), launches counted, every stage against its twin,
+     every variant equal to A4 bit for bit, times beside the large-level GN
+     kernel's level-0 time of path F;
+  9. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
      last line `{"ok": true, "device": {...}}`.
 
 Synthetic pairs follow the JAX package's bench workload (a blurred random
@@ -42,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io as io_mod
 import json
 import math
 import os
@@ -56,21 +67,26 @@ import torch.nn.functional as F
 
 from of_dis_tpu_torch import cli
 from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
-                                      gn_tiled, tv_de_inner, tv_of_inner,
-                                      upscale, warp)
+                                      gn_stages, gn_tiled, i8_dot,
+                                      tv_de_inner, tv_of_inner, upscale,
+                                      warp)
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
 from of_dis_tpu_torch.params import op_point_params
+from of_dis_tpu_torch.tools import bench_gn_stages, bench_i8_dot
 from of_dis_tpu_torch.utils import io
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "of_dis_tpu_torch", "smoke")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
-# FLOP/s outside the tensor cores. Every kernel here is float32 CUDA-core
-# work.
+# FLOP/s outside the tensor cores, for every kernel of the flow path
+# (float32 CUDA-core work); the dense tensor-core rates without sparsity
+# for the dot microbenchmark (T1): int8 OP/s and bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+INT8_OP_PER_S = 1979e12
+BF16_FLOP_PER_S = 989e12
 
 H_ORG, W_ORG = 436, 1024
 # The paths driven end to end, each with its expected launches per
@@ -176,6 +192,18 @@ KERNELS = {
                     replaces="of_dis_tpu/models/dis.py:206",
                     tpu_kernels=["of_dis_tpu/models/dis.py:206 "
                                  "_upscale_cf_pallas"]),
+    # the measurement tools' kernels (phases 7 and 8)
+    "i8_dot": dict(module=i8_dot, entry=(i8_dot, "dot_sum"),
+                   counter="launches",
+                   source="of_dis_tpu_torch/csrc/i8_dot.cu",
+                   replaces="tools/bench_i8_dot.py:36",
+                   tpu_kernels=["tools/bench_i8_dot.py:36 main.make"]),
+    "gn_stages": dict(module=gn_stages, entry=(gn_stages, "gn_stages"),
+                      counter="launches",
+                      source="of_dis_tpu_torch/csrc/gn_stages.cu",
+                      replaces="tools/bench_gn_stages.py:103",
+                      tpu_kernels=["tools/bench_gn_stages.py:103 "
+                                   "main.make"]),
 }
 # Tolerances of kernel against plain twin, with their reasons.
 TOL = {
@@ -199,6 +227,13 @@ TOL = {
     # px: two taps against the matrix product's sum over every input
     # column, float32 rounding of ~20 px values
     "upscale": 1e-4,
+    # every value a small integer: both products exact, in any order
+    "i8_dot": 0.0,
+    # relative to the stage's largest checksum: the twin sums in the
+    # kernel's order with the same float32 operations (no contraction), so
+    # 0 is expected; the margin covers a division or gather that rounds
+    # otherwise
+    "gn_stages": 1e-6,
 }
 # pweight of the GN kernel: relative to the level's largest weight
 # (a residual moves by p's float32 difference times the image gradient)
@@ -230,10 +265,11 @@ def cuda_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float):
-    """(bound_ms, bytes_ms, ops_ms) of work on the H100's published peaks."""
+def bound(bytes_moved: float, flops: float, peak: float = F32_FLOP_PER_S):
+    """(bound_ms, bytes_ms, ops_ms) of work on the H100's published peaks;
+    `peak` is the rate of the operations' type (float32 by default)."""
     b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    o_ms = flops / F32_FLOP_PER_S * 1e3
+    o_ms = flops / peak * 1e3
     return max(b_ms, o_ms), b_ms, o_ms
 
 
@@ -360,6 +396,8 @@ PLAIN = {
     "tv_de_inner_single": _single(tv_de_inner._plain),
     "warp": tv.warp_image,
     "upscale": dis.upscale_output,
+    "i8_dot": i8_dot._plain,
+    "gn_stages": gn_stages._plain,
 }
 
 
@@ -472,15 +510,34 @@ def check_extract(args, kernel_fn):
     b, c, hp, wp = im.shape
     n = pts.shape[1]
     d = psz * psz * c
+    # library yardstick: grid_sample at every tap position of every patch,
+    # pt - psz/2 + pad + (i, j) in the padded planes, a (B, psz^2, N, 2)
+    # grid built outside the timing; its output (B, C, psz^2, N). It
+    # differs from the kernel where the kernel's anchor ceil(pt + 1e-5)
+    # lands one pixel left (integer positions from 256 on, where 1e-5 is
+    # below half an ulp) and beyond the planes (it clamps the coordinate,
+    # the kernel each tap)
+    jj, ii = (t.reshape(-1).to(im.device, torch.float32) for t in
+              torch.meshgrid(torch.arange(psz), torch.arange(psz),
+                             indexing="ij"))
+    base = pts + float(pad - psz // 2)                    # (B, N, 2)
+    gx = (base[:, None, :, 0] + ii[None, :, None]) * (2.0 / (wp - 1)) - 1.0
+    gy = (base[:, None, :, 1] + jj[None, :, None]) * (2.0 / (hp - 1)) - 1.0
+    grid = torch.stack([gx, gy], dim=-1)
+    lib = lambda: F.grid_sample(im, grid, mode="bilinear",  # noqa: E731
+                                padding_mode="border", align_corners=True)
+    lib_diff = float((lib().permute(0, 2, 1, 3).reshape(b, d, n)
+                      - o_p).abs().max()) if c == 1 else None
     # planes and positions read once, the patches written once; per element
     # two y-lerps and one x-lerp of three operations each
     nbytes = 4 * (b * c * hp * wp + 2 * b * n + b * d * n)
     flops = 9.0 * b * d * n
     return dict(
         shape=f"B{b} N{n} D{d} planes {c}x{hp}x{wp}", max_abs_err=err,
+        library_max_abs_diff=lib_diff,
         kernel_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
         plain_ms=cuda_ms(lambda: patch_solver.extract_bilinear(*args), 2, 1),
-        library_ms=None, bound=bound(nbytes, flops))
+        library_ms=cuda_ms(lib, 5, 10), bound=bound(nbytes, flops))
 
 
 def tv_flops_per_px(name, n_solver, colour, noc):
@@ -899,6 +956,180 @@ def run_goldens():
                                  "not run gn_tiled")
 
 
+# goldens run again at the CLI's default verbosity 2 (no --quiet)
+VERBOSE_GOLDENS = ("of_int_op2.flo", "of_int_op4.flo")
+
+
+def run_verbose_goldens():
+    """Phase 6, second part: `cli.main` at verbosity 2 prints one
+    per-scale line a level and writes the file written quietly above."""
+    gold = os.path.join(ROOT, "tests", "goldens")
+    for mode, img1, img2, golden, args, _ in GOLDENS:
+        if golden not in VERBOSE_GOLDENS:
+            continue
+        out = os.path.join(OUT_DIR, "verbose_" + golden)
+        text = io_mod.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli.main([mode, os.path.join(gold, img1),
+                      os.path.join(gold, img2), out] + args.split())
+        lines = text.getvalue().splitlines()
+        print("\n".join(f"  {ln}" for ln in lines), flush=True)
+        params = cli.build_params(192, 2, 1, args.split())
+        scales = sum(ln.startswith("TIME (Sc: ") for ln in lines)
+        if scales != params.sc_f - params.sc_l + 1:
+            raise AssertionError(f"verbose golden {golden}: {scales} "
+                                 "per-scale lines")
+        quiet = io.read_flo(os.path.join(OUT_DIR, golden))
+        if not np.array_equal(io.read_flo(out), quiet):
+            raise AssertionError(f"verbose golden {golden}: the file "
+                                 "differs from the quiet one")
+        print(f"golden {golden} at verbosity 2: {scales} per-scale lines, "
+              "the file equal to the quiet one", flush=True)
+
+
+# ------------------------------------------------- the measurement tools
+
+def run_i8_dot(dev, rows, totals):
+    """Phase 7: the dot microbenchmark's main path (the tool at its
+    defaults, launches counted), then both products against the twin,
+    timed beside the bound and one PyTorch product of the same function:
+    A repeated reps times along k times B's reps blocks stacked along k."""
+    reset_launches()
+    res = bench_i8_dot.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"i8_dot: launches in one run of the tool: {json.dumps(launches)}",
+          flush=True)
+    if set(launches) != {"i8_dot"}:
+        raise AssertionError(f"i8_dot tool launches {launches}")
+    totals["i8_dot"] = totals.get("i8_dot", 0) + launches["i8_dot"]
+    reps, grid, m, k, n = 64, 64, 832, 256, 256
+    inputs = bench_i8_dot.make_inputs(reps, m, k, n, dev)
+    for dtype, peak, label in ((torch.int8, INT8_OP_PER_S, "int8 -> int32"),
+                               (torch.bfloat16, BF16_FLOP_PER_S,
+                                "bf16 -> f32")):
+        a, bt = inputs[dtype]
+        out = i8_dot.dot_sum(a, bt, n, grid)
+        twin = i8_dot._plain(a, bt, n, grid)
+        err = float((out.double() - twin.double()).abs().max())
+        if not (torch.equal(out, twin) and torch.equal(res[label]["out"],
+                                                       twin)):
+            raise AssertionError(f"i8_dot {label}: not the exact product "
+                                 f"(max abs err {err})")
+        # B's blocks stacked along k, (reps k, n), column-major (k
+        # contiguous), the layout of cuBLAS's integer tensor-core products
+        a_rep = a.repeat(1, reps)
+        b_stack = bt.reshape(reps, n, k).transpose(0, 1).reshape(
+            n, reps * k).t()
+        if dtype == torch.int8:
+            lib = lambda: [torch._int_mm(a_rep, b_stack)  # noqa: E731
+                           for _ in range(grid)]
+        else:
+            lib = lambda: [torch.matmul(a_rep, b_stack)  # noqa: E731
+                           for _ in range(grid)]
+        lib_diff = float((lib()[0].double() - twin[0].double()).abs().max())
+        ops = 2.0 * m * k * n * reps * grid
+        esize = a.element_size()
+        nbytes = esize * (m * k + reps * n * k) + 4 * grid * m * n
+        r = dict(shape=f"{label} ({m}, {k}) @ ({k}, {n}) x {reps} reps x "
+                 f"{grid}", max_abs_err=err, library_max_abs_diff=lib_diff,
+                 kernel_ms=cuda_ms(lambda: i8_dot.dot_sum(a, bt, n, grid),
+                                   5, 3),
+                 plain_ms=cuda_ms(lambda: i8_dot._plain(a, bt, n, grid), 3,
+                                  1),
+                 library_ms=cuda_ms(lib, 5, 1))
+        r["tops"] = ops / r["kernel_ms"] / 1e9
+        r["library_tops"] = ops / r["library_ms"] / 1e9
+        b_ms, by_ms, op_ms = bound(nbytes, ops, peak)
+        r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
+        rows["i8_dot"].append(r)
+        print(json.dumps({"tool": "bench_i8_dot", "kernel": "i8_dot",
+                          "tolerance": TOL["i8_dot"], **r}), flush=True)
+
+
+def gn_stages_flops(stage: str, b: int, n: int, psz: int,
+                    max_iter: int) -> float:
+    """Float operations of one `gn_stages` call, as the kernel does them:
+    per pixel and trip W 4 (three tap sums, one accumulation), A3 10 (nine
+    for the bilinear, one accumulation), A4 18 (the bilinear, the patch
+    sum, the residual's two subtractions, |.|, the three accumulations:
+    1 + 2 + 2); A4 also a division a patch and trip for the mean and, once
+    a patch, the division and two additions at the end."""
+    per_px = {"W": 4, "A3": 10, "A4": 18}[stage]
+    ops = float(b) * n * max_iter * psz * psz * per_px
+    if stage == "A4":
+        ops += float(b) * n * (max_iter + 3)
+    return ops
+
+
+def run_gn_stages(dev, rows, totals):
+    """Phase 8: the GN stage ablation's main path (the tool at both
+    geometries, launches counted), then every stage against its twin on
+    the card and every variant against A4, timed; at op4-l0 beside the
+    large-level GN kernel's level-0 time of path F (51,300 patches, batch
+    4)."""
+    reset_launches()
+    results = {g: bench_gn_stages.main(["--geometry", g, "--device",
+                                        str(dev)])
+               for g in ("op2-l3", "op4-l0")}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"gn_stages: launches in one run of the tool at both geometries: "
+          f"{json.dumps(launches)}", flush=True)
+    if set(launches) != {"gn_stages"}:
+        raise AssertionError(f"gn_stages tool launches {launches}")
+    totals["gn_stages"] = totals.get("gn_stages", 0) + launches["gn_stages"]
+    if not all(r["equal_a4"] for res in results.values() for r in res
+               if r["variant"]):
+        raise AssertionError("gn_stages: a variant differs from A4")
+    k6_l0 = [r["kernel_ms"] for r in rows["gn_tiled"]
+             if r["shape"].startswith("B4 N51300 ")]
+    for gname in results:
+        geom = bench_gn_stages.GEOMETRIES[gname]
+        b, n, psz = geom.batch, geom.n, geom.psz
+        x = bench_gn_stages.make_inputs(geom, b, dev)
+        a4 = None
+        for label, stage, variant in bench_gn_stages.RUNS:
+            args = bench_gn_stages.call_args(x, geom, stage, variant)
+            out = gn_stages.gn_stages(*args)
+            twin = gn_stages._plain(*args)
+            torch.cuda.synchronize()
+            err = float((out - twin).abs().max())
+            scale = float(twin.abs().max())
+            if not err <= TOL["gn_stages"] * scale:
+                raise AssertionError(f"gn_stages {gname} {label}: err {err} "
+                                     f"of checksums up to {scale}")
+            if stage == "A4" and not variant:
+                a4 = out
+            if variant and not torch.equal(out, a4):
+                raise AssertionError(f"gn_stages {gname} {label} != A4")
+            # planes, the anchors and the checksums
+            nbytes = (args[0].numel() * args[0].element_size()
+                      + 4 * 2 * b * n + 4 * b * n)
+            if stage == "A4":
+                nbytes += 4 * 3 * b * n * psz * psz
+            r = dict(shape=f"{gname} {label} B{b} N{n} psz{psz} "
+                     f"trips{geom.max_iter}", max_abs_err=err,
+                     max_abs_checksum=scale,
+                     kernel_ms=cuda_ms(lambda: gn_stages.gn_stages(*args), 5,
+                                       3),
+                     plain_ms=cuda_ms(lambda: gn_stages._plain(*args), 1, 1),
+                     library_ms=None)
+            r["us_per_pair"] = r["kernel_ms"] * 1e3 / b
+            b_ms, by_ms, op_ms = bound(nbytes, gn_stages_flops(
+                stage, b, n, psz, geom.max_iter))
+            r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
+            rows["gn_stages"].append(r)
+            print(json.dumps({"tool": "bench_gn_stages",
+                              "kernel": "gn_stages",
+                              "tolerance": TOL["gn_stages"], **r}),
+                  flush=True)
+        if gname == "op4-l0" and k6_l0:
+            print(f"gn_tiled (K6) at level 0 of path F, the same 51,300 "
+                  f"patches x 4 pairs and 128 trips: {k6_l0[0]:.3f} ms = "
+                  f"{k6_l0[0] * 1e3 / 4:.1f} us per pair", flush=True)
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -928,10 +1159,16 @@ def main() -> int:
     for label in ("A", "B"):
         run_single(label, finest[label], rows, totals)
 
-    # 6. goldens through the CLI on the card
+    # 6. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()
+    run_verbose_goldens()
 
-    # 7. summary: per kernel, summed over its calls in one run of every path
+    # 7-8. the measurement tools' kernels
+    run_i8_dot(dev, rows, totals)
+    run_gn_stages(dev, rows, totals)
+
+    # 9. summary: per kernel, summed over its calls in one run of every path
+    # or tool
     summary = []
     for name, rs in rows.items():
         if not rs or not totals.get(name):

@@ -17,8 +17,11 @@ Usage (reference: README.md:46-86, run_dense.cpp:186-295):
 Flags: `--quiet` silences the op-point form's default verbosity;
 `--device cuda|cpu` picks the device (default cuda; there is no silent
 fallback to the CPU). `--init-flow` raises NotImplementedError.
-Verbosity > 0 prints the total flow time; the per-stage breakdown of
-verbosity 2 is not ported yet.
+Verbosity > 0 prints the total flow time; verbosity > 1 (the op-point
+form's default) also the load, pyramid, grid and save times and, per
+scale, the reference's six-column line (`models.dis.dis_flow_timed`)
+`TIME (Sc: i, #p: n, pconst, pinit, poptim, cflow, tvopt, total)`; its
+flow equals the one written at verbosity 0 bit for bit.
 """
 
 from __future__ import annotations
@@ -115,7 +118,12 @@ def main(argv=None):
               f"{(time.perf_counter() - t0) * 1e3:3g}")
 
     t_run = time.perf_counter()
-    flow = dis.dis_flow_full(a, b, params, full_w, full_h, device=dev)
+    if verb > 1:
+        # staged path printing the per-scale six-column breakdown
+        flow = dis.dis_flow_timed(a, b, params, full_w, full_h, device=dev)
+        flow = dis.upscale_full(flow, params, full_h, full_w)
+    else:
+        flow = dis.dis_flow_full(a, b, params, full_w, full_h, device=dev)
     flow = flow.cpu().numpy()
     if verb > 0:
         print(f"TIME (O.Flow Run-Time   ) (ms): "

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 import torch
 
 KERNELS = ("gn_fused", "gn_tiled", "bilerp_extract", "tv_of_inner",
-           "tv_de_inner", "warp", "upscale")
+           "tv_de_inner", "warp", "upscale", "i8_dot", "gn_stages")
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "of_dis_tpu_torch"
 # --fmad=false: no fused multiply-add contraction, so each kernel rounds

@@ -23,6 +23,8 @@ camera's for depth, merged into the forward densification).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -77,41 +79,101 @@ def _tv_refine(flow: torch.Tensor, im_a: torch.Tensor, im_b: torch.Tensor,
     return wx[..., None]
 
 
+def _p_init(spec, params: DISParams, flow_prev, batch: int, device
+            ) -> torch.Tensor:
+    """A level's start parameters (B, N, nop): zero at the coarsest level,
+    else read from the coarser level's flow."""
+    if flow_prev is None:
+        return torch.zeros((batch, spec.nopatches, params.nop),
+                           dtype=torch.float32, device=device)
+    return patch_solver.init_from_coarser(spec, params, flow_prev)
+
+
+class _NoClock:
+    """The stage clock of a quiet run: nothing waits, nothing prints."""
+
+    def lap(self) -> float:
+        return 0.0
+
+    def report(self, fmt: str, *args) -> None:
+        pass
+
+
+class _StageClock(_NoClock):
+    """The verbosity-2 clock: a lap waits for the device to finish what
+    was queued (torch.cuda.synchronize; nothing to wait for on the CPU)
+    and returns the host seconds since the previous lap."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.last = time.perf_counter()
+
+    def lap(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        dt, self.last = now - self.last, now
+        return dt
+
+    def report(self, fmt: str, *args) -> None:
+        print(fmt % args)
+
+
 def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
-                   full_w: int, full_h: int) -> torch.Tensor:
+                   full_w: int, full_h: int, clock: _NoClock = _NoClock()
+                   ) -> torch.Tensor:
     """Batched coarse-to-fine pipeline: im_a/im_b (B, C, H, W) on one
-    device. Returns (B, H/2^sc_l, W/2^sc_l, nop)."""
+    device. Returns (B, H/2^sc_l, W/2^sc_l, nop). A `_StageClock` times
+    the pyramid, the grid set-up and per scale the stages pconst
+    (templates of the levels whose GN kernel reads them), pinit, poptim,
+    cflow and tvopt, and prints the reference's lines (run_dense.cpp:
+    347-353, oflow.cpp:297)."""
     _check_supported(params)
     pad = params.p_samp_s
     fb = params.usefbcon
+    clock.lap()
     ims_a, dxs_a, dys_a = pyramid.build_pyramid(im_a, params.sc_f, pad,
                                                 lv_l=params.sc_l)
     # the second image's gradients serve the backward grid only
     ims_b, dxs_b, dys_b = pyramid.build_pyramid(im_b, params.sc_f, pad,
                                                 getgrad=fb, lv_l=params.sc_l)
-    batch = im_a.shape[0]
+    clock.report("TIME (Pyramide+Gradients) (ms): %3g", clock.lap() * 1e3)
+    # the per-scale grids (OFClass allocates them up front,
+    # oflow.cpp:139-178); the backward grid takes the right camera's sign
+    levels = range(params.sc_f, params.sc_l - 1, -1)
+    specs = {sl: (make_level_spec(sl, full_w, full_h, params, camlr=0),
+                  make_level_spec(sl, full_w, full_h, params, camlr=1)
+                  if fb else None) for sl in levels}
+    clock.report("TIME (Grid Memo. Alloc. ) (ms): %3g", clock.lap() * 1e3)
+    batch, dev = im_a.shape[0], im_a.device
 
-    def optimize(spec, target, src, flow_prev):
-        if flow_prev is None:
-            p_init = torch.zeros((batch, spec.nopatches, params.nop),
-                                 dtype=torch.float32, device=im_a.device)
-        else:
-            p_init = patch_solver.init_from_coarser(spec, params, flow_prev)
-        return patch_solver.optimize_level_batched(spec, params, target,
-                                                   None, p_init, src=src)
+    def templates(spec, src):
+        # a large level's `gn_tiled` builds its templates itself
+        if patch_solver.builds_templates(spec, params):
+            return None
+        return patch_solver.extract_templates(spec, params, *src)
 
     flow = flow_bw = None
-    for sl in range(params.sc_f, params.sc_l - 1, -1):
-        spec = make_level_spec(sl, full_w, full_h, params, camlr=0)
+    for sl in levels:
+        spec, spec_bw = specs[sl]
         ia, ib = ims_a[sl], ims_b[sl]
-        res = optimize(spec, ib, (ia, dxs_a[sl], dys_a[sl]), flow)
+        # with the merge, the backward grid swaps the images' roles
+        src = (ia, dxs_a[sl], dys_a[sl])
+        src_bw = (ib, dxs_b[sl], dys_b[sl]) if fb else None
+        tpl = templates(spec, src)
+        tpl_bw = templates(spec_bw, src_bw) if fb else None
+        laps = [clock.lap()]
+        p_init = _p_init(spec, params, flow, batch, dev)
+        p_init_bw = _p_init(spec_bw, params, flow_bw, batch, dev) if fb \
+            else None
+        laps.append(clock.lap())
+        res = patch_solver.optimize_level_batched(spec, params, ib, tpl,
+                                                  p_init, src=src)
         res_bw = None
         if fb:
-            # the backward grid: the images swap roles, depth takes the
-            # right camera's sign
-            spec_bw = make_level_spec(sl, full_w, full_h, params, camlr=1)
-            res_bw = optimize(spec_bw, ia, (ib, dxs_b[sl], dys_b[sl]),
-                              flow_bw)
+            res_bw = patch_solver.optimize_level_batched(
+                spec_bw, params, ia, tpl_bw, p_init_bw, src=src_bw)
+        laps.append(clock.lap())
         flow = densify.aggregate_flow_dense(spec, params, res, res_bw)
         # no backward flow at the last scale: nothing reads it
         # (oflow.cpp:266)
@@ -119,10 +181,16 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
         if bw_next:
             flow_bw = densify.aggregate_flow_dense(spec_bw, params, res_bw,
                                                    res)
+        laps.append(clock.lap())
         if params.usetvref:
             flow = _tv_refine(flow, ia, ib, spec, params)
             if bw_next:
                 flow_bw = _tv_refine(flow_bw, ib, ia, spec_bw, params)
+        laps.append(clock.lap())
+        clock.report("TIME (Sc: %i, #p:%6i, pconst, pinit, poptim, cflow, "
+                     "tvopt, total): %8.2f %8.2f %8.2f %8.2f %8.2f -> %8.2f "
+                     "ms.", sl, spec.nopatches, *(t * 1e3 for t in laps),
+                     sum(laps) * 1e3)
     return flow
 
 
@@ -153,15 +221,44 @@ def upscale_output(flow: torch.Tensor, sc_l: int, out_h: int, out_w: int
     return pyramid.resize_linear(f, out_h, out_w).movedim(-3, -1)
 
 
-def dis_flow_full(im_a, im_b, params: DISParams, full_w: int, full_h: int,
-                  device="cuda") -> torch.Tensor:
-    """dis_flow + the final upscale to the padded full resolution:
-    (full_h, full_w, nop). The upscale is kernel K4 on CUDA."""
-    flow = dis_flow(im_a, im_b, params, full_w, full_h, device=device)
+def upscale_full(flow: torch.Tensor, params: DISParams, full_h: int,
+                 full_w: int) -> torch.Tensor:
+    """The finest scale's flow of one pair (h, w, nop) at the padded full
+    resolution (full_h, full_w, nop): kernel K4 on CUDA."""
     if params.sc_l == 0:
         return flow
     return upscale_kernel.upscale_batched(flow[None].contiguous(),
                                           params.sc_l, full_h, full_w)[0]
+
+
+def dis_flow_full(im_a, im_b, params: DISParams, full_w: int, full_h: int,
+                  device="cuda") -> torch.Tensor:
+    """dis_flow + the final upscale to the padded full resolution:
+    (full_h, full_w, nop)."""
+    flow = dis_flow(im_a, im_b, params, full_w, full_h, device=device)
+    return upscale_full(flow, params, full_h, full_w)
+
+
+def dis_flow_timed(im_a, im_b, params: DISParams, full_w: int, full_h: int,
+                   init_flow=None, device="cuda") -> torch.Tensor:
+    """The verbosity-2 path: `dis_flow` with each stage run to completion
+    and timed, printing the pyramid's and the grid set-up's lines and the
+    reference's per-scale six-column breakdown (oflow.cpp:297):
+
+      TIME (Sc: i, #p: n, pconst, pinit, poptim, cflow, tvopt, total): ...
+
+    Spans are host perf_counter times around stages that end in
+    `torch.cuda.synchronize`. The computation is `dis_flow`'s, so the flow
+    equals its flow bit for bit: (H/2^sc_l, W/2^sc_l, nop). A warm start
+    (`init_flow`) is not ported."""
+    if init_flow is not None:
+        raise NotImplementedError(
+            "init_flow is not ported yet (ROADMAP queue 1, item 14)")
+    dev = resolve_device(device)
+    a = _as_batch(im_a, dev)[None]
+    b = _as_batch(im_b, dev)[None]
+    return _dis_flow_core(a, b, params, full_w, full_h,
+                          clock=_StageClock(dev))[0]
 
 
 def dis_flow_batched(im_a, im_b, params: DISParams, full_w: int, full_h: int,

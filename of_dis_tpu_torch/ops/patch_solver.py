@@ -451,6 +451,13 @@ def gn_unfused(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
                      extract=bilerp_extract.bilerp_extract)[:3]
 
 
+def builds_templates(spec: LevelSpec, params: DISParams) -> bool:
+    """Whether `optimize_level_batched`, given the source planes, sends
+    this level to `gn_tiled`, which builds the templates in the kernel;
+    every other route reads templates extracted beforehand."""
+    return uses_tiled(spec) and not uses_unfused(params)
+
+
 def optimize_level_batched(spec: LevelSpec, params: DISParams,
                            im_b: torch.Tensor, tpl, p_init: torch.Tensor,
                            src=None) -> PatchResult:
@@ -468,8 +475,7 @@ def optimize_level_batched(spec: LevelSpec, params: DISParams,
     b, n = im_b.shape[0], spec.nopatches
     pt_ref_t = grid_ref_points(spec, im_b.device).T[None].contiguous()
     p_init_t = p_init.transpose(1, 2).contiguous()        # (B, nop, N)
-    unfused = uses_unfused(params)
-    if src is not None and uses_tiled(spec) and not unfused:
+    if src is not None and builds_templates(spec, params):
         p_fin, pw, iters = gn_tiled.gn_tiled(spec, params, im_b, src,
                                              p_init_t, pt_ref_t)
     else:
@@ -477,7 +483,7 @@ def optimize_level_batched(spec: LevelSpec, params: DISParams,
             if src is None:
                 raise ValueError("optimize_level_batched needs tpl or src")
             tpl = extract_templates(spec, params, *src)
-        route = gn_unfused if unfused else gn_fused.gn_fused
+        route = gn_unfused if uses_unfused(params) else gn_fused.gn_fused
         p_fin, pw, iters = route(spec, params, im_b, tpl, p_init_t, pt_ref_t)
     return PatchResult(p=p_fin.transpose(1, 2),
                        pt=_to_pt(pt_ref_t, p_fin).transpose(1, 2),

@@ -25,7 +25,8 @@ WRAPPERS = {"gn_fused": "gn_fused", "gn_tiled": "gn_tiled",
             "bilerp_extract": "bilerp_extract",
             "tv_of_inner": "of_inner",
             "tv_de_inner": "de_inner", "warp": "warp_image_batched",
-            "upscale": "upscale_batched"}
+            "upscale": "upscale_batched", "i8_dot": "dot_sum",
+            "gn_stages": "gn_stages"}
 
 
 def _modules():
@@ -82,7 +83,8 @@ def test_each_kernel_has_source_entry_and_counter(name):
     assert src.is_file()
     text = src.read_text()
     assert f'extern "C" int of_{name}(' in text
-    assert "Replaces: of_dis_tpu/" in text
+    # the JAX package's kernel, or the kernel of one of its tools
+    assert re.search(r"Replaces: (of_dis_tpu|tools)/\S+\.py::", text)
     assert name in build.KERNELS
 
 

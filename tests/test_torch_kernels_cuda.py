@@ -13,7 +13,10 @@ twin sums each patch in the kernel's order and 12 dependent trips amplify
 the rounding left (1e-3 px, pweight 1e-4 relative); the others repeat
 their twin's float32 formulas (1e-4). The single-pair TV entries launch
 the batched kernel with one block, so they equal row 0 of the batched
-result bit for bit."""
+result bit for bit. The dot microbenchmark's sums of small integers are
+exact in both types: equal to the twin. The GN stage ablation's twin sums
+in the kernel's order (1e-6 of the largest checksum), and its variants
+equal its A4 stage bit for bit."""
 
 import dataclasses
 
@@ -21,12 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from of_dis_tpu_torch.kernels import (bilerp_extract, gn_fused, gn_tiled,
-                                      tv_de_inner, tv_of_inner, upscale,
-                                      warp)
+from of_dis_tpu_torch.kernels import (bilerp_extract, gn_fused, gn_stages,
+                                      gn_tiled, i8_dot, tv_de_inner,
+                                      tv_of_inner, upscale, warp)
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
 from of_dis_tpu_torch.params import make_level_spec, op_point_params
+from of_dis_tpu_torch.tools import bench_gn_stages
 
 pytestmark = pytest.mark.cuda
 
@@ -337,3 +341,56 @@ def test_kernel_path_matches_cpu_path(cuda, nop, noc):
     d = torch.linalg.vector_norm(ours - ref, dim=-1).mean()
     assert float(d / torch.linalg.vector_norm(ref, dim=-1).mean()) < 1e-3
     assert float(torch.linalg.vector_norm(ref, dim=-1).mean()) > 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,reps,grid", [(40, 48, 24, 3, 2),
+                                             (130, 160, 72, 2, 3),
+                                             (17, 256, 8, 1, 1)])
+def test_i8_dot_kernel_matches_plain(cuda, dtype, m, k, n, reps, grid):
+    """Ragged m and n (no multiple of the 64 x 64 tile), k below and above
+    one 128-byte slice, every rep's B block a different one."""
+    rng = np.random.default_rng(m)
+    a = torch.as_tensor(rng.integers(-127, 127, (m, k), np.int8))
+    bt = torch.as_tensor(rng.integers(-3, 4, (reps * n, k), np.int8))
+    a, bt = a.to(cuda, dtype), bt.to(cuda, dtype)
+    before = i8_dot.launches
+    out = i8_dot.dot_sum(a, bt, n, grid)
+    assert i8_dot.launches == before + 1
+    assert out.shape == (grid, m, n) and out.dtype == i8_dot.ACC[dtype]
+    assert torch.equal(out, i8_dot._plain(a, bt, n, grid))
+
+
+def test_i8_dot_rejects_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros((8, 24), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        i8_dot.dot_sum(a, torch.zeros((16, 24), dtype=torch.int8,
+                                      device=cuda), 8, 1)
+    with pytest.raises(ValueError, match="int8 or both bfloat16"):
+        i8_dot.dot_sum(a, torch.zeros((16, 24), dtype=torch.bfloat16,
+                                      device=cuda), 8, 1)
+
+
+@pytest.mark.parametrize("psz,edge", [(5, False), (8, False), (12, False),
+                                      (12, True)])
+def test_gn_stages_kernel_matches_plain(cuda, psz, edge):
+    """Every stage against the twin and every variant equal to A4, at
+    patch sizes of 1, 2 and 5 pixels a lane, 37 patches (a ragged last
+    block); with `edge` the anchors run past the plane's borders, where
+    the taps and the shared-memory window clamp."""
+    geom = bench_gn_stages.Geometry(psz, 40, 60, 37, 7, 2, 3,
+                                    40 - psz - 3)
+    x = bench_gn_stages.make_inputs(geom, 3, cuda)
+    if edge:
+        x["sx0"][:, ::2] += 30
+        x["sy0"][:, 1::3] -= 9
+    a4 = None
+    for _, stage, variant in bench_gn_stages.RUNS:
+        args = bench_gn_stages.call_args(x, geom, stage, variant)
+        out = gn_stages.gn_stages(*args)
+        ref = gn_stages._plain(*args)
+        err = float((out - ref).abs().max())
+        assert err <= 1e-6 * float(ref.abs().max()), (stage, variant, err)
+        if stage == "A4" and not variant:
+            a4 = out
+        assert not variant or torch.equal(out, a4), variant

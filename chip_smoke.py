@@ -14,7 +14,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      through the 20-parameter form, the unfused GN route; Sintel 1024x436
      padded to 1024x448): each kernel against its plain PyTorch twin on
      the card, on the inputs the path hands it (the whole batch), with
-     kernel / plain / library times and the bound the card could reach;
+     wrapper / plain / library times (CUDA events around back-to-back
+     calls) and the bound the card could reach; for the warp, the upscale
+     and the patch extraction also the device's own time of the kernel
+     and of the library call (CUDA graphs of 20 calls on rotated copies
+     of the inputs, `device_ms`), apart from the host's;
      on paths A, E and F every GN level is also timed on both fused
      routes (templates gathered by plain torch plus `gn_fused`, against
      `gn_tiled`), the measurement behind `patch_solver.TILED_MIN_PATCHES`;
@@ -222,8 +226,8 @@ TOL = {
     # px: as tv_of_inner, one unknown
     "tv_de_inner": 1e-4,
     "tv_de_inner_single": 1e-4,
-    # 0-255 scale: the same four-term float32 lerp; a few ulps at 255
-    "warp": 1e-4,
+    # the twin's float32 operations in its order, no contraction: equal
+    "warp": 0.0,
     # px: two taps against the matrix product's sum over every input
     # column, float32 rounding of ~20 px values
     "upscale": 1e-4,
@@ -262,6 +266,47 @@ def cuda_ms(fn, reps: int, inner: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_ms(fn, args, reps: int = 20) -> float:
+    """The device's own time per call of fn(*args), apart from the host's:
+    `reps` calls captured in one CUDA graph, the graph replayed between two
+    CUDA events, the median of 5 replays after a first. The calls rotate
+    over copies of the tensors in `args`, enough to hold twice the L2 (at
+    most `reps`), so inputs of more than 1/`reps` of that reach the kernel
+    from HBM, as its bound assumes; smaller ones stay in the L2. The time
+    includes the graph's gap between two kernels.
+
+    `cuda_ms` times the wrapper: when the host takes longer to launch
+    than the card to run, its events measure the host."""
+    size = sum(a.numel() * a.element_size() for a in args
+               if torch.is_tensor(a))
+    l2 = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).L2_cache_size
+    n = max(1, min(reps, -(-2 * l2 // max(size, 1))))
+    copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a
+                             for a in args) for _ in range(n - 1)]
+    # warm up (caches, lazily bound entries) outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*copies[i % n])
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -466,9 +511,9 @@ def check_gn(name, args, kernel_fn):
         shape=f"B{b} N{n} D{d} nop{nop} planes {c}x{hp}x{wp}",
         max_abs_err=err, pweight_rel_err=pw_err, iters=int(it_k),
         twin_pairs=b, trips=n_trips,
-        kernel_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
+        wrapper_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
         plain_ms=cuda_ms(lambda: twin(*args), 2, 1),
-        library_ms=None, bound=bound(nbytes, flops))
+        library_wrapper_ms=None, bound=bound(nbytes, flops))
 
 
 def check_routes(label, spec, params, im_b, src, p_init):
@@ -524,8 +569,12 @@ def check_extract(args, kernel_fn):
     gx = (base[:, None, :, 0] + ii[None, :, None]) * (2.0 / (wp - 1)) - 1.0
     gy = (base[:, None, :, 1] + jj[None, :, None]) * (2.0 / (hp - 1)) - 1.0
     grid = torch.stack([gx, gy], dim=-1)
-    lib = lambda: F.grid_sample(im, grid, mode="bilinear",  # noqa: E731
-                                padding_mode="border", align_corners=True)
+
+    def lib_call(planes, g):
+        return F.grid_sample(planes, g, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lib = lambda: lib_call(im, grid)  # noqa: E731
     lib_diff = float((lib().permute(0, 2, 1, 3).reshape(b, d, n)
                       - o_p).abs().max()) if c == 1 else None
     # planes and positions read once, the patches written once; per element
@@ -535,9 +584,12 @@ def check_extract(args, kernel_fn):
     return dict(
         shape=f"B{b} N{n} D{d} planes {c}x{hp}x{wp}", max_abs_err=err,
         library_max_abs_diff=lib_diff,
-        kernel_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
+        wrapper_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
         plain_ms=cuda_ms(lambda: patch_solver.extract_bilinear(*args), 2, 1),
-        library_ms=cuda_ms(lib, 5, 10), bound=bound(nbytes, flops))
+        library_wrapper_ms=cuda_ms(lib, 5, 10),
+        device_ms=device_ms(kernel_fn, args),
+        library_device_ms=device_ms(lib_call, (im, grid)),
+        bound=bound(nbytes, flops))
 
 
 def tv_flops_per_px(name, n_solver, colour, noc):
@@ -580,8 +632,8 @@ def check_tv(name, args, kw, kernel_fn):
     return dict(
         shape=f"B{b} C{noc} {h}x{w} n_inner {kw['n_inner']}",
         max_abs_err=err,
-        kernel_ms=cuda_ms(lambda: kernel_fn(*args, **kw), 5, 10),
-        plain_ms=cuda_ms(plain, 2, 1), library_ms=None,
+        wrapper_ms=cuda_ms(lambda: kernel_fn(*args, **kw), 5, 10),
+        plain_ms=cuda_ms(plain, 2, 1), library_wrapper_ms=None,
         bound=bound(nbytes, flops))
 
 
@@ -601,17 +653,24 @@ def check_warp(args, kernel_fn):
     gx = torch.arange(w, dtype=torch.float32, device=src.device)[None, :]
     grid = torch.stack([(gx + wx) * (2.0 / (w - 1)) - 1.0,
                         (gy + wy) * (2.0 / (h - 1)) - 1.0], dim=-1)
-    lib = lambda: F.grid_sample(src, grid, mode="bilinear",  # noqa: E731
-                                padding_mode="border", align_corners=True)
+
+    def lib_call(planes, g):
+        return F.grid_sample(planes, g, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lib = lambda: lib_call(src, grid)  # noqa: E731
     lib_diff = float((lib() - o_p).abs().max())
     nbytes = 4 * b * h * w * (2 * c + 3)
     flops = b * h * w * (10 + 13 * c)
     return dict(
         shape=f"B{b} C{c} {h}x{w}", max_abs_err=err,
         library_max_abs_diff=lib_diff,
-        kernel_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
+        wrapper_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
         plain_ms=cuda_ms(lambda: tv.warp_image(*args), 5, 5),
-        library_ms=cuda_ms(lib, 5, 10), bound=bound(nbytes, flops))
+        library_wrapper_ms=cuda_ms(lib, 5, 10),
+        device_ms=device_ms(kernel_fn, args),
+        library_device_ms=device_ms(lib_call, (src, grid)),
+        bound=bound(nbytes, flops))
 
 
 def check_upscale(args, kernel_fn):
@@ -626,17 +685,24 @@ def check_upscale(args, kernel_fn):
     # library yardstick: one bilinear interpolate of the pre-scaled planar
     # flow (half-pixel centres, edge clamp = INTER_LINEAR)
     f_cf = (flow * float(2 ** sc_l)).movedim(-1, 1).contiguous()
-    lib = lambda: F.interpolate(f_cf, size=(out_h, out_w),  # noqa: E731
-                                mode="bilinear", align_corners=False)
+
+    def lib_call(planar):
+        return F.interpolate(planar, size=(out_h, out_w), mode="bilinear",
+                             align_corners=False)
+
+    lib = lambda: lib_call(f_cf)  # noqa: E731
     lib_diff = float((lib().movedim(1, -1) - o_p).abs().max())
     nbytes = 4 * nop * (b * h * w + b * out_h * out_w) + 16 * (out_h + out_w)
     flops = 6.0 * nop * b * out_h * out_w
     return dict(
         shape=f"B{b} {h}x{w}x{nop} -> {out_h}x{out_w}",
         max_abs_err=err, library_max_abs_diff=lib_diff,
-        kernel_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
+        wrapper_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
         plain_ms=cuda_ms(lambda: dis.upscale_output(*args), 5, 5),
-        library_ms=cuda_ms(lib, 5, 10), bound=bound(nbytes, flops))
+        library_wrapper_ms=cuda_ms(lib, 5, 10),
+        device_ms=device_ms(kernel_fn, args),
+        library_device_ms=device_ms(lib_call, (f_cf,)),
+        bound=bound(nbytes, flops))
 
 
 def profile_call(label, fn, wall_s: float, top: int = 12) -> None:
@@ -859,7 +925,9 @@ def run_path(cfg, dev, rows, totals):
     # per kernel, summed over its calls in this path's run
     print(json.dumps({"path": label, "kernel_ms": {
         name: {key: sum(r[key] for r in rs[first[name]:])
-               for key in ("kernel_ms", "plain_ms", "bound_ms")}
+               for key in ("wrapper_ms", "device_ms", "library_wrapper_ms",
+                           "library_device_ms", "plain_ms", "bound_ms")
+               if rs[-1].get(key) is not None}
         for name, rs in rows.items() if len(rs) > first[name]}}), flush=True)
     return tv_calls[-1], params.sc_l
 
@@ -1033,13 +1101,13 @@ def run_i8_dot(dev, rows, totals):
         nbytes = esize * (m * k + reps * n * k) + 4 * grid * m * n
         r = dict(shape=f"{label} ({m}, {k}) @ ({k}, {n}) x {reps} reps x "
                  f"{grid}", max_abs_err=err, library_max_abs_diff=lib_diff,
-                 kernel_ms=cuda_ms(lambda: i8_dot.dot_sum(a, bt, n, grid),
+                 wrapper_ms=cuda_ms(lambda: i8_dot.dot_sum(a, bt, n, grid),
                                    5, 3),
                  plain_ms=cuda_ms(lambda: i8_dot._plain(a, bt, n, grid), 3,
                                   1),
-                 library_ms=cuda_ms(lib, 5, 1))
-        r["tops"] = ops / r["kernel_ms"] / 1e9
-        r["library_tops"] = ops / r["library_ms"] / 1e9
+                 library_wrapper_ms=cuda_ms(lib, 5, 1))
+        r["tops"] = ops / r["wrapper_ms"] / 1e9
+        r["library_tops"] = ops / r["library_wrapper_ms"] / 1e9
         b_ms, by_ms, op_ms = bound(nbytes, ops, peak)
         r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
         rows["i8_dot"].append(r)
@@ -1082,7 +1150,7 @@ def run_gn_stages(dev, rows, totals):
     if not all(r["equal_a4"] for res in results.values() for r in res
                if r["variant"]):
         raise AssertionError("gn_stages: a variant differs from A4")
-    k6_l0 = [r["kernel_ms"] for r in rows["gn_tiled"]
+    k6_l0 = [r["wrapper_ms"] for r in rows["gn_tiled"]
              if r["shape"].startswith("B4 N51300 ")]
     for gname in results:
         geom = bench_gn_stages.GEOMETRIES[gname]
@@ -1111,11 +1179,11 @@ def run_gn_stages(dev, rows, totals):
             r = dict(shape=f"{gname} {label} B{b} N{n} psz{psz} "
                      f"trips{geom.max_iter}", max_abs_err=err,
                      max_abs_checksum=scale,
-                     kernel_ms=cuda_ms(lambda: gn_stages.gn_stages(*args), 5,
+                     wrapper_ms=cuda_ms(lambda: gn_stages.gn_stages(*args), 5,
                                        3),
                      plain_ms=cuda_ms(lambda: gn_stages._plain(*args), 1, 1),
-                     library_ms=None)
-            r["us_per_pair"] = r["kernel_ms"] * 1e3 / b
+                     library_wrapper_ms=None)
+            r["us_per_pair"] = r["wrapper_ms"] * 1e3 / b
             b_ms, by_ms, op_ms = bound(nbytes, gn_stages_flops(
                 stage, b, n, psz, geom.max_iter))
             r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
@@ -1174,13 +1242,19 @@ def main() -> int:
         if not rs or not totals.get(name):
             raise AssertionError(f"kernel {name} was launched on no path")
         k = KERNELS[name]
-        lib = [r["library_ms"] for r in rs]
+        lib = [r["library_wrapper_ms"] for r in rs]
+        dev = "device_ms" in rs[0]
         summary.append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"], "tpu_kernels": k["tpu_kernels"],
             "launches": totals[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": sum(r["kernel_ms"] for r in rs),
+            # the wrapper's CUDA-event time; where measured, the device's
+            # own time (`device_ms`) beside it, for the library call too
+            "ms": sum(r["wrapper_ms"] for r in rs),
+            "device_ms": (sum(r["device_ms"] for r in rs) if dev else None),
+            "library_device_ms": (sum(r["library_device_ms"] for r in rs)
+                                  if dev else None),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": ("bytes" if sum(r["bytes_ms"] for r in rs)

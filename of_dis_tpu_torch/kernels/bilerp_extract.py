@@ -21,13 +21,6 @@ _i, _p = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 3 + [_i] * 7 + [_p]
 
 
-def _fn():
-    fn = build.load(NAME).of_bilerp_extract
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def bilerp_extract(im: torch.Tensor, pts: torch.Tensor, psz: int,
                    pad: int) -> torch.Tensor:
     """Bilinear patches of `im` (B, C, Hp, Wp) padded level planes at the
@@ -52,7 +45,8 @@ def bilerp_extract(im: torch.Tensor, pts: torch.Tensor, psz: int,
     out = torch.empty((b, psz * psz * c, n), dtype=torch.float32,
                       device=im.device)
     p = build.ptr
-    err = _fn()(p(im), p(pts), p(out), b, c, hp, wp, n, psz, pad,
+    entry = build.entry(NAME, "of_bilerp_extract", _ARGTYPES)
+    err = entry(p(im), p(pts), p(out), b, c, hp, wp, n, psz, pad,
                 build.stream_handle(im.device))
     build.check(err, NAME)
     launches += 1

@@ -6,7 +6,8 @@ build takes seconds) and compiles on first use into
 hash covers the source, the shared headers (`csrc/*.cuh`) and the flags, so
 an edited source rebuilds.
 `build()` starts one nvcc per missing library, all at once, and waits for
-all of them. Nothing here runs at import time.
+all of them. `entry()` binds a kernel's C entry once, at its first launch,
+so that a launch costs one ctypes call. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -32,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# (kernel, symbol) -> the bound C entry, argtypes and restype set
+_entries: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def nvcc() -> str:
@@ -94,6 +97,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C entry `symbol` of kernel `name`, bound once: the library built
+    and loaded and the entry's argtypes and restype (int: a launch's
+    cudaError_t) set at the first call, the same function object returned
+    after. Called on the card only, never for CPU tensors."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn
+
+
 def check(err: int, name: str) -> None:
     """Raise if a kernel's C entry returned a cudaError_t other than 0."""
     if err != 0:
@@ -113,10 +130,15 @@ def check_tensor(kernel: str, what: str, t: torch.Tensor, shape,
                          f"expected {tuple(shape)}")
 
 
-def stream_handle(device) -> ctypes.c_void_p:
-    """The raw cudaStream_t of PyTorch's current stream on `device`."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_handle(device) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on `device`, as
+    the integer a `c_void_p` argument takes."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's device address, as the integer a `c_void_p` argument
+    takes."""
+    return t.data_ptr()

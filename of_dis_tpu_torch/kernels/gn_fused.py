@@ -19,13 +19,6 @@ _f, _i, _p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 10 + [_i] * 13 + [_f] * 8 + [_p]
 
 
-def _fn():
-    fn = build.load(NAME).of_gn_fused
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def gn_fused(spec, params, im_b: torch.Tensor, tpl, p_init_t: torch.Tensor,
              pt_ref_t: torch.Tensor):
     """Masked GN over every patch of one level, for flow (nop 2) or depth
@@ -61,7 +54,8 @@ def gn_fused(spec, params, im_b: torch.Tensor, tpl, p_init_t: torch.Tensor,
     pw_out = torch.empty((b, pix, n), dtype=torch.float32, device=im_b.device)
     iters = torch.zeros((1,), dtype=torch.int32, device=im_b.device)
     p = build.ptr
-    err = _fn()(p(im_b), p(tpl.tmpl), p(tpl.tdx), p(tpl.tdy), p(tpl.hes),
+    entry = build.entry(NAME, "of_gn_fused", _ARGTYPES)
+    err = entry(p(im_b), p(tpl.tmpl), p(tpl.tdx), p(tpl.tdy), p(tpl.hes),
                 p(p_init_t), p(pt_ref_t), p(p_out), p(pw_out), p(iters),
                 b, n, noc, hp, wp, psz, spec.pad, params.max_iter,
                 params.min_iter, params.costfct, params.patnorm, nop,

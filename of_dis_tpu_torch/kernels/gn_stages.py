@@ -29,13 +29,6 @@ _f, _i, _p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 7 + [_i] * 6 + [_f] + [_i] * 2 + [_p]
 
 
-def _fn():
-    fn = build.load(NAME).of_gn_stages
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def residuals(i: int):
     """(rx, ry, 1 - rx, 1 - ry) of trip i, rounded to float32 as the
     kernel computes them: rx = 0.5 - 0.001 i, ry = 0.25 + 0.001 i."""
@@ -157,7 +150,8 @@ def gn_stages(planes: torch.Tensor, tmpl: torch.Tensor, tdx: torch.Tensor,
         build.check_tensor(NAME, what, t, (b, n), torch.int32)
     out = torch.empty((b, n), dtype=torch.float32, device=planes.device)
     p = build.ptr
-    err = _fn()(p(planes), p(tmpl), p(tdx), p(tdy), p(sx0), p(sy0), p(out),
+    entry = build.entry(NAME, "of_gn_stages", _ARGTYPES)
+    err = entry(p(planes), p(tmpl), p(tdx), p(tdy), p(sx0), p(sy0), p(out),
                 b, n, hp, wp, psz, max_iter, scale, STAGES.index(stage),
                 VARIANTS.index(variant),
                 build.stream_handle(planes.device))

@@ -21,13 +21,6 @@ _ARGTYPES = [_p] * 3 + [_i] * 6 + [_p]
 ACC = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
 
 
-def _fn():
-    fn = build.load(NAME).of_i8_dot
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _plain(a: torch.Tensor, bt: torch.Tensor, n: int, grid: int
            ) -> torch.Tensor:
     """The twin: float64 products of the integer-valued operands, exact
@@ -63,7 +56,8 @@ def dot_sum(a: torch.Tensor, bt: torch.Tensor, n: int, grid: int
     build.check_tensor(NAME, "a", a, (m, k), a.dtype)
     build.check_tensor(NAME, "bt", bt, tuple(bt.shape), a.dtype)
     out = torch.empty((grid, m, n), dtype=ACC[a.dtype], device=a.device)
-    err = _fn()(build.ptr(a), build.ptr(bt), build.ptr(out), m, k, n,
+    entry = build.entry(NAME, "of_i8_dot", _ARGTYPES)
+    err = entry(build.ptr(a), build.ptr(bt), build.ptr(out), m, k, n,
                 bt.shape[0] // n, grid, int(a.dtype == torch.bfloat16),
                 build.stream_handle(a.device))
     build.check(err, NAME)

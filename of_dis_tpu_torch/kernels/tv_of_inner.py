@@ -23,13 +23,6 @@ _f, _i, _p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 7 + [_i] * 8 + [_f] * 5 + [_p]
 
 
-def _fn():
-    fn = build.load(NAME).of_tv_of_inner
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _plain(wx, wy, mask, deriv, **kw):
     """The twin on the wrapper's layout: deriv (B, 8, C, H, W)."""
     from of_dis_tpu_torch.ops.tv import _of_inner_loop
@@ -53,7 +46,8 @@ def _launch(wx, wy, mask, deriv, *, quarter_alpha, hd3, hg3, n_inner,
     scratch = torch.empty((b, N_SCRATCH, h, w), dtype=torch.float32,
                           device=wx.device)
     p = build.ptr
-    err = _fn()(p(wx), p(wy), p(mask), p(deriv), p(uu), p(vv), p(scratch),
+    entry = build.entry(NAME, "of_tv_of_inner", _ARGTYPES)
+    err = entry(p(wx), p(wy), p(mask), p(deriv), p(uu), p(vv), p(scratch),
                 b, noc, h, w, n_inner, n_solver, row_parity % 2,
                 int(bool(hd3)), quarter_alpha, hd3, hg3, omega, 1.0 - omega,
                 build.stream_handle(wx.device))

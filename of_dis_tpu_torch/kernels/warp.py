@@ -1,6 +1,6 @@
-"""K3: backward bilinear warp + in-bounds mask, one thread per pixel
-(csrc/warp.cu), replacing `warp_image_banded_pallas` and
-`_warp_coeffs_pallas` of the JAX package.
+"""K3: backward bilinear warp + in-bounds mask on a 3-D grid, one or (on
+large calls) four pixels of a row a thread (csrc/warp.cu), replacing
+`warp_image_banded_pallas` and `_warp_coeffs_pallas` of the JAX package.
 
 Plain twin: `ops.tv.warp_image`."""
 
@@ -14,15 +14,10 @@ from of_dis_tpu_torch.kernels import build
 
 NAME = "warp"
 launches = 0
+# the grid's z dimension holds the batch
+MAX_BATCH = 65535
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-
-def _fn():
-    fn = build.load(NAME).of_warp
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def warp_image_batched(src: torch.Tensor, wx: torch.Tensor,
@@ -34,14 +29,24 @@ def warp_image_batched(src: torch.Tensor, wx: torch.Tensor,
         from of_dis_tpu_torch.ops.tv import warp_image
         return warp_image(src, wx, wy)
     b, c, h, w = src.shape
+    if b > MAX_BATCH:
+        raise ValueError(f"{NAME}: batch {b} above {MAX_BATCH}")
     build.check_tensor(NAME, "src", src, (b, c, h, w))
     build.check_tensor(NAME, "wx", wx, (b, h, w))
     build.check_tensor(NAME, "wy", wy, (b, h, w))
     out = torch.empty_like(src)
     mask = torch.empty_like(wx)
     p = build.ptr
-    err = _fn()(p(src), p(wx), p(wy), p(out), p(mask), b, c, h, w,
+    entry = build.entry(NAME, "of_warp", _ARGTYPES)
+    err = entry(p(src), p(wx), p(wy), p(out), p(mask), b, c, h, w,
                 build.stream_handle(src.device))
     build.check(err, NAME)
     launches += 1
     return out, mask
+
+
+def vec_min_pixels() -> int:
+    """The fewest pixels (B H W) of a call on the current card that the
+    kernel runs 4 to a thread (with widths a multiple of 4 and aligned
+    fields): two full blocks on every SM, from csrc/warp.cu."""
+    return build.entry(NAME, "of_warp_vec_min_pixels", [])()

@@ -132,6 +132,117 @@ def test_kernel_wrappers_reject_cpu_kernel_launch_paths():
     assert not build._libs
 
 
+def _cpu_call(name):
+    """One call of kernel `name`'s wrapper on small CPU tensors, and the
+    output shape it must return."""
+    from of_dis_tpu_torch.kernels import (bilerp_extract, gn_fused,
+                                          gn_stages, gn_tiled, i8_dot,
+                                          tv_de_inner, tv_of_inner, upscale,
+                                          warp)
+    from of_dis_tpu_torch.ops import patch_solver, pyramid
+    from of_dis_tpu_torch.params import make_level_spec
+    from of_dis_tpu_torch.tools import bench_gn_stages
+    rng = np.random.default_rng(1)
+    f = torch.as_tensor(rng.standard_normal((2, 6, 10)), dtype=torch.float32)
+    tv_kw = dict(quarter_alpha=2.5, hd3=0.8, hg3=1.6, n_inner=1, n_solver=1,
+                 omega=1.6)
+    deriv = torch.as_tensor(rng.standard_normal((2, 8, 1, 6, 10)),
+                            dtype=torch.float32)
+    if name in ("gn_fused", "gn_tiled"):
+        p = op_point_params(64, 2)
+        spec = make_level_spec(0, 64, 32, p)
+        im = torch.as_tensor(rng.random((1, 1, 32, 64)) * 255,
+                             dtype=torch.float32)
+        ims, dxs, dys = pyramid.build_pyramid(im, 0, p.p_samp_s)
+        pt_ref = patch_solver.grid_ref_points(spec).T[None].contiguous()
+        p0 = torch.zeros((1, 2, spec.nopatches))
+        if name == "gn_fused":
+            tpl = patch_solver.extract_templates(spec, p, ims[0], dxs[0],
+                                                 dys[0])
+            out = gn_fused.gn_fused(spec, p, ims[0], tpl, p0, pt_ref)
+        else:
+            out = gn_tiled.gn_tiled(spec, p, ims[0], (ims[0], dxs[0], dys[0]),
+                                    p0, pt_ref)
+        return out[0], (1, 2, spec.nopatches)
+    if name == "bilerp_extract":
+        im = torch.as_tensor(rng.random((2, 1, 20, 24)), dtype=torch.float32)
+        pts = torch.as_tensor(rng.random((2, 5, 2)) * 8 + 4,
+                              dtype=torch.float32)
+        return bilerp_extract.bilerp_extract(im, pts, 4, 4), (2, 16, 5)
+    if name == "tv_of_inner":
+        return tv_of_inner.of_inner(f, f, f, deriv, **tv_kw)[0], (2, 6, 10)
+    if name == "tv_de_inner":
+        return (tv_de_inner.de_inner(f, f, deriv, camlr=0, **tv_kw),
+                (2, 6, 10))
+    if name == "warp":
+        return warp.warp_image_batched(f[:, None], f, f)[0], (2, 1, 6, 10)
+    if name == "upscale":
+        return (upscale.upscale_batched(f[..., None], 1, 12, 20),
+                (2, 12, 20, 1))
+    if name == "i8_dot":
+        a = torch.ones((16, 32), dtype=torch.int8)
+        bt = torch.ones((24, 32), dtype=torch.int8)
+        return i8_dot.dot_sum(a, bt, 8, 2), (2, 16, 8)
+    geom = bench_gn_stages.Geometry(5, 20, 30, 7, 2, 1, 2, 20 - 5 - 3)
+    x = bench_gn_stages.make_inputs(geom, 2, "cpu")
+    args = bench_gn_stages.call_args(x, geom, "A4")
+    return gn_stages.gn_stages(*args), (2, 7)
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_every_wrapper_takes_the_twin_on_cpu_and_binds_nothing(name):
+    """A CPU tensor runs the plain twin: the launch count stays, no library
+    is loaded and no C entry is bound."""
+    mod = importlib.import_module(f"of_dis_tpu_torch.kernels.{name}")
+    before = mod.launches
+    out, shape = _cpu_call(name)
+    assert tuple(out.shape) == shape and out.device.type == "cpu"
+    assert mod.launches == before
+    assert not build._libs and not build._entries
+
+
+def test_entry_binds_a_symbol_once(monkeypatch):
+    """build.entry loads the library and sets argtypes and restype at the
+    first call only, then hands back the same function object."""
+    import ctypes
+
+    class Lib:
+        def __init__(self):
+            self.of_k = lambda *args: 0
+
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return Lib()
+
+    monkeypatch.setattr(build, "load", load)
+    monkeypatch.setattr(build, "_entries", {})
+    argtypes = (ctypes.c_void_p, ctypes.c_int)
+    fn = build.entry("k", "of_k", argtypes)
+    assert build.entry("k", "of_k", argtypes) is fn
+    assert loads == ["k"]
+    assert fn.argtypes == list(argtypes) and fn.restype is ctypes.c_int
+    assert build._entries == {("k", "of_k"): fn}
+
+
+def test_upscale_tile_window_spans_every_tile():
+    """The window the wrapper hands the K4 kernel is the widest span of
+    input columns any tile of output columns reads, for the path's x8 and
+    x2 and for ragged widths."""
+    from of_dis_tpu_torch.kernels import upscale
+    for out_w, w in ((1024, 128), (1024, 512), (2398, 300), (26, 13),
+                     (1047, 131), (16, 8)):
+        i0, i1, _, _ = upscale.tap_tables(out_w, w)
+        for tile in (512, 1024):
+            spans = [int(i1[s:s + tile].max() - i0[s:s + tile].min()) + 1
+                     for s in range(0, out_w, tile)]
+            assert upscale.tile_window(i0, i1, tile) == max(spans)
+    # the x8 path's staged rows: a 512-pixel tile (nop 2) reads 64 input
+    # columns and the next one's first
+    assert upscale._window(1024, 128, 512) == 65
+
+
 def test_gn_tiled_cpu_tensors_take_the_twin_and_count_nothing():
     from of_dis_tpu_torch.kernels import gn_tiled
     from of_dis_tpu_torch.ops import patch_solver

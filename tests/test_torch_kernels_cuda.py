@@ -13,18 +13,22 @@ twin sums each patch in the kernel's order and 12 dependent trips amplify
 the rounding left (1e-3 px, pweight 1e-4 relative); the others repeat
 their twin's float32 formulas (1e-4). The single-pair TV entries launch
 the batched kernel with one block, so they equal row 0 of the batched
-result bit for bit. The dot microbenchmark's sums of small integers are
-exact in both types: equal to the twin. The GN stage ablation's twin sums
+result bit for bit. The warp repeats its twin's float32 operations in
+their order (no contraction): equal to it, error 0. The dot
+microbenchmark's sums of small integers are exact in both types: equal
+to the twin. The GN stage ablation's twin sums
 in the kernel's order (1e-6 of the largest checksum), and its variants
 equal its A4 stage bit for bit."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
-from of_dis_tpu_torch.kernels import (bilerp_extract, gn_fused, gn_stages,
+from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
+                                      gn_stages,
                                       gn_tiled, i8_dot, tv_de_inner,
                                       tv_of_inner, upscale, warp)
 from of_dis_tpu_torch.models import dis
@@ -318,6 +322,102 @@ def test_upscale_kernel_matches_plain(cuda, nop):
     o_k = upscale.upscale_batched(flow, 3, 56, 104)
     o_p = dis.upscale_output(flow, 3, 56, 104)
     assert float((o_k - o_p).abs().max()) <= 1e-4
+
+
+def _warp_batch(h, w, large):
+    """3 pairs, or (`large`) enough pixels for the kernel's 4-pixel route
+    on this card."""
+    return -(-warp.vec_min_pixels() // (h * w)) if large else 3
+
+
+# (w, h, large): every width at both heights with 3 pairs (one pixel a
+# thread), and a batch large enough for 4 pixels a thread at the widths
+# that are a multiple of 4 (the others stay at one pixel a thread)
+WARP_SHAPES = [(w, h, large) for w in (1, 3, 4, 5, 41, 128, 129)
+               for h in (1, 8) for large in (False, True)
+               if not large or (w % 4 == 0 and h * w >= 8)]
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("w,h,large", WARP_SHAPES)
+def test_warp_kernel_equals_plain_on_ragged_widths(cuda, w, h, large, c):
+    """One pixel a thread (small calls, ragged widths) and 4 on the vector
+    route, with flows far outside the frame both ways: equal to the twin,
+    masks equal."""
+    b = _warp_batch(h, w, large)
+    assert b <= warp.MAX_BATCH
+    rng = np.random.default_rng(w * 100 + h * 10 + c)
+    src = torch.as_tensor(rng.random((b, c, h, w)) * 255,
+                          dtype=torch.float32, device=cuda)
+    wx, wy = (torch.as_tensor(rng.standard_normal((b, h, w)) * 6,
+                              dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    wx[0, :, ::2] = 1e6
+    wx[1, :, 1::3] = -1e6
+    wy[2, :, ::3] = 1e6
+    wy[1, -1, :] = -1e6
+    o_k, m_k = warp.warp_image_batched(src, wx, wy)
+    o_p, m_p = tv.warp_image(src, wx, wy)
+    assert float((o_k - o_p).abs().max()) == 0.0
+    assert torch.equal(m_k, m_p)
+
+
+def test_warp_kernel_on_unaligned_tensors(cuda):
+    """Fields that start 4 bytes past a 16-byte boundary take one pixel a
+    thread at a width that is a multiple of 4 and a batch large enough
+    for four: equal to the twin."""
+    rng = np.random.default_rng(5)
+    c, h, w = 1, 6, 64
+    b = _warp_batch(h, w, True)
+    src = torch.as_tensor(rng.random((b, c, h, w)) * 255,
+                          dtype=torch.float32, device=cuda)
+
+    def field():
+        x = torch.empty(b * h * w + 1, device=cuda)[1:].view(b, h, w)
+        x.copy_(torch.as_tensor(rng.standard_normal((b, h, w)) * 4))
+        return x
+
+    wx, wy = field(), field()
+    assert wx.data_ptr() % 16 and wx.is_contiguous()
+    o_k, m_k = warp.warp_image_batched(src, wx, wy)
+    o_p, m_p = tv.warp_image(src, wx, wy)
+    assert torch.equal(o_k, o_p) and torch.equal(m_k, m_p)
+
+
+@pytest.mark.parametrize("nop", [1, 2])
+@pytest.mark.parametrize("sc_l", [1, 3])
+@pytest.mark.parametrize("h,w,out_h,out_w", [(7, 13, 14, 26),
+                                             (5, 131, 40, 1047),
+                                             (3, 300, 9, 2398)])
+def test_upscale_kernel_ragged_widths(cuda, nop, sc_l, h, w, out_h, out_w):
+    """x2 and x8 value scales, output widths that are no multiple of 4
+    and span several tiles: within 1e-4 px of the twin."""
+    flow = torch.as_tensor(np.random.default_rng(h * w).standard_normal(
+        (3, h, w, nop)), dtype=torch.float32, device=cuda)
+    before = upscale.launches
+    o_k = upscale.upscale_batched(flow, sc_l, out_h, out_w)
+    assert upscale.launches == before + 1
+    o_p = dis.upscale_output(flow, sc_l, out_h, out_w)
+    assert o_k.shape == (3, out_h, out_w, nop)
+    assert float((o_k - o_p).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["gn_fused", "gn_tiled", "bilerp_extract",
+                                  "tv_of_inner", "tv_de_inner", "warp",
+                                  "upscale", "i8_dot", "gn_stages"])
+def test_each_entry_is_bound_once(cuda, name):
+    """Every wrapper's C entry is bound once: asked for twice, and around
+    two launches of the warp and the upscale, it is the same object."""
+    mod = importlib.import_module(f"of_dis_tpu_torch.kernels.{name}")
+    fn = build.entry(name, f"of_{name}", mod._ARGTYPES)
+    assert build.entry(name, f"of_{name}", mod._ARGTYPES) is fn
+    assert fn.restype is not None and len(fn.argtypes) == len(mod._ARGTYPES)
+    src = torch.ones((1, 1, 4, 8), device=cuda)
+    f = torch.zeros((1, 4, 8), device=cuda)
+    for _ in range(2):
+        warp.warp_image_batched(src, f, f)
+        upscale.upscale_batched(f[..., None], 1, 8, 16)
+    assert build._entries[(name, f"of_{name}")] is fn
 
 
 @pytest.mark.parametrize("nop,noc", [(2, 1), (2, 3), (1, 1), (1, 3)])

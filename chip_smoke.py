@@ -15,13 +15,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      padded to 1024x448): each kernel against its plain PyTorch twin on
      the card, on the inputs the path hands it (the whole batch), with
      wrapper / plain / library times (CUDA events around back-to-back
-     calls) and the bound the card could reach; for the warp, the upscale
-     and the patch extraction also the device's own time of the kernel
-     and of the library call (CUDA graphs of 20 calls on rotated copies
-     of the inputs, `device_ms`), apart from the host's;
+     calls) and the bound the card could reach; for every kernel of the
+     path also the device's own time (CUDA graphs of 20 calls on rotated
+     copies of the inputs, `device_ms`), apart from the host's, and for
+     the warp, the upscale and the patch extraction the library call's;
      on paths A, E and F every GN level is also timed on both fused
      routes (templates gathered by plain torch plus `gn_fused`, against
-     `gn_tiled`), the measurement behind `patch_solver.TILED_MIN_PATCHES`;
+     `gn_tiled`), the measurement behind `patch_solver.TILED_MIN_PATCHES`,
+     with the patches where the two routes end furthest apart;
   4. per path, end to end: `dis_flow_batched`, launch counts of every
      kernel (asserted), the result against the known synthetic field and
      against the plain path, pairs/s, one profile with the busy share; the
@@ -269,24 +270,44 @@ def cuda_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
+def _nbytes(a) -> int:
+    """Bytes of the tensors in `a`, through tuples (and named tuples)."""
+    if torch.is_tensor(a):
+        return a.numel() * a.element_size()
+    if isinstance(a, tuple):
+        return sum(_nbytes(x) for x in a)
+    return 0
+
+
+def _copy(a):
+    """`a` with every tensor in it cloned, through tuples (and named
+    tuples); anything else as it is."""
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, tuple):
+        items = [_copy(x) for x in a]
+        return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
+    return a
+
+
 def device_ms(fn, args, reps: int = 20) -> float:
     """The device's own time per call of fn(*args), apart from the host's:
     `reps` calls captured in one CUDA graph, the graph replayed between two
     CUDA events, the median of 5 replays after a first. The calls rotate
-    over copies of the tensors in `args`, enough to hold twice the L2 (at
-    most `reps`), so inputs of more than 1/`reps` of that reach the kernel
-    from HBM, as its bound assumes; smaller ones stay in the L2. The time
-    includes the graph's gap between two kernels.
+    over copies of the tensors in `args` (also those inside tuples), enough
+    to hold twice the L2 (at most `reps`), so inputs of more than 1/`reps`
+    of that reach the kernel from HBM, as its bound assumes; smaller ones
+    stay in the L2. The time includes the graph's gap between two kernels
+    and, where the wrapper allocates and zeroes an output on the device,
+    that kernel too (K1 and K6: a one-int fill).
 
     `cuda_ms` times the wrapper: when the host takes longer to launch
     than the card to run, its events measure the host."""
-    size = sum(a.numel() * a.element_size() for a in args
-               if torch.is_tensor(a))
+    size = _nbytes(tuple(args))
     l2 = torch.cuda.get_device_properties(
         torch.cuda.current_device()).L2_cache_size
     n = max(1, min(reps, -(-2 * l2 // max(size, 1))))
-    copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a
-                             for a in args) for _ in range(n - 1)]
+    copies = [args] + [tuple(_copy(a) for a in args) for _ in range(n - 1)]
     # warm up (caches, lazily bound entries) outside the capture
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -513,14 +534,17 @@ def check_gn(name, args, kernel_fn):
         twin_pairs=b, trips=n_trips,
         wrapper_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
         plain_ms=cuda_ms(lambda: twin(*args), 2, 1),
-        library_wrapper_ms=None, bound=bound(nbytes, flops))
+        library_wrapper_ms=None, device_ms=device_ms(kernel_fn, args),
+        library_device_ms=None, bound=bound(nbytes, flops))
 
 
 def check_routes(label, spec, params, im_b, src, p_init):
     """One GN level on both fused routes, for the routing rule
     (`patch_solver.uses_tiled`): templates gathered into device memory by
     plain torch and then `gn_fused`, against `gn_tiled` on the source
-    planes. Prints the two times and how far their results lie apart."""
+    planes. Prints the two times and how far their results lie apart; where
+    that is more than 1e-3 px, the three patches furthest apart, with the
+    trips each route's twin ran for them."""
     pt_ref_t = patch_solver.grid_ref_points(spec, im_b.device).T[None] \
         .contiguous()
     p_init_t = p_init.transpose(1, 2).contiguous()
@@ -532,7 +556,26 @@ def check_routes(label, spec, params, im_b, src, p_init):
     def tiled_route():
         return gn_tiled.gn_tiled(spec, params, im_b, src, p_init_t, pt_ref_t)
 
-    diff = float((fused_route()[0] - tiled_route()[0]).abs().max())
+    p_f, p_t = fused_route()[0], tiled_route()[0]
+    apart = (p_f - p_t).abs().amax(dim=1)                 # (B, N)
+    diff = float(apart.max())
+    worst = []
+    if diff > 1e-3:
+        tpl = patch_solver.extract_templates(spec, params, *src)
+        trips_f = patch_solver._gn_plain(spec, params, im_b, tpl, p_init_t,
+                                         pt_ref_t)[3]
+        trips_t = patch_solver._gn_tiled_plain(spec, params, im_b, src,
+                                               p_init_t, pt_ref_t)[3]
+        for flat in torch.topk(apart.flatten(), min(3, apart.numel())
+                               ).indices.tolist():
+            b, n = divmod(flat, apart.shape[1])
+            worst.append({
+                "pair": b, "patch": n, "ref": pt_ref_t[0, :, n].tolist(),
+                "p_init": p_init_t[b, :, n].tolist(),
+                "p_fused": p_f[b, :, n].tolist(),
+                "p_tiled": p_t[b, :, n].tolist(),
+                "trips_fused_twin": int(trips_f[b, n]),
+                "trips_tiled_twin": int(trips_t[b, n])})
     print(json.dumps({
         "path": label, "routes_level": spec.level, "grid": spec.camlr,
         "patches": spec.nopatches, "batch": im_b.shape[0],
@@ -540,7 +583,9 @@ def check_routes(label, spec, params, im_b, src, p_init):
         "uses_tiled": patch_solver.uses_tiled(spec),
         "fused_route_ms": cuda_ms(fused_route, 3, 2),
         "tiled_route_ms": cuda_ms(tiled_route, 3, 2),
-        "routes_max_abs_diff": diff}), flush=True)
+        "routes_max_abs_diff": diff,
+        "patches_over_1e-3": int((apart > 1e-3).sum()),
+        "furthest_apart": worst}), flush=True)
 
 
 def check_extract(args, kernel_fn):
@@ -634,7 +679,8 @@ def check_tv(name, args, kw, kernel_fn):
         max_abs_err=err,
         wrapper_ms=cuda_ms(lambda: kernel_fn(*args, **kw), 5, 10),
         plain_ms=cuda_ms(plain, 2, 1), library_wrapper_ms=None,
-        bound=bound(nbytes, flops))
+        device_ms=device_ms(lambda *a: kernel_fn(*a, **kw), args),
+        library_device_ms=None, bound=bound(nbytes, flops))
 
 
 def check_warp(args, kernel_fn):
@@ -1150,7 +1196,7 @@ def run_gn_stages(dev, rows, totals):
     if not all(r["equal_a4"] for res in results.values() for r in res
                if r["variant"]):
         raise AssertionError("gn_stages: a variant differs from A4")
-    k6_l0 = [r["wrapper_ms"] for r in rows["gn_tiled"]
+    k6_l0 = [(r["wrapper_ms"], r["device_ms"]) for r in rows["gn_tiled"]
              if r["shape"].startswith("B4 N51300 ")]
     for gname in results:
         geom = bench_gn_stages.GEOMETRIES[gname]
@@ -1194,8 +1240,9 @@ def run_gn_stages(dev, rows, totals):
                   flush=True)
         if gname == "op4-l0" and k6_l0:
             print(f"gn_tiled (K6) at level 0 of path F, the same 51,300 "
-                  f"patches x 4 pairs and 128 trips: {k6_l0[0]:.3f} ms = "
-                  f"{k6_l0[0] * 1e3 / 4:.1f} us per pair", flush=True)
+                  f"patches x 4 pairs and 128 trips: wrapper "
+                  f"{k6_l0[0][0]:.3f} ms = {k6_l0[0][0] * 1e3 / 4:.1f} us per "
+                  f"pair, device {k6_l0[0][1]:.3f} ms", flush=True)
 
 
 # -------------------------------------------------------------------- main
@@ -1243,7 +1290,8 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was launched on no path")
         k = KERNELS[name]
         lib = [r["library_wrapper_ms"] for r in rs]
-        dev = "device_ms" in rs[0]
+        dev = [r.get("device_ms") for r in rs]
+        lib_dev = [r.get("library_device_ms") for r in rs]
         summary.append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"], "tpu_kernels": k["tpu_kernels"],
@@ -1252,9 +1300,8 @@ def main() -> int:
             # the wrapper's CUDA-event time; where measured, the device's
             # own time (`device_ms`) beside it, for the library call too
             "ms": sum(r["wrapper_ms"] for r in rs),
-            "device_ms": (sum(r["device_ms"] for r in rs) if dev else None),
-            "library_device_ms": (sum(r["library_device_ms"] for r in rs)
-                                  if dev else None),
+            "device_ms": None if None in dev else sum(dev),
+            "library_device_ms": None if None in lib_dev else sum(lib_dev),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": ("bytes" if sum(r["bytes_ms"] for r in rs)

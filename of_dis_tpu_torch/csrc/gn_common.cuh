@@ -1,8 +1,10 @@
-// Device functions shared by the two Gauss-Newton kernels, K1
-// (gn_fused.cu, templates read from global memory) and K6 (gn_tiled.cu,
-// templates built in the kernel), and by their per-stage ablation T2
-// (gn_stages.cu), which times `taps` and `lerp` as the kernels run them.
-// One warp owns one patch; lane l holds the pixels l + 32k of the patch,
+// Device functions shared by the Gauss-Newton kernels, K1 (gn_fused.cu,
+// templates read from global memory) and K6 (gn_tiled.cu, templates built
+// in the kernel), and by the per-stage ablation T2 (gn_stages.cu), which
+// times `taps` and `lerp` as K1 runs them. K6 takes the arguments, the
+// loss and the bounds test from here and keeps its own extraction (lanes
+// on window columns). In `warp_sum`, `taps`, `lerp` and `extract` one
+// warp owns one patch; lane l holds the pixels l + 32k of the patch,
 // k < K, with all C channels of each.
 
 #pragma once

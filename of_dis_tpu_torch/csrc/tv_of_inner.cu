@@ -8,31 +8,66 @@
 //
 // Bound on an H100: per pair the loop touches 5 + 8 C (H, W) float fields once
 // from device memory and does a few hundred flops per pixel per inner
-// iteration; at DIS level sizes (at most 56x128 at op-2) both the byte and
+// iteration; at DIS level sizes (up to 1024x448 at op-4) both the byte and
 // the flop bound are microseconds. What bounds it is the chain of
 // dependent stages: every stage needs its neighbours' results of the stage
-// before, and every SOR colour needs the other colour's fresh values.
+// before, and every SOR colour needs the other colour's fresh values, so
+// each inner iteration is 1 + 2 n_solver passes over the scratch, each
+// behind a barrier; at op-4's level 0 the scratch of four pairs (66 MB)
+// outgrows the 50 MB L2, and the passes stream it from device memory.
 //
-// Design: one thread block per frame pair runs the whole loop; stages are
-// separated by __syncthreads(), so no grid-wide barrier is needed at any
-// level size. Fields live in a global scratch (B, 10, H, W) that the caller
-// allocates (it stays in L1/L2). SOR updates du, then dv from the fresh du,
-// in place per colour: every 4-neighbour of a red pixel is black, so the
-// in-place sweep is race-free. Colour = (y + x + row_parity) % 2. up_w,
-// left_w, wsum and omega/(a + wsum) are hoisted per inner iteration as in
-// sor_coupled_rb. At batch 64 the grid has 64 blocks — fewer than the 132
-// SMs; filling the card is later work. The channel count C is a template
-// parameter: C = 1 compiles the gray data term unchanged, C = 3 the RGB
-// one with the reference's two quirks (see data_rgb).
+// Design: one launch per level, on one of two routes chosen by the
+// caller from the level's shape (kernels/tv_of_inner.py:
+// BLOCK_MAX_PIXELS, with the crossover measured on the H100):
+// - the cooperative route (the rule from 1,024 pixels a pair on) fills
+//   the card: the grid is as many 256-thread blocks as the device holds at
+//   once (the occupancy of the instance times the SM count, read once per
+//   device, no more than the pixels need), every pass grid-strides over the
+//   B*H*W pixels of all pairs, and cooperative_groups' grid sync separates
+//   the passes, so a 1024x448 level of four pairs spreads over every SM,
+//   not four;
+// - the block route (smaller pairs) keeps a pair on one 1,024-thread block,
+//   passes separated by __syncthreads(): a grid-wide barrier costs more
+//   than a pass over a few hundred pixels.
+// Each inner iteration is 1 + 2 n_solver passes behind barriers. The first
+// pass does what three did: the TV diffusivity (taken at the pixel and
+// its four neighbours, so that the edge weights of the pixel and of its
+// left and upper neighbours need no pass of their own), the edge weights,
+// the robust data term, the sub-laplacian and the SOR terms hoisted out of
+// the sweeps (omega / (a + wsum)); the first inner iteration reads the
+// flow as uu / vv and du = dv = 0 and clears du, dv. Then the red-black
+// SOR colours; the last one also writes uu = wx + du, vv = wy + dv of both
+// colours. Every stage reads only what the barrier before it published.
+// The per-pixel arithmetic is the twin's (ops/tv.py::_of_inner_loop,
+// --fmad=false), so the kernel equals it bit for bit on either route.
+// Fields live in a global scratch (9, B, H, W), field by field over all
+// pairs, that the caller allocates: a field of pixel idx (flat over B*H*W)
+// is at field * B*H*W + idx, its 4-neighbours at idx +-1 and idx +-W of
+// the same pair. SOR updates du, then dv from the fresh du, in place per
+// colour: every 4-neighbour of a red pixel is black, so the in-place sweep
+// is race-free. Colour = (y + x + row_parity) % 2. The channel count C is
+// a template parameter: C = 1 compiles the gray data term unchanged, C = 3
+// the RGB one with the reference's two quirks (see data_rgb). Flat indices
+// are 32-bit while every array's index fits and 64-bit beyond (kWide). A
+// cooperative launch that the device refuses returns its error; there is
+// no fallback.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kDataNorm = 0.010000000000000002f;   // 0.1^2
 constexpr float kEps = 1e-6f;                         // 0.001^2
-constexpr int kFields = 10;
-constexpr int kThreads = 1024;
+constexpr int kFields = 9;
+constexpr int kCoopThreads = 256;    // threads a block, cooperative route
+constexpr int kBlockThreads = 1024;  // threads a block (a pair), block route
+constexpr int kMaxDevices = 64;
 
 struct TVArgs {
   int H, W, n_inner, n_solver, row_parity, use_color;
@@ -104,147 +139,187 @@ __device__ __forceinline__ void data_rgb(const float* I, int HW, int i,
   }
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    tv_of_inner_kernel(const float* wx_all, const float* wy_all,
-                       const float* mask_all, const float* deriv_all,
-                       float* uu_all, float* vv_all, float* scratch,
-                       TVArgs a) {
-  const int H = a.H, W = a.W, HW = H * W;
-  const size_t b = blockIdx.x;
-  const float* wx = wx_all + b * HW;
-  const float* wy = wy_all + b * HW;
-  const float* mask = mask_all + b * HW;
-  const float* I = deriv_all + b * 8 * C * HW;
-  float* uu = uu_all + b * HW;
-  float* vv = vv_all + b * HW;
-  float* S = scratch + b * kFields * HW;
-  float* du = S;
-  float* dv = S + HW;
-  float* sm = S + 2 * HW;
-  float* wh = S + 3 * HW;
-  float* wv = S + 4 * HW;
-  float* om11 = S + 5 * HW;   // a11 until stage 3, then omega/(a11+wsum)
-  float* a12 = S + 6 * HW;
-  float* om22 = S + 7 * HW;   // a22 until stage 3, then omega/(a22+wsum)
-  float* b1 = S + 8 * HW;
-  float* b2 = S + 9 * HW;
-
-  for (int i = threadIdx.x; i < HW; i += blockDim.x) {
-    du[i] = 0.0f;
-    dv[i] = 0.0f;
-    uu[i] = wx[i];
-    vv[i] = wy[i];
+template <bool kCoop>
+__device__ __forceinline__ void barrier() {
+  if constexpr (kCoop) {
+    cg::this_grid().sync();
+  } else {
+    __syncthreads();
   }
-  __syncthreads();
+}
 
+// TV diffusivity at (y, x) of the pair whose pixel (0, 0) is at `base`
+// (compute_smoothness, opticalflow_aux.c:138-187): 3-tap central
+// differences with replicate borders.
+template <typename Index>
+__device__ __forceinline__ float smoothness(const float* uu, const float* vv,
+                                            Index base, int y, int x,
+                                            const TVArgs& a) {
+  const int W = a.W;
+  const int xl = max(x - 1, 0), xr = min(x + 1, W - 1);
+  const int yu = max(y - 1, 0), yd = min(y + 1, a.H - 1);
+  const Index row = base + static_cast<Index>(y) * W;
+  const Index up = base + static_cast<Index>(yu) * W + x;
+  const Index down = base + static_cast<Index>(yd) * W + x;
+  const float ux = 0.5f * (uu[row + xr] - uu[row + xl]);
+  const float uy = 0.5f * (uu[down] - uu[up]);
+  const float vx = 0.5f * (vv[row + xr] - vv[row + xl]);
+  const float vy = 0.5f * (vv[down] - vv[up]);
+  return a.quarter_alpha /
+         sqrtf(kEps + ux * ux + uy * uy + vx * vx + vy * vy);
+}
+
+// The data term at pixel p of a pair (compute_data, opticalflow_aux.c:
+// 408-594): gray with the x3 system scaling, RGB in data_rgb.
+template <int C>
+__device__ __forceinline__ void data_term(const float* I, int HW, int p,
+                                          float m, float u, float v,
+                                          const TVArgs& a, float& A11,
+                                          float& A12, float& A22, float& B1,
+                                          float& B2) {
+  if constexpr (C == 1) {
+    const float ix = I[p], iy = I[HW + p], iz = I[2 * HW + p];
+    const float ixx = I[3 * HW + p], ixy = I[4 * HW + p];
+    const float iyy = I[5 * HW + p], ixz = I[6 * HW + p];
+    const float iyz = I[7 * HW + p];
+    A11 = A12 = A22 = B1 = B2 = 0.0f;
+    if (a.use_color) {
+      const float t2 = iz + ix * u + iy * v;
+      const float n1 = kDataNorm + ix * ix + iy * iy;
+      const float tsum = t2 * t2 / n1;
+      const float t = m * a.hd3 / sqrtf(kEps + 3.0f * tsum);
+      const float t3 = t / n1;
+      const float tx = t3 * ix, ty = t3 * iy;
+      A11 = A11 + tx * ix;
+      A12 = A12 + tx * iy;
+      A22 = A22 + ty * iy;
+      B1 = B1 - tx * iz;
+      B2 = B2 - ty * iz;
+    }
+    const float t2 = ixz + ixx * u + ixy * v;
+    const float t3 = iyz + ixy * u + iyy * v;
+    const float xy2 = ixy * ixy;
+    const float n1 = xy2 + kDataNorm + ixx * ixx;
+    const float n2 = xy2 + kDataNorm + iyy * iyy;
+    const float tsum = t2 * t2 / n1 + t3 * t3 / n2;
+    const float t = m * a.hg3 / sqrtf(kEps + 3.0f * tsum);
+    const float tn2 = t / n2, tn1 = t / n1;
+    A12 = A12 + (tn1 * ixx + tn2 * iyy) * ixy;
+    B1 = B1 - tn1 * ixx * ixz - tn2 * ixy * iyz;
+    B2 = B2 - tn2 * iyy * iyz - tn1 * ixy * ixz;
+    A11 = A11 + tn1 * ixx * ixx + tn2 * xy2;
+    A22 = A22 + tn2 * iyy * iyy + tn1 * xy2;
+    A11 = 3.0f * A11;
+    A12 = 3.0f * A12;
+    A22 = 3.0f * A22;
+    B1 = 3.0f * B1;
+    B2 = 3.0f * B2;
+  } else {
+    data_rgb(I, HW, p, m, u, v, a, A11, A12, A22, B1, B2);
+  }
+}
+
+// The fixed-point loop over the pixels [begin, end) (step `step`) of the
+// flat (B, H, W) fields: all pairs on the cooperative route, one pair on
+// the block route. `total` = B*H*W sizes the scratch's fields.
+template <int C, bool kCoop, typename Index>
+__device__ __forceinline__ void run_loop(
+    const float* __restrict__ wx, const float* __restrict__ wy,
+    const float* __restrict__ mask, const float* __restrict__ deriv,
+    float* uu, float* vv, float* scratch, Index total, Index begin,
+    Index end, Index step, const TVArgs& a) {
+  const int H = a.H, W = a.W, HW = H * W;
+  float* du = scratch;
+  float* dv = scratch + total;
+  float* wh = scratch + 2 * total;
+  float* wv = scratch + 3 * total;
+  float* om11 = scratch + 4 * total;  // omega / (a11 + wsum)
+  float* a12 = scratch + 5 * total;
+  float* om22 = scratch + 6 * total;  // omega / (a22 + wsum)
+  float* b1 = scratch + 7 * total;
+  float* b2 = scratch + 8 * total;
+
+  if (a.n_inner == 0) {
+    for (Index i = begin; i < end; i += step) {
+      uu[i] = wx[i];
+      vv[i] = wy[i];
+    }
+  }
   for (int inner = 0; inner < a.n_inner; ++inner) {
-    // 1. TV diffusivity (compute_smoothness, opticalflow_aux.c:138-187):
-    //    3-tap central differences with replicate borders
-    for (int i = threadIdx.x; i < HW; i += blockDim.x) {
-      const int y = i / W, x = i - (i / W) * W;
-      const int xl = max(x - 1, 0), xr = min(x + 1, W - 1);
-      const int yu = max(y - 1, 0), yd = min(y + 1, H - 1);
-      const float ux = 0.5f * (uu[y * W + xr] - uu[y * W + xl]);
-      const float uy = 0.5f * (uu[yd * W + x] - uu[yu * W + x]);
-      const float vx = 0.5f * (vv[y * W + xr] - vv[y * W + xl]);
-      const float vy = 0.5f * (vv[yd * W + x] - vv[yu * W + x]);
-      sm[i] = a.quarter_alpha /
-              sqrtf(kEps + ux * ux + uy * uy + vx * vx + vy * vy);
-    }
-    __syncthreads();
-
-    // 2. edge weights + data term (compute_data, opticalflow_aux.c:
-    //    408-594; gray with the x3 system scaling, RGB in data_rgb)
-    for (int i = threadIdx.x; i < HW; i += blockDim.x) {
-      const int y = i / W, x = i - (i / W) * W;
-      wh[i] = x < W - 1 ? sm[i] + sm[i + 1] : 0.0f;
-      wv[i] = y < H - 1 ? sm[i] + sm[i + W] : 0.0f;
-      const float m = mask[i], u = du[i], v = dv[i];
-      if constexpr (C == 1) {
-        const float ix = I[i], iy = I[HW + i], iz = I[2 * HW + i];
-        const float ixx = I[3 * HW + i], ixy = I[4 * HW + i];
-        const float iyy = I[5 * HW + i], ixz = I[6 * HW + i];
-        const float iyz = I[7 * HW + i];
-        float A11 = 0.0f, A12 = 0.0f, A22 = 0.0f, B1 = 0.0f, B2 = 0.0f;
-        if (a.use_color) {
-          const float t2 = iz + ix * u + iy * v;
-          const float n1 = kDataNorm + ix * ix + iy * iy;
-          const float tsum = t2 * t2 / n1;
-          const float t = m * a.hd3 / sqrtf(kEps + 3.0f * tsum);
-          const float t3 = t / n1;
-          const float tx = t3 * ix, ty = t3 * iy;
-          A11 = A11 + tx * ix;
-          A12 = A12 + tx * iy;
-          A22 = A22 + ty * iy;
-          B1 = B1 - tx * iz;
-          B2 = B2 - ty * iz;
-        }
-        const float t2 = ixz + ixx * u + ixy * v;
-        const float t3 = iyz + ixy * u + iyy * v;
-        const float xy2 = ixy * ixy;
-        const float n1 = xy2 + kDataNorm + ixx * ixx;
-        const float n2 = xy2 + kDataNorm + iyy * iyy;
-        const float tsum = t2 * t2 / n1 + t3 * t3 / n2;
-        const float t = m * a.hg3 / sqrtf(kEps + 3.0f * tsum);
-        const float tn2 = t / n2, tn1 = t / n1;
-        A12 = A12 + (tn1 * ixx + tn2 * iyy) * ixy;
-        B1 = B1 - tn1 * ixx * ixz - tn2 * ixy * iyz;
-        B2 = B2 - tn2 * iyy * iyz - tn1 * ixy * ixz;
-        A11 = A11 + tn1 * ixx * ixx + tn2 * xy2;
-        A22 = A22 + tn2 * iyy * iyy + tn1 * xy2;
-        om11[i] = 3.0f * A11;
-        a12[i] = 3.0f * A12;
-        om22[i] = 3.0f * A22;
-        b1[i] = 3.0f * B1;
-        b2[i] = 3.0f * B2;
+    // the flow so far: uu = wx + du (the first iteration: wx, du = 0)
+    const float* su = inner == 0 ? wx : uu;
+    const float* sv = inner == 0 ? wy : vv;
+    // 1. diffusivity, edge weights, data term, sub_laplacian
+    //    (opticalflow_aux.c:138-223, 408-594), hoisted SOR terms
+    for (Index i = begin; i < end; i += step) {
+      const Index b = i / HW;
+      const int p = static_cast<int>(i - b * HW);
+      const int y = p / W, x = p - (p / W) * W;
+      const Index base = b * HW;
+      const float sc = smoothness(su, sv, base, y, x, a);
+      const float wh_i =
+          x < W - 1 ? sc + smoothness(su, sv, base, y, x + 1, a) : 0.0f;
+      const float wv_i =
+          y < H - 1 ? sc + smoothness(su, sv, base, y + 1, x, a) : 0.0f;
+      const float whl =
+          x > 0 ? smoothness(su, sv, base, y, x - 1, a) + sc : 0.0f;
+      const float wvu =
+          y > 0 ? smoothness(su, sv, base, y - 1, x, a) + sc : 0.0f;
+      float u = 0.0f, v = 0.0f;
+      if (inner == 0) {
+        du[i] = 0.0f;
+        dv[i] = 0.0f;
       } else {
-        float A11, A12, A22, B1, B2;
-        data_rgb(I, HW, i, m, u, v, a, A11, A12, A22, B1, B2);
-        om11[i] = A11;
-        a12[i] = A12;
-        om22[i] = A22;
-        b1[i] = B1;
-        b2[i] = B2;
+        u = du[i];
+        v = dv[i];
       }
-    }
-    __syncthreads();
-
-    // 3. b += div(w grad(w_xy)) (sub_laplacian, opticalflow_aux.c:194-223)
-    //    and the SOR terms hoisted out of the sweeps
-    for (int i = threadIdx.x; i < HW; i += blockDim.x) {
-      const int y = i / W, x = i - (i / W) * W;
-      const float whl = x > 0 ? wh[i - 1] : 0.0f;
-      const float wvu = y > 0 ? wv[i - W] : 0.0f;
+      float A11, A12, A22, B1, B2;
+      data_term<C>(deriv + b * 8 * C * HW, HW, p, mask[i], u, v, a, A11,
+                   A12, A22, B1, B2);
+      // b += div(w grad(w_xy)) (sub_laplacian, opticalflow_aux.c:194-223)
       const float* src[2] = {wx, wy};
-      float* bb[2] = {b1, b2};
+      float bb[2] = {B1, B2};
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const float* f = src[c];
         const float fr = x < W - 1 ? f[i + 1] : 0.0f;
         const float fd = y < H - 1 ? f[i + W] : 0.0f;
-        const float th = wh[i] * (fr - f[i]);
+        const float th = wh_i * (fr - f[i]);
         const float thl = x > 0 ? whl * (f[i] - f[i - 1]) : 0.0f;
-        const float tv = wv[i] * (fd - f[i]);
+        const float tv = wv_i * (fd - f[i]);
         const float tvu = y > 0 ? wvu * (f[i] - f[i - W]) : 0.0f;
-        float r = bb[c][i];
+        float r = bb[c];
         r = r + th - thl;
         r = r + tv - tvu;
-        bb[c][i] = r;
+        bb[c] = r;
       }
-      const float wsum = wvu + whl + wv[i] + wh[i];
-      om11[i] = a.omega / (om11[i] + wsum);
-      om22[i] = a.omega / (om22[i] + wsum);
+      const float wsum = wvu + whl + wv_i + wh_i;
+      wh[i] = wh_i;
+      wv[i] = wv_i;
+      om11[i] = a.omega / (A11 + wsum);
+      a12[i] = A12;
+      om22[i] = a.omega / (A22 + wsum);
+      b1[i] = bb[0];
+      b2[i] = bb[1];
     }
-    __syncthreads();
+    barrier<kCoop>();
 
-    // 4. coupled red-black SOR (sor_coupled_rb; solver.c:34-78 order
-    //    within a pixel: du, then dv from the fresh du)
+    // 2. coupled red-black SOR (sor_coupled_rb; solver.c:34-78 order
+    //    within a pixel: du, then dv from the fresh du); the last colour of
+    //    the last sweep writes uu, vv of every pixel
     for (int it = 0; it < a.n_solver; ++it) {
       for (int colour = 0; colour < 2; ++colour) {
-        for (int i = threadIdx.x; i < HW; i += blockDim.x) {
-          const int y = i / W, x = i - (i / W) * W;
-          if (((y + x + a.row_parity) & 1) != colour) continue;
+        const bool last = it == a.n_solver - 1 && colour == 1;
+        for (Index i = begin; i < end; i += step) {
+          const int p = static_cast<int>(i % HW);
+          const int y = p / W, x = p - (p / W) * W;
+          if (((y + x + a.row_parity) & 1) != colour) {
+            if (last) {
+              uu[i] = wx[i] + du[i];
+              vv[i] = wy[i] + dv[i];
+            }
+            continue;
+          }
           const float upw = y > 0 ? wv[i - W] : 0.0f;
           const float lfw = x > 0 ? wh[i - 1] : 0.0f;
           const float duu = y > 0 ? du[i - W] : 0.0f;
@@ -264,24 +339,125 @@ __global__ void __launch_bounds__(kThreads)
           const float v1 = a.one_minus_omega * v0 + om22[i] * (b2n - c12 * u1);
           du[i] = u1;
           dv[i] = v1;
+          if (last) {
+            uu[i] = wx[i] + u1;
+            vv[i] = wy[i] + v1;
+          }
         }
-        __syncthreads();
+        if (!(last && inner == a.n_inner - 1)) barrier<kCoop>();
       }
     }
-
-    for (int i = threadIdx.x; i < HW; i += blockDim.x) {
-      uu[i] = wx[i] + du[i];
-      vv[i] = wy[i] + dv[i];
+    if (a.n_solver == 0) {
+      for (Index i = begin; i < end; i += step) {
+        uu[i] = wx[i] + du[i];
+        vv[i] = wy[i] + dv[i];
+      }
+      if (inner < a.n_inner - 1) barrier<kCoop>();
     }
-    __syncthreads();
   }
+}
+
+// Cooperative route: the grid strides over all pixels of all pairs.
+template <int C, bool kWide>
+__global__ void __launch_bounds__(kCoopThreads)
+    tv_of_inner_coop(const float* __restrict__ wx,
+                     const float* __restrict__ wy,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ deriv, float* uu, float* vv,
+                     float* scratch, int B, TVArgs a) {
+  using Index = typename std::conditional<kWide, long long, int>::type;
+  const Index total = static_cast<Index>(B) * a.H * a.W;
+  const Index first =
+      static_cast<Index>(blockIdx.x) * kCoopThreads + threadIdx.x;
+  const Index stride = static_cast<Index>(gridDim.x) * kCoopThreads;
+  run_loop<C, true, Index>(wx, wy, mask, deriv, uu, vv, scratch, total,
+                           first, total, stride, a);
+}
+
+// Block route: block b runs pairs b, b + gridDim.x, ... alone.
+template <int C, bool kWide>
+__global__ void __launch_bounds__(kBlockThreads)
+    tv_of_inner_block(const float* __restrict__ wx,
+                      const float* __restrict__ wy,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ deriv, float* uu, float* vv,
+                      float* scratch, int B, TVArgs a) {
+  using Index = typename std::conditional<kWide, long long, int>::type;
+  const Index HW = static_cast<Index>(a.H) * a.W;
+  const Index total = static_cast<Index>(B) * HW;
+  for (Index b = blockIdx.x; b < B; b += gridDim.x) {
+    run_loop<C, false, Index>(wx, wy, mask, deriv, uu, vv, scratch, total,
+                              b * HW + threadIdx.x, (b + 1) * HW,
+                              static_cast<Index>(kBlockThreads), a);
+    __syncthreads();  // the next pair's first pass reuses no field
+  }
+}
+
+template <int C, bool kWide>
+cudaError_t launch(const float* wx, const float* wy, const float* mask,
+                   const float* deriv, float* uu, float* vv, float* scratch,
+                   int B, bool cooperative, const TVArgs& a, cudaStream_t s) {
+  if (!cooperative) {
+    tv_of_inner_block<C, kWide><<<static_cast<unsigned>(B), kBlockThreads, 0,
+                                  s>>>(wx, wy, mask, deriv, uu, vv, scratch,
+                                       B, a);
+    return cudaGetLastError();
+  }
+  auto kernel = tv_of_inner_coop<C, kWide>;
+  // blocks the device holds at once, read once per device
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int blocks = dev < kMaxDevices ? resident[dev] : 0;
+  if (blocks == 0) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kCoopThreads, 0);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    blocks = per_sm * sms;
+    if (dev < kMaxDevices) resident[dev] = blocks;
+  }
+  const long long total = static_cast<long long>(B) * a.H * a.W;
+  const long long need = (total + kCoopThreads - 1) / kCoopThreads;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(std::min<long long>(blocks, need)));
+  cfg.blockDim = dim3(kCoopThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, wx, wy, mask, deriv, uu, vv, scratch,
+                         B, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t dispatch(const float* wx, const float* wy, const float* mask,
+                     const float* deriv, float* uu, float* vv, float* scratch,
+                     int B, bool cooperative, const TVArgs& a,
+                     cudaStream_t s) {
+  // the largest flat index, of the scratch (9 fields) or the derivatives
+  // (8 C), must fit 31 bits
+  if (std::max<long long>(kFields, 8LL * C) * B * a.H * a.W < (1LL << 31))
+    return launch<C, false>(wx, wy, mask, deriv, uu, vv, scratch, B,
+                            cooperative, a, s);
+  return launch<C, true>(wx, wy, mask, deriv, uu, vv, scratch, B,
+                         cooperative, a, s);
 }
 
 }  // namespace
 
 // C entry (bound with ctypes). wx, wy, mask (B,H,W); deriv (B,8,C,H,W) in
 // the order ix, iy, iz, ixx, ixy, iyy, ixz, iyz, C = 1 or 3; outputs uu, vv
-// (B,H,W); scratch (B,10,H,W). Returns the launch's cudaError_t.
+// (B,H,W); scratch (9,B,H,W); cooperative 1 for the cooperative route, 0
+// for the block route. Returns the launch's cudaError_t.
 extern "C" int of_tv_of_inner(const float* wx, const float* wy,
                               const float* mask, const float* deriv,
                               float* uu, float* vv, float* scratch, int B,
@@ -289,19 +465,18 @@ extern "C" int of_tv_of_inner(const float* wx, const float* wy,
                               int row_parity, int use_color,
                               float quarter_alpha, float hd3, float hg3,
                               float omega, float one_minus_omega,
-                              void* stream) {
-  if (B == 0) return 0;
+                              int cooperative, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return 0;
   TVArgs a{H,     W,   n_inner, n_solver, row_parity,      use_color,
            quarter_alpha, hd3, hg3,     omega,    one_minus_omega};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 1) {
-    tv_of_inner_kernel<1><<<B, kThreads, 0, s>>>(wx, wy, mask, deriv, uu, vv,
-                                                 scratch, a);
-  } else if (C == 3) {
-    tv_of_inner_kernel<3><<<B, kThreads, 0, s>>>(wx, wy, mask, deriv, uu, vv,
-                                                 scratch, a);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (C == 1)
+    return static_cast<int>(
+        dispatch<1>(wx, wy, mask, deriv, uu, vv, scratch, B,
+                    cooperative != 0, a, s));
+  if (C == 3)
+    return static_cast<int>(
+        dispatch<3>(wx, wy, mask, deriv, uu, vv, scratch, B,
+                    cooperative != 0, a, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,7 +13,8 @@
 //   the vertical weights), so the sum is the matrix product's, term for
 //   term: ga*(fa*a + fb*b) + gb*(fa*c + fb*d).
 // - A 3-D grid (x tiles, bands of kRows output rows, batch), with no
-//   integer division. A tile is kTile floats of one output row (512 pixels
+//   integer division; a call of more than 65,535 pairs (z's limit)
+//   launches once for each chunk of as many. A tile is kTile floats of one output row (512 pixels
 //   at nop 2, 1,024 at nop 1); each of the 256 threads owns one 16-byte
 //   vector of it (4/nop pixels x nop channels) in every row of the band.
 // - A thread's column taps are loaded once and stay in registers over the
@@ -31,6 +32,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -39,6 +41,7 @@ constexpr int kThreads = 256;
 constexpr int kVec = 4;                   // floats a thread writes a row
 constexpr int kTile = kThreads * kVec;    // floats of a row a block writes
 constexpr int kRows = 8;                  // output rows a block
+constexpr int kMaxGridZ = 65535;          // the grid's z: pairs a launch
 
 // NOP consecutive floats of a staged row, as one load where they fit one
 template <int NOP>
@@ -147,12 +150,21 @@ cudaError_t launch(const float* in, const int* ty0, const int* ty1,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const bool aligned = (reinterpret_cast<std::uintptr_t>(out) & 15) == 0;
-  const dim3 grid((W + kTile / NOP - 1) / (kTile / NOP),
-                  (H + kRows - 1) / kRows, B);
-  kernel<<<grid, kThreads, smem, s>>>(in, ty0, ty1, wy0, wy1, tx0, tx1, wx0,
-                                      wx1, out, h, w, H, W, stage, aligned);
-  return cudaGetLastError();
+  // chunks of at most kMaxGridZ pairs, each its own launch
+  for (int b0 = 0; b0 < B; b0 += kMaxGridZ) {
+    const float* in_c = in + static_cast<long long>(b0) * h * w * NOP;
+    float* out_c = out + static_cast<long long>(b0) * H * W * NOP;
+    const bool aligned =
+        (reinterpret_cast<std::uintptr_t>(out_c) & 15) == 0;
+    const dim3 grid((W + kTile / NOP - 1) / (kTile / NOP),
+                    (H + kRows - 1) / kRows, std::min(B - b0, kMaxGridZ));
+    kernel<<<grid, kThreads, smem, s>>>(in_c, ty0, ty1, wy0, wy1, tx0, tx1,
+                                        wx0, wx1, out_c, h, w, H, W, stage,
+                                        aligned);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace

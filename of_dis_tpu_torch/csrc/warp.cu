@@ -16,7 +16,8 @@
 //   blockIdx / threadIdx, with no integer division. A block covers a 2-D
 //   tile of up to 128 x 8 pixels (32 x 8 at one pixel a thread; narrow
 //   levels: fewer columns, more rows), so the corner rows its threads
-//   gather share L1 lines. The batch is the grid's z: at most 65,535.
+//   gather share L1 lines. The batch is the grid's z; a call of more than
+//   65,535 pairs (z's limit) launches once for each chunk of as many.
 // - On large calls with widths that are a multiple of 4 (and 16-byte
 //   aligned fields) each thread owns 4 consecutive pixels of a row: one
 //   16-byte load each of wx and wy, one 16-byte store of the mask and of
@@ -34,6 +35,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -128,15 +130,27 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
+constexpr int kMaxDevices = 64;
+constexpr int kMaxGridZ = 65535;
+
+// The current device's SM count, read once per device.
+int sm_count() {
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < kMaxDevices && cached[dev] > 0) return cached[dev];
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < kMaxDevices) cached[dev] = sms;
+  return sms;
+}
+
 }  // namespace
 
 // The fewest pixels (B*H*W) of a call that take 4 pixels a thread: two full
 // blocks of them on every SM of the current device.
 extern "C" int of_warp_vec_min_pixels() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return 2 * sms * kThreads * 4;
+  return 2 * sm_count() * kThreads * 4;
 }
 
 // C entry (bound with ctypes). src/out (B,C,H,W); wx, wy, mask (B,H,W).
@@ -158,12 +172,23 @@ extern "C" int of_warp(const float* src, const float* wx, const float* wy,
   int by = 1;
   while (by < H && by < kThreads / bx) by *= 2;
   const dim3 block(bx, by);
-  const dim3 grid((groups + bx - 1) / bx, (H + by - 1) / by, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    warp_kernel<4><<<grid, block, 0, s>>>(src, wx, wy, out, mask, C, H, W);
-  } else {
-    warp_kernel<1><<<grid, block, 0, s>>>(src, wx, wy, out, mask, C, H, W);
+  const long long hw = static_cast<long long>(H) * W;
+  // chunks of at most kMaxGridZ pairs; a chunk's offset keeps the 16-byte
+  // alignment of the vector route (W % 4 == 0)
+  for (int b0 = 0; b0 < B; b0 += kMaxGridZ) {
+    const dim3 grid((groups + bx - 1) / bx, (H + by - 1) / by,
+                    std::min(B - b0, kMaxGridZ));
+    const long long f = b0 * hw, p = f * C;
+    if (vec) {
+      warp_kernel<4><<<grid, block, 0, s>>>(src + p, wx + f, wy + f, out + p,
+                                            mask + f, C, H, W);
+    } else {
+      warp_kernel<1><<<grid, block, 0, s>>>(src + p, wx + f, wy + f, out + p,
+                                            mask + f, C, H, W);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }

@@ -45,9 +45,7 @@ def bilerp_extract(im: torch.Tensor, pts: torch.Tensor, psz: int,
     out = torch.empty((b, psz * psz * c, n), dtype=torch.float32,
                       device=im.device)
     p = build.ptr
-    entry = build.entry(NAME, "of_bilerp_extract", _ARGTYPES)
-    err = entry(p(im), p(pts), p(out), b, c, hp, wp, n, psz, pad,
-                build.stream_handle(im.device))
-    build.check(err, NAME)
+    build.launch(im.device, NAME, "of_bilerp_extract", _ARGTYPES, p(im),
+                 p(pts), p(out), b, c, hp, wp, n, psz, pad)
     launches += 1
     return out

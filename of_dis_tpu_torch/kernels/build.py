@@ -7,7 +7,12 @@ hash covers the source, the shared headers (`csrc/*.cuh`) and the flags, so
 an edited source rebuilds.
 `build()` starts one nvcc per missing library, all at once, and waits for
 all of them. `entry()` binds a kernel's C entry once, at its first launch,
-so that a launch costs one ctypes call. Nothing here runs at import time.
+so that a launch costs one ctypes call. The wrappers call an entry only
+through `launch()` (a kernel, on the current stream of the tensor's device,
+the error checked) or `query()` (a number the library reads from the
+device): both make the tensor's device the current one around the call,
+so a kernel and any per-device query in C run on that device whichever
+device the calling thread had current. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -136,6 +141,26 @@ def stream_handle(device) -> int:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(device, name: str, symbol: str, argtypes: Sequence, *args
+           ) -> None:
+    """Launch kernel `name` through its C entry `symbol` on `device`:
+    `device` made current around the call, that device's current stream
+    passed after `args`, and the returned cudaError_t checked."""
+    fn = entry(name, symbol, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, stream_handle(device))
+    check(err, name)
+
+
+def query(device, name: str, symbol: str) -> int:
+    """The int that the C entry `symbol()` of kernel `name` returns with
+    `device` current (a property the library reads from the device, or a
+    constant of the kernel)."""
+    fn = entry(name, symbol, [])
+    with torch.cuda.device(device):
+        return fn()
 
 
 def ptr(t) -> int:

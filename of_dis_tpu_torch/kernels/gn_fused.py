@@ -54,15 +54,13 @@ def gn_fused(spec, params, im_b: torch.Tensor, tpl, p_init_t: torch.Tensor,
     pw_out = torch.empty((b, pix, n), dtype=torch.float32, device=im_b.device)
     iters = torch.zeros((1,), dtype=torch.int32, device=im_b.device)
     p = build.ptr
-    entry = build.entry(NAME, "of_gn_fused", _ARGTYPES)
-    err = entry(p(im_b), p(tpl.tmpl), p(tpl.tdx), p(tpl.tdy), p(tpl.hes),
-                p(p_init_t), p(pt_ref_t), p(p_out), p(pw_out), p(iters),
-                b, n, noc, hp, wp, psz, spec.pad, params.max_iter,
-                params.min_iter, params.costfct, params.patnorm, nop,
-                spec.camlr, spec.tmp_lb, spec.tmp_ubw, spec.tmp_ubh,
-                params.outlierthresh, params.res_thresh, params.dp_thresh_sq,
-                params.dr_thresh, float(params.novals),
-                build.stream_handle(im_b.device))
-    build.check(err, NAME)
+    build.launch(im_b.device, NAME, "of_gn_fused", _ARGTYPES, p(im_b),
+                 p(tpl.tmpl), p(tpl.tdx), p(tpl.tdy), p(tpl.hes), p(p_init_t),
+                 p(pt_ref_t), p(p_out), p(pw_out), p(iters), b, n, noc, hp,
+                 wp, psz, spec.pad, params.max_iter, params.min_iter,
+                 params.costfct, params.patnorm, nop, spec.camlr,
+                 spec.tmp_lb, spec.tmp_ubw, spec.tmp_ubh,
+                 params.outlierthresh, params.res_thresh,
+                 params.dp_thresh_sq, params.dr_thresh, float(params.novals))
     launches += 1
     return p_out, pw_out, iters.reshape(())

@@ -150,12 +150,10 @@ def gn_stages(planes: torch.Tensor, tmpl: torch.Tensor, tdx: torch.Tensor,
         build.check_tensor(NAME, what, t, (b, n), torch.int32)
     out = torch.empty((b, n), dtype=torch.float32, device=planes.device)
     p = build.ptr
-    entry = build.entry(NAME, "of_gn_stages", _ARGTYPES)
-    err = entry(p(planes), p(tmpl), p(tdx), p(tdy), p(sx0), p(sy0), p(out),
-                b, n, hp, wp, psz, max_iter, scale, STAGES.index(stage),
-                VARIANTS.index(variant),
-                build.stream_handle(planes.device))
-    build.check(err, NAME)
+    build.launch(planes.device, NAME, "of_gn_stages", _ARGTYPES, p(planes),
+                 p(tmpl), p(tdx), p(tdy), p(sx0), p(sy0), p(out), b, n, hp,
+                 wp, psz, max_iter, scale, STAGES.index(stage),
+                 VARIANTS.index(variant))
     launches += 1
     return out
 

@@ -1,8 +1,10 @@
 """K6: the Gauss-Newton loop of a large level as one CUDA kernel that builds
-its templates itself (csrc/gn_tiled.cu), flow or depth, gray or RGB,
-replacing `_gn_tiled_pallas` of the JAX package.
+its templates itself, lanes on the columns of a patch's window and several
+patches a warp (csrc/gn_tiled.cu), flow or depth, gray or RGB, replacing
+`_gn_tiled_pallas` of the JAX package.
 
-Plain twin: `ops.patch_solver._gn_tiled_plain`."""
+Plain twin: `ops.patch_solver._gn_tiled_plain` (patch sums in the
+kernel's order, `_column_sum`)."""
 
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ def gn_tiled(spec, params, im_b: torch.Tensor, src, p_init_t: torch.Tensor,
         raise ValueError(f"{NAME}: noc must be 1 or 3 and nop 1 or 2, got "
                          f"noc={noc}, nop={nop}")
     pix = psz * psz
-    if pix > 32 * 5:
+    if psz > 12:
         raise ValueError(f"{NAME}: patch size {psz} above 12 unsupported")
     b, _, hp, wp = im_b.shape
     n = pt_ref_t.shape[-1]
@@ -57,15 +59,12 @@ def gn_tiled(spec, params, im_b: torch.Tensor, src, p_init_t: torch.Tensor,
     pw_out = torch.empty((b, pix, n), dtype=torch.float32, device=im_b.device)
     iters = torch.zeros((1,), dtype=torch.int32, device=im_b.device)
     p = build.ptr
-    entry = build.entry(NAME, "of_gn_tiled", _ARGTYPES)
-    err = entry(p(im_b), p(src[0]), p(src[1]), p(src[2]), p(p_init_t),
-                p(pt_ref_t), p(p_out), p(pw_out), p(iters),
-                b, n, noc, hp, wp, psz, spec.pad, params.max_iter,
-                params.min_iter, params.costfct, params.patnorm, nop,
-                spec.camlr, spec.tmp_lb, spec.tmp_ubw, spec.tmp_ubh,
-                params.outlierthresh, params.res_thresh, params.dp_thresh_sq,
-                params.dr_thresh, float(params.novals),
-                build.stream_handle(im_b.device))
-    build.check(err, NAME)
+    build.launch(im_b.device, NAME, "of_gn_tiled", _ARGTYPES, p(im_b),
+                 p(src[0]), p(src[1]), p(src[2]), p(p_init_t), p(pt_ref_t),
+                 p(p_out), p(pw_out), p(iters), b, n, noc, hp, wp, psz,
+                 spec.pad, params.max_iter, params.min_iter, params.costfct,
+                 params.patnorm, nop, spec.camlr, spec.tmp_lb, spec.tmp_ubw,
+                 spec.tmp_ubh, params.outlierthresh, params.res_thresh,
+                 params.dp_thresh_sq, params.dr_thresh, float(params.novals))
     launches += 1
     return p_out, pw_out, iters.reshape(())

@@ -56,10 +56,8 @@ def dot_sum(a: torch.Tensor, bt: torch.Tensor, n: int, grid: int
     build.check_tensor(NAME, "a", a, (m, k), a.dtype)
     build.check_tensor(NAME, "bt", bt, tuple(bt.shape), a.dtype)
     out = torch.empty((grid, m, n), dtype=ACC[a.dtype], device=a.device)
-    entry = build.entry(NAME, "of_i8_dot", _ARGTYPES)
-    err = entry(build.ptr(a), build.ptr(bt), build.ptr(out), m, k, n,
-                bt.shape[0] // n, grid, int(a.dtype == torch.bfloat16),
-                build.stream_handle(a.device))
-    build.check(err, NAME)
+    build.launch(a.device, NAME, "of_i8_dot", _ARGTYPES, build.ptr(a),
+                 build.ptr(bt), build.ptr(out), m, k, n, bt.shape[0] // n,
+                 grid, int(a.dtype == torch.bfloat16))
     launches += 1
     return out

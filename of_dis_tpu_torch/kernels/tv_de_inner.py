@@ -48,12 +48,10 @@ def _launch(wx, mask, deriv, *, camlr, quarter_alpha, hd3, hg3, n_inner,
     scratch = torch.empty((b, N_SCRATCH, h, w), dtype=torch.float32,
                           device=wx.device)
     p = build.ptr
-    entry = build.entry(NAME, "of_tv_de_inner", _ARGTYPES)
-    err = entry(p(wx), p(mask), p(deriv), p(uu), p(scratch),
-                b, noc, h, w, n_inner, n_solver, row_parity % 2,
-                int(bool(hd3)), camlr, quarter_alpha, hd3, hg3, omega,
-                1.0 - omega, build.stream_handle(wx.device))
-    build.check(err, NAME)
+    build.launch(wx.device, NAME, "of_tv_de_inner", _ARGTYPES, p(wx),
+                 p(mask), p(deriv), p(uu), p(scratch), b, noc, h, w, n_inner,
+                 n_solver, row_parity % 2, int(bool(hd3)), camlr,
+                 quarter_alpha, hd3, hg3, omega, 1.0 - omega)
     return uu
 
 

@@ -73,8 +73,6 @@ def upscale_batched(flow: torch.Tensor, sc_l: int, out_h: int,
     b, h, w, nop = flow.shape
     if nop not in (1, 2):
         raise ValueError(f"{NAME}: nop must be 1 or 2, got {nop}")
-    if b > 65535:
-        raise ValueError(f"{NAME}: batch {b} above 65535 (the grid's z)")
     build.check_tensor(NAME, "flow", flow, (b, h, w, nop))
     scale = float(2 ** sc_l)
     ty = _device_tables(out_h, h, scale, str(flow.device))
@@ -82,12 +80,10 @@ def upscale_batched(flow: torch.Tensor, sc_l: int, out_h: int,
     out = torch.empty((b, out_h, out_w, nop), dtype=torch.float32,
                       device=flow.device)
     # the kernel's tile: kTile floats of a row, kTile / nop pixels
-    tile = build.entry(NAME, "of_upscale_tile_floats", [])() // nop
+    tile = build.query(flow.device, NAME, "of_upscale_tile_floats") // nop
     p = build.ptr
-    entry = build.entry(NAME, "of_upscale", _ARGTYPES)
-    err = entry(p(flow), *(p(t) for t in ty), *(p(t) for t in tx), p(out),
-                b, h, w, out_h, out_w, nop, _window(out_w, w, tile),
-                build.stream_handle(flow.device))
-    build.check(err, NAME)
+    build.launch(flow.device, NAME, "of_upscale", _ARGTYPES, p(flow),
+                 *(p(t) for t in ty), *(p(t) for t in tx), p(out), b, h, w,
+                 out_h, out_w, nop, _window(out_w, w, tile))
     launches += 1
     return out

@@ -14,8 +14,6 @@ from of_dis_tpu_torch.kernels import build
 
 NAME = "warp"
 launches = 0
-# the grid's z dimension holds the batch
-MAX_BATCH = 65535
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -29,24 +27,20 @@ def warp_image_batched(src: torch.Tensor, wx: torch.Tensor,
         from of_dis_tpu_torch.ops.tv import warp_image
         return warp_image(src, wx, wy)
     b, c, h, w = src.shape
-    if b > MAX_BATCH:
-        raise ValueError(f"{NAME}: batch {b} above {MAX_BATCH}")
     build.check_tensor(NAME, "src", src, (b, c, h, w))
     build.check_tensor(NAME, "wx", wx, (b, h, w))
     build.check_tensor(NAME, "wy", wy, (b, h, w))
     out = torch.empty_like(src)
     mask = torch.empty_like(wx)
     p = build.ptr
-    entry = build.entry(NAME, "of_warp", _ARGTYPES)
-    err = entry(p(src), p(wx), p(wy), p(out), p(mask), b, c, h, w,
-                build.stream_handle(src.device))
-    build.check(err, NAME)
+    build.launch(src.device, NAME, "of_warp", _ARGTYPES, p(src), p(wx),
+                 p(wy), p(out), p(mask), b, c, h, w)
     launches += 1
     return out, mask
 
 
-def vec_min_pixels() -> int:
-    """The fewest pixels (B H W) of a call on the current card that the
-    kernel runs 4 to a thread (with widths a multiple of 4 and aligned
-    fields): two full blocks on every SM, from csrc/warp.cu."""
-    return build.entry(NAME, "of_warp_vec_min_pixels", [])()
+def vec_min_pixels(device) -> int:
+    """The fewest pixels (B H W) of a call on `device` that the kernel runs
+    4 to a thread (with widths a multiple of 4 and aligned fields): two
+    full blocks on every SM, from csrc/warp.cu."""
+    return build.query(device, NAME, "of_warp_vec_min_pixels")

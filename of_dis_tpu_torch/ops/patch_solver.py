@@ -39,6 +39,7 @@ template (the reference leaves it uninitialized).
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import NamedTuple, Tuple
 
@@ -259,6 +260,38 @@ def _lane_sum(x: torch.Tensor, noc: int = 1) -> torch.Tensor:
     return s[:, 0]
 
 
+def column_segment(psz: int) -> int:
+    """The lanes of one patch in the `gn_tiled` kernel: the smallest power
+    of two above psz (lane i holds column i of the patch's window)."""
+    seg = 2
+    while seg <= psz:
+        seg *= 2
+    return seg
+
+
+def _column_sum(x: torch.Tensor, noc: int = 1) -> torch.Tensor:
+    """Sum over the patch axis of (B, D, N), D = (row j, column i, channel
+    c) of a psz x psz patch, in the `gn_tiled` kernel's float32 order: lane
+    i of the patch's `column_segment(psz)` lanes holds column i and adds
+    its elements in (j, c) order from the first; the lanes beyond psz hold
+    0; then a butterfly halves the segment's partial sums."""
+    b, d, n = x.shape
+    psz = math.isqrt(d // noc)
+    seg = column_segment(psz)
+    x = x.reshape(b, psz, psz, noc, n)
+    s = x[:, 0, :, 0]
+    for j in range(psz):
+        for c in range(noc):
+            if j or c:
+                s = s + x[:, j, :, c]
+    s = torch.cat([s, s.new_zeros((b, seg - psz, n))], dim=1)
+    w = seg
+    while w > 1:
+        w //= 2
+        s = s[:, :w] + s[:, w:2 * w]
+    return s[:, 0]
+
+
 def _to_pt(pt_ref_t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Patch positions (B, 2, N) of parameters p (B, nop, N): the depth
     parameter moves a patch along x only."""
@@ -270,7 +303,7 @@ def _to_pt(pt_ref_t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
               tpl: PatchTemplates, p_init_t: torch.Tensor,
               pt_ref_t: torch.Tensor, carry_pweight: bool = True,
-              extract=None):
+              extract=None, patch_sum=None):
     """Plain PyTorch masked Gauss-Newton loop with the semantics of the JAX
     package's `_gn_xla_path` (the twin of the `gn_fused` kernel).
 
@@ -283,9 +316,12 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
     extraction at the final position after the loop, as `gn_tiled` takes it.
     Extraction is a pure function of the position, so both give the same
     bits. `extract` is the patch extraction, `extract_bilinear` unless the
-    unfused route hands in the kernel's wrapper."""
+    unfused route hands in the kernel's wrapper; `patch_sum` the sum over a
+    patch in its kernel's order, `_lane_sum` (`gn_fused`) unless
+    `_gn_tiled_plain` hands in `_column_sum`."""
     psz, pad, nop, noc = params.p_samp_s, spec.pad, params.nop, params.noc
     extract = extract or extract_bilinear
+    patch_sum = patch_sum or _lane_sum
     novals = float(params.novals)
     b, n = im_b.shape[0], tpl.tmpl.shape[-1]
 
@@ -296,10 +332,10 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
     def compute_err(pt):
         patch = extract(im_b, pt.transpose(1, 2).contiguous(), psz, pad)
         if params.patnorm > 0:
-            mean = _true_div(_lane_sum(patch, noc), float(patch.shape[1]))
+            mean = _true_div(patch_sum(patch, noc), float(patch.shape[1]))
             patch = patch - mean[:, None]
         pdiff, pweight = loss_error_image(patch - tpl.tmpl, params.costfct)
-        mares = _true_div(_lane_sum(pweight, noc), novals)
+        mares = _true_div(patch_sum(pweight, noc), novals)
         return pdiff, pweight, mares
 
     def dense(pweight):
@@ -326,9 +362,9 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
         it += 1
         trips += act.to(torch.int32)
         # steepest-descent projection (patch.cpp:175-180)
-        rhs = [_lane_sum(tpl.tdx * pdiff, noc)]
+        rhs = [patch_sum(tpl.tdx * pdiff, noc)]
         if nop == 2:
-            rhs.append(_lane_sum(tpl.tdy * pdiff, noc))
+            rhs.append(patch_sum(tpl.tdy * pdiff, noc))
         dp = _solve_step(tpl.hes, torch.stack(rhs, dim=1), nop)
         p_new = p - dp
         if nop == 1:  # depth disparity sign clamp (patch.cpp:186-191)
@@ -367,19 +403,19 @@ def _tiled_templates(spec: LevelSpec, params: DISParams, src
     """Templates, gradients and Hessians from src = (im_a, dx_a, dy_a), each
     (B, C, Hp, Wp), as the `gn_tiled` kernel builds them: the same integer
     gathers as `extract_templates`, with the template mean and the Hessian
-    entries summed in the kernel's lane order and the mean a true
-    division. nop 1 reads no y-gradient (tdy is zero)."""
+    entries summed in the kernel's column order (`_column_sum`) and the
+    mean a true division. nop 1 reads no y-gradient (tdy is zero)."""
     psz, noc = params.p_samp_s, params.noc
     tmpl = _gather_templates(spec, psz, src[0])
     tdx = _gather_templates(spec, psz, src[1])
     if params.patnorm > 0:
-        mean = _true_div(_lane_sum(tmpl, noc), float(tmpl.shape[-2]))
+        mean = _true_div(_column_sum(tmpl, noc), float(tmpl.shape[-2]))
         tmpl = tmpl - mean[:, None]
-    h00 = _lane_sum(tdx * tdx, noc)
+    h00 = _column_sum(tdx * tdx, noc)
     if params.nop == 2:
         tdy = _gather_templates(spec, psz, src[2])
-        h01 = _lane_sum(tdx * tdy, noc)
-        h11 = _lane_sum(tdy * tdy, noc)
+        h01 = _column_sum(tdx * tdy, noc)
+        h11 = _column_sum(tdy * tdy, noc)
         det = h00 * h11 - h01 * h01
         guard = (det == 0.0).to(h00.dtype) * 1e-10
         hes = torch.stack([h00 + guard, h01, h11 + guard], dim=-2)
@@ -393,12 +429,13 @@ def _tiled_templates(spec: LevelSpec, params: DISParams, src
 def _gn_tiled_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
                     src, p_init_t: torch.Tensor, pt_ref_t: torch.Tensor):
     """The plain twin of the `gn_tiled` kernel: templates from the source
-    planes in the kernel's sum order, the loop of `_gn_plain` without a
-    carried splat weight, the weight from one extraction at the final
-    position. Arguments as `kernels.gn_tiled.gn_tiled`; returns as
-    `_gn_plain`."""
+    planes, the loop of `_gn_plain` without a carried splat weight, the
+    weight from one extraction at the final position, every patch sum in
+    the kernel's column order (`_column_sum`). Arguments as
+    `kernels.gn_tiled.gn_tiled`; returns as `_gn_plain`."""
     return _gn_plain(spec, params, im_b, _tiled_templates(spec, params, src),
-                     p_init_t, pt_ref_t, carry_pweight=False)
+                     p_init_t, pt_ref_t, carry_pweight=False,
+                     patch_sum=_column_sum)
 
 
 # A level with more patches than this a pair runs `gn_tiled`, the others

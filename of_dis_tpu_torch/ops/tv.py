@@ -477,7 +477,7 @@ def ref_level_of(wx, wy, im1, im2, *, alpha, gamma, delta, n_inner,
     """One pair's flow refinement of one level (RefLevelOF,
     refine_variational.cpp:152-247): wx/wy (H, W), im1/im2 (C, H, W)
     de-padded. Returns (uu, vv) (H, W). On CUDA tensors the loop is the
-    single-pair launch of kernel K2 (one block)."""
+    single-pair launch of kernel K2 (the batched kernel at B = 1)."""
     quarter_alpha, hd3, hg3 = tv_coefficients(alpha, gamma, delta)
     mask, deriv = _warp_and_derivatives(wx[None], wy[None], im1[None],
                                         im2[None])

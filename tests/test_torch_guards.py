@@ -2,6 +2,7 @@
 never runs on the CPU in place of CUDA, and every kernel has its source,
 its C entry and a launch counter."""
 
+import ast
 import importlib
 import os
 import pkgutil
@@ -224,6 +225,103 @@ def test_entry_binds_a_symbol_once(monkeypatch):
     assert loads == ["k"]
     assert fn.argtypes == list(argtypes) and fn.restype is ctypes.c_int
     assert build._entries == {("k", "of_k"): fn}
+
+
+# what a wrapper module may not touch: the C entries are reached through
+# build.launch / build.query only, which make the tensor's device current
+_UNGUARDED = {"entry", "load", "stream_handle", "_entries", "_libs"}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_every_c_entry_is_called_through_the_device_helper(name):
+    """Walk kernels/<name>.py with ast: no C entry is bound, loaded or
+    called other than through `build.launch` (kernels) and `build.query`
+    (numbers read from the device), and the wrapper launches through
+    `build.launch`."""
+    path = os.path.join(PKG, "kernels", f"{name}.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    launches = 0
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and isinstance(node.value,
+                                                           ast.Name):
+            where = f"{name}.py:{node.lineno}"
+            if node.value.id == "build":
+                assert node.attr not in _UNGUARDED, \
+                    f"{where}: build.{node.attr} outside the helper"
+                launches += node.attr == "launch"
+            if node.value.id == "ctypes":
+                assert node.attr.startswith("c_"), \
+                    f"{where}: ctypes.{node.attr}"
+        if isinstance(node, ast.Call):
+            # calling what a call returned, e.g. a bound entry
+            assert not isinstance(node.func, ast.Call), \
+                f"{name}.py:{node.lineno}: a call of a call's result"
+        if isinstance(node, ast.Name):
+            assert node.id not in ("CDLL", "getattr"), \
+                f"{name}.py:{node.lineno}: {node.id}"
+    assert launches >= 1
+
+
+def test_build_binds_entries_only_inside_the_helpers():
+    """In build.py itself, `entry` is called only by `launch` and
+    `query`."""
+    path = os.path.join(PKG, "kernels", "build.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    callers = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef):
+            for node in ast.walk(fn):
+                if (isinstance(node, ast.Call)
+                        and isinstance(node.func, ast.Name)
+                        and node.func.id == "entry"):
+                    callers.add(fn.name)
+    assert callers == {"launch", "query"}
+
+
+def test_launch_makes_the_tensor_device_current(monkeypatch):
+    """`build.launch` enters the tensor's device around the C call, passes
+    that device's current stream after the arguments, leaves the caller's
+    device current after, and raises on a CUDA error; `build.query` calls
+    with the device current too."""
+    current = ["cuda:0"]
+    entered = []
+
+    class Device:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            entered.append(self.device)
+            self.prev, current[0] = current[0], str(self.device)
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    calls = []
+
+    def fake(*args):
+        calls.append((current[0], args))
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    monkeypatch.setattr(build, "entry", lambda name, symbol, argtypes: fake)
+    dev = torch.device("cuda", 1)
+    build.launch(dev, "k", "of_k", [], 7, 8)
+    assert entered == [dev]
+    assert calls == [("cuda:1", (7, 8, 1001))]
+    assert current == ["cuda:0"]
+    monkeypatch.setattr(build, "entry", lambda *a: (lambda *args: 9))
+    with pytest.raises(RuntimeError, match="cudaError_t 9"):
+        build.launch(dev, "k", "of_k", [], 7)
+    assert current == ["cuda:0"]
+    monkeypatch.setattr(build, "entry",
+                        lambda *a: (lambda: 10 * int(current[0][-1])))
+    assert build.query(torch.device("cuda", 2), "k", "of_q") == 20
+    assert entered[-1] == torch.device("cuda", 2)
 
 
 def test_upscale_tile_window_spans_every_tile():

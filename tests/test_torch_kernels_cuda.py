@@ -11,9 +11,10 @@ counts that are no multiple of a block, a level larger than one block's
 Tolerances are those of chip_smoke.py, with the same reasons: the GN
 twin sums each patch in the kernel's order and 12 dependent trips amplify
 the rounding left (1e-3 px, pweight 1e-4 relative); the others repeat
-their twin's float32 formulas (1e-4). The single-pair TV entries launch
-the batched kernel with one block, so they equal row 0 of the batched
-result bit for bit. The warp repeats its twin's float32 operations in
+their twin's float32 formulas (1e-4; the flow TV loop on either route
+equals its twin, error 0). The single-pair TV entries launch the batched
+kernel for one pair, so they equal row 0 of the batched result bit for
+bit. The warp repeats its twin's float32 operations in
 their order (no contraction): equal to it, error 0. The dot
 microbenchmark's sums of small integers are exact in both types: equal
 to the twin. The GN stage ablation's twin sums
@@ -274,8 +275,8 @@ def test_tv_de_kernel_matches_plain(cuda, h, w, delta, parity, camlr, noc):
 
 @pytest.mark.parametrize("noc", [1, 3])
 def test_single_pair_tv_entries_match_plain_and_batched_row(cuda, noc):
-    """ref_level_of / ref_level_de on one unbatched pair: one block of the
-    batched kernel, its own launch count, equal to the batched row."""
+    """ref_level_of / ref_level_de on one unbatched pair: the batched
+    kernel at B = 1, its own launch count, equal to the batched row."""
     im1, im2, wx, wy, _, _ = _tv_inputs(cuda, 2, noc, 37, 61, 5)
     kw = dict(alpha=10.0, gamma=10.0, delta=5.0, n_inner=2, n_solver=3,
               omega=1.6)
@@ -327,7 +328,8 @@ def test_upscale_kernel_matches_plain(cuda, nop):
 def _warp_batch(h, w, large):
     """3 pairs, or (`large`) enough pixels for the kernel's 4-pixel route
     on this card."""
-    return -(-warp.vec_min_pixels() // (h * w)) if large else 3
+    return -(-warp.vec_min_pixels(torch.device("cuda")) // (h * w)) \
+        if large else 3
 
 
 # (w, h, large): every width at both heights with 3 pairs (one pixel a
@@ -345,7 +347,6 @@ def test_warp_kernel_equals_plain_on_ragged_widths(cuda, w, h, large, c):
     route, with flows far outside the frame both ways: equal to the twin,
     masks equal."""
     b = _warp_batch(h, w, large)
-    assert b <= warp.MAX_BATCH
     rng = np.random.default_rng(w * 100 + h * 10 + c)
     src = torch.as_tensor(rng.random((b, c, h, w)) * 255,
                           dtype=torch.float32, device=cuda)
@@ -494,3 +495,170 @@ def test_gn_stages_kernel_matches_plain(cuda, psz, edge):
         if stage == "A4" and not variant:
             a4 = out
         assert not variant or torch.equal(out, a4), variant
+
+
+# ------------------------------------------------------ the TV loop (K2)
+
+@pytest.mark.parametrize("route", ["cooperative", "block"])
+@pytest.mark.parametrize("noc", [1, 3])
+@pytest.mark.parametrize("b,h,w,parity,n_inner", [
+    (1, 1, 1, 0, 1), (3, 7, 5, 1, 3), (3, 33, 129, 0, 3), (1, 33, 129, 1, 1),
+    (64, 7, 5, 0, 3), (64, 72, 96, 1, 1)])
+def test_tv_kernel_routes_equal_plain(cuda, monkeypatch, b, h, w, parity,
+                                      n_inner, noc, route):
+    """K2 on each route, whatever the shape rule would pick: one pixel and
+    ragged levels, one and many pairs, both row parities, one and three
+    inner iterations; the last shape (442,368 pixels) is larger than any
+    cooperative grid of the card (2,048 threads an SM at most), so threads
+    stride over several pixels. The twin's float32 operations per pixel,
+    no contraction: equal to it (error 0; a 1x1 level has no edge weights,
+    so omega / 0 makes both NaN alike)."""
+    monkeypatch.setattr(tv_of_inner, "BLOCK_MAX_PIXELS",
+                        0 if route == "cooperative" else h * w)
+    assert tv_of_inner.cooperative(h, w) == (route == "cooperative")
+    _, _, wx, wy, mask, deriv = _tv_inputs(cuda, b, noc, h, w, h * w + b)
+    qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, 5.0)
+    kw = dict(quarter_alpha=qa, hd3=hd3, hg3=hg3, n_inner=n_inner,
+              n_solver=3, omega=1.6, row_parity=parity)
+    before = tv_of_inner.launches
+    uu_k, vv_k = tv_of_inner.of_inner(wx, wy, mask, deriv, **kw)
+    assert tv_of_inner.launches == before + 1
+    uu_p, vv_p = tv._of_inner_loop(wx, wy, mask, _i_list(deriv), noc=noc,
+                                   **kw)
+    for k, p in ((uu_k, uu_p), (vv_k, vv_p)):
+        torch.testing.assert_close(k, p, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("route", ["cooperative", "block"])
+@pytest.mark.parametrize("n_inner,n_solver", [(0, 3), (2, 0), (1, 1)])
+def test_tv_kernel_without_sweeps_or_iterations_equals_plain(
+        cuda, monkeypatch, n_inner, n_solver, route):
+    """The 20-parameter form may ask for no inner iteration (uu = wx) or no
+    SOR sweep (du = 0, uu = wx after every iteration): both routes equal
+    the twin."""
+    monkeypatch.setattr(tv_of_inner, "BLOCK_MAX_PIXELS",
+                        0 if route == "cooperative" else 10 ** 9)
+    _, _, wx, wy, mask, deriv = _tv_inputs(cuda, 3, 1, 19, 23, 7)
+    qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, 5.0)
+    kw = dict(quarter_alpha=qa, hd3=hd3, hg3=hg3, n_inner=n_inner,
+              n_solver=n_solver, omega=1.6)
+    uu_k, vv_k = tv_of_inner.of_inner(wx, wy, mask, deriv, **kw)
+    uu_p, vv_p = tv._of_inner_loop(wx, wy, mask, _i_list(deriv), noc=1,
+                                   **kw)
+    assert torch.equal(uu_k, uu_p) and torch.equal(vv_k, vv_p)
+
+
+def test_tv_cooperative_kernel_is_captured_by_a_cuda_graph(cuda):
+    """The cooperative launch is taken by stream capture (chip_smoke.py
+    times K2 through a CUDA graph) and replays to the same bits."""
+    _, _, wx, wy, mask, deriv = _tv_inputs(cuda, 2, 1, 30, 41, 3)
+    assert tv_of_inner.cooperative(30, 41)
+    qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, 5.0)
+    kw = dict(quarter_alpha=qa, hd3=hd3, hg3=hg3, n_inner=2, n_solver=3,
+              omega=1.6)
+    uu0, vv0 = tv_of_inner.of_inner(wx, wy, mask, deriv, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        uu, vv = tv_of_inner.of_inner(wx, wy, mask, deriv, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(uu, uu0) and torch.equal(vv, vv0)
+
+
+# ------------------------------ the large-level GN kernel (K6), every instance
+
+def _odd_level(params, camlr):
+    """(h, w, spec) of the first level from 40x100 on with an odd patch
+    count (so that 3 pairs leave the kernel's last warp a lone patch)."""
+    for h in range(40, 56):
+        for w in range(100, 140):
+            spec = make_level_spec(0, w, h, params, camlr=camlr)
+            if spec.nopatches % 2:
+                return h, w, spec
+    raise AssertionError("no level with an odd patch count")
+
+
+@pytest.mark.parametrize("nop,noc,camlr", [(2, 1, 0), (2, 3, 0), (1, 1, 1),
+                                           (1, 3, 0)])
+@pytest.mark.parametrize("psz", [1, 2, 3, 5, 7, 11])
+def test_gn_tiled_kernel_every_segment_width(cuda, psz, nop, noc, camlr):
+    """K6 at patch sizes of every lane segment (2, 4, 8 and 16 lanes a
+    patch; with `test_gn_tiled_kernel_matches_plain`'s 4, 8, 9 and 12),
+    gray and RGB, flow and depth, on an odd patch count (the last warp
+    holds one patch) with starts that reset and that begin outside:
+    iterations equal to the twin's, p within 1e-3 px, pweight 1e-4."""
+    params = dataclasses.replace(
+        op_point_params(100, 3, nop=nop, noc=noc), sc_f=0, sc_l=0,
+        p_samp_s=psz, min_iter=16)
+    h, w, spec = _odd_level(params, camlr)
+    per_warp = 32 // patch_solver.column_segment(psz)
+    assert (3 * spec.nopatches) % per_warp != 0
+    a, b = (torch.as_tensor(x, device=cuda)
+            for x in _frames(3, h, w, psz, noc))
+    src = tuple(f[0] for f in pyramid.build_pyramid(a, 0, psz))
+    imb, _, _ = pyramid.build_pyramid(b, 0, psz, getgrad=False)
+    rng = np.random.default_rng(psz + 10 * noc)
+    p0 = torch.as_tensor(rng.standard_normal((3, nop, spec.nopatches)) * 6,
+                         dtype=torch.float32, device=cuda)
+    pt_ref = patch_solver.grid_ref_points(spec, cuda).T[None].contiguous()
+    before = gn_tiled.launches
+    p_k, pw_k, it_k = gn_tiled.gn_tiled(spec, params, imb[0], src, p0, pt_ref)
+    assert gn_tiled.launches == before + 1
+    p_p, pw_p, it_p, _ = patch_solver._gn_tiled_plain(
+        spec, params, imb[0], src, p0, pt_ref)
+    assert int(it_k) == int(it_p)
+    assert float((p_k - p_p).abs().max()) <= 1e-3
+    assert float((pw_k - pw_p).abs().max()) <= 1e-4 * float(pw_p.abs().max())
+
+
+# --------------------------------- repairs: launch device, batch of 65,537
+
+def test_kernels_launch_on_the_tensors_device(cuda):
+    """With device 0 current, K2, K3 and K4 on tensors of cuda:1 launch on
+    cuda:1 (its stream, its SM count), equal to their twins there, and
+    leave device 0 current. Needs two GPUs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    _, _, wx, wy, mask, deriv = _tv_inputs(dev1, 2, 1, 30, 41, 1)
+    qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, 5.0)
+    kw = dict(quarter_alpha=qa, hd3=hd3, hg3=hg3, n_inner=2, n_solver=3,
+              omega=1.6)
+    uu, vv = tv_of_inner.of_inner(wx, wy, mask, deriv, **kw)
+    src = torch.rand((2, 1, 30, 41), device=dev1) * 255
+    o_k, m_k = warp.warp_image_batched(src, wx, wy)
+    up = upscale.upscale_batched(torch.stack([wx, wy], -1), 1, 60, 82)
+    assert torch.cuda.current_device() == 0
+    assert uu.device == o_k.device == up.device == dev1
+    uu_p, vv_p = tv._of_inner_loop(wx, wy, mask, _i_list(deriv), noc=1, **kw)
+    assert torch.equal(uu, uu_p) and torch.equal(vv, vv_p)
+    o_p, m_p = tv.warp_image(src, wx, wy)
+    assert torch.equal(o_k, o_p) and torch.equal(m_k, m_p)
+    up_p = dis.upscale_output(torch.stack([wx, wy], -1), 1, 60, 82)
+    assert float((up - up_p).abs().max()) <= 1e-4
+
+
+def test_warp_and_upscale_take_more_than_65535_pairs(cuda):
+    """A batch of 65,537 pairs of 4x8 frames (more than the grid's z holds):
+    the warp equal to its twin, the upscale within 1e-4, one launch count
+    each."""
+    rng = np.random.default_rng(0)
+    b = 65537
+    src = torch.as_tensor(rng.random((b, 1, 4, 8)) * 255,
+                          dtype=torch.float32, device=cuda)
+    wx, wy = (torch.as_tensor(rng.standard_normal((b, 4, 8)) * 2,
+                              dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    counts = (warp.launches, upscale.launches)
+    o_k, m_k = warp.warp_image_batched(src, wx, wy)
+    flow = torch.stack([wx, wy], -1)
+    up = upscale.upscale_batched(flow, 1, 8, 16)
+    assert (warp.launches, upscale.launches) == (counts[0] + 1,
+                                                 counts[1] + 1)
+    o_p, m_p = tv.warp_image(src, wx, wy)
+    assert torch.equal(o_k, o_p) and torch.equal(m_k, m_p)
+    up_p = dis.upscale_output(flow, 1, 8, 16)
+    assert up.shape == (b, 8, 16, 2)
+    assert float((up - up_p).abs().max()) <= 1e-4

@@ -282,6 +282,58 @@ def test_lane_sum_follows_the_kernel_order(noc, d):
         assert ours[0, n] == lanes[0]
 
 
+def test_column_sum_adds_columns_first():
+    """`_column_sum` on a 2x2 patch where the order shows: the columns
+    (lanes) add down their rows first, 2^24 - 2^24 = 0 and 1 + 1 = 2, then
+    the butterfly adds the lanes (0 + 0, 2 + 0, then 0 + 2): 2. Row by row
+    in float32 the first 1 is lost against 2^24 and the sum is 1."""
+    big = float(2 ** 24)
+    x = torch.tensor([[[big], [1.0], [-big], [1.0]]], dtype=torch.float32)
+    assert tps.column_segment(2) == 4
+    assert float(tps._column_sum(x, 1)[0, 0]) == 2.0
+    row_major = np.float32(0)
+    for v in (big, 1.0, -big, 1.0):
+        row_major = np.float32(row_major + np.float32(v))
+    assert row_major == 1.0
+
+
+@pytest.mark.parametrize("psz,seg", [(1, 2), (2, 4), (3, 4), (4, 8), (7, 8),
+                                     (8, 16), (12, 16)])
+def test_column_segment_is_the_power_of_two_above_the_patch(psz, seg):
+    assert tps.column_segment(psz) == seg
+
+
+@pytest.mark.parametrize("noc,psz", [(1, 12), (3, 12), (1, 8), (3, 5),
+                                     (1, 3)])
+def test_column_sum_follows_the_kernel_order(noc, psz):
+    """`_column_sum` adds as the `gn_tiled` kernel does: lane i of the
+    patch's segment holds column i and adds its pixels (j, i) row by row,
+    channels in order, from the first; the lanes beyond psz hold 0; then
+    the butterfly over the segment; float32 at every step (checked against
+    an explicit scalar loop)."""
+    d = psz * psz * noc
+    x = np.random.default_rng(d + noc).standard_normal((1, d, 2)).astype(
+        np.float32) * 100
+    ours = tps._column_sum(torch.as_tensor(x), noc).numpy()
+    seg = tps.column_segment(psz)
+    for n in range(2):
+        lanes = []
+        for col in range(seg):
+            s = np.float32(0)
+            if col < psz:
+                s = None
+                for j in range(psz):
+                    for c in range(noc):
+                        v = x[0, (j * psz + col) * noc + c, n]
+                        s = v if s is None else np.float32(s + v)
+            lanes.append(s)
+        w = seg
+        while w > 1:
+            w //= 2
+            lanes = [np.float32(lanes[i] + lanes[i + w]) for i in range(w)]
+        assert ours[0, n] == lanes[0]
+
+
 # ------------------------- the large-level route: `gn_tiled` and its twin
 #
 # Tolerances: `iters` equal; `p` within 2e-3 px and `pweight` within rtol
@@ -414,7 +466,8 @@ def test_gn_tiled_plain_matches_the_pallas_kernel_in_interpret_mode(
 def test_epilogue_pweight_equals_the_carried_pweight(nop, noc, min_iter):
     """One extraction at the final position gives, bit for bit, the splat
     weight `_gn_plain` carries from each patch's last active trip — on the
-    same templates, with patches that stop early, reset, or start outside."""
+    same templates and the same patch-sum order (`gn_tiled`'s), with
+    patches that stop early, reset, or start outside."""
     params = _op3_level_params(nop=nop, noc=noc, min_iter=min_iter)
     spec, tparams, _, _, ta, tb = _setup(params, seed=2)
     tpl = tps._tiled_templates(spec, tparams, ta)
@@ -422,7 +475,8 @@ def test_epilogue_pweight_equals_the_carried_pweight(nop, noc, min_iter):
     p0 = torch.as_tensor((rng.standard_normal((2, nop, spec.nopatches)) * 6
                           ).astype(np.float32))
     pt_ref = tps.grid_ref_points(spec).T[None].contiguous()
-    carried = tps._gn_plain(spec, tparams, tb, tpl, p0, pt_ref)
+    carried = tps._gn_plain(spec, tparams, tb, tpl, p0, pt_ref,
+                            patch_sum=tps._column_sum)
     tiled = tps._gn_tiled_plain(spec, tparams, tb, ta, p0, pt_ref)
     for c, t in zip(carried, tiled):
         assert torch.equal(c, t)

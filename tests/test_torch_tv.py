@@ -289,3 +289,14 @@ def test_ref_level_de_single_pair_matches_jax_kernel(monkeypatch, camlr, noc):
                                rtol=0)
     batched = ttv.ref_level_de_batched(*_t(wx, im1, im2), camlr=camlr, **KW)
     np.testing.assert_array_equal(ours.numpy(), batched[0].numpy())
+
+
+@pytest.mark.parametrize("h,w,cooperative", [
+    (1, 1, False), (14, 32, False), (32, 32, False), (33, 32, True),
+    (28, 64, True), (56, 128, True), (448, 1024, True)])
+def test_tv_route_rule_follows_the_pair_size(h, w, cooperative):
+    """K2's route is a rule of the level's shape alone: pairs of up to
+    1,024 pixels (op-2/3/4's coarsest level, 14x32) keep one block a pair,
+    larger ones spread over the card in one cooperative launch."""
+    assert tv_of_inner.BLOCK_MAX_PIXELS == 1024
+    assert tv_of_inner.cooperative(h, w) == cooperative

@@ -19,6 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      path also the device's own time (CUDA graphs of 20 calls on rotated
      copies of the inputs, `device_ms`), apart from the host's, and for
      the warp, the upscale and the patch extraction the library call's;
+     for the small-level GN kernel and the patch extraction also one line
+     of device ms per level, with the card's name and power limit;
      on paths A, E and F every GN level is also timed on both fused
      routes (templates gathered by plain torch plus `gn_fused`, against
      `gn_tiled`), the measurement behind `patch_solver.TILED_MIN_PATCHES`,
@@ -41,8 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   8. the per-stage ablation of the GN iteration (T2): `tools
      .bench_gn_stages` at op-2's finest level (batch 384) and at op-4's
      level 0 (batch 4), launches counted, every stage against its twin,
-     every variant equal to A4 bit for bit, times beside the large-level GN
-     kernel's level-0 time of path F;
+     every variant equal to A4 bit for bit, times beside the small-level
+     GN kernel's level-3 time of path A (per pair, with the card's name and
+     power limit) and the large-level GN kernel's level-0 time of path F;
   9. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
      last line `{"ok": true, "device": {...}}`.
 
@@ -218,8 +221,8 @@ TOL = {
     # px: as gn_fused, the template mean and the Hessian summed in the
     # kernel's order too; up to 128 dependent trips at op-4
     "gn_tiled": 1e-3,
-    # 0-255 scale: the twin's three float32 lerps term by term
-    "bilerp_extract": 1e-4,
+    # the twin's three float32 lerps term by term, no contraction: equal
+    "bilerp_extract": 0.0,
     # px: the same float32 formulas; the only freedom is rounding of the
     # compiler's division / square root, carried through the SOR sweeps
     "tv_of_inner": 1e-4,
@@ -806,11 +809,18 @@ def call_level(name, args, full_w, finest):
     return int(round(math.log2(full_w / args[0].shape[-1]))), 0
 
 
+# kernels whose device time is also printed summed per level of a path
+PER_LEVEL = ("gn_fused", "bilerp_extract")
+
+
 def check_calls(label, calls, wrappers, rows, full_w, finest):
     """Hold every recorded call of every kernel against its twin, time it,
-    print one JSON line per call and append the rows to rows[name]."""
+    print one JSON line per call and append the rows to rows[name]; for
+    the kernels of PER_LEVEL also one line of device ms per level, summed
+    over the level's calls, with the card's name and power limit."""
     for name, recorded in calls.items():
         seen = {}
+        per_level = {}
         for args, kw in recorded:
             r = CHECKS.get(name, check_tv)(name, args, kw, wrappers[name])
             b_ms, by_ms, op_ms = r.pop("bound")
@@ -828,6 +838,12 @@ def check_calls(label, calls, wrappers, rows, full_w, finest):
             print(json.dumps({"path": label, "kernel": name, "level": level,
                               "grid": grid, "launches": 1,
                               "tolerance": TOL[name], **r}), flush=True)
+            per_level[level] = per_level.get(level, 0.0) + r["device_ms"]
+        if name in PER_LEVEL and per_level:
+            print(json.dumps({"path": label, "kernel": name,
+                              "device_ms_per_level": per_level,
+                              "calls_per_level": seen,
+                              "card": nvidia_smi_line()}), flush=True)
 
 
 def launches_as_expected(counts, cfg) -> bool:
@@ -1179,9 +1195,10 @@ def gn_stages_flops(stage: str, b: int, n: int, psz: int,
 def run_gn_stages(dev, rows, totals):
     """Phase 8: the GN stage ablation's main path (the tool at both
     geometries, launches counted), then every stage against its twin on
-    the card and every variant against A4, timed; at op4-l0 beside the
-    large-level GN kernel's level-0 time of path F (51,300 patches, batch
-    4)."""
+    the card and every variant against A4, timed; at op2-l3 beside the
+    small-level GN kernel's level-3 time of path A (448 patches, batch 64,
+    per pair), at op4-l0 beside the large-level GN kernel's level-0 time of
+    path F (51,300 patches, batch 4)."""
     reset_launches()
     results = {g: bench_gn_stages.main(["--geometry", g, "--device",
                                         str(dev)])
@@ -1198,6 +1215,11 @@ def run_gn_stages(dev, rows, totals):
         raise AssertionError("gn_stages: a variant differs from A4")
     k6_l0 = [(r["wrapper_ms"], r["device_ms"]) for r in rows["gn_tiled"]
              if r["shape"].startswith("B4 N51300 ")]
+    # path A's level 3 (the first such call: A runs first; B is depth, C
+    # RGB)
+    k1_l3 = [r["device_ms"] for r in rows["gn_fused"]
+             if r["shape"].startswith("B64 N448 D64 nop2 ")]
+    per_pair = {}
     for gname in results:
         geom = bench_gn_stages.GEOMETRIES[gname]
         b, n, psz = geom.batch, geom.n, geom.psz
@@ -1230,6 +1252,7 @@ def run_gn_stages(dev, rows, totals):
                      plain_ms=cuda_ms(lambda: gn_stages._plain(*args), 1, 1),
                      library_wrapper_ms=None)
             r["us_per_pair"] = r["wrapper_ms"] * 1e3 / b
+            per_pair[(gname, label)] = r["us_per_pair"]
             b_ms, by_ms, op_ms = bound(nbytes, gn_stages_flops(
                 stage, b, n, psz, geom.max_iter))
             r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
@@ -1238,6 +1261,16 @@ def run_gn_stages(dev, rows, totals):
                               "kernel": "gn_stages",
                               "tolerance": TOL["gn_stages"], **r}),
                   flush=True)
+        if gname == "op2-l3" and k1_l3:
+            stages = {label: per_pair[(gname, label)]
+                      for label, _, _ in bench_gn_stages.RUNS}
+            print(json.dumps({
+                "beside": "gn_fused (K1) at level 3 of path A: 448 patches "
+                          "x 64 pairs, 12 trips",
+                "k1_device_ms": k1_l3[0],
+                "k1_device_us_per_pair": k1_l3[0] * 1e3 / 64,
+                "t2_op2_l3_wrapper_us_per_pair": stages,
+                "card": nvidia_smi_line()}), flush=True)
         if gname == "op4-l0" and k6_l0:
             print(f"gn_tiled (K6) at level 0 of path F, the same 51,300 "
                   f"patches x 4 pairs and 128 trips: wrapper "

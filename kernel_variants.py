@@ -1,0 +1,146 @@
+"""Time versions of one kernel's source against each other on the card, on
+the calls that `chip_smoke.py`'s paths hand the kernel.
+
+    python3 kernel_variants.py KERNEL SOURCE.cu ...
+
+Run from the repository root on a machine with an NVIDIA GPU. KERNEL is
+`gn_fused` or `bilerp_extract`; each SOURCE is a version of
+`of_dis_tpu_torch/csrc/KERNEL.cu` with the same C entry (say the parent's,
+from `git show HEAD:of_dis_tpu_torch/csrc/gn_fused.cu`, and trial edits),
+named by its file stem. Every SOURCE is compiled with the build's nvcc
+flags, all at once, and its ptxas report (registers, spills) printed. The
+kernel's calls are recorded from one `dis_flow_batched` call on each of
+its paths (PATHS), then, in each of ROUNDS rounds, each version is bound
+in place of the kernel's library (`build.bind`), checked against the
+plain twin on every call with `chip_smoke.py`'s tolerances (gn_fused:
+iterations equal, p and pweight within tolerance; bilerp_extract: equal)
+and timed with `chip_smoke.device_ms`. Prints one JSON line per version
+and round: device ms per (path, level), summed over the level's calls,
+their sum, the calls that differed from their twin (`"mismatch"`) and
+the card's `nvidia-smi` name and power limit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from of_dis_tpu_torch import cli
+from of_dis_tpu_torch.kernels import bilerp_extract, build, gn_fused
+from of_dis_tpu_torch.models import dis
+from of_dis_tpu_torch.ops import patch_solver, pyramid
+from of_dis_tpu_torch.params import op_point_params
+
+# each kernel's wrapper and the chip_smoke paths that launch it: every
+# call of K1 (22) and of K7 (68) on the main path
+KERNELS = {"gn_fused": gn_fused.gn_fused,
+           "bilerp_extract": bilerp_extract.bilerp_extract}
+PATHS = {"gn_fused": "ABCDEFG", "bilerp_extract": "H"}
+ROUNDS = 2
+
+
+def compile_all(sources):
+    """Each source built into a library beside it, one nvcc each, all at
+    once; returns {stem: library path} of the ones that built."""
+    procs = {}
+    for src in sources:
+        lib = src.with_name(f"lib{src.stem}.so")
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.SRC_DIR),
+               "-o", str(lib), str(src)]
+        procs[src.stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), lib)
+    libs = {}
+    for stem, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        report = [ln.split(": ", 1)[-1].strip() for ln in log.splitlines()
+                  if "registers" in ln or "spill" in ln or "entry" in ln]
+        print(f"{stem}: nvcc rc {proc.returncode}; " + " | ".join(report),
+              flush=True)
+        if proc.returncode == 0:
+            libs[stem] = lib
+        else:
+            print(log[-3000:], flush=True)
+    return libs
+
+
+def record(kernel, dev):
+    """[(label "path Llevel", args)] of every call of `kernel` in one
+    `dis_flow_batched` call on each of its paths."""
+    calls_all = []
+    for cfg in cs.PATHS:
+        if cfg["name"] not in PATHS[kernel]:
+            continue
+        nop, noc = cfg["nop"], cfg["noc"]
+        if cfg["op"] is None:
+            params = cli.build_params(cs.W_ORG, nop, noc, cfg["args"].split())
+        else:
+            params = op_point_params(cs.W_ORG, cfg["op"], nop=nop, noc=noc)
+        if cfg.get("fbcon"):
+            params = dataclasses.replace(params, usefbcon=True)
+        field = cs._flow_field if nop == 2 else cs._disparity_field
+        a_u8, b_u8, _, _ = cs.make_pairs(cfg["batch"], cs.H_ORG, cs.W_ORG, 0,
+                                         dev, channels=noc, field=field)
+        im_a = pyramid.pad_to_divisible(a_u8, params.sc_f)
+        im_b = pyramid.pad_to_divisible(b_u8, params.sc_f)
+        calls = {name: [] for name in cs.KERNELS}
+        with cs.swapped(cs._recorder(calls)):
+            dis.dis_flow_batched(im_a, im_b, params, im_a.shape[3],
+                                 im_a.shape[2], device=dev)
+        for args, _ in calls[kernel]:
+            level = cs.call_level(kernel, args, im_a.shape[3], params.sc_l)[0]
+            calls_all.append((f"{cfg['name']} L{level}", args))
+    torch.cuda.synchronize()
+    return calls_all
+
+
+def agrees(kernel, out, twin) -> bool:
+    """A call's result against its twin's, at chip_smoke's tolerances."""
+    if kernel == "bilerp_extract":
+        return torch.equal(out, twin)
+    p_k, pw_k, it_k = out
+    p_p, pw_p, it_p = twin[:3]
+    pw_err = float((pw_k - pw_p).abs().max()) / float(pw_p.abs().max())
+    return (int(it_k) == int(it_p) and pw_err <= cs.PWEIGHT_REL_TOL and
+            float((p_k - p_p).abs().max()) <= cs.TOL[kernel])
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if len(argv) < 2 or argv[0] not in KERNELS:
+        raise SystemExit(__doc__)
+    kernel, sources = argv[0], [Path(p).resolve() for p in argv[1:]]
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_variants needs a CUDA device")
+    libs = compile_all(sources)
+    build.build()
+    dev = torch.device("cuda")
+    calls = record(kernel, dev)
+    plain = (patch_solver._gn_plain if kernel == "gn_fused"
+             else patch_solver.extract_bilinear)
+    twins = [plain(*args) for _, args in calls]
+    wrapper = KERNELS[kernel]
+    for rnd in range(ROUNDS):
+        for stem, lib in libs.items():
+            build.bind(kernel, lib)
+            row, bad = {}, []
+            for (label, args), twin in zip(calls, twins):
+                out = wrapper(*args)
+                torch.cuda.synchronize()
+                if not agrees(kernel, out, twin):
+                    bad.append(label)
+                row[label] = row.get(label, 0.0) + cs.device_ms(wrapper, args)
+            print(json.dumps({"round": rnd, "version": stem,
+                              "device_ms": row, "sum": sum(row.values()),
+                              "mismatch": bad,
+                              "card": cs.nvidia_smi_line()}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

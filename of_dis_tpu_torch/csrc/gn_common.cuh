@@ -1,10 +1,10 @@
 // Device functions shared by the Gauss-Newton kernels, K1 (gn_fused.cu,
 // templates read from global memory) and K6 (gn_tiled.cu, templates built
 // in the kernel), and by the per-stage ablation T2 (gn_stages.cu), which
-// times `taps` and `lerp` as K1 runs them. K6 takes the arguments, the
-// loss and the bounds test from here and keeps its own extraction (lanes
-// on window columns). In `warp_sum`, `taps`, `lerp` and `extract` one
-// warp owns one patch; lane l holds the pixels l + 32k of the patch,
+// times `taps` and `lerp` as K1 runs them on a border window. K6 takes the
+// arguments, the loss and the bounds test from here and keeps its own
+// extraction (lanes on window columns). In `warp_sum`, `taps` and `lerp`
+// one warp owns one patch; lane l holds the pixels l + 32k of the patch,
 // k < K, with all C channels of each.
 
 #pragma once
@@ -115,23 +115,6 @@ __device__ __forceinline__ void lerp(const float (&v00)[E],
     const float g1 = (1.0f - ry) * v01[e] + ry * v11[e];
     out[e] = rx * g1 + (1.0f - rx) * g0;
   }
-}
-
-// Bilinear patch at float position (x, y) (patch.cpp:346-413): anchor
-// ceil(pt + 1e-5), residual against floor(pt); the taps at the anchor,
-// then the y-lerp and the x-lerp. im is the pair's (C, Hp, Wp) target
-// planes; out[k * C + c] is channel c of pixel lane + 32k, 0 beyond psz^2.
-template <int K, int C>
-__device__ __forceinline__ void extract(const float* im, float x, float y,
-                                        int lane, const GNArgs& a,
-                                        float (&out)[K * C]) {
-  const float rx = x - floorf(x);
-  const float ry = y - floorf(y);
-  const int sx = static_cast<int>(ceilf(x + 1e-5f)) - a.psz / 2 - 1 + a.pad;
-  const int sy = static_cast<int>(ceilf(y + 1e-5f)) - a.psz / 2 - 1 + a.pad;
-  float v00[K * C], v01[K * C], v10[K * C], v11[K * C];
-  taps<K, C>(im, a.Hp, a.Wp, sx, sy, a.psz, lane, 1.0f, v00, v01, v10, v11);
-  lerp(v00, v01, v10, v11, rx, ry, out);
 }
 
 }  // namespace gn

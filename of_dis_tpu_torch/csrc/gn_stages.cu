@@ -9,7 +9,7 @@
 // roll, bilinear, loss and projections).
 //
 // Stages (cumulative), the device code of the production kernels — the
-// taps and the lerp of gn_common.cuh that gn::extract calls:
+// taps and the lerp of gn_common.cuh, as K1 runs them on a border window:
 //   W   the four tap loads per pixel (gn::taps), their sum;
 //   A3  + the bilinear interpolation (gn::lerp), the patch sum;
 //   A4  + the patch mean (one butterfly a trip), the residual against the
@@ -94,7 +94,7 @@ __global__ void gn_stages_kernel(const T* __restrict__ planes,
       }
       __syncwarp();
     }
-    // the taps, then the lerp, as gn::extract runs them
+    // the taps, then the lerp, as K1 runs them on a border window
     float v00[K], v01[K], v10[K], v11[K];
     if (SMEM)
       gn::taps<K, 1>(win, w1, w1, 0, 0, a.psz, lane, a.scale, v00, v01, v10,

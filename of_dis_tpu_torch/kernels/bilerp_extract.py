@@ -26,8 +26,8 @@ def bilerp_extract(im: torch.Tensor, pts: torch.Tensor, psz: int,
     """Bilinear patches of `im` (B, C, Hp, Wp) padded level planes at the
     float positions `pts` (B, N, 2), (x, y) in unpadded level coordinates:
     anchor ceil(pt + 1e-5), residual against floor(pt), float32. Returns
-    (B, psz^2 C, N), patch pixels in (row, column, channel) order. CPU
-    tensors run the plain twin."""
+    (B, psz^2 C, N), patch pixels in (row, column, channel) order; any
+    batch and patch size, one launch. CPU tensors run the plain twin."""
     global launches
     if im.device.type == "cpu":
         from of_dis_tpu_torch.ops.patch_solver import extract_bilinear

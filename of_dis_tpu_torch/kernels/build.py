@@ -102,6 +102,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def bind(name: str, path) -> None:
+    """Load the library at `path` in place of kernel `name`'s built one,
+    its entries bound anew at their next call: for timing versions of a
+    kernel's source against each other (`kernel_variants.py`)."""
+    _libs[name] = ctypes.CDLL(str(path))
+    for key in [k for k in _entries if k[0] == name]:
+        del _entries[key]
+
+
 def entry(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
     """The C entry `symbol` of kernel `name`, bound once: the library built
     and loaded and the entry's argtypes and restype (int: a launch's

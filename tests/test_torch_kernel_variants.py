@@ -1,0 +1,50 @@
+"""The kernel-version timing script (`kernel_variants.py`) on the CPU: its
+kernels are kernels of the build with a wrapper each, its paths are
+`chip_smoke.py`'s paths that launch the kernel, it refuses what it cannot
+time — no kernel or version named, a kernel it does not know, no CUDA
+device — and `build.bind` puts a library in place of a kernel's. It
+measures only on the card."""
+
+import ctypes.util
+
+import pytest
+import torch
+
+import chip_smoke
+import kernel_variants
+from of_dis_tpu_torch.kernels import build
+
+
+@pytest.mark.parametrize("name", sorted(kernel_variants.KERNELS))
+def test_kernels_are_the_builds_with_paths_of_the_smoke(name):
+    assert name in build.KERNELS and callable(kernel_variants.KERNELS[name])
+    assert build.source(name).exists()
+    launching = {cfg["name"] for cfg in chip_smoke.PATHS
+                 if name in cfg["launches"] or name in cfg.get("at_least", {})}
+    assert set(kernel_variants.PATHS[name]) == launching
+
+
+@pytest.mark.parametrize("argv", [[], ["gn_fused"], ["warp", "w.cu"]])
+def test_refuses_without_a_kernel_it_times_and_a_version(argv):
+    with pytest.raises(SystemExit):
+        kernel_variants.main(argv)
+
+
+def test_refuses_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_variants.main(["bilerp_extract", str(tmp_path / "a.cu")])
+
+
+def test_bind_replaces_the_library_and_drops_its_entries(monkeypatch):
+    libc = ctypes.util.find_library("c")
+    if libc is None:
+        pytest.skip("no C library to load")
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_entries", {("warp", "of_warp"): abs,
+                                            ("upscale", "of_upscale"): abs})
+    build.bind("warp", libc)
+    assert build.load("warp")._name == libc
+    assert build.entry("warp", "getpid", []) is build.load("warp").getpid
+    assert set(build._entries) == {("warp", "getpid"),
+                                   ("upscale", "of_upscale")}

@@ -12,7 +12,8 @@ Tolerances are those of chip_smoke.py, with the same reasons: the GN
 twin sums each patch in the kernel's order and 12 dependent trips amplify
 the rounding left (1e-3 px, pweight 1e-4 relative); the others repeat
 their twin's float32 formulas (1e-4; the flow TV loop on either route
-equals its twin, error 0). The single-pair TV entries launch the batched
+equals its twin, error 0; the patch extraction too, at every window
+tile). The single-pair TV entries launch the batched
 kernel for one pair, so they equal row 0 of the batched result bit for
 bit. The warp repeats its twin's float32 operations in
 their order (no contraction): equal to it, error 0. The dot
@@ -612,6 +613,113 @@ def test_gn_tiled_kernel_every_segment_width(cuda, psz, nop, noc, camlr):
     assert float((pw_k - pw_p).abs().max()) <= 1e-4 * float(pw_p.abs().max())
 
 
+# ---------------- the small-level GN kernel (K1) and the extraction (K7)
+
+# patches a K1 block (kWarps of csrc/gn_fused.cu)
+K1_BLOCK_PATCHES = 4
+
+
+def _level_filling_no_block(params, camlr):
+    """(h, w, spec) of the first level from 40x100 on whose patch count, at
+    3 pairs, fills no whole K1 block (K1_BLOCK_PATCHES patches): the last
+    block holds fewer."""
+    for h in range(40, 56):
+        for w in range(100, 140):
+            spec = make_level_spec(0, w, h, params, camlr=camlr)
+            if (3 * spec.nopatches) % K1_BLOCK_PATCHES:
+                return h, w, spec
+    raise AssertionError("no level with a ragged block")
+
+
+@pytest.mark.parametrize("nop,noc,camlr", [(2, 1, 0), (2, 3, 0), (1, 1, 0),
+                                           (1, 1, 1), (1, 3, 0)])
+@pytest.mark.parametrize("psz", [4, 5, 7, 8, 12])
+@pytest.mark.parametrize("stops", ["first trip", "every trip"])
+def test_gn_fused_kernel_every_instance(cuda, psz, stops, nop, noc, camlr):
+    """K1 at every template instance (1, 2 and 5 pixels a lane at the run
+    time's patch sizes 4, 5 and 7; patch sizes 8 and 12 as constants), gray
+    and RGB, flow and depth of either sign, on a patch count that fills no
+    whole block, with starts up to ~12 px off the grid: windows inside the
+    planes and on their borders (clamped), and starts outside. Either
+    every patch stops on its first trip (min_iter 1 and a residual-decrease
+    threshold no trip meets) or runs every trip unless reset (min_iter =
+    max_iter). Iterations equal to the twin's, p within 1e-3 px, pweight
+    within 1e-4 of the largest."""
+    params = dataclasses.replace(
+        op_point_params(100, 2, nop=nop, noc=noc), sc_f=0, sc_l=0,
+        p_samp_s=psz)
+    if stops == "first trip":
+        params = dataclasses.replace(params, min_iter=1, dr_thresh=1e-9)
+    else:
+        params = dataclasses.replace(params, min_iter=params.max_iter)
+    h, w, spec = _level_filling_no_block(params, camlr)
+    a, b = (torch.as_tensor(x, device=cuda)
+            for x in _frames(3, h, w, psz, noc))
+    ims, dxs, dys = pyramid.build_pyramid(a, 0, psz)
+    imb, _, _ = pyramid.build_pyramid(b, 0, psz, getgrad=False)
+    tpl = patch_solver.extract_templates(spec, params, ims[0], dxs[0], dys[0])
+    rng = np.random.default_rng(psz + 10 * noc + 100 * nop + camlr)
+    p0 = torch.as_tensor(rng.standard_normal((3, nop, spec.nopatches)) * 4,
+                         dtype=torch.float32, device=cuda)
+    pt_ref = patch_solver.grid_ref_points(spec, cuda).T[None].contiguous()
+    # the starts' windows: some inside the planes, some on a border
+    x0 = pt_ref[:, 0] + p0[:, 0]
+    y0 = pt_ref[:, 1] + (p0[:, 1] if nop == 2 else 0.0)
+    sx = torch.ceil(x0 + 1e-5) - psz // 2 - 1 + spec.pad
+    sy = torch.ceil(y0 + 1e-5) - psz // 2 - 1 + spec.pad
+    hp, wp = imb[0].shape[-2:]
+    inside = (sx >= 0) & (sy >= 0) & (sx + psz < wp) & (sy + psz < hp)
+    assert bool(inside.any()) and bool((~inside).any())
+    before = gn_fused.launches
+    p_k, pw_k, it_k = gn_fused.gn_fused(spec, params, imb[0], tpl, p0, pt_ref)
+    assert gn_fused.launches == before + 1
+    p_p, pw_p, it_p, trips = patch_solver._gn_plain(spec, params, imb[0],
+                                                    tpl, p0, pt_ref)
+    if stops == "first trip":
+        assert int(it_p) == 1 and int(trips.max()) == 1
+    else:
+        assert bool((trips == params.max_iter).any())
+    assert p_k.shape == (3, nop, spec.nopatches)
+    assert pw_k.shape == (3, psz * psz, spec.nopatches)
+    assert int(it_k) == int(it_p)
+    assert float((p_k - p_p).abs().max()) <= 1e-3
+    assert float((pw_k - pw_p).abs().max()) <= 1e-4 * float(pw_p.abs().max())
+
+
+def _extract_inputs(cuda, b, noc, n, psz, seed, h=44, w=100):
+    """Planes (b, noc, h + 2 psz, w + 2 psz) and n positions a pair: in the
+    interior, on both validity borders, far outside (a clamped window) and
+    on whole pixels."""
+    rng = np.random.default_rng(seed)
+    im = torch.as_tensor(rng.random((b, noc, h + 2 * psz, w + 2 * psz))
+                         * 255, dtype=torch.float32, device=cuda)
+    pts = np.stack([rng.uniform(-psz / 2, w + psz // 2 - 2, (b, n)),
+                    rng.uniform(-psz / 2, h + psz // 2 - 2, (b, n))], -1)
+    pts[0, 0] = (-psz / 2, -psz / 2)
+    pts[-1, -1] = (w + psz // 2 - 2, h + psz // 2 - 2)
+    pts[b // 2, 0] = (-500.0, 1e4)
+    pts[:, n // 2:n // 2 + 5] = np.rint(pts[:, n // 2:n // 2 + 5])
+    return im, torch.as_tensor(pts, dtype=torch.float32, device=cuda)
+
+
+@pytest.mark.parametrize("psz,n,noc", [
+    (psz, n, noc) for psz in (5, 8, 12, 13, 16, 24) for n in (1, 33, 1000)
+    for noc in (1, 3)] + [(200, 33, 1), (200, 33, 3)])
+def test_bilerp_extract_kernel_every_window_tile(cuda, psz, n, noc):
+    """K7 at patch sizes whose 32 windows fit one tile of the block's
+    shared memory (5 to 16, odd and even), where they take bands of rows
+    (24: 80 KB of windows) and bands of columns (200), gray and RGB, on one
+    patch, one more than a block's 32, and 1000 (ragged). The twin's
+    float32 lerps term by term: equal."""
+    im, pts = _extract_inputs(cuda, 3, noc, n, psz, psz + noc + n)
+    before = bilerp_extract.launches
+    o_k = bilerp_extract.bilerp_extract(im, pts, psz, psz)
+    assert bilerp_extract.launches == before + 1
+    o_p = patch_solver.extract_bilinear(im, pts, psz, psz)
+    assert o_k.shape == o_p.shape == (3, psz * psz * noc, n)
+    assert torch.equal(o_k, o_p)
+
+
 # --------------------------------- repairs: launch device, batch of 65,537
 
 def test_kernels_launch_on_the_tensors_device(cuda):
@@ -662,3 +770,15 @@ def test_warp_and_upscale_take_more_than_65535_pairs(cuda):
     up_p = dis.upscale_output(flow, 1, 8, 16)
     assert up.shape == (b, 8, 16, 2)
     assert float((up - up_p).abs().max()) <= 1e-4
+
+
+def test_bilerp_extract_takes_more_than_65535_pairs(cuda):
+    """A batch of 65,537 pairs (more than a grid's y or z axis holds) of
+    three patches on a tiny level: one launch, equal to its twin."""
+    im, pts = _extract_inputs(cuda, 65537, 1, 3, 5, 0, h=4, w=8)
+    before = bilerp_extract.launches
+    o_k = bilerp_extract.bilerp_extract(im, pts, 5, 5)
+    assert bilerp_extract.launches == before + 1
+    o_p = patch_solver.extract_bilinear(im, pts, 5, 5)
+    assert o_k.shape == (65537, 25, 3)
+    assert torch.equal(o_k, o_p)

@@ -12,15 +12,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      flow, D RGB depth, G gray flow with the forward-backward merge; E
      op-point 3 and F op-point 4 gray flow; H gray flow at patch size 16
      through the 20-parameter form, the unfused GN route; Sintel 1024x436
-     padded to 1024x448): each kernel against its plain PyTorch twin on
+     padded to 1024x448; I op-point 4 gray depth): each kernel against its
+     plain PyTorch twin on
      the card, on the inputs the path hands it (the whole batch), with
      wrapper / plain / library times (CUDA events around back-to-back
      calls) and the bound the card could reach; for every kernel of the
      path also the device's own time (CUDA graphs of 20 calls on rotated
      copies of the inputs, `device_ms`), apart from the host's, and for
      the warp, the upscale and the patch extraction the library call's;
-     for the small-level GN kernel and the patch extraction also one line
-     of device ms per level, with the card's name and power limit;
+     for the small-level GN kernel, the patch extraction and the depth TV
+     loop also one line of device ms per level, with the card's name and
+     power limit; every depth TV call's route and cluster size, asserted
+     against the rule and the path's expectation, with the clusters of
+     that size the card holds at once;
      on paths A, E and F every GN level is also timed on both fused
      routes (templates gathered by plain torch plus `gn_fused`, against
      `gn_tiled`), the measurement behind `patch_solver.TILED_MIN_PATCHES`,
@@ -39,7 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      the per-scale lines printed, the file equal to the quiet one;
   7. the tensor-core dot microbenchmark (T1): `tools.bench_i8_dot` at its
      defaults, launches counted, both products equal to their exact twin,
-     times beside the bound and one PyTorch product of the same function;
+     wrapper and device times beside the bound and one PyTorch product of
+     the same function (`torch._int_mm`, bf16 `matmul`), its device time
+     too;
   8. the per-stage ablation of the GN iteration (T2): `tools
      .bench_gn_stages` at op-2's finest level (batch 384) and at op-4's
      level 0 (batch 4), launches counted, every stage against its twin,
@@ -113,11 +119,15 @@ PATHS = [
          routes=True,
          launches={"gn_fused": 3, "tv_of_inner": 3, "warp": 3, "upscale": 1}),
     dict(name="B", what="depth, gray", op=2, nop=1, noc=1, batch=64,
-         launches={"gn_fused": 3, "tv_de_inner": 3, "warp": 3, "upscale": 1}),
+         launches={"gn_fused": 3, "tv_de_inner": 3, "warp": 3, "upscale": 1},
+         de_routes={5: ("cluster", 1), 4: ("cluster", 1),
+                    3: ("cluster", 2)}),
     dict(name="C", what="flow, RGB", op=2, nop=2, noc=3, batch=64,
          launches={"gn_fused": 3, "tv_of_inner": 3, "warp": 3, "upscale": 1}),
     dict(name="D", what="depth, RGB", op=2, nop=1, noc=3, batch=16,
-         launches={"gn_fused": 3, "tv_de_inner": 3, "warp": 3, "upscale": 1}),
+         launches={"gn_fused": 3, "tv_de_inner": 3, "warp": 3, "upscale": 1},
+         de_routes={5: ("cluster", 1), 4: ("cluster", 1),
+                    3: ("cluster", 4)}),
     dict(name="E", what="flow, gray, op-3", op=3, nop=2, noc=1, batch=16,
          plain_pairs=2, routes=True,
          launches={"gn_fused": 2, "gn_tiled": 3, "tv_of_inner": 5, "warp": 5,
@@ -137,7 +147,19 @@ PATHS = [
          "1.6 0", nop=2, noc=1, batch=4, plain_pairs=2,
          launches={"tv_of_inner": 4, "warp": 4, "upscale": 1},
          at_least={"bilerp_extract": 8}),
+    # op-4 depth on B's disparity field: every route of the depth TV loop,
+    # one block a pair at levels 5 and 4, clusters of 16 at 3..1,
+    # cooperative at level 0
+    dict(name="I", what="depth, gray, op-4", op=4, nop=1, noc=1, batch=4,
+         plain_pairs=2,
+         launches={"gn_fused": 2, "gn_tiled": 4, "tv_de_inner": 6,
+                   "warp": 6},
+         de_routes={5: ("cluster", 1), 4: ("cluster", 1),
+                    3: ("cluster", 16), 2: ("cluster", 16),
+                    1: ("cluster", 16), 0: ("cooperative", 0)}),
 ]
+# the single-pair depth entry on pair 0 of path B's finest level (56x128)
+SINGLE_DE_ROUTES = {3: ("cluster", 16)}
 # name -> where the main path looks the wrapper up (`entry`), the module
 # and attribute of its launch count, its source and the TPU kernel(s) it
 # replaces.
@@ -663,6 +685,17 @@ def check_tv(name, args, kw, kernel_fn):
 
     wx, deriv = args[0], args[-1]
     out_k = tup(kernel_fn(*args, **kw))
+    route = {}
+    if name.startswith("tv_de_inner"):
+        b_, h_, w_ = (1, *wx.shape) if wx.ndim == 2 else tuple(wx.shape)
+        rule = tv_de_inner.route(b_, h_, w_)
+        if tv_de_inner.last_route != rule:
+            raise AssertionError(f"{name} {tuple(wx.shape)}: launched "
+                                 f"{tv_de_inner.last_route}, rule {rule}")
+        route = dict(route=list(rule), max_clusters=(
+            tv_de_inner.max_clusters(wx.device, deriv.shape[-3], rule[1],
+                                     h_, w_) if rule[0] == "cluster"
+            else None))
     plain = lambda: PLAIN[name](*args, **kw)  # noqa: E731
     out_p = tup(plain())
     torch.cuda.synchronize()
@@ -678,7 +711,7 @@ def check_tv(name, args, kw, kernel_fn):
     flops = b * h * w * kw["n_inner"] * tv_flops_per_px(
         name, kw["n_solver"], bool(kw["hd3"]), noc)
     return dict(
-        shape=f"B{b} C{noc} {h}x{w} n_inner {kw['n_inner']}",
+        shape=f"B{b} C{noc} {h}x{w} n_inner {kw['n_inner']}", **route,
         max_abs_err=err,
         wrapper_ms=cuda_ms(lambda: kernel_fn(*args, **kw), 5, 10),
         plain_ms=cuda_ms(plain, 2, 1), library_wrapper_ms=None,
@@ -810,14 +843,15 @@ def call_level(name, args, full_w, finest):
 
 
 # kernels whose device time is also printed summed per level of a path
-PER_LEVEL = ("gn_fused", "bilerp_extract")
+PER_LEVEL = ("gn_fused", "bilerp_extract", "tv_de_inner")
 
 
-def check_calls(label, calls, wrappers, rows, full_w, finest):
+def check_calls(label, calls, wrappers, rows, full_w, finest, de_routes=None):
     """Hold every recorded call of every kernel against its twin, time it,
     print one JSON line per call and append the rows to rows[name]; for
     the kernels of PER_LEVEL also one line of device ms per level, summed
-    over the level's calls, with the card's name and power limit."""
+    over the level's calls, with the card's name and power limit. A depth
+    TV call's route must be the one `de_routes` gives its level."""
     for name, recorded in calls.items():
         seen = {}
         per_level = {}
@@ -827,6 +861,10 @@ def check_calls(label, calls, wrappers, rows, full_w, finest):
             r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
             rows[name].append(r)
             level, _ = call_level(name, args, full_w, finest)
+            if "route" in r and tuple(r["route"]) != de_routes[level]:
+                raise AssertionError(f"path {label} {name} level {level}: "
+                                     f"route {r['route']}, expected "
+                                     f"{de_routes[level]}")
             # with the merge a level's second call is the backward grid's;
             # the extraction runs many times a level: its calls are numbered
             seen[level] = seen.get(level, 0) + 1
@@ -917,7 +955,8 @@ def run_path(cfg, dev, rows, totals):
                              f"{cfg['launches']}, at least "
                              f"{cfg.get('at_least', {})}")
     first = {name: len(rs) for name, rs in rows.items()}
-    check_calls(label, calls, wrappers, rows, full_w, params.sc_l)
+    check_calls(label, calls, wrappers, rows, full_w, params.sc_l,
+                cfg.get("de_routes"))
     if cfg.get("routes"):
         for level_args in gn_levels:
             check_routes(label, *level_args)
@@ -1007,7 +1046,7 @@ def run_single(label, finest, rows, totals):
     with swapped(_recorder(calls)) as wrappers:
         entry(*pair0, **kw)
     check_calls(label + "'", {n: calls[n] for n in expected}, wrappers, rows,
-                W_ORG, level)
+                W_ORG, level, SINGLE_DE_ROUTES)
     reset_launches()
     out = entry(*pair0, **kw)
     torch.cuda.synchronize()
@@ -1151,12 +1190,12 @@ def run_i8_dot(dev, rows, totals):
         a_rep = a.repeat(1, reps)
         b_stack = bt.reshape(reps, n, k).transpose(0, 1).reshape(
             n, reps * k).t()
-        if dtype == torch.int8:
-            lib = lambda: [torch._int_mm(a_rep, b_stack)  # noqa: E731
-                           for _ in range(grid)]
-        else:
-            lib = lambda: [torch.matmul(a_rep, b_stack)  # noqa: E731
-                           for _ in range(grid)]
+        product = torch._int_mm if dtype == torch.int8 else torch.matmul
+
+        def lib_call(x, y):
+            return [product(x, y) for _ in range(grid)]
+
+        lib = lambda: lib_call(a_rep, b_stack)  # noqa: E731
         lib_diff = float((lib()[0].double() - twin[0].double()).abs().max())
         ops = 2.0 * m * k * n * reps * grid
         esize = a.element_size()
@@ -1167,14 +1206,20 @@ def run_i8_dot(dev, rows, totals):
                                    5, 3),
                  plain_ms=cuda_ms(lambda: i8_dot._plain(a, bt, n, grid), 3,
                                   1),
-                 library_wrapper_ms=cuda_ms(lib, 5, 1))
+                 library_wrapper_ms=cuda_ms(lib, 5, 1),
+                 device_ms=device_ms(
+                     lambda x, y: i8_dot.dot_sum(x, y, n, grid), (a, bt), 10),
+                 library_device_ms=device_ms(lib_call, (a_rep, b_stack), 5))
         r["tops"] = ops / r["wrapper_ms"] / 1e9
+        r["device_tops"] = ops / r["device_ms"] / 1e9
         r["library_tops"] = ops / r["library_wrapper_ms"] / 1e9
+        r["library_device_tops"] = ops / r["library_device_ms"] / 1e9
         b_ms, by_ms, op_ms = bound(nbytes, ops, peak)
         r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
         rows["i8_dot"].append(r)
         print(json.dumps({"tool": "bench_i8_dot", "kernel": "i8_dot",
-                          "tolerance": TOL["i8_dot"], **r}), flush=True)
+                          "tolerance": TOL["i8_dot"], **r,
+                          "card": nvidia_smi_line()}), flush=True)
 
 
 def gn_stages_flops(stage: str, b: int, n: int, psz: int,

@@ -2,22 +2,32 @@
 the calls that `chip_smoke.py`'s paths hand the kernel.
 
     python3 kernel_variants.py KERNEL SOURCE.cu ...
+    python3 kernel_variants.py tv_de_inner --routes
 
 Run from the repository root on a machine with an NVIDIA GPU. KERNEL is
-`gn_fused` or `bilerp_extract`; each SOURCE is a version of
+`gn_fused`, `bilerp_extract`, `tv_de_inner` or `i8_dot`; each SOURCE is a
+version of
 `of_dis_tpu_torch/csrc/KERNEL.cu` with the same C entry (say the parent's,
 from `git show HEAD:of_dis_tpu_torch/csrc/gn_fused.cu`, and trial edits),
 named by its file stem. Every SOURCE is compiled with the build's nvcc
 flags, all at once, and its ptxas report (registers, spills) printed. The
 kernel's calls are recorded from one `dis_flow_batched` call on each of
-its paths (PATHS), then, in each of ROUNDS rounds, each version is bound
-in place of the kernel's library (`build.bind`), checked against the
-plain twin on every call with `chip_smoke.py`'s tolerances (gn_fused:
-iterations equal, p and pweight within tolerance; bilerp_extract: equal)
-and timed with `chip_smoke.device_ms`. Prints one JSON line per version
+its paths (PATHS; for `i8_dot` the dot tool's call at its defaults, both
+types), then, in each of ROUNDS rounds, each version is bound in place of
+the kernel's library (`build.bind`), checked against the plain twin on
+every call with `chip_smoke.py`'s tolerances (gn_fused: iterations
+equal, p and pweight within tolerance; the others: equal) and timed
+with `chip_smoke.device_ms`. Prints one JSON line per version
 and round: device ms per (path, level), summed over the level's calls,
 their sum, the calls that differed from their twin (`"mismatch"`) and
 the card's `nvidia-smi` name and power limit.
+
+With `--routes`, the depth TV loop's calls are timed on every route its
+rule could take instead (`tv_de_inner.route` forced: clusters of 1 to 16
+blocks where the bands fit and are 2 rows high, and the cooperative
+route), each checked equal to its twin: one JSON line per call and
+route, and per route the sum over the calls; the measurement behind the
+rule.
 """
 
 from __future__ import annotations
@@ -32,16 +42,26 @@ import torch
 
 import chip_smoke as cs
 from of_dis_tpu_torch import cli
-from of_dis_tpu_torch.kernels import bilerp_extract, build, gn_fused
+from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
+                                      i8_dot, tv_de_inner)
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import patch_solver, pyramid
 from of_dis_tpu_torch.params import op_point_params
+from of_dis_tpu_torch.tools import bench_i8_dot
 
-# each kernel's wrapper and the chip_smoke paths that launch it: every
-# call of K1 (22) and of K7 (68) on the main path
+# each kernel's wrapper, its plain twin and the chip_smoke paths that
+# launch it: every call of K1 (24), K7 (68) and K5 (12) on the main path;
+# T1 runs on none (its calls are the dot tool's)
 KERNELS = {"gn_fused": gn_fused.gn_fused,
-           "bilerp_extract": bilerp_extract.bilerp_extract}
-PATHS = {"gn_fused": "ABCDEFG", "bilerp_extract": "H"}
+           "bilerp_extract": bilerp_extract.bilerp_extract,
+           "tv_de_inner": tv_de_inner.de_inner,
+           "i8_dot": i8_dot.dot_sum}
+TWINS = {"gn_fused": patch_solver._gn_plain,
+         "bilerp_extract": patch_solver.extract_bilinear,
+         "tv_de_inner": tv_de_inner._plain,
+         "i8_dot": i8_dot._plain}
+PATHS = {"gn_fused": "ABCDEFGI", "bilerp_extract": "H", "tv_de_inner": "BDI",
+         "i8_dot": ""}
 ROUNDS = 2
 
 
@@ -71,8 +91,15 @@ def compile_all(sources):
 
 
 def record(kernel, dev):
-    """[(label "path Llevel", args)] of every call of `kernel` in one
-    `dis_flow_batched` call on each of its paths."""
+    """[(label "path Llevel", args, kw)] of every call of `kernel` in one
+    `dis_flow_batched` call on each of its paths; for `i8_dot` the dot
+    tool's two calls at its defaults."""
+    if kernel == "i8_dot":
+        reps, grid, m, k, n = 64, 64, 832, 256, 256
+        inputs = bench_i8_dot.make_inputs(reps, m, k, n, dev)
+        return [(label, (*inputs[dtype], n, grid), {})
+                for label, dtype in (("int8", torch.int8),
+                                     ("bf16", torch.bfloat16))]
     calls_all = []
     for cfg in cs.PATHS:
         if cfg["name"] not in PATHS[kernel]:
@@ -93,16 +120,16 @@ def record(kernel, dev):
         with cs.swapped(cs._recorder(calls)):
             dis.dis_flow_batched(im_a, im_b, params, im_a.shape[3],
                                  im_a.shape[2], device=dev)
-        for args, _ in calls[kernel]:
+        for args, kw in calls[kernel]:
             level = cs.call_level(kernel, args, im_a.shape[3], params.sc_l)[0]
-            calls_all.append((f"{cfg['name']} L{level}", args))
+            calls_all.append((f"{cfg['name']} L{level}", args, kw))
     torch.cuda.synchronize()
     return calls_all
 
 
 def agrees(kernel, out, twin) -> bool:
     """A call's result against its twin's, at chip_smoke's tolerances."""
-    if kernel == "bilerp_extract":
+    if kernel != "gn_fused":
         return torch.equal(out, twin)
     p_k, pw_k, it_k = out
     p_p, pw_p, it_p = twin[:3]
@@ -111,8 +138,47 @@ def agrees(kernel, out, twin) -> bool:
             float((p_k - p_p).abs().max()) <= cs.TOL[kernel])
 
 
+def time_routes(dev) -> None:
+    """Every call of the depth TV loop on every route its rule could take
+    (`--routes`)."""
+    calls = record("tv_de_inner", dev)
+    rule = tv_de_inner.route
+    sums = {}
+    try:
+        for label, args, kw in calls:
+            b, h, w = args[0].shape
+            twin = TWINS["tv_de_inner"](*args, **kw)
+            routes = [("cluster", k) for k in (1, 2, 4, 8, 16)
+                      if (k == 1 or h >= 2 * k) and tv_de_inner.N_FIELDS * 4
+                      * -(-h // k) * w <= tv_de_inner.SMEM_BYTES]
+            routes.append(("cooperative", 0))
+            for r in routes:
+                tv_de_inner.route = lambda *_, r=r: r
+                out = tv_de_inner.de_inner(*args, **kw)
+                torch.cuda.synchronize()
+                ms = cs.device_ms(lambda *a: tv_de_inner.de_inner(*a, **kw),
+                                  args)
+                key = f"{r[0]} {r[1]}"
+                sums[key] = sums.get(key, 0.0) + ms
+                print(json.dumps({"call": label, "shape": [b, h, w],
+                                  "route": list(r), "rule": list(rule(b, h, w)),
+                                  "device_ms": ms,
+                                  "equal": torch.equal(out, twin)}),
+                      flush=True)
+    finally:
+        tv_de_inner.route = rule
+    print(json.dumps({"routes_device_ms_sum": sums,
+                      "card": cs.nvidia_smi_line()}), flush=True)
+
+
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv == ["tv_de_inner", "--routes"]:
+        if not torch.cuda.is_available():
+            raise RuntimeError("kernel_variants needs a CUDA device")
+        build.build()
+        time_routes(torch.device("cuda"))
+        return
     if len(argv) < 2 or argv[0] not in KERNELS:
         raise SystemExit(__doc__)
     kernel, sources = argv[0], [Path(p).resolve() for p in argv[1:]]
@@ -122,20 +188,19 @@ def main(argv=None) -> None:
     build.build()
     dev = torch.device("cuda")
     calls = record(kernel, dev)
-    plain = (patch_solver._gn_plain if kernel == "gn_fused"
-             else patch_solver.extract_bilinear)
-    twins = [plain(*args) for _, args in calls]
+    twins = [TWINS[kernel](*args, **kw) for _, args, kw in calls]
     wrapper = KERNELS[kernel]
     for rnd in range(ROUNDS):
         for stem, lib in libs.items():
             build.bind(kernel, lib)
             row, bad = {}, []
-            for (label, args), twin in zip(calls, twins):
-                out = wrapper(*args)
+            for (label, args, kw), twin in zip(calls, twins):
+                out = wrapper(*args, **kw)
                 torch.cuda.synchronize()
                 if not agrees(kernel, out, twin):
                     bad.append(label)
-                row[label] = row.get(label, 0.0) + cs.device_ms(wrapper, args)
+                row[label] = row.get(label, 0.0) + cs.device_ms(
+                    lambda *a: wrapper(*a, **kw), args)
             print(json.dumps({"round": rnd, "version": stem,
                               "device_ms": row, "sum": sum(row.values()),
                               "mismatch": bad,

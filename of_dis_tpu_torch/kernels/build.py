@@ -163,13 +163,14 @@ def launch(device, name: str, symbol: str, argtypes: Sequence, *args
     check(err, name)
 
 
-def query(device, name: str, symbol: str) -> int:
-    """The int that the C entry `symbol()` of kernel `name` returns with
-    `device` current (a property the library reads from the device, or a
-    constant of the kernel)."""
-    fn = entry(name, symbol, [])
+def query(device, name: str, symbol: str, argtypes: Sequence = (),
+          *args) -> int:
+    """The int that the C entry `symbol(*args)` of kernel `name` returns
+    with `device` current (a property the library reads from the device,
+    or a constant of the kernel)."""
+    fn = entry(name, symbol, argtypes)
     with torch.cuda.device(device):
-        return fn()
+        return fn(*args)
 
 
 def ptr(t) -> int:

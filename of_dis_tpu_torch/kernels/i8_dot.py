@@ -1,6 +1,7 @@
 """T1: the tensor-core dot microbenchmark as one CUDA kernel
-(csrc/i8_dot.cu), int8 -> int32 and bf16 -> float32, replacing the TPU
-kernel of `tools/bench_i8_dot.py` of the JAX package.
+(csrc/i8_dot.cu: `wgmma` on operands that TMA streams into shared memory),
+int8 -> int32 and bf16 -> float32, replacing the TPU kernel of
+`tools/bench_i8_dot.py` of the JAX package.
 
 Plain twin: `_plain` (float64 products, exact for these integer inputs)."""
 
@@ -19,6 +20,9 @@ _i, _p = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 3 + [_i] * 6 + [_p]
 # operand type -> accumulator type
 ACC = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
+# bytes of k a block keeps of A in shared memory, beside a ring of two or
+# more 32 KB stages of B
+MAX_K_BYTES = 1280
 
 
 def _plain(a: torch.Tensor, bt: torch.Tensor, n: int, grid: int
@@ -50,9 +54,9 @@ def dot_sum(a: torch.Tensor, bt: torch.Tensor, n: int, grid: int
     if a.device.type == "cpu":
         return _plain(a, bt, n, grid)
     m, k = a.shape
-    if (k * a.element_size()) % 16:
+    if (k * a.element_size()) % 16 or k * a.element_size() > MAX_K_BYTES:
         raise ValueError(f"{NAME}: k * element size must be a multiple of "
-                         f"16 bytes, got k={k}")
+                         f"16 bytes and at most {MAX_K_BYTES}, got k={k}")
     build.check_tensor(NAME, "a", a, (m, k), a.dtype)
     build.check_tensor(NAME, "bt", bt, tuple(bt.shape), a.dtype)
     out = torch.empty((grid, m, n), dtype=ACC[a.dtype], device=a.device)

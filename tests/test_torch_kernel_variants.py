@@ -48,3 +48,31 @@ def test_bind_replaces_the_library_and_drops_its_entries(monkeypatch):
     assert build.entry("warp", "getpid", []) is build.load("warp").getpid
     assert set(build._entries) == {("warp", "getpid"),
                                    ("upscale", "of_upscale")}
+
+
+def test_every_kernel_has_its_twin():
+    assert set(kernel_variants.TWINS) == set(kernel_variants.KERNELS)
+    assert kernel_variants.TWINS["tv_de_inner"] is \
+        chip_smoke.PLAIN["tv_de_inner"]
+    assert kernel_variants.TWINS["i8_dot"] is chip_smoke.PLAIN["i8_dot"]
+
+
+def test_the_dot_tools_calls_are_recorded_at_its_defaults():
+    """T1 runs on no path: its calls are the dot tool's, both types, and
+    each agrees with its twin (on the CPU the wrapper is the twin)."""
+    calls = kernel_variants.record("i8_dot", torch.device("cpu"))
+    assert [label for label, _, _ in calls] == ["int8", "bf16"]
+    for label, (a, bt, n, grid), kw in calls:
+        assert (tuple(a.shape), tuple(bt.shape), n, grid, kw) == (
+            (832, 256), (64 * 256, 256), 256, 64, {})
+        assert a.dtype == (torch.int8 if label == "int8" else torch.bfloat16)
+    a, bt, n, grid = calls[0][1]
+    a, bt = a[:64], bt[:3 * n]
+    assert kernel_variants.agrees("i8_dot", kernel_variants.KERNELS[
+        "i8_dot"](a, bt, n, 2), kernel_variants.TWINS["i8_dot"](a, bt, n, 2))
+
+
+def test_route_timing_refuses_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_variants.main(["tv_de_inner", "--routes"])

@@ -12,8 +12,8 @@ Tolerances are those of chip_smoke.py, with the same reasons: the GN
 twin sums each patch in the kernel's order and 12 dependent trips amplify
 the rounding left (1e-3 px, pweight 1e-4 relative); the others repeat
 their twin's float32 formulas (1e-4; the flow TV loop on either route
-equals its twin, error 0; the patch extraction too, at every window
-tile). The single-pair TV entries launch the batched
+and the depth TV loop on every route and cluster size equal their twins,
+error 0; the patch extraction too, at every window tile). The single-pair TV entries launch the batched
 kernel for one pair, so they equal row 0 of the batched result bit for
 bit. The warp repeats its twin's float32 operations in
 their order (no contraction): equal to it, error 0. The dot
@@ -463,6 +463,25 @@ def test_i8_dot_kernel_matches_plain(cuda, dtype, m, k, n, reps, grid):
     assert torch.equal(out, i8_dot._plain(a, bt, n, grid))
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,reps,grid", [(832, 256, 256, 64, 64),
+                                             (200, 256, 300, 3, 2),
+                                             (100, 128, 40, 5, 1)])
+def test_i8_dot_kernel_at_the_defaults_and_ragged_tiles(cuda, dtype, m, k,
+                                                        n, reps, grid):
+    """The tool's defaults (0/1 B as the tool draws it), and m no multiple
+    of the block's 64-row halves with n past one 256-column tile or below
+    it: TMA's zero fill beyond the arrays, the unstored columns of the next
+    rep and the idle consumer half. Equal to the exact twin."""
+    rng = np.random.default_rng(m + n)
+    a = torch.as_tensor(rng.integers(-127, 127, (m, k), np.int8))
+    bt = torch.as_tensor((rng.random((reps * n, k)) < 0.3).astype(np.int8)
+                         * rng.integers(-3, 4, (reps * n, k), np.int8))
+    a, bt = a.to(cuda, dtype), bt.to(cuda, dtype)
+    out = i8_dot.dot_sum(a, bt, n, grid)
+    assert torch.equal(out, i8_dot._plain(a, bt, n, grid))
+
+
 def test_i8_dot_rejects_what_the_kernel_does_not_take(cuda):
     a = torch.zeros((8, 24), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -471,6 +490,11 @@ def test_i8_dot_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="int8 or both bfloat16"):
         i8_dot.dot_sum(a, torch.zeros((16, 24), dtype=torch.bfloat16,
                                       device=cuda), 8, 1)
+    # A's stripe stays in shared memory: k * element size is bounded
+    wide = torch.zeros((8, i8_dot.MAX_K_BYTES + 16), dtype=torch.int8,
+                       device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        i8_dot.dot_sum(wide, wide, 8, 1)
 
 
 @pytest.mark.parametrize("psz,edge", [(5, False), (8, False), (12, False),
@@ -565,6 +589,105 @@ def test_tv_cooperative_kernel_is_captured_by_a_cuda_graph(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(uu, uu0) and torch.equal(vv, vv0)
+
+
+# ------------------------------------------------- the depth TV loop (K5)
+
+_DE_ROUTES = [("cluster", 1), ("cluster", 2), ("cluster", 4), ("cluster", 8),
+              ("cluster", 16), ("cooperative", 0)]
+# (b, h, w): one pixel, ragged and odd levels, bands at their minimum of
+# 2 rows (4 rows at K = 2, 32 at K = 16), one, three and 64 pairs
+_DE_SHAPES = [(1, 1, 1), (3, 7, 5), (3, 4, 9), (3, 37, 61), (64, 37, 61),
+              (1, 32, 40)]
+_DE_CASES = [(b, h, w, r, k) for b, h, w in _DE_SHAPES for r, k in _DE_ROUTES
+             if r == "cooperative" or k == 1 or h >= 2 * k]
+
+
+def _force_de_route(monkeypatch, route):
+    monkeypatch.setattr(tv_de_inner, "route", lambda b, h, w: route)
+
+
+def _de_kw(parity, camlr, n_inner=3, n_solver=3, delta=5.0):
+    qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, delta)
+    return dict(camlr=camlr, quarter_alpha=qa, hd3=hd3, hg3=hg3,
+                n_inner=n_inner, n_solver=n_solver, omega=1.6,
+                row_parity=parity)
+
+
+@pytest.mark.parametrize("noc", [1, 3])
+@pytest.mark.parametrize("b,h,w,route,k", _DE_CASES)
+def test_tv_de_kernel_routes_equal_plain(cuda, monkeypatch, b, h, w, route,
+                                         k, noc):
+    """K5 on each route and cluster size, whatever the rule would pick:
+    both row parities and both cameras (alternating over the shapes), the
+    colour term on and off. The twin's float32 operations per pixel, no
+    contraction: equal to it (error 0; NaN where both are NaN: a 1x1 level
+    outside the warp's bounds has no weights, and omega / 0 times 0 is NaN
+    in both)."""
+    _force_de_route(monkeypatch, (route, k))
+    i = _DE_SHAPES.index((b, h, w))
+    parity, camlr = i % 2, (i // 2) % 2
+    _, _, wx, _, mask, deriv = _tv_inputs(cuda, b, noc, h, w, h * w + b + k,
+                                          depth=True)
+    kw = _de_kw(parity, camlr, delta=5.0 if (i + k) % 2 else 0.0)
+    before = tv_de_inner.launches
+    uu_k = tv_de_inner.de_inner(wx, mask, deriv, **kw)
+    assert tv_de_inner.launches == before + 1
+    assert tv_de_inner.last_route == (route, k)
+    uu_p = tv._de_inner_loop(wx, mask, _i_list(deriv), noc=noc, **kw)
+    torch.testing.assert_close(uu_k, uu_p, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("route", [("cluster", 1), ("cluster", 4),
+                                   ("cooperative", 0)])
+@pytest.mark.parametrize("n_inner,n_solver", [(0, 3), (3, 0), (2, 1)])
+def test_tv_de_kernel_without_sweeps_or_iterations_equals_plain(
+        cuda, monkeypatch, n_inner, n_solver, route):
+    """No inner iteration (uu = wx, unclamped) or no SOR sweep (du = 0,
+    uu = clamp(wx) after every iteration): every route equals the twin."""
+    _force_de_route(monkeypatch, route)
+    _, _, wx, _, mask, deriv = _tv_inputs(cuda, 3, 1, 19, 23, 7, depth=True)
+    kw = _de_kw(1, 0, n_inner=n_inner, n_solver=n_solver)
+    uu_k = tv_de_inner.de_inner(wx, mask, deriv, **kw)
+    uu_p = tv._de_inner_loop(wx, mask, _i_list(deriv), noc=1, **kw)
+    assert torch.equal(uu_k, uu_p)
+
+
+@pytest.mark.parametrize("route", [("cluster", 8), ("cooperative", 0)])
+def test_tv_de_kernel_is_captured_by_a_cuda_graph(cuda, monkeypatch, route):
+    """A cluster launch and a cooperative launch are taken by stream
+    capture (chip_smoke.py times K5 through a CUDA graph) and replay to the
+    same bits."""
+    _force_de_route(monkeypatch, route)
+    _, _, wx, _, mask, deriv = _tv_inputs(cuda, 2, 1, 30, 41, 3, depth=True)
+    kw = _de_kw(0, 0, n_inner=2)
+    uu0 = tv_de_inner.de_inner(wx, mask, deriv, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        uu = tv_de_inner.de_inner(wx, mask, deriv, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(uu, uu0)
+
+
+def test_tv_de_kernel_raises_where_no_cluster_can_be_resident(cuda,
+                                                              monkeypatch):
+    """Bands of 2 rows x 6,000 pixels need 240,000 bytes of shared memory a
+    block, more than an SM has: no cluster of 16 can be resident, the card
+    says so, and the wrapper raises (no fallback to another route or the
+    twin); a cluster of 32 blocks is refused too."""
+    h, w = 32, 6000
+    assert tv_de_inner.max_clusters(cuda, 1, 16, h, w) == 0
+    assert tv_de_inner.max_clusters(cuda, 1, 2, 56, 128) > 0
+    _, _, wx, _, mask, deriv = _tv_inputs(cuda, 1, 1, h, w, 1, depth=True)
+    kw = _de_kw(0, 0, n_inner=1)
+    before = tv_de_inner.launches
+    for k in (16, 32):
+        _force_de_route(monkeypatch, ("cluster", k))
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            tv_de_inner.de_inner(wx, mask, deriv, **kw)
+    assert tv_de_inner.launches == before
 
 
 # ------------------------------ the large-level GN kernel (K6), every instance

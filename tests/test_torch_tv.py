@@ -300,3 +300,42 @@ def test_tv_route_rule_follows_the_pair_size(h, w, cooperative):
     larger ones spread over the card in one cooperative launch."""
     assert tv_of_inner.BLOCK_MAX_PIXELS == 1024
     assert tv_of_inner.cooperative(h, w) == cooperative
+
+
+# K5's rule (measured on the H100, PERF.md): pairs of at most 2,048 pixels
+# keep one block a pair; larger ones split into bands of at most 2,048
+# pixels that fit one block's shared memory, as many clusters as fill the
+# card in one wave and at least 64 blocks; the cooperative route where no
+# 16-block cluster holds a pair
+_DE_ROUTES = {
+    (14, 32): [("cluster", 1)] * 4,
+    (28, 64): [("cluster", 1)] * 4,
+    (56, 128): [("cluster", 16), ("cluster", 16), ("cluster", 4),
+                ("cluster", 2)],
+    (112, 256): [("cluster", 16), ("cluster", 16), ("cluster", 8),
+                 ("cluster", 4)],
+    (224, 512): [("cluster", 16)] * 4,
+    (448, 1024): [("cooperative", 0)] * 4,
+}
+
+
+@pytest.mark.parametrize("b", [1, 4, 16, 64])
+@pytest.mark.parametrize("h,w", sorted(_DE_ROUTES))
+def test_tv_de_route_rule_follows_the_level_and_batch(h, w, b):
+    """K5's route is a rule of the level's shape and batch: op-2's coarse
+    levels (up to 1,792 pixels a pair) keep one block a pair at any batch;
+    its 56x128 level splits over clusters of 2 at B=64 (one wave), 4 at
+    B=16 (path D), 16 for one to four pairs; op-4's 224x512 level needs 16
+    blocks of 172 KB, and its 1024x448 level (11 MB of fields a pair) takes
+    the cooperative route. Every band fits the shared memory and is at
+    least 2 rows high."""
+    name, k = tv_de_inner.route(b, h, w)
+    assert (name, k) == _DE_ROUTES[(h, w)][[1, 4, 16, 64].index(b)]
+    if name == "cluster":
+        assert k == 1 or h >= 2 * k
+        assert tv_de_inner.N_FIELDS * 4 * -(-h // k) * w \
+            <= tv_de_inner.SMEM_BYTES
+    else:
+        k = tv_de_inner.MAX_CLUSTER
+        assert tv_de_inner.N_FIELDS * 4 * -(-h // k) * w \
+            > tv_de_inner.SMEM_BYTES

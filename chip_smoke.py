@@ -36,23 +36,35 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. the single-pair TV entries `ops.tv.ref_level_of` / `ref_level_de` on
      pair 0 of the finest level of paths A and B: launch counts, against
      their twins, and equal to row 0 of the batched result;
-  6. the compiled-reference goldens through the port's `cli.main` on the
+  6. path J, the warm-started sequence mode: `dis_sequence_batched` on 16
+     streams x 5 frames at op-2 gray flow (frame t of a stream is its
+     base frame warped by t times path A's field): every kernel call
+     against its twin, launches counted over the run and per step (each
+     step's equal to a path-A call's), per step the median flow against
+     the field, the kernel path against the plain path and stream 0
+     against `dis_sequence`, wall ms per step beside path A's and one
+     profiled step; then `cli.main --init-flow` at op-2 against the same
+     run on the plain twins;
+  7. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
      the merge for flow and depth, the TV-free pseudo-Huber run), and the
      op-2 and op-4 gray-flow goldens again at the CLI's default verbosity 2:
      the per-scale lines printed, the file equal to the quiet one;
-  7. the tensor-core dot microbenchmark (T1): `tools.bench_i8_dot` at its
+  8. the tensor-core dot microbenchmark (T1): `tools.bench_i8_dot` at its
      defaults, launches counted, both products equal to their exact twin,
      wrapper and device times beside the bound and one PyTorch product of
      the same function (`torch._int_mm`, bf16 `matmul`), its device time
      too;
-  8. the per-stage ablation of the GN iteration (T2): `tools
-     .bench_gn_stages` at op-2's finest level (batch 384) and at op-4's
-     level 0 (batch 4), launches counted, every stage against its twin,
-     every variant equal to A4 bit for bit, times beside the small-level
-     GN kernel's level-3 time of path A (per pair, with the card's name and
-     power limit) and the large-level GN kernel's level-0 time of path F;
-  9. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
+  9. the per-stage ablation of the GN iteration (T2): `tools
+     .bench_gn_stages` at op-2's finest level (batch 384, on the small-level
+     GN kernel's lane layout) and at op-4's level 0 (batch 4, on the
+     large-level GN kernel's column layout), launches counted, every stage
+     against its twin, every variant equal to A4 bit for bit, wrapper and
+     device times; the stages' device times beside the small-level GN
+     kernel's level-3 device time of path A (per pair) and the large-level
+     GN kernel's level-0 device time of path F, with the card's name and
+     power limit;
+ 10. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
      last line `{"ok": true, "device": {...}}`.
 
 Synthetic pairs follow the JAX package's bench workload (a blurred random
@@ -420,24 +432,45 @@ def _remap(img, mx, my):
             + fy * ((1 - fx) * g(y1, x0) + fx * g(y1, x1)))
 
 
-def make_pairs(batch, h, w, seed, device, channels=1, field=_flow_field):
-    """u8 frame pairs (B, channels, h, w), each channel an independent
-    blurred random frame, and the true field (u, v) that moves the first
-    frame of a pair onto the second."""
+def _to_u8(x):
+    return x.round().clamp(0, 255).to(torch.uint8)
+
+
+def _base_frames(batch, channels, h, w, seed, device):
+    """Blurred random frames (B, channels, h, w) in [0, 255], from a
+    numpy draw of `seed` (the first b frames of a draw of B > b are the
+    draw of b)."""
     rng = np.random.default_rng(seed)
     base = torch.as_tensor(rng.random((batch, channels, h, w),
                                       dtype=np.float32),
                            device=device) * 255.0
-    base = _blur7(base)
+    return _blur7(base)
+
+
+def make_pairs(batch, h, w, seed, device, channels=1, field=_flow_field):
+    """u8 frame pairs (B, channels, h, w), each channel an independent
+    blurred random frame, and the true field (u, v) that moves the first
+    frame of a pair onto the second."""
+    base = _base_frames(batch, channels, h, w, seed, device)
     u, v = field(h, w, device)
     yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
     xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
     shifted = _remap(base, xx - u, yy - v)
+    return _to_u8(base), _to_u8(shifted), u, v
 
-    def to_u8(x):
-        return x.round().clamp(0, 255).to(torch.uint8)
 
-    return to_u8(base), to_u8(shifted), u, v
+def make_sequence(streams, frames, h, w, seed, device):
+    """u8 videos (T, S, 1, h, w): frame t of stream s is the blurred random
+    frame s (that of `make_pairs`' pair s) backward-warped by t times the
+    flow field, so each pair of consecutive frames moves by about the
+    field (u, v), which is returned too."""
+    base = _base_frames(streams, 1, h, w, seed, device)
+    u, v = _flow_field(h, w, device)
+    yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
+    out = [base] + [_remap(base, xx - t * u, yy - t * v)
+                    for t in range(1, frames)]
+    return _to_u8(torch.stack(out)), u, v
 
 
 # ---------------------------------------------- kernel inputs of the path
@@ -893,10 +926,10 @@ def launches_as_expected(counts, cfg) -> bool:
         counts.get(name, 0) >= n for name, n in floor.items())
 
 
-def run_path(cfg, dev, rows, totals):
-    """Phases 3 and 4 for one path. Returns the recorded inputs and result
-    of the finest level's batched TV call, for the single-pair phase, and
-    that level."""
+def run_path(cfg, dev, rows, totals, walls_by_path):
+    """Phases 3 and 4 for one path; its median wall time goes to
+    walls_by_path[name]. Returns the recorded inputs and result of the finest
+    level's batched TV call, for the single-pair phase, and that level."""
     label, nop, noc, batch = cfg["name"], cfg["nop"], cfg["noc"], cfg["batch"]
     op = cfg["op"]
     if op is None:
@@ -1016,6 +1049,7 @@ def run_path(cfg, dev, rows, totals):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
+    walls_by_path[label] = wall
     print(json.dumps({"e2e": "dis_flow_batched", "path": label, "op": op,
                       "fbcon": bool(cfg.get("fbcon")),
                       "nop": nop, "noc": noc, "batch": batch,
@@ -1068,6 +1102,186 @@ def run_single(label, finest, rows, totals):
           "pair equals row 0 of the batched result", flush=True)
 
 
+# Path J: S streams of T frames through the warm-started sequence mode at
+# op-2, gray flow; each step launches what one path-A call launches.
+SEQUENCE = dict(name="J", what="warm sequence, op-2 gray flow", op=2,
+                streams=16, frames=5, plain_streams=4)
+
+
+def run_sequence(dev, rows, totals, walls_by_path):
+    """Phase 6: path J. `dis_sequence_batched` on S streams x T frames at
+    op-2 (1024x436 padded to 1024x448, which divides 2^(sc_f+1)): every
+    kernel call of one run against its twin; launches counted over the run
+    and per step (a loop of `dis_step_warm`, equal to the run bit for bit),
+    each step's equal to path A's per call; per step the median flow
+    against the field, the kernel path against the plain path on a few
+    streams and stream 0 against `dis_sequence` on that stream; wall ms per
+    step beside path A's and one profiled step."""
+    cfg = SEQUENCE
+    label, s, t_n = cfg["name"], cfg["streams"], cfg["frames"]
+    params = op_point_params(W_ORG, cfg["op"], nop=2, noc=1)
+    frames, u_true, v_true = make_sequence(s, t_n, H_ORG, W_ORG, 0, dev)
+    frames = pyramid.pad_to_divisible(frames, params.sc_f + 1)
+    full_h, full_w = frames.shape[-2], frames.shape[-1]
+    k = 2 ** (params.sc_f + 1)
+    if full_h % k or full_w % k:
+        raise AssertionError(f"path {label}: {full_h}x{full_w} does not "
+                             f"divide {k}")
+    print(f"path {label} ({cfg['what']}): {s} streams x {t_n} frames, "
+          f"1x{H_ORG}x{W_ORG} u8 -> padded {full_h}x{full_w}; levels "
+          f"{params.sc_f}..{params.sc_l}, warm start at "
+          f"{full_h // k}x{full_w // k}", flush=True)
+
+    def run(x=frames):
+        return dis.dis_sequence_batched(x, params, full_w, full_h, device=dev)
+
+    # every kernel call of one run (a loop of its steps) against its twin
+    carry = dis.warm_carry_init(s, params, full_w, full_h, device=dev)
+    for t in range(t_n - 1):
+        calls = {name: [] for name in KERNELS}
+        with swapped(_recorder(calls)) as wrappers:
+            _, carry = dis.dis_step_warm(frames[t], frames[t + 1], params,
+                                         full_w, full_h, carry, device=dev)
+        torch.cuda.synchronize()
+        check_calls(f"{label} step {t}", {n: c for n, c in calls.items()
+                                          if c}, wrappers, rows, full_w,
+                    params.sc_l)
+
+    # one run, counted, and each step counted on its own
+    per_call = next(c["launches"] for c in PATHS if c["name"] == "A")
+    reset_launches()
+    flows = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    steps = t_n - 1
+    print(f"path {label}: launches in one dis_sequence_batched call "
+          f"({steps} steps): {json.dumps(launches)}", flush=True)
+    if launches != {name: steps * n for name, n in per_call.items()}:
+        raise AssertionError(f"path {label}: launches {launches}, expected "
+                             f"{steps} x {per_call}")
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+    carry = dis.warm_carry_init(s, params, full_w, full_h, device=dev)
+    step_flows = []
+    for t in range(steps):
+        reset_launches()
+        flow, carry = dis.dis_step_warm(frames[t], frames[t + 1], params,
+                                        full_w, full_h, carry, device=dev)
+        torch.cuda.synchronize()
+        step = read_launches()
+        print(f"path {label} step {t}: launches {json.dumps(step)} (path A "
+              f"per call: {json.dumps(per_call)})", flush=True)
+        if step != per_call:
+            raise AssertionError(f"path {label} step {t}: launches {step}")
+        step_flows.append(flow)
+    if not torch.equal(torch.stack(step_flows), flows):
+        raise AssertionError(f"path {label}: a loop of dis_step_warm differs "
+                             "from dis_sequence_batched")
+    if tuple(flows.shape) != (steps, s, full_h, full_w, 2) or \
+            not bool(torch.isfinite(flows).all()):
+        raise AssertionError(f"path {label}: flows {tuple(flows.shape)} or "
+                             "non-finite")
+
+    # per step: the field, the plain path, dis_sequence on stream 0
+    few = cfg["plain_streams"]
+    with swapped(lambda name, _: PLAIN[name]):
+        ref = run(frames[:, :few])
+    ours = run(frames[:, :few])
+    single = dis.dis_sequence(frames[:, 0], params, full_w, full_h,
+                              device=dev)
+    top = (full_h - H_ORG) // 2
+    true = torch.stack([u_true, v_true], -1)[32:-32, 32:-32]
+    med_true = true.reshape(-1, 2).median(dim=0).values
+    for t in range(steps):
+        crop = flows[t, :, top + 32:top + H_ORG - 32, 32:W_ORG - 32]
+        med = crop.reshape(-1, 2).median(dim=0).values
+        epe_true = float(torch.linalg.vector_norm(crop - true, dim=-1).mean())
+        ratio = epe_ratio(ours[t], ref[t])
+        seq_diff = float((flows[t, 0] - single[t]).abs().max())
+        print(json.dumps({"path": label, "step": t,
+                          "median": med.tolist(),
+                          "median_true": med_true.tolist(),
+                          "epe_vs_field": epe_true,
+                          "epe_ratio_vs_plain": ratio,
+                          "plain_streams": few,
+                          "stream0_vs_dis_sequence_max_abs": seq_diff}),
+              flush=True)
+        if float((med - med_true).abs().max()) > 0.25:
+            raise AssertionError(f"path {label} step {t}: median "
+                                 f"{med.tolist()} vs {med_true.tolist()}")
+        if not ratio < 1e-3:
+            raise AssertionError(f"path {label} step {t}: kernel path EPE "
+                                 f"ratio {ratio} >= 1e-3")
+        if not seq_diff <= 1e-4:
+            raise AssertionError(f"path {label} step {t}: stream 0 differs "
+                                 f"from dis_sequence by {seq_diff} px")
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    # the same S pairs cold, through dis_flow_batched
+    cold = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dis.dis_flow_batched(frames[0], frames[1], params, full_w, full_h,
+                             device=dev)
+        torch.cuda.synchronize()
+        cold.append(time.perf_counter() - t0)
+    print(json.dumps({"e2e": "dis_sequence_batched", "path": label,
+                      "op": cfg["op"], "streams": s, "frames": t_n,
+                      "size": f"{W_ORG}x{H_ORG}", "wall_s": walls,
+                      "median_wall_s": wall,
+                      "wall_ms_per_step": wall * 1e3 / steps,
+                      "cold_wall_ms_same_pairs":
+                          statistics.median(cold) * 1e3,
+                      "path_a_wall_ms_per_call": walls_by_path["A"] * 1e3,
+                      "pairs_per_s": s * steps / wall}), flush=True)
+    carry = dis.warm_carry_init(s, params, full_w, full_h, device=dev)
+    _, carry = dis.dis_step_warm(frames[0], frames[1], params, full_w,
+                                 full_h, carry, device=dev)
+    profile_call(f"dis_step_warm path {label} (a warm step)",
+                 lambda: dis.dis_step_warm(frames[1], frames[2], params,
+                                           full_w, full_h, carry, device=dev),
+                 wall / steps)
+
+
+def run_cli_init_flow():
+    """Phase 6, second part: `cli.main` at op-2 with `--init-flow` (the
+    op-2 gray-flow golden as the start), counted; its file against the
+    same run on the plain twins."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    gold = os.path.join(ROOT, "tests", "goldens")
+    init = os.path.join(gold, "of_int_op2.flo")
+    argv = ["run_OF_INT", os.path.join(gold, "a.png"),
+            os.path.join(gold, "b.png")]
+    out, plain = (os.path.join(OUT_DIR, f"init_flow_{n}.flo")
+                  for n in ("kernels", "plain"))
+    reset_launches()
+    cli.main(argv + [out, "2", "--init-flow", init, "--quiet"])
+    launches = read_launches()
+    with swapped(lambda name, _: PLAIN[name]):
+        cli.main(argv + [plain, "2", "--init-flow", init, "--quiet"])
+    ours, ref = io.read_flo(out), io.read_flo(plain)
+    ratio = epe_ratio(torch.as_tensor(ours), torch.as_tensor(ref))
+    golden = epe_ratio(torch.as_tensor(ours), torch.as_tensor(
+        io.read_flo(init)))
+    print(f"cli --init-flow at op-2: {ours.shape} flow, EPE ratio vs the "
+          f"plain path {ratio:.3e}, vs the golden it started from "
+          f"{golden:.3e}; launches {json.dumps(launches)}", flush=True)
+    if ours.shape != (160, 192, 2) or not np.isfinite(ours).all():
+        raise AssertionError("cli --init-flow: bad output")
+    if not ratio < 1e-3:
+        raise AssertionError(f"cli --init-flow: EPE ratio {ratio} vs plain")
+    if not launches.get("gn_fused"):
+        raise AssertionError(f"cli --init-flow: launches {launches}")
+
+
 # The explicit 20-parameter forms of the merge and TV-free goldens
 # (tests/test_golden_parity.py): levels 3..1, 12 trips, patch size 8,
 # overlap 0.4, then usefbcon, patnorm, costfct, usetvref.
@@ -1098,7 +1312,7 @@ GOLDENS = [
 
 
 def run_goldens():
-    """Phase 6: the compiled reference's outputs through `cli.main`."""
+    """Phase 7: the compiled reference's outputs through `cli.main`."""
     os.makedirs(OUT_DIR, exist_ok=True)
     gold = os.path.join(ROOT, "tests", "goldens")
     for mode, img1, img2, golden, args, budget in GOLDENS:
@@ -1130,7 +1344,7 @@ VERBOSE_GOLDENS = ("of_int_op2.flo", "of_int_op4.flo")
 
 
 def run_verbose_goldens():
-    """Phase 6, second part: `cli.main` at verbosity 2 prints one
+    """Phase 7, second part: `cli.main` at verbosity 2 prints one
     per-scale line a level and writes the file written quietly above."""
     gold = os.path.join(ROOT, "tests", "goldens")
     for mode, img1, img2, golden, args, _ in GOLDENS:
@@ -1159,7 +1373,7 @@ def run_verbose_goldens():
 # ------------------------------------------------- the measurement tools
 
 def run_i8_dot(dev, rows, totals):
-    """Phase 7: the dot microbenchmark's main path (the tool at its
+    """Phase 8: the dot microbenchmark's main path (the tool at its
     defaults, launches counted), then both products against the twin,
     timed beside the bound and one PyTorch product of the same function:
     A repeated reps times along k times B's reps blocks stacked along k."""
@@ -1238,12 +1452,13 @@ def gn_stages_flops(stage: str, b: int, n: int, psz: int,
 
 
 def run_gn_stages(dev, rows, totals):
-    """Phase 8: the GN stage ablation's main path (the tool at both
+    """Phase 9: the GN stage ablation's main path (the tool at both
     geometries, launches counted), then every stage against its twin on
-    the card and every variant against A4, timed; at op2-l3 beside the
-    small-level GN kernel's level-3 time of path A (448 patches, batch 64,
-    per pair), at op4-l0 beside the large-level GN kernel's level-0 time of
-    path F (51,300 patches, batch 4)."""
+    the card and every variant against A4, timed (wrapper and device);
+    the stages' device times at op2-l3 beside the small-level GN kernel's
+    level-3 device time of path A (448 patches, batch 64, per pair), at
+    op4-l0 beside the large-level GN kernel's level-0 device time of path
+    F (51,300 patches, batch 4), from the same run."""
     reset_launches()
     results = {g: bench_gn_stages.main(["--geometry", g, "--device",
                                         str(dev)])
@@ -1258,18 +1473,18 @@ def run_gn_stages(dev, rows, totals):
     if not all(r["equal_a4"] for res in results.values() for r in res
                if r["variant"]):
         raise AssertionError("gn_stages: a variant differs from A4")
-    k6_l0 = [(r["wrapper_ms"], r["device_ms"]) for r in rows["gn_tiled"]
+    k6_l0 = [r["device_ms"] for r in rows["gn_tiled"]
              if r["shape"].startswith("B4 N51300 ")]
     # path A's level 3 (the first such call: A runs first; B is depth, C
     # RGB)
     k1_l3 = [r["device_ms"] for r in rows["gn_fused"]
              if r["shape"].startswith("B64 N448 D64 nop2 ")]
-    per_pair = {}
     for gname in results:
         geom = bench_gn_stages.GEOMETRIES[gname]
         b, n, psz = geom.batch, geom.n, geom.psz
         x = bench_gn_stages.make_inputs(geom, b, dev)
         a4 = None
+        stage_ms = {}
         for label, stage, variant in bench_gn_stages.RUNS:
             args = bench_gn_stages.call_args(x, geom, stage, variant)
             out = gn_stages.gn_stages(*args)
@@ -1290,14 +1505,17 @@ def run_gn_stages(dev, rows, totals):
             if stage == "A4":
                 nbytes += 4 * 3 * b * n * psz * psz
             r = dict(shape=f"{gname} {label} B{b} N{n} psz{psz} "
-                     f"trips{geom.max_iter}", max_abs_err=err,
-                     max_abs_checksum=scale,
+                     f"trips{geom.max_iter} layout{geom.layout}",
+                     max_abs_err=err, max_abs_checksum=scale,
                      wrapper_ms=cuda_ms(lambda: gn_stages.gn_stages(*args), 5,
                                        3),
                      plain_ms=cuda_ms(lambda: gn_stages._plain(*args), 1, 1),
-                     library_wrapper_ms=None)
+                     library_wrapper_ms=None,
+                     device_ms=device_ms(gn_stages.gn_stages, args),
+                     library_device_ms=None)
             r["us_per_pair"] = r["wrapper_ms"] * 1e3 / b
-            per_pair[(gname, label)] = r["us_per_pair"]
+            r["device_us_per_pair"] = r["device_ms"] * 1e3 / b
+            stage_ms[label] = r["device_ms"]
             b_ms, by_ms, op_ms = bound(nbytes, gn_stages_flops(
                 stage, b, n, psz, geom.max_iter))
             r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
@@ -1306,21 +1524,28 @@ def run_gn_stages(dev, rows, totals):
                               "kernel": "gn_stages",
                               "tolerance": TOL["gn_stages"], **r}),
                   flush=True)
+        # the cumulative stages and their differences, in device ms
+        w, a3, a4_ms = (stage_ms[k] for k in
+                        ("W taps", "A3 +bilerp", "A4 +loss/proj"))
+        split = {"W": w, "A3": a3, "A4": a4_ms, "A3-W": a3 - w,
+                 "A4-A3": a4_ms - a3}
         if gname == "op2-l3" and k1_l3:
-            stages = {label: per_pair[(gname, label)]
-                      for label, _, _ in bench_gn_stages.RUNS}
             print(json.dumps({
                 "beside": "gn_fused (K1) at level 3 of path A: 448 patches "
-                          "x 64 pairs, 12 trips",
-                "k1_device_ms": k1_l3[0],
+                          "x 64 pairs, 12 trips; T2 on K1's lane layout",
                 "k1_device_us_per_pair": k1_l3[0] * 1e3 / 64,
-                "t2_op2_l3_wrapper_us_per_pair": stages,
+                "t2_op2_l3_device_us_per_pair": {
+                    k: v * 1e3 / b for k, v in split.items()},
                 "card": nvidia_smi_line()}), flush=True)
         if gname == "op4-l0" and k6_l0:
-            print(f"gn_tiled (K6) at level 0 of path F, the same 51,300 "
-                  f"patches x 4 pairs and 128 trips: wrapper "
-                  f"{k6_l0[0][0]:.3f} ms = {k6_l0[0][0] * 1e3 / 4:.1f} us per "
-                  f"pair, device {k6_l0[0][1]:.3f} ms", flush=True)
+            print(json.dumps({
+                "beside": "gn_tiled (K6) at level 0 of path F: 51,300 "
+                          "patches x 4 pairs, 128 trips; T2 on K6's column "
+                          "layout",
+                "k6_l0_device_ms": k6_l0[0],
+                "t2_op4_l0_device_ms": split,
+                "a4_below_k6": a4_ms < k6_l0[0],
+                "card": nvidia_smi_line()}), flush=True)
 
 
 # -------------------------------------------------------------------- main
@@ -1348,20 +1573,26 @@ def main() -> int:
     # 3-4. every path; 5. the single-pair entries on paths A and B
     rows = {name: [] for name in KERNELS}
     totals = {}
-    finest = {cfg["name"]: run_path(cfg, dev, rows, totals) for cfg in PATHS}
+    walls = {}
+    finest = {cfg["name"]: run_path(cfg, dev, rows, totals, walls)
+              for cfg in PATHS}
     for label in ("A", "B"):
         run_single(label, finest[label], rows, totals)
 
-    # 6. goldens through the CLI on the card, quiet and at verbosity 2
+    # 6. the warm sequence (path J) and the CLI's warm start
+    run_sequence(dev, rows, totals, walls)
+    run_cli_init_flow()
+
+    # 7. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()
     run_verbose_goldens()
 
-    # 7-8. the measurement tools' kernels
+    # 8-9. the measurement tools' kernels
     run_i8_dot(dev, rows, totals)
     run_gn_stages(dev, rows, totals)
 
-    # 9. summary: per kernel, summed over its calls in one run of every path
-    # or tool
+    # 10. summary: per kernel, summed over its calls in one run of every
+    # path or tool
     summary = []
     for name, rs in rows.items():
         if not rs or not totals.get(name):

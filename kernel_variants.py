@@ -5,20 +5,25 @@ the calls that `chip_smoke.py`'s paths hand the kernel.
     python3 kernel_variants.py tv_de_inner --routes
 
 Run from the repository root on a machine with an NVIDIA GPU. KERNEL is
-`gn_fused`, `bilerp_extract`, `tv_de_inner` or `i8_dot`; each SOURCE is a
-version of
+`gn_fused`, `gn_tiled`, `bilerp_extract`, `tv_de_inner`, `i8_dot` or
+`gn_stages`; each SOURCE is a version of
 `of_dis_tpu_torch/csrc/KERNEL.cu` with the same C entry (say the parent's,
 from `git show HEAD:of_dis_tpu_torch/csrc/gn_fused.cu`, and trial edits),
 named by its file stem. Every SOURCE is compiled with the build's nvcc
 flags, all at once, and its ptxas report (registers, spills) printed. The
 kernel's calls are recorded from one `dis_flow_batched` call on each of
 its paths (PATHS; for `i8_dot` the dot tool's call at its defaults, both
-types), then, in each of ROUNDS rounds, each version is bound in place of
-the kernel's library (`build.bind`), checked against the plain twin on
-every call with `chip_smoke.py`'s tolerances (gn_fused: iterations
-equal, p and pweight within tolerance; the others: equal) and timed
-with `chip_smoke.device_ms`. Prints one JSON line per version
-and round: device ms per (path, level), summed over the level's calls,
+types; for `gn_stages` the stage tool's 12 calls, both geometries and so
+both layouts), then, in each of ROUNDS rounds, each version is bound in
+place of the kernel's library (`build.bind`), checked against the plain
+twin on every call with `chip_smoke.py`'s tolerances (gn_fused and
+gn_tiled: iterations equal, p and pweight within tolerance; gn_stages:
+within its tolerance of the largest checksum; the others: equal) and
+timed with `chip_smoke.device_ms`. The versions run in the order given
+in even rounds and in the reverse order in odd ones (two versions, two
+rounds: A B B A). Prints one JSON line per version
+and round: device ms per (path, level) or tool call, summed over the
+level's calls,
 their sum, the calls that differed from their twin (`"mismatch"`) and
 the card's `nvidia-smi` name and power limit.
 
@@ -43,25 +48,31 @@ import torch
 import chip_smoke as cs
 from of_dis_tpu_torch import cli
 from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
-                                      i8_dot, tv_de_inner)
+                                      gn_stages, gn_tiled, i8_dot,
+                                      tv_de_inner)
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import patch_solver, pyramid
 from of_dis_tpu_torch.params import op_point_params
-from of_dis_tpu_torch.tools import bench_i8_dot
+from of_dis_tpu_torch.tools import bench_gn_stages, bench_i8_dot
 
 # each kernel's wrapper, its plain twin and the chip_smoke paths that
-# launch it: every call of K1 (24), K7 (68) and K5 (12) on the main path;
-# T1 runs on none (its calls are the dot tool's)
+# launch it: every call of K1 (24), K6 (11: 7 on E and F, 4 on I), K7 (68)
+# and K5 (12) on the main path; T1 and T2 run on none (their calls are the
+# tools')
 KERNELS = {"gn_fused": gn_fused.gn_fused,
+           "gn_tiled": gn_tiled.gn_tiled,
            "bilerp_extract": bilerp_extract.bilerp_extract,
            "tv_de_inner": tv_de_inner.de_inner,
-           "i8_dot": i8_dot.dot_sum}
+           "i8_dot": i8_dot.dot_sum,
+           "gn_stages": gn_stages.gn_stages}
 TWINS = {"gn_fused": patch_solver._gn_plain,
+         "gn_tiled": patch_solver._gn_tiled_plain,
          "bilerp_extract": patch_solver.extract_bilinear,
          "tv_de_inner": tv_de_inner._plain,
-         "i8_dot": i8_dot._plain}
-PATHS = {"gn_fused": "ABCDEFGI", "bilerp_extract": "H", "tv_de_inner": "BDI",
-         "i8_dot": ""}
+         "i8_dot": i8_dot._plain,
+         "gn_stages": gn_stages._plain}
+PATHS = {"gn_fused": "ABCDEFGI", "gn_tiled": "EFI", "bilerp_extract": "H",
+         "tv_de_inner": "BDI", "i8_dot": "", "gn_stages": ""}
 ROUNDS = 2
 
 
@@ -93,7 +104,16 @@ def compile_all(sources):
 def record(kernel, dev):
     """[(label "path Llevel", args, kw)] of every call of `kernel` in one
     `dis_flow_batched` call on each of its paths; for `i8_dot` the dot
-    tool's two calls at its defaults."""
+    tool's two calls at its defaults; for `gn_stages` the stage tool's
+    twelve (label "geometry stage")."""
+    if kernel == "gn_stages":
+        calls = []
+        for gname, geom in bench_gn_stages.GEOMETRIES.items():
+            x = bench_gn_stages.make_inputs(geom, geom.batch, dev)
+            calls += [(f"{gname} {label}",
+                       bench_gn_stages.call_args(x, geom, stage, variant), {})
+                      for label, stage, variant in bench_gn_stages.RUNS]
+        return calls
     if kernel == "i8_dot":
         reps, grid, m, k, n = 64, 64, 832, 256, 256
         inputs = bench_i8_dot.make_inputs(reps, m, k, n, dev)
@@ -129,7 +149,10 @@ def record(kernel, dev):
 
 def agrees(kernel, out, twin) -> bool:
     """A call's result against its twin's, at chip_smoke's tolerances."""
-    if kernel != "gn_fused":
+    if kernel == "gn_stages":
+        scale = float(twin.abs().max())
+        return float((out - twin).abs().max()) <= cs.TOL[kernel] * scale
+    if kernel not in ("gn_fused", "gn_tiled"):
         return torch.equal(out, twin)
     p_k, pw_k, it_k = out
     p_p, pw_p, it_p = twin[:3]
@@ -191,7 +214,8 @@ def main(argv=None) -> None:
     twins = [TWINS[kernel](*args, **kw) for _, args, kw in calls]
     wrapper = KERNELS[kernel]
     for rnd in range(ROUNDS):
-        for stem, lib in libs.items():
+        order = list(libs.items())
+        for stem, lib in order if rnd % 2 == 0 else order[::-1]:
             build.bind(kernel, lib)
             row, bad = {}, []
             for (label, args, kw), twin in zip(calls, twins):

@@ -16,7 +16,10 @@ Usage (reference: README.md:46-86, run_dense.cpp:186-295):
 
 Flags: `--quiet` silences the op-point form's default verbosity;
 `--device cuda|cpu` picks the device (default cuda; there is no silent
-fallback to the CPU). `--init-flow` raises NotImplementedError.
+fallback to the CPU); `--init-flow FILE` warm-starts the coarsest scale
+from a full-resolution .flo (the reference's commented-out warm-start
+input, run_dense.cpp:356-379; `load_init_flow`), and the images are then
+padded to 2^(sc_f+1) (run_dense.cpp:302).
 Verbosity > 0 prints the total flow time; verbosity > 1 (the op-point
 form's default) also the load, pyramid, grid and save times and, per
 scale, the reference's six-column line (`models.dis.dis_flow_timed`)
@@ -50,9 +53,11 @@ def parse_args(argv):
     noc = 3 if "RGB" in mode else 1
     img1, img2, outfile = argv[1], argv[2], argv[3]
     rest = list(argv[4:])
+    init_flow_path = None
     if "--init-flow" in rest:
-        raise NotImplementedError(
-            "--init-flow is not ported yet (ROADMAP queue 1, item 14)")
+        k = rest.index("--init-flow")
+        init_flow_path = rest[k + 1]
+        del rest[k:k + 2]
     device = "cuda"
     if "--device" in rest:
         k = rest.index("--device")
@@ -61,7 +66,8 @@ def parse_args(argv):
     quiet = "--quiet" in rest
     if quiet:
         rest.remove("--quiet")
-    return mode, nop, noc, img1, img2, outfile, rest, quiet, device
+    return (mode, nop, noc, img1, img2, outfile, rest, init_flow_path, quiet,
+            device)
 
 
 def build_params(width_org, nop, noc, rest) -> DISParams:
@@ -82,11 +88,37 @@ def build_params(width_org, nop, noc, rest) -> DISParams:
         nop=nop, noc=noc)
 
 
+def load_init_flow(path, nop, pad_lv, full_h, full_w, sc_f,
+                   device) -> torch.Tensor:
+    """Warm-start flow ingestion (run_dense.cpp:356-379): read a full-size
+    .flo (its first nop channels), replicate-pad it as the images were
+    padded (to 2^pad_lv), scale its values by 2^-(sc_f+1), then the
+    k x k box mean, k = 2^(sc_f+1) (cv::INTER_AREA at this integer factor;
+    the padded size divides k). A flow of another size than the padded
+    frames (the reference assumes the same, run_dense.cpp:362) is first
+    resized bilinearly to (full_h, full_w), x values scaled by the width
+    factor and y values by the height factor. Returns (full_h/k, full_w/k,
+    nop) float32 on `device`."""
+    f = io.read_flo(path)[:, :, :nop]
+    ft, fb, fl, fr = pad_amounts(f.shape[1], f.shape[0], pad_lv)
+    f = np.pad(f, ((ft, fb), (fl, fr), (0, 0)), mode="edge")
+    t = torch.as_tensor(np.ascontiguousarray(f.transpose(2, 0, 1)),
+                        device=device)
+    if f.shape[:2] != (full_h, full_w):
+        factors = [full_w / f.shape[1], full_h / f.shape[0]][:nop]
+        t = pyramid.resize_linear(t, full_h, full_w)
+        t = t * torch.as_tensor(np.asarray(factors, np.float32),
+                                device=device)[:, None, None]
+    k = 2 ** (sc_f + 1)
+    t = pyramid._resize_mm(t * (1.0 / k), full_h // k, full_w // k, box=k)
+    return t.permute(1, 2, 0)
+
+
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     t0 = time.perf_counter()
-    mode, nop, noc, img1p, img2p, outfile, rest, quiet, device = \
-        parse_args(argv)
+    (mode, nop, noc, img1p, img2p, outfile, rest, init_path, quiet,
+     device) = parse_args(argv)
     dev = dis.resolve_device(device)
 
     img1 = io.load_image(img1p, channels=noc)
@@ -108,22 +140,32 @@ def main(argv=None):
         params = dataclasses.replace(params, verbosity=0)
     verb = params.verbosity
 
-    # divisibility padding (run_dense.cpp:299-311)
-    a = pyramid.pad_to_divisible(img1, params.sc_f)
-    b = pyramid.pad_to_divisible(img2, params.sc_f)
+    # divisibility padding (run_dense.cpp:299-311); with an init-flow file
+    # to 2^(sc_f+1), so that the warm start's grid divides evenly
+    # (run_dense.cpp:302)
+    pad_lv = params.sc_f + 1 if init_path is not None else params.sc_f
+    a = pyramid.pad_to_divisible(img1, pad_lv)
+    b = pyramid.pad_to_divisible(img2, pad_lv)
     full_h, full_w = a.shape[1], a.shape[2]
-    top, _, left, _ = pad_amounts(w_org, h_org, params.sc_f)
+    top, _, left, _ = pad_amounts(w_org, h_org, pad_lv)
     if verb > 1:
         print(f"TIME (Image loading     ) (ms): "
               f"{(time.perf_counter() - t0) * 1e3:3g}")
 
+    init_flow = None
+    if init_path is not None:
+        init_flow = load_init_flow(init_path, nop, pad_lv, full_h, full_w,
+                                   params.sc_f, dev)
+
     t_run = time.perf_counter()
     if verb > 1:
         # staged path printing the per-scale six-column breakdown
-        flow = dis.dis_flow_timed(a, b, params, full_w, full_h, device=dev)
+        flow = dis.dis_flow_timed(a, b, params, full_w, full_h, init_flow,
+                                  device=dev)
         flow = dis.upscale_full(flow, params, full_h, full_w)
     else:
-        flow = dis.dis_flow_full(a, b, params, full_w, full_h, device=dev)
+        flow = dis.dis_flow_full(a, b, params, full_w, full_h, init_flow,
+                                 device=dev)
     flow = flow.cpu().numpy()
     if verb > 0:
         print(f"TIME (O.Flow Run-Time   ) (ms): "

@@ -31,7 +31,8 @@
 //  - a lane's pixel rows and columns, and their offsets in the planes, are
 //    computed once, not every trip; a window inside the planes (all but
 //    the border patches) is read at one offset a pixel, without clamps
-//    (gn::taps, with its clamps, reads the border windows);
+//    (gn::lane_pixels and gn::lane_taps of gn_common.cuh, shared with
+//    T2; gn::taps, with its clamps, reads the border windows);
 //  - patch sizes 8 (op-1, op-2) and 12 (op-3, op-4 at small levels) are
 //    their own instances, so the patch size is a constant there (the
 //    mean's division by 64 a multiply);
@@ -60,7 +61,8 @@
 
 namespace {
 
-using namespace gn;  // GNArgs, warp_sum, loss, out_of_bounds, taps, lerp
+using namespace gn;  // GNArgs, warp_sum, loss, out_of_bounds, lane_pixels,
+                    // lane_taps, lerp
 
 constexpr int kWarps = 4;  // patches a block
 constexpr int kThreads = 32 * kWarps;
@@ -76,40 +78,6 @@ template <int C, int P>
 struct MinBlocks {
   static constexpr int value = C == 1 && P == 8 ? 8 : 1;
 };
-
-// The four bilinear taps of this lane's pixels (gn::taps's values): a
-// window inside the planes is read at the pixels' offsets `off` from its
-// corner without clamps; a border window takes gn::taps, which clamps.
-template <int K, int C>
-__device__ __forceinline__ void lane_taps(const float* im, int H, int W,
-                                          int sx, int sy, int psz, int lane,
-                                          const int (&off)[K],
-                                          const bool (&valid)[K],
-                                          float (&v00)[K * C],
-                                          float (&v01)[K * C],
-                                          float (&v10)[K * C],
-                                          float (&v11)[K * C]) {
-  if (sx >= 0 && sy >= 0 && sx + psz < W && sy + psz < H) {
-    const float* corner = im + sy * W + sx;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int e = k * C + c;
-        v00[e] = v01[e] = v10[e] = v11[e] = 0.0f;
-        if (valid[k]) {
-          const float* p = corner + c * H * W + off[k];
-          v00[e] = p[0];
-          v01[e] = p[1];
-          v10[e] = p[W];
-          v11[e] = p[W + 1];
-        }
-      }
-    }
-  } else {
-    taps<K, C>(im, H, W, sx, sy, psz, lane, 1.0f, v00, v01, v10, v11);
-  }
-}
 
 // Butterfly sums of N values at once, each as warp_sum adds it (the same
 // bits), the N shuffles of a step issued together.
@@ -143,8 +111,8 @@ __device__ __forceinline__ void error_at(
   const int sx = static_cast<int>(ceilf(x + 1e-5f)) - psz / 2 - 1 + a.pad;
   const int sy = static_cast<int>(ceilf(y + 1e-5f)) - psz / 2 - 1 + a.pad;
   float v00[K * C], v01[K * C], v10[K * C], v11[K * C], patch[K * C];
-  lane_taps<K, C>(im, a.Hp, a.Wp, sx, sy, psz, lane, off, valid, v00, v01,
-                  v10, v11);
+  lane_taps<K, C>(im, a.Hp, a.Wp, sx, sy, psz, lane, 1.0f, off, valid, v00,
+                  v01, v10, v11);
   lerp(v00, v01, v10, v11, rx, ry, patch);
   if (a.patnorm > 0) {
     float s = 0.0f;
@@ -254,13 +222,7 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<C, P>::value)
   // this lane's pixels: row, column, offset from the window's corner
   int off[K];
   bool valid[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int d = lane + 32 * k;
-    valid[k] = d < p_tot;
-    const int j = d / psz, i = d - (d / psz) * psz;
-    off[k] = valid[k] ? j * a.Wp + i : 0;
-  }
+  lane_pixels<K>(psz, a.Wp, lane, off, valid);
 
   // templates (B, D, N), D = (pixel, channel): element (pixel lane + 32k,
   // channel c) of the warp's patch

@@ -32,8 +32,9 @@
 // each one contiguous run of psz + 1 floats a patch (6.5 load instructions
 // a patch and trip at psz 12, gray, against 20), takes the y-lerp in
 // registers and the x-lerp's right-hand column from lane i + 1 with one
-// shuffle. The lerps' operations and order are gn_common.cuh's (the taps
-// there stay as they are for K1 and T2). Patch sums add each lane's
+// shuffle. The lerps' operations and order are gn_common.cuh's `lerp`;
+// the window, its lerps and the segment sums live there too, shared with
+// T2's column layout. Patch sums add each lane's
 // elements in (row j, channel c) order, then a butterfly over the
 // segment's S lanes (4 steps at S = 16, shared by the warp's patches); the
 // plain twin (patch_solver._gn_tiled_plain through _column_sum) sums in the
@@ -52,9 +53,9 @@
 
 namespace {
 
-using namespace gn;  // GNArgs, loss, out_of_bounds
+using namespace gn;  // GNArgs, kFull, loss, out_of_bounds, seg_sum,
+                    // lane_total, cols_patch
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;  // 4 warps a block
 // blocks an SM should hold for a gray level: caps the registers a thread
 // at 65536 / (5 * 128) = 102, five blocks (20 warps) an SM, to hide the
@@ -63,38 +64,11 @@ constexpr int kThreads = 128;  // 4 warps a block
 constexpr int kMinBlocks = 5;
 constexpr int kMaxPsz = 12;
 
-// Sum over the S lanes of a patch's segment: a butterfly, offsets S/2 .. 1
-// (every lane of the segment ends with the same bits).
-template <int S>
-__device__ __forceinline__ float seg_sum(float v) {
-#pragma unroll
-  for (int o = S / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// A lane's elements (row j < psz, channel c) added in that order, from the
-// first element; 0 on a lane without a column (col >= psz), whatever its
-// elements hold.
-template <int R, int C>
-__device__ __forceinline__ float lane_total(const float (&v)[R * C],
-                                            int psz, bool valid_col) {
-  float s = v[0];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if ((j > 0 || c > 0) && j < psz) s = s + v[j * C + c];
-    }
-  }
-  return valid_col ? s : 0.0f;
-}
-
 // Bilinear patch at float position (x, y) (patch.cpp:346-413): anchor
-// ceil(pt + 1e-5), residual against floor(pt). Lane `col` of the segment
-// loads column col of the window (rows clamped to the planes, column too),
-// takes the y-lerp, and the x-lerp with lane col + 1's y-lerp. out[j * C +
-// c] is pixel (j, col), channel c, where col < psz and j < psz; elsewhere
-// a finite value that the sums leave out (lane_total, err_rhs).
+// ceil(pt + 1e-5), residual against floor(pt); the window's column and
+// its lerps are gn::cols_patch's (gn_common.cuh, shared with T2). out[j *
+// C + c] is pixel (j, col), channel c, where col < psz and j < psz;
+// elsewhere a finite value that the sums leave out (lane_total, err_rhs).
 template <int R, int C>
 __device__ __forceinline__ void extract_cols(const float* im, float x,
                                              float y, int col,
@@ -104,43 +78,7 @@ __device__ __forceinline__ void extract_cols(const float* im, float x,
   const float ry = y - floorf(y);
   const int sx = static_cast<int>(ceilf(x + 1e-5f)) - a.psz / 2 - 1 + a.pad;
   const int sy = static_cast<int>(ceilf(y + 1e-5f)) - a.psz / 2 - 1 + a.pad;
-  const int plane = a.Hp * a.Wp;
-  const int xc = min(max(sx + col, 0), a.Wp - 1);
-  const bool loads = col <= a.psz;
-  float win[(R + 1) * C];
-  // a window inside the planes' rows (all but the border patches) needs
-  // no row clamps: one offset a row (13% of K6's level-0 time on an NVIDIA
-  // H100 at 700 W, PERF.md)
-  if (sy >= 0 && sy + a.psz < a.Hp) {
-    const float* top = im + sy * a.Wp + xc;
-#pragma unroll
-    for (int r = 0; r <= R; ++r) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        win[r * C + c] =
-            loads && r <= a.psz ? top[c * plane + r * a.Wp] : 0.0f;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r <= R; ++r) {
-      const int yr = min(max(sy + r, 0), a.Hp - 1);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        win[r * C + c] = loads && r <= a.psz ? im[c * plane + yr * a.Wp + xc]
-                                             : 0.0f;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float g = (1.0f - ry) * win[j * C + c] + ry * win[(j + 1) * C + c];
-      const float gr = __shfl_down_sync(kFull, g, 1);
-      out[j * C + c] = rx * gr + (1.0f - rx) * g;
-    }
-  }
+  cols_patch<R, C>(im, a.Hp, a.Wp, a.psz, sx, sy, rx, ry, col, 1.0f, out);
 }
 
 // Mean-normalised (when patnorm) bilinear patch at (x, y); elements

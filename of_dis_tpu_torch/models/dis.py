@@ -18,7 +18,11 @@ Ported: optical flow (nop=2) and depth from stereo (nop=1, the disparity
 of the left camera, sign-clamped to <= 0), each on gray (noc=1) or RGB
 (noc=3) input, at all four op-points, with or without the forward-backward
 merge (`usefbcon`: a second patch grid on the second image, the right
-camera's for depth, merged into the forward densification).
+camera's for depth, merged into the forward densification); a warm start
+of the coarsest level from an initial flow (`init_flow`, oflow.cpp:215-217)
+and sequence mode on top of it (`dis_sequence`, `dis_sequence_batched`,
+`dis_step_warm`: each pair of a video warm-started from the previous
+pair's flow).
 """
 
 from __future__ import annotations
@@ -79,10 +83,13 @@ def _tv_refine(flow: torch.Tensor, im_a: torch.Tensor, im_b: torch.Tensor,
     return wx[..., None]
 
 
-def _p_init(spec, params: DISParams, flow_prev, batch: int, device
-            ) -> torch.Tensor:
-    """A level's start parameters (B, N, nop): zero at the coarsest level,
-    else read from the coarser level's flow."""
+def _p_init(spec, params: DISParams, flow_prev, batch: int, device,
+            init_flow=None) -> torch.Tensor:
+    """A level's start parameters (B, N, nop): read from the coarser
+    level's flow; at the coarsest level from `init_flow` (B, H/2^(sc_f+1),
+    W/2^(sc_f+1), nop) where one is given, else zero."""
+    if flow_prev is None:
+        flow_prev = init_flow
     if flow_prev is None:
         return torch.zeros((batch, spec.nopatches, params.nop),
                            dtype=torch.float32, device=device)
@@ -120,10 +127,13 @@ class _StageClock(_NoClock):
 
 
 def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
-                   full_w: int, full_h: int, clock: _NoClock = _NoClock()
-                   ) -> torch.Tensor:
+                   full_w: int, full_h: int, init_flow=None,
+                   clock: _NoClock = _NoClock()) -> torch.Tensor:
     """Batched coarse-to-fine pipeline: im_a/im_b (B, C, H, W) on one
-    device. Returns (B, H/2^sc_l, W/2^sc_l, nop). A `_StageClock` times
+    device; `init_flow` (B, H/2^(sc_f+1), W/2^(sc_f+1), nop) float32 on the
+    same device, if given, warm-starts the forward grid's coarsest level
+    (the backward grid of the merge starts from zero, as in the JAX
+    package). Returns (B, H/2^sc_l, W/2^sc_l, nop). A `_StageClock` times
     the pyramid, the grid set-up and per scale the stages pconst
     (templates of the levels whose GN kernel reads them), pinit, poptim,
     cflow and tvopt, and prints the reference's lines (run_dense.cpp:
@@ -138,6 +148,12 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
     ims_b, dxs_b, dys_b = pyramid.build_pyramid(im_b, params.sc_f, pad,
                                                 getgrad=fb, lv_l=params.sc_l)
     clock.report("TIME (Pyramide+Gradients) (ms): %3g", clock.lap() * 1e3)
+    if init_flow is not None:
+        k = 2 ** (params.sc_f + 1)
+        want = (im_a.shape[0], full_h // k, full_w // k, params.nop)
+        if tuple(init_flow.shape) != want:
+            raise ValueError(f"init_flow has shape {tuple(init_flow.shape)}, "
+                             f"expected {want}")
     # the per-scale grids (OFClass allocates them up front,
     # oflow.cpp:139-178); the backward grid takes the right camera's sign
     levels = range(params.sc_f, params.sc_l - 1, -1)
@@ -163,7 +179,7 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
         tpl = templates(spec, src)
         tpl_bw = templates(spec_bw, src_bw) if fb else None
         laps = [clock.lap()]
-        p_init = _p_init(spec, params, flow, batch, dev)
+        p_init = _p_init(spec, params, flow, batch, dev, init_flow)
         p_init_bw = _p_init(spec_bw, params, flow_bw, batch, dev) if fb \
             else None
         laps.append(clock.lap())
@@ -199,15 +215,27 @@ def _as_batch(x, device: torch.device) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
+def _as_init(init_flow, device: torch.device):
+    """A single pair's warm start (h, w, nop) as a batch of one float32
+    tensor on `device`, or None."""
+    if init_flow is None:
+        return None
+    return _as_batch(init_flow, device).to(torch.float32)[None]
+
+
 def dis_flow(im_a, im_b, params: DISParams, full_w: int, full_h: int,
-             device="cuda") -> torch.Tensor:
+             init_flow=None, device="cuda") -> torch.Tensor:
     """Full coarse-to-fine DIS on one frame pair (C, H, W), already
-    divisibility-padded to 2^sc_f. Returns dense flow (H/2^sc_l, W/2^sc_l,
-    nop) at the finest computed scale."""
+    divisibility-padded to 2^sc_f. `init_flow`, if given, warm-starts the
+    coarsest scale and has shape (H/2^(sc_f+1), W/2^(sc_f+1), nop)
+    (oflow.h:106, oflow.cpp:215-217; `warm_start_from_full` makes it from a
+    full-resolution flow). Returns dense flow (H/2^sc_l, W/2^sc_l, nop) at
+    the finest computed scale."""
     dev = resolve_device(device)
     a = _as_batch(im_a, dev)[None]
     b = _as_batch(im_b, dev)[None]
-    return _dis_flow_core(a, b, params, full_w, full_h)[0]
+    return _dis_flow_core(a, b, params, full_w, full_h,
+                          _as_init(init_flow, dev))[0]
 
 
 def upscale_output(flow: torch.Tensor, sc_l: int, out_h: int, out_w: int
@@ -232,10 +260,11 @@ def upscale_full(flow: torch.Tensor, params: DISParams, full_h: int,
 
 
 def dis_flow_full(im_a, im_b, params: DISParams, full_w: int, full_h: int,
-                  device="cuda") -> torch.Tensor:
+                  init_flow=None, device="cuda") -> torch.Tensor:
     """dis_flow + the final upscale to the padded full resolution:
     (full_h, full_w, nop)."""
-    flow = dis_flow(im_a, im_b, params, full_w, full_h, device=device)
+    flow = dis_flow(im_a, im_b, params, full_w, full_h, init_flow,
+                    device=device)
     return upscale_full(flow, params, full_h, full_w)
 
 
@@ -248,16 +277,14 @@ def dis_flow_timed(im_a, im_b, params: DISParams, full_w: int, full_h: int,
       TIME (Sc: i, #p: n, pconst, pinit, poptim, cflow, tvopt, total): ...
 
     Spans are host perf_counter times around stages that end in
-    `torch.cuda.synchronize`. The computation is `dis_flow`'s, so the flow
-    equals its flow bit for bit: (H/2^sc_l, W/2^sc_l, nop). A warm start
-    (`init_flow`) is not ported."""
-    if init_flow is not None:
-        raise NotImplementedError(
-            "init_flow is not ported yet (ROADMAP queue 1, item 14)")
+    `torch.cuda.synchronize`. The computation is `dis_flow`'s, warm start
+    included, so the flow equals its flow bit for bit: (H/2^sc_l, W/2^sc_l,
+    nop)."""
     dev = resolve_device(device)
     a = _as_batch(im_a, dev)[None]
     b = _as_batch(im_b, dev)[None]
     return _dis_flow_core(a, b, params, full_w, full_h,
+                          _as_init(init_flow, dev),
                           clock=_StageClock(dev))[0]
 
 
@@ -279,3 +306,95 @@ def dis_flow_batched(im_a, im_b, params: DISParams, full_w: int, full_h: int,
     if channels_last:
         return flow
     return flow.movedim(3, 1)
+
+
+def warm_start_from_full(flow_full: torch.Tensor, sc_f: int) -> torch.Tensor:
+    """A full-resolution flow (..., H, W, nop) as the warm-start input
+    (..., H/2^(sc_f+1), W/2^(sc_f+1), nop) (run_dense.cpp:373-376): cropped
+    to a multiple of k = 2^(sc_f+1), values times 1/k, then the k x k box
+    mean (cv::INTER_AREA at this integer factor). Plain torch on the flow's
+    device; the box sums accumulate in float64 and round once, so a
+    stream's carry does not depend on the streams beside it (a float32
+    sum's order follows the tensor's shape on CUDA)."""
+    k = 2 ** (sc_f + 1)
+    h, w, c = flow_full.shape[-3:]
+    f = flow_full[..., : (h // k) * k, : (w // k) * k, :] * (1.0 / k)
+    f = f.reshape(*flow_full.shape[:-3], h // k, k, w // k, k, c)
+    return (f.sum(dim=(-4, -2), dtype=torch.float64) / (k * k)).to(
+        torch.float32)
+
+
+def dis_sequence(frames, params: DISParams, full_w: int, full_h: int,
+                 device="cuda") -> torch.Tensor:
+    """Sequence mode: flow for the consecutive pairs of one video, each
+    pair warm-started from the previous pair's flow (the reference's
+    commented-out initialization-flow input, run_dense.cpp:356-379,
+    oflow.cpp:215-217), the first from zero.
+
+    frames: (T, C, H, W) divisibility-padded to 2^(sc_f+1). Returns
+    (T-1, H, W, nop) full-resolution flow."""
+    dev = resolve_device(device)
+    frames = _as_batch(frames, dev)
+    carry = warm_carry_init(1, params, full_w, full_h, device=dev)[0]
+    flows = []
+    for t in range(frames.shape[0] - 1):
+        flow = dis_flow_full(frames[t], frames[t + 1], params, full_w,
+                             full_h, init_flow=carry, device=dev)
+        carry = warm_start_from_full(flow, params.sc_f)
+        flows.append(flow)
+    return torch.stack(flows)
+
+
+def _warm_step(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
+               full_w: int, full_h: int, carry: torch.Tensor):
+    """One warm-started step over S streams: the (S, C, H, W) pair batch
+    and each stream's carry -> ((S, H, W, nop) full-resolution flow, the
+    next carry). The upscale is kernel K4 on CUDA, as in
+    `dis_flow_batched`."""
+    flow = _dis_flow_core(im_a, im_b, params, full_w, full_h,
+                          init_flow=carry)
+    if params.sc_l != 0:
+        flow = upscale_kernel.upscale_batched(flow.contiguous(), params.sc_l,
+                                              full_h, full_w)
+    return flow, warm_start_from_full(flow, params.sc_f)
+
+
+def warm_carry_init(s: int, params: DISParams, full_w: int, full_h: int,
+                    device="cuda") -> torch.Tensor:
+    """The zero warm-start carry of S streams (the cold start of a chain;
+    oflow.cpp:215-217 with no initial flow): (S, H/2^(sc_f+1),
+    W/2^(sc_f+1), nop) float32."""
+    k = 2 ** (params.sc_f + 1)
+    return torch.zeros((s, full_h // k, full_w // k, params.nop),
+                       dtype=torch.float32, device=resolve_device(device))
+
+
+def dis_step_warm(im_a, im_b, params: DISParams, full_w: int, full_h: int,
+                  carry, device="cuda"):
+    """One step of the S-stream warm-start loop, for serving loops that
+    cannot hold whole videos: the pairs (S, C, H, W) of S streams and
+    their carry (start from `warm_carry_init`) -> ((S, H, W, nop) flow,
+    the next carry). A loop of it equals `dis_sequence_batched`."""
+    dev = resolve_device(device)
+    return _warm_step(_as_batch(im_a, dev), _as_batch(im_b, dev), params,
+                      full_w, full_h, _as_batch(carry, dev))
+
+
+def dis_sequence_batched(frames, params: DISParams, full_w: int, full_h: int,
+                         device="cuda") -> torch.Tensor:
+    """Batched sequence mode: S video streams advance in lockstep, each
+    pair warm-started from its stream's previous flow (the per-step batch
+    keeps the card busy while the loop carries the warm starts).
+
+    frames: (T, S, C, H, W) divisibility-padded to 2^(sc_f+1). Returns
+    (T-1, S, H, W, nop) full-resolution flow."""
+    dev = resolve_device(device)
+    frames = _as_batch(frames, dev)
+    carry = warm_carry_init(frames.shape[1], params, full_w, full_h,
+                            device=dev)
+    flows = []
+    for t in range(frames.shape[0] - 1):
+        flow, carry = _warm_step(frames[t], frames[t + 1], params, full_w,
+                                 full_h, carry)
+        flows.append(flow)
+    return torch.stack(flows)

@@ -134,10 +134,17 @@ def extract_templates(spec: LevelSpec, params: DISParams, im: torch.Tensor,
     tdy = _gather_templates(spec, psz, dy)
     if params.patnorm > 0:
         tmpl = tmpl - tmpl.mean(dim=-2, keepdim=True)
-    h00 = torch.sum(tdx * tdx, dim=-2)
+
+    # The Hessian's sums accumulate in float64 and round once, all entries
+    # in one reduction: a float32 sum's order follows the number of outputs
+    # on CUDA (how torch splits the reduction), so a pair's Hessian, and its
+    # flow, would depend on the pairs batched with it.
+    prods = [tdx * tdx] + ([tdx * tdy, tdy * tdy] if params.nop == 2 else [])
+    sums = torch.sum(torch.stack(prods, dim=-3), dim=-2,
+                     dtype=torch.float64).to(torch.float32)
+    h00 = sums[..., 0, :]
     if params.nop == 2:
-        h01 = torch.sum(tdx * tdy, dim=-2)
-        h11 = torch.sum(tdy * tdy, dim=-2)
+        h01, h11 = sums[..., 1, :], sums[..., 2, :]
         det = h00 * h11 - h01 * h01
         guard = (det == 0.0).to(h00.dtype) * 1e-10
         hes = torch.stack([h00 + guard, h01, h11 + guard], dim=-2)

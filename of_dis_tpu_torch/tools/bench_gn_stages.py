@@ -2,16 +2,19 @@
 
 Where do the microseconds of one GN trip go? Each stage runs `max_iter`
 trips for every patch of a batch on the kernel `kernels.gn_stages`
-(csrc/gn_stages.cu), and the differences between the cumulative stages
-attribute the time:
+(csrc/gn_stages.cu), on the layout of the GN kernel that runs the
+geometry (K1's lanes at op2-l3, K6's window columns at op4-l0, through
+their device code in csrc/gn_common.cuh), and the differences between
+the cumulative stages attribute the time:
 
-  W        the four tap loads per pixel (gn::taps of csrc/gn_common.cuh)
-  A3       + the bilinear interpolation (gn::lerp), the patch sum
+  W        the window's tap loads (the sum of every pixel's four taps)
+  A3       + the bilinear interpolation (on columns with its shuffle), the
+           patch sum
   A4       + patch mean, residual, sum |residual| / psz^2, two projections
 
 plus three variants of A4 that compute its function bit for bit:
 
-  B-smem   each warp stages its (psz+1)^2 window in shared memory
+  B-smem   each warp stages its windows in shared memory
   C-u16    planes as 16-bit integers of value * 4^lv, converted after the
            load (exact for lv <= 4)
   both     B-smem and C-u16 together
@@ -22,10 +25,11 @@ multiples of 4^-lv, templates, the two steepest-descent images, the
 anchors), anchors that move every trip. Geometries:
 
   op2-l3   psz 8, the 72x144 plane, 448 patches, 12 trips, lv 3, batch
-           384 (the JAX tool's: op-2's finest level)
+           384 (the JAX tool's: op-2's finest level); K1's lane layout
   op4-l0   psz 12, level 0 of op-4 at 1024x448 with its 12-pixel padding
            (472x1048), 51,300 patches, 128 trips, lv 0, batch 4 (where the
-           large-level GN kernel spends most of op-4's time)
+           large-level GN kernel spends most of op-4's time); K6's column
+           layout
 
 Prints microseconds per pair per stage, the difference from the previous
 stage, and whether each variant equals A4 bit for bit (every patch's
@@ -57,6 +61,9 @@ class Geometry:
     lv: int          # pyramid level: plane values are multiples of 4^-lv
     batch: int       # default batch
     sy_hi: int       # anchors' rows are drawn from [0, sy_hi)
+    # the GN kernel's layout that runs this geometry (`gn_stages.LANES`,
+    # K1's, or `gn_stages.COLUMNS`, K6's)
+    layout: int = gn_stages.LANES
 
     @property
     def sx_hi(self) -> int:
@@ -70,7 +77,8 @@ GEOMETRIES = {
     # window and 3 rows a trip
     "op2-l3": Geometry(8, 72, 144, 448, 12, 3, 384, 80 - 16 - 3 * 12 - 1),
     # windows, with the 3-row jitter, inside the plane
-    "op4-l0": Geometry(12, 472, 1048, 51300, 128, 0, 4, 472 - 12 - 3),
+    "op4-l0": Geometry(12, 472, 1048, 51300, 128, 0, 4, 472 - 12 - 3,
+                       gn_stages.COLUMNS),
 }
 # (label, stage, variant) in the order they run and print
 RUNS = (("W taps", "W", ""), ("A3 +bilerp", "A3", ""),
@@ -108,12 +116,13 @@ def make_inputs(geom: Geometry, batch: int, device) -> dict:
 def call_args(inputs: dict, geom: Geometry, stage: str, variant: str = ""
               ) -> tuple:
     """The arguments of `kernels.gn_stages.gn_stages` (and of its twin) for
-    one stage or variant: the u16 variants read the integer planes."""
+    one stage or variant on the geometry's layout: the u16 variants read
+    the integer planes."""
     u16 = variant in gn_stages.U16_VARIANTS
     return (inputs["planes_u16" if u16 else "planes"], inputs["tmpl"],
             inputs["tdx"], inputs["tdy"], inputs["sx0"], inputs["sy0"],
             geom.psz, geom.max_iter, stage, variant,
-            inputs["scale"] if u16 else 1.0)
+            inputs["scale"] if u16 else 1.0, geom.layout)
 
 
 def call(inputs: dict, geom: Geometry, stage: str, variant: str = ""):
@@ -148,9 +157,10 @@ def run(geom: Geometry, batch: int, reps: int, device) -> list:
     inputs = make_inputs(geom, batch, device)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu (the plain twin; no device time)")
+    layout = "lanes" if geom.layout == gn_stages.LANES else "columns"
     print(f"gn_stages: psz {geom.psz}, plane {geom.hp}x{geom.wp}, "
           f"{geom.n} patches, {geom.max_iter} trips, lv {geom.lv}, batch "
-          f"{batch}, {reps} reps on {where}", flush=True)
+          f"{batch}, {layout} layout, {reps} reps on {where}", flush=True)
     rows, a4 = [], None
     for label, stage, variant in RUNS:
         out = call(inputs, geom, stage, variant)

@@ -4,10 +4,10 @@ at the op-point form's default verbosity.
 dis_flow_timed runs the stages of `dis_flow` one at a time (templates,
 start parameters, GN, densification, TV per scale), on the same routes, so
 its flow equals dis_flow's bit for bit — at op-2, at op-3 (whose finest
-levels build their templates inside the large-level GN kernel) and with
-the forward-backward merge. It prints the lines of the JAX package's
-dis_flow_timed (the reference's oflow.cpp:297 format), with equal scale
-and patch-count fields; the times differ."""
+levels build their templates inside the large-level GN kernel), with
+the forward-backward merge and with a warm start. It prints the lines of
+the JAX package's dis_flow_timed (the reference's oflow.cpp:297 format),
+with equal scale and patch-count fields; the times differ."""
 
 import dataclasses
 import os
@@ -16,6 +16,7 @@ import re
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from of_dis_tpu.models import dis as jdis
 from of_dis_tpu.params import op_point_params as j_op_point_params
@@ -81,12 +82,22 @@ def test_timed_lines_match_the_jax_package(capsys):
     assert _shape(ours) == _shape(ref)
 
 
-def test_timed_path_refuses_a_warm_start():
+def test_timed_path_takes_a_warm_start(capsys):
+    """With `init_flow` the timed path runs dis_flow's warm start: its flow
+    equals dis_flow's with the same start bit for bit, and differs from a
+    cold start."""
     a, b = _pair()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tdis.dis_flow_timed(a, b, _params(2), 192, 160,
-                            init_flow=np.zeros((20, 24, 2), np.float32),
-                            device="cpu")
+    p = _params(2)
+    k = 2 ** (p.sc_f + 1)
+    yy, xx = np.mgrid[0:160 // k, 0:192 // k].astype(np.float32)
+    init = np.stack([0.4 + 0.1 * np.sin(xx), 0.2 * np.cos(yy)], -1)
+    timed = tdis.dis_flow_timed(a, b, p, 192, 160, init_flow=init,
+                                device="cpu")
+    assert capsys.readouterr().out.count("TIME (Sc: ") == 3
+    flow = tdis.dis_flow(a, b, p, 192, 160, init_flow=init, device="cpu")
+    assert torch.equal(timed, flow)
+    assert not torch.equal(flow, tdis.dis_flow(a, b, p, 192, 160,
+                                               device="cpu"))
 
 
 @pytest.mark.parametrize("mode,second,suffix", [

@@ -13,8 +13,13 @@ A4 too) — agree to rounding: within 1e-5 of each patch's sum of absolute
 terms, taken in float64. The port's W stage (tap loads) has no JAX
 counterpart (the JAX A0-A2 sum TPU layout buffers) and is held against a
 float64 evaluation only, as every stage is at a geometry of 5 pixels a
-lane. The card's kernel is held against the twin in
+lane. The column layout's twin (K6's: 16 lanes a patch, two patches a
+warp) sums in another order: it is held against the float64 evaluation
+at the same 1e-5 and against the lane layout's twin to rounding. The
+card's kernel is held against the twin in
 tests/test_torch_kernels_cuda.py."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,6 +34,12 @@ OP2 = bgs.GEOMETRIES["op2-l3"]
 JAX_VARIANTS = ("A0", "A1", "A2", "A3", "A4", "B1", "B2", "B3", "C1")
 # psz 12: 144 pixels, 5 a lane with the last one ragged
 SMALL = bgs.Geometry(12, 40, 60, 7, 5, 2, 3, 40 - 12 - 3)
+# the column layout at SMALL, and at psz 12 with an odd patch count
+# (the last warp's second segment runs the last patch again) and anchors
+# that leave the plane, where the window's rows and columns clamp
+COLUMNS = dataclasses.replace(SMALL, layout=gn_stages.COLUMNS)
+COLUMNS_ODD = bgs.Geometry(12, 30, 50, 9, 4, 1, 2, 30 - 12 - 3,
+                           gn_stages.COLUMNS)
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +111,44 @@ def test_twin_matches_float64_at_five_pixels_a_lane(stage):
     assert (np.abs(out - val) <= 1e-5 * mag).all()
 
 
-@pytest.mark.parametrize("geom", [OP2, SMALL], ids=["op2-l3", "psz12"])
+def _column_inputs(geom):
+    x = bgs.make_inputs(geom, geom.batch, "cpu")
+    if geom is COLUMNS_ODD:
+        x["sx0"][:, ::2] += 30                # past the right border
+        x["sy0"][:, 1::3] -= 9                # above the top border
+    return x
+
+
+@pytest.mark.parametrize("stage", gn_stages.STAGES)
+@pytest.mark.parametrize("geom", [COLUMNS, COLUMNS_ODD],
+                         ids=["small", "odd-patches"])
+def test_column_twin_matches_float64(geom, stage):
+    x = _column_inputs(geom)
+    out = bgs.call(x, geom, stage).double().numpy()
+    val, mag = reference_f64(x, geom, stage)
+    assert out.shape == (geom.batch, geom.n)
+    assert (np.abs(out - val) <= 1e-5 * mag).all()
+
+
+@pytest.mark.parametrize("stage", gn_stages.STAGES)
+@pytest.mark.parametrize("geom", [COLUMNS, COLUMNS_ODD],
+                         ids=["small", "odd-patches"])
+def test_column_twin_matches_the_lane_twin(geom, stage):
+    """The same function on both layouts: the taps and each pixel's lerp
+    are the same float32 operations, so only the sums' order differs; W
+    (integer-valued sums far below 2^24) is equal."""
+    x = _column_inputs(geom)
+    cols = bgs.call(x, geom, stage)
+    lanes = bgs.call(x, dataclasses.replace(geom, layout=gn_stages.LANES),
+                     stage)
+    if stage == "W":
+        assert torch.equal(cols, lanes)
+    torch.testing.assert_close(cols, lanes, rtol=1e-5,
+                               atol=1e-5 * float(lanes.abs().max()))
+
+
+@pytest.mark.parametrize("geom", [OP2, SMALL, COLUMNS],
+                         ids=["op2-l3", "psz12", "psz12-columns"])
 def test_tool_variants_equal_a4_bit_for_bit(geom, capsys):
     """On the CPU the tool runs the twin; the u16 planes (value * 4^lv)
     convert back to the float planes exactly, so every variant's
@@ -116,8 +164,8 @@ def test_tool_variants_equal_a4_bit_for_bit(geom, capsys):
 def test_inputs_follow_the_jax_draws():
     """Level planes on the 4^-lv grid within [0, 255], u16 planes their
     exact integers, windows inside the plane for every trip."""
-    for geom in (OP2, SMALL):
-        x = bgs.make_inputs(geom, 2, "cpu")
+    for geom in (OP2, SMALL, bgs.GEOMETRIES["op4-l0"]):
+        x = bgs.make_inputs(geom, 1 if geom.n > 1000 else 2, "cpu")
         p = x["planes"]
         assert float(p.min()) >= 0 and float(p.max()) <= 255
         assert torch.equal(x["planes_u16"].float() * x["scale"], p)
@@ -128,9 +176,13 @@ def test_inputs_follow_the_jax_draws():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     x = bgs.make_inputs(SMALL, 1, "cpu")
     args = (x["tmpl"], x["tdx"], x["tdy"], x["sx0"], x["sy0"], 12, 2)
+    lanes = gn_stages.LANES
     with pytest.raises(ValueError, match="unknown stage"):
-        gn_stages.gn_stages(x["planes"], *args, "W", "B-smem")
+        gn_stages.gn_stages(x["planes"], *args, "W", "B-smem", 1.0, lanes)
     with pytest.raises(ValueError, match="takes torch.uint16 planes"):
-        gn_stages.gn_stages(x["planes"], *args, "A4", "C-u16")
+        gn_stages.gn_stages(x["planes"], *args, "A4", "C-u16", 1.0, lanes)
     with pytest.raises(ValueError, match="patch size 13"):
-        gn_stages.gn_stages(x["planes"], *args[:5], 13, 2, "A4")
+        gn_stages.gn_stages(x["planes"], *args[:5], 13, 2, "A4", "", 1.0,
+                            lanes)
+    with pytest.raises(ValueError, match="unknown layout 2"):
+        gn_stages.gn_stages(x["planes"], *args, "A4", "", 1.0, 2)

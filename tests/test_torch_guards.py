@@ -382,9 +382,5 @@ def test_build_command_targets_sm90a():
 
 
 def test_unported_cli_modes_raise(tmp_path):
-    for argv in (["run_DE_RGB", "a", "b", "o", "--init-flow", "x"],
-                 ["run_OF_INT", "a", "b", "o", "--init-flow", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(argv)
     with pytest.raises(ValueError, match="unknown mode"):
         cli.main(["run_OF_XYZ", "a", "b", "o"])

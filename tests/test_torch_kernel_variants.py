@@ -76,3 +76,25 @@ def test_route_timing_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         kernel_variants.main(["tv_de_inner", "--routes"])
+
+
+def test_the_stage_tools_calls_are_recorded_on_both_layouts(monkeypatch):
+    """T2 runs on no path: its calls are the stage tool's, every stage and
+    variant at both geometries, each on its geometry's layout, and each
+    agrees with its twin (on the CPU the wrapper is the twin)."""
+    from of_dis_tpu_torch.kernels import gn_stages
+    from of_dis_tpu_torch.tools import bench_gn_stages as bgs
+    small = {"op2-l3": bgs.Geometry(8, 30, 60, 5, 3, 3, 2, 10),
+             "op4-l0": bgs.Geometry(12, 40, 80, 7, 2, 0, 1, 25,
+                                    gn_stages.COLUMNS)}
+    monkeypatch.setattr(bgs, "GEOMETRIES", small)
+    calls = kernel_variants.record("gn_stages", torch.device("cpu"))
+    assert [label for label, _, _ in calls] == [
+        f"{g} {label}" for g in small for label, _, _ in bgs.RUNS]
+    for label, args, kw in calls:
+        geom = small[label.split()[0]]
+        assert (args[6], args[-1], kw) == (geom.psz, geom.layout, {})
+        out = kernel_variants.KERNELS["gn_stages"](*args)
+        assert kernel_variants.agrees("gn_stages", out,
+                                      kernel_variants.TWINS["gn_stages"](
+                                          *args))

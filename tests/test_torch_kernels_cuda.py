@@ -497,15 +497,22 @@ def test_i8_dot_rejects_what_the_kernel_does_not_take(cuda):
         i8_dot.dot_sum(wide, wide, 8, 1)
 
 
-@pytest.mark.parametrize("psz,edge", [(5, False), (8, False), (12, False),
-                                      (12, True)])
-def test_gn_stages_kernel_matches_plain(cuda, psz, edge):
-    """Every stage against the twin and every variant equal to A4, at
-    patch sizes of 1, 2 and 5 pixels a lane, 37 patches (a ragged last
-    block); with `edge` the anchors run past the plane's borders, where
-    the taps and the shared-memory window clamp."""
-    geom = bench_gn_stages.Geometry(psz, 40, 60, 37, 7, 2, 3,
-                                    40 - psz - 3)
+@pytest.mark.parametrize("layout", [gn_stages.LANES, gn_stages.COLUMNS],
+                         ids=["lanes", "columns"])
+@pytest.mark.parametrize("psz,n,edge", [(4, 37, False), (5, 37, True),
+                                        (8, 37, False), (8, 36, True),
+                                        (12, 37, False), (12, 37, True),
+                                        (12, 1, False)])
+def test_gn_stages_kernel_matches_plain(cuda, psz, n, edge, layout):
+    """Every stage against the twin and every variant equal to A4, on both
+    layouts, at patch sizes of 1, 2 and 5 pixels a lane and 4 to 12
+    columns (psz 8 and 12 their own instances: lanes 8, columns 12), 37
+    patches (a ragged last block, and on columns a last warp whose second
+    segment repeats the last patch), 36 and one; with `edge` the anchors
+    run past the plane's borders, where the taps, the window columns and
+    the shared-memory windows clamp."""
+    geom = bench_gn_stages.Geometry(psz, 40, 60, n, 7, 2, 3, 40 - psz - 3,
+                                    layout)
     x = bench_gn_stages.make_inputs(geom, 3, cuda)
     if edge:
         x["sx0"][:, ::2] += 30

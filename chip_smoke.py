@@ -45,17 +45,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      against `dis_sequence`, wall ms per step beside path A's and one
      profiled step; then `cli.main --init-flow` at op-2 against the same
      run on the plain twins;
-  7. the compiled-reference goldens through the port's `cli.main` on the
+  7. the serving pipeline (`pipeline.run_pipeline`) at op-2 gray flow on
+     161 PNG frames of 1024x436 written on the card's host
+     (`tools.bench_pipeline.make_frames`: content moving 1.3, 0.4 px a
+     frame): the batch decoder's frames/s at 1, 4, 8 and 16 threads and
+     the plain `load_image`'s; cold batches of 64 (two full and a ragged
+     tail of 32), `--streams 16`, depth on 17 frames moving -1.3 px, and
+     the cold run split over two devices (`cuda:0` twice): launches per
+     batch equal to a path-A call's, every file against
+     `dis_flow_batched` (a `dis_step_warm` loop for the streams) on the
+     same decoded frames, medians against the motion, the split's files
+     against one device's, pairs/s beside the bare calls' and the device's
+     busy share of a cold run; one `utils.viz.main` call;
+  8. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
      the merge for flow and depth, the TV-free pseudo-Huber run), and the
      op-2 and op-4 gray-flow goldens again at the CLI's default verbosity 2:
      the per-scale lines printed, the file equal to the quiet one;
-  8. the tensor-core dot microbenchmark (T1): `tools.bench_i8_dot` at its
+  9. the tensor-core dot microbenchmark (T1): `tools.bench_i8_dot` at its
      defaults, launches counted, both products equal to their exact twin,
      wrapper and device times beside the bound and one PyTorch product of
      the same function (`torch._int_mm`, bf16 `matmul`), its device time
      too;
-  9. the per-stage ablation of the GN iteration (T2): `tools
+  10. the per-stage ablation of the GN iteration (T2): `tools
      .bench_gn_stages` at op-2's finest level (batch 384, on the small-level
      GN kernel's lane layout) and at op-4's level 0 (batch 4, on the
      large-level GN kernel's column layout), launches counted, every stage
@@ -64,7 +76,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel's level-3 device time of path A (per pair) and the large-level
      GN kernel's level-0 device time of path F, with the card's name and
      power limit;
- 10. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
+ 11. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
      last line `{"ok": true, "device": {...}}`.
 
 Synthetic pairs follow the JAX package's bench workload (a blurred random
@@ -86,21 +98,25 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from of_dis_tpu_torch import cli
+from of_dis_tpu_torch import cli, pipeline
 from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
                                       gn_stages, gn_tiled, i8_dot,
                                       tv_de_inner, tv_of_inner, upscale,
                                       warp)
 from of_dis_tpu_torch.models import dis
+from of_dis_tpu_torch.native import io as native_io
 from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
-from of_dis_tpu_torch.params import op_point_params
-from of_dis_tpu_torch.tools import bench_gn_stages, bench_i8_dot
-from of_dis_tpu_torch.utils import io
+from of_dis_tpu_torch.parallel import mesh as pmesh
+from of_dis_tpu_torch.params import op_point_params, pad_amounts
+from of_dis_tpu_torch.tools import (bench_gn_stages, bench_i8_dot,
+                                    bench_pipeline)
+from of_dis_tpu_torch.utils import io, viz
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "of_dis_tpu_torch", "smoke")
@@ -234,7 +250,7 @@ KERNELS = {
                     replaces="of_dis_tpu/models/dis.py:206",
                     tpu_kernels=["of_dis_tpu/models/dis.py:206 "
                                  "_upscale_cf_pallas"]),
-    # the measurement tools' kernels (phases 7 and 8)
+    # the measurement tools' kernels (phases 9 and 10)
     "i8_dot": dict(module=i8_dot, entry=(i8_dot, "dot_sum"),
                    counter="launches",
                    source="of_dis_tpu_torch/csrc/i8_dot.cu",
@@ -1282,6 +1298,262 @@ def run_cli_init_flow():
         raise AssertionError(f"cli --init-flow: launches {launches}")
 
 
+# Phase 7: the serving pipeline at op-2 gray flow on PNG frames of the
+# Sintel size (`tools.bench_pipeline.make_frames`). `frames` frames moving
+# `step` px a frame make frames - 1 pairs: at batch 64, two full batches
+# and a ragged tail of 32; --streams 16 gives 10 steps of 16 lanes; the
+# depth run's frames move by `depth_step` (the left camera's disparity is
+# <= 0); the split runs the cold batches over two devices (the card twice).
+PIPELINE = dict(op=2, frames=161, step=(1.3, 0.4), batch=64, streams=16,
+                depth_frames=17, depth_step=(-1.3, 0.0),
+                decode_threads=(1, 4, 8, 16), load_image_frames=4)
+# px: a file against `dis_flow_batched` on the same decoded frames; a
+# pair's flow does not depend on its batch (the Hessian's and the
+# densification's sums in float64), so 0 is expected
+PIPELINE_TOL = 1e-4
+
+
+def _timed(fn, runs: int = 3):
+    """Wall seconds of `runs` calls of fn (each ends in a synchronize),
+    and fn's last result."""
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls, out
+
+
+def _pipeline_files(out_dir, names, want, nop):
+    """The largest difference (px) between the pipeline's files `names` and
+    the rows of `want` (n, h, w, nop) on the card, and each file's median
+    over the interior (32 px from the border)."""
+    worst, meds = 0.0, []
+    for k, name in enumerate(names):
+        path = os.path.join(out_dir, name)
+        got = io.read_flo(path) if nop == 2 else io.read_pfm(path)[..., None]
+        got = torch.as_tensor(got.copy())
+        worst = max(worst, float((got - want[k].cpu()).abs().max()))
+        meds.append(got[32:-32, 32:-32].reshape(-1, nop).median(dim=0)
+                    .values.tolist())
+    return worst, meds
+
+
+def _check_medians(what, meds, motion):
+    off = max(abs(m - t) for med in meds for m, t in zip(med, motion))
+    if not off <= 0.25:
+        raise AssertionError(f"pipeline {what}: a median is {off} px from "
+                             f"the motion {motion}")
+    return off
+
+
+def run_pipeline_phase(dev, totals, walls_by_path):
+    """Phase 7: the serving pipeline end to end on the card (see the
+    module docstring); every pipeline run counted, its launches added to
+    the kernels' totals."""
+    cfg = PIPELINE
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT_DIR, "pipeline")
+    frame_dir, depth_dir = (os.path.join(root, d) for d in ("frames",
+                                                            "depth"))
+    bench_pipeline.make_frames(frame_dir, cfg["frames"], cfg["step"],
+                               seed=0, device=dev)
+    bench_pipeline.make_frames(depth_dir, cfg["depth_frames"],
+                               cfg["depth_step"], seed=1, device=dev)
+    paths = pipeline.list_frames(frame_dir)
+    n_pairs = len(paths) - 1
+    made = time.perf_counter() - t_phase
+
+    # decode rate: the batch decoder on every frame at each thread count,
+    # against the plain twin on a few
+    decoded = native_io.decode_batch(paths, 1)
+    rates = {}
+    for k in cfg["decode_threads"]:
+        with ThreadPoolExecutor(k) as pool:
+            t0 = time.perf_counter()
+            again = native_io.decode_batch(paths, 1, pool=pool)
+            rates[k] = len(paths) / (time.perf_counter() - t0)
+        if not np.array_equal(again, decoded):
+            raise AssertionError(f"decode_batch with {k} threads differs")
+    few = paths[:cfg["load_image_frames"]]
+    t0 = time.perf_counter()
+    plain = np.stack([io.load_image(p, 1) for p in few])
+    plain_rate = len(few) / (time.perf_counter() - t0)
+    if not np.array_equal(plain.astype(np.uint8), decoded[:len(few)]):
+        raise AssertionError("decode_batch differs from load_image")
+    print(json.dumps({"pipeline": "decode", "frames": len(paths),
+                      "size": f"{W_ORG}x{H_ORG}", "png_rows": "filters 0-4",
+                      "frames_per_s_by_threads": rates,
+                      "load_image_frames_per_s": plain_rate,
+                      "cpu_count": os.cpu_count(), "card": nvidia_smi_line()}),
+          flush=True)
+
+    # the bare calls on the decoded frames, batched as the pipeline batches
+    params = op_point_params(W_ORG, cfg["op"], nop=2, noc=1)
+    top, bot, left, right = pad_amounts(W_ORG, H_ORG, params.sc_f)
+    full_h, full_w = H_ORG + top + bot, W_ORG + left + right
+    x = pyramid.pad_to_divisible(torch.as_tensor(decoded).to(dev),
+                                 params.sc_f)
+    batch = cfg["batch"]
+
+    def crop(flow):
+        return flow[:, top:top + H_ORG, left:left + W_ORG]
+
+    def bare(x=x, params=params, count=n_pairs):
+        outs = []
+        for i in range(0, count, batch):
+            rows = torch.arange(i, i + batch, device=x.device).clamp(
+                max=count - 1)
+            flow = dis.dis_flow_batched(x[rows], x[rows + 1], params, full_w,
+                                        full_h, device=dev)
+            outs.append(crop(flow)[:min(batch, count - i)])
+        return torch.cat(outs)
+
+    bare_walls, want = _timed(bare)
+    names = [os.path.splitext(os.path.basename(p))[0] + ".flo"
+             for p in paths[:-1]]
+    per_call = next(c["launches"] for c in PATHS if c["name"] == "A")
+    n_batches = -(-n_pairs // batch)
+
+    def counted(what, calls, per, **kw):
+        """One pipeline run, counted: `calls` calls of `per` launches."""
+        out_dir = os.path.join(root, f"out_{what}")
+        reset_launches()
+        n = pipeline.run_pipeline(kw.pop("frame_dir", frame_dir), out_dir,
+                                  op_point=cfg["op"], verbose=False, **kw)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        print(f"pipeline {what}: {n} pairs, launches {json.dumps(launches)} "
+              f"({calls} calls of {json.dumps(per)})", flush=True)
+        if launches != {name: calls * c for name, c in per.items()}:
+            raise AssertionError(f"pipeline {what}: launches {launches}")
+        for name, c in launches.items():
+            totals[name] = totals.get(name, 0) + c
+        return n, out_dir
+
+    # cold batches
+    n, cold_dir = counted("cold", n_batches, per_call, batch=batch)
+    if n != n_pairs or sorted(os.listdir(cold_dir)) != names:
+        raise AssertionError(f"pipeline cold: {n} pairs, files "
+                             f"{len(os.listdir(cold_dir))}")
+    cold_err, meds = _pipeline_files(cold_dir, names, want, 2)
+    cold_off = _check_medians("cold", meds, cfg["step"])
+    cold_walls, _ = _timed(lambda: pipeline.run_pipeline(
+        frame_dir, cold_dir, op_point=cfg["op"], batch=batch, verbose=False))
+    cold_wall = statistics.median(cold_walls)
+    # where a cold run's time goes: its three stages alone, each on what
+    # the run handles (its distinct frames decoded on the run's threads;
+    # the bare calls above; its files written by the writer pool)
+    distinct = n_pairs + n_batches
+    with ThreadPoolExecutor(pipeline.DECODE_THREADS) as pool:
+        t0 = time.perf_counter()
+        for i in range(0, n_pairs, batch):
+            native_io.decode_batch(paths[i:min(i + batch, n_pairs) + 1], 1,
+                                   pool=pool)
+        decode_s = time.perf_counter() - t0
+    rows_host = want.cpu().numpy()
+    write_dir = os.path.join(root, "write_rate")
+    os.makedirs(write_dir, exist_ok=True)
+    with ThreadPoolExecutor(pipeline.WRITE_THREADS) as pool:
+        t0 = time.perf_counter()
+        for fut in [pool.submit(io.write_flo, os.path.join(write_dir, f),
+                                rows_host[k]) for k, f in enumerate(names)]:
+            fut.result()
+        write_s = time.perf_counter() - t0
+    stages = {"decode_s": decode_s, "decode_frames": distinct,
+              "decode_threads": pipeline.DECODE_THREADS,
+              "bare_calls_s": statistics.median(bare_walls),
+              "write_s": write_s, "write_threads": pipeline.WRITE_THREADS,
+              "write_bytes": int(rows_host.nbytes),
+              "write_bytes_per_s": rows_host.nbytes / write_s,
+              "cold_run_s": cold_wall}
+
+    # warm streams against a dis_step_warm loop over the same segments
+    s = cfg["streams"]
+    steps = n_pairs // s
+    n, st_dir = counted("streams", steps, per_call, streams=s)
+    carry = dis.warm_carry_init(s, params, full_w, full_h, device=dev)
+    loop = torch.empty((n_pairs, H_ORG, W_ORG, 2), device=dev)
+    starts = torch.arange(s, device=dev) * steps
+    for t in range(steps):
+        flow, carry = dis.dis_step_warm(x[starts + t], x[starts + t + 1],
+                                        params, full_w, full_h, carry,
+                                        device=dev)
+        loop[starts + t] = crop(flow)
+    st_err, meds = _pipeline_files(st_dir, names, loop, 2)
+    st_off = _check_medians("streams", meds, cfg["step"])
+    st_walls, _ = _timed(lambda: pipeline.run_pipeline(
+        frame_dir, st_dir, op_point=cfg["op"], streams=s, verbose=False))
+
+    # depth
+    de_paths = pipeline.list_frames(depth_dir)
+    de_params = op_point_params(W_ORG, cfg["op"], nop=1, noc=1)
+    de_x = pyramid.pad_to_divisible(torch.as_tensor(native_io.decode_batch(
+        de_paths, 1)).to(dev), de_params.sc_f)
+    de_want = bare(de_x, de_params, len(de_paths) - 1)
+    de_calls = -(-(len(de_paths) - 1) // batch)
+    n, de_dir = counted("depth", de_calls, next(
+        c["launches"] for c in PATHS if c["name"] == "B"),
+        frame_dir=depth_dir, batch=batch, mode="run_DE_INT")
+    de_names = [os.path.splitext(os.path.basename(p))[0] + ".pfm"
+                for p in de_paths[:-1]]
+    if n != len(de_names) or sorted(os.listdir(de_dir)) != de_names:
+        raise AssertionError(f"pipeline depth: {n} pairs")
+    de_err, meds = _pipeline_files(de_dir, de_names, de_want, 1)
+    de_off = _check_medians("depth", meds, cfg["depth_step"][:1])
+    if float(de_want.max()) > 0.0:
+        raise AssertionError("pipeline depth: positive disparity")
+
+    # the cold run split over two devices (the card twice)
+    mesh = pmesh.make_mesh([torch.device("cuda", 0)] * 2)
+    n, mesh_dir = counted("mesh", n_batches * mesh.size, per_call,
+                          batch=batch, mesh=mesh)
+    mesh_err, _ = _pipeline_files(mesh_dir, names, torch.stack(
+        [torch.as_tensor(io.read_flo(os.path.join(cold_dir, f)))
+         for f in names]), 2)
+    mesh_walls, _ = _timed(lambda: pipeline.run_pipeline(
+        frame_dir, mesh_dir, op_point=cfg["op"], batch=batch, mesh=mesh,
+        verbose=False), runs=1)
+
+    # one visualization of an output
+    png = os.path.join(root, "viz.png")
+    viz.main([os.path.join(cold_dir, names[0]), png])
+    if native_io.decode_batch([png], 3).shape != (1, 3, H_ORG, W_ORG):
+        raise AssertionError("viz.main wrote a wrong image")
+
+    for what, err in (("cold", cold_err), ("streams", st_err),
+                      ("depth", de_err), ("mesh", mesh_err)):
+        if not err <= PIPELINE_TOL:
+            raise AssertionError(f"pipeline {what}: files differ by {err} px")
+    print(json.dumps({
+        "pipeline": "op-2 gray flow", "size": f"{W_ORG}x{H_ORG}",
+        "pairs": n_pairs, "batch": batch, "streams": s,
+        "max_abs_vs_dis_flow_batched": cold_err,
+        "streams_max_abs_vs_dis_step_warm": st_err,
+        "depth_max_abs_vs_dis_flow_batched": de_err,
+        "mesh_max_abs_vs_one_device": mesh_err,
+        "median_off_motion_px": {"cold": cold_off, "streams": st_off,
+                                 "depth": de_off},
+        "cold_wall_s": cold_walls, "streams_wall_s": st_walls,
+        "bare_wall_s": bare_walls, "mesh_wall_s": mesh_walls,
+        "cold_pairs_per_s": n_pairs / cold_wall,
+        "streams_pairs_per_s": n_pairs / statistics.median(st_walls),
+        "bare_pairs_per_s": n_pairs / statistics.median(bare_walls),
+        "mesh_pairs_per_s": n_pairs / mesh_walls[0],
+        "cold_stages_alone": stages,
+        "path_a_wall_ms_per_call": walls_by_path["A"] * 1e3,
+        "frames_written_s": made, "cpu_count": os.cpu_count(),
+        "card": nvidia_smi_line()}), flush=True)
+    profile_call("run_pipeline cold (every device activity, copies too)",
+                 lambda: pipeline.run_pipeline(
+                     frame_dir, cold_dir, op_point=cfg["op"], batch=batch,
+                     verbose=False), cold_wall)
+    print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 # The explicit 20-parameter forms of the merge and TV-free goldens
 # (tests/test_golden_parity.py): levels 3..1, 12 trips, patch size 8,
 # overlap 0.4, then usefbcon, patnorm, costfct, usetvref.
@@ -1312,7 +1584,7 @@ GOLDENS = [
 
 
 def run_goldens():
-    """Phase 7: the compiled reference's outputs through `cli.main`."""
+    """Phase 8: the compiled reference's outputs through `cli.main`."""
     os.makedirs(OUT_DIR, exist_ok=True)
     gold = os.path.join(ROOT, "tests", "goldens")
     for mode, img1, img2, golden, args, budget in GOLDENS:
@@ -1344,7 +1616,7 @@ VERBOSE_GOLDENS = ("of_int_op2.flo", "of_int_op4.flo")
 
 
 def run_verbose_goldens():
-    """Phase 7, second part: `cli.main` at verbosity 2 prints one
+    """Phase 8, second part: `cli.main` at verbosity 2 prints one
     per-scale line a level and writes the file written quietly above."""
     gold = os.path.join(ROOT, "tests", "goldens")
     for mode, img1, img2, golden, args, _ in GOLDENS:
@@ -1373,7 +1645,7 @@ def run_verbose_goldens():
 # ------------------------------------------------- the measurement tools
 
 def run_i8_dot(dev, rows, totals):
-    """Phase 8: the dot microbenchmark's main path (the tool at its
+    """Phase 9: the dot microbenchmark's main path (the tool at its
     defaults, launches counted), then both products against the twin,
     timed beside the bound and one PyTorch product of the same function:
     A repeated reps times along k times B's reps blocks stacked along k."""
@@ -1452,7 +1724,7 @@ def gn_stages_flops(stage: str, b: int, n: int, psz: int,
 
 
 def run_gn_stages(dev, rows, totals):
-    """Phase 9: the GN stage ablation's main path (the tool at both
+    """Phase 10: the GN stage ablation's main path (the tool at both
     geometries, launches counted), then every stage against its twin on
     the card and every variant against A4, timed (wrapper and device);
     the stages' device times at op2-l3 beside the small-level GN kernel's
@@ -1583,15 +1855,19 @@ def main() -> int:
     run_sequence(dev, rows, totals, walls)
     run_cli_init_flow()
 
-    # 7. goldens through the CLI on the card, quiet and at verbosity 2
+    # 7. the serving pipeline: decode, cold batches, streams, depth, two
+    # devices
+    run_pipeline_phase(dev, totals, walls)
+
+    # 8. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()
     run_verbose_goldens()
 
-    # 8-9. the measurement tools' kernels
+    # 9-10. the measurement tools' kernels
     run_i8_dot(dev, rows, totals)
     run_gn_stages(dev, rows, totals)
 
-    # 10. summary: per kernel, summed over its calls in one run of every
+    # 11. summary: per kernel, summed over its calls in one run of every
     # path or tool
     summary = []
     for name, rs in rows.items():

@@ -7,7 +7,9 @@ hash covers the source, the shared headers (`csrc/*.cuh`) and the flags, so
 an edited source rebuilds.
 `build()` starts one nvcc per missing library, all at once, and waits for
 all of them. `entry()` binds a kernel's C entry once, at its first launch,
-so that a launch costs one ctypes call. The wrappers call an entry only
+so that a launch costs one ctypes call. `load_host()` builds and loads
+the host C++ libraries of `csrc/` (`HOST_LIBS`: plain C entries, no CUDA)
+with the host compiler in the same way. The wrappers call an entry only
 through `launch()` (a kernel, on the current stream of the tensor's device,
 the error checked) or `query()` (a number the library reads from the
 device): both make the tensor's device the current one around the call,
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Sequence, Tuple
 
@@ -37,7 +40,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
+# host libraries: `csrc/<name>.cpp`, compiled with the host C++ compiler
+HOST_LIBS = ("io_native",)
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_libs: Dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 # (kernel, symbol) -> the bound C entry, argtypes and restype set
 _entries: Dict[Tuple[str, str], Callable[..., int]] = {}
 
@@ -100,6 +109,48 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _libs[name] = lib
     return lib
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: c++, else g++, from PATH."""
+    cc = shutil.which("c++") or shutil.which("g++")
+    if cc is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++) on PATH")
+    return cc
+
+
+def host_library_path(name: str) -> Path:
+    source_bytes = (SRC_DIR / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha256(source_bytes + " ".join(HOST_FLAGS).encode()
+                            ).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library `name` (one of `HOST_LIBS`), compiled at
+    its first use in this checkout. The build writes a name of its own
+    (process and thread) and renames it into place, so processes that
+    build at once each load a whole library. Raises RuntimeError with the
+    compiler's output if the build fails."""
+    with _host_lock:
+        lib = _host_libs.get(name)
+        if lib is not None:
+            return lib
+        out = host_library_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+                   str(SRC_DIR / f"{name}.cpp")]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {name} failed: {' '.join(cmd)}"
+                                   f"\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _host_libs[name] = lib
+        return lib
 
 
 def bind(name: str, path) -> None:

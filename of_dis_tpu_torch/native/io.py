@@ -1,0 +1,120 @@
+"""Batch frame decoder of the serving pipeline (the counterpart of the JAX
+package's native `decode_batch`).
+
+A frame is read, its PNG chunks parsed and its image data inflated in
+Python (`utils.io.png_chunks`, `zlib.decompress`); the row filters are
+undone and the pixels converted to (C, H, W) uint8 by the C entries of
+`csrc/io_native.cpp`, built with the host compiler at first use
+(`kernels.build.load_host`). zlib and ctypes both release the interpreter
+lock, so a thread pool over the frames of a batch decodes them side by
+side. Binary PGM / PPM frames skip the unfilter. The plain twin is
+`utils.io.load_image`, which gives the same pixels; there is no fallback
+to it: if the library cannot be built or loaded, `decode_batch` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from concurrent.futures import Executor
+from typing import Optional, Sequence
+
+import numpy as np
+
+from of_dis_tpu_torch.kernels import build
+from of_dis_tpu_torch.utils import io as uio
+
+_ARGS = {
+    "of_png_unfilter": ((ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                         ctypes.c_int, ctypes.c_void_p), ctypes.c_int64),
+    "of_to_chw": ((ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p), ctypes.c_int),
+}
+
+
+def _entries():
+    """The two C entries, their argtypes and restypes set."""
+    lib = build.load_host("io_native")
+    fns = []
+    for name, (argtypes, restype) in _ARGS.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        fns.append(fn)
+    return fns
+
+
+def _read(path: str):
+    """(width, height, channels, data, filtered) of one frame: PNG image
+    data still filtered, or PGM / PPM pixels."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:8] == b"\x89PNG\r\n\x1a\n":
+        return (*uio.png_chunks(raw), True)
+    if raw[:1] == b"P" and raw[1:2] in (b"5", b"6"):
+        pix = uio.decode_pnm(raw)
+        return pix.shape[1], pix.shape[0], pix.shape[2], pix, False
+    raise ValueError(f"{path}: unsupported image format (PNG/PGM/PPM "
+                     "supported; JPEG is not)")
+
+
+def _decode_into(fns, frame, channels: int, out: np.ndarray) -> None:
+    """Unfilter and convert one frame into `out` (channels, H, W) uint8,
+    C-contiguous."""
+    unfilter, to_chw = fns
+    w, h, nch, data, filtered = frame
+    if not filtered:
+        pix = np.ascontiguousarray(data)
+    elif nch == 1 and channels == 1:
+        pix = out                       # gray to gray: unfilter in place
+    else:
+        pix = np.empty((h, w * nch), np.uint8)
+    if filtered:
+        src = np.frombuffer(data, np.uint8)
+        err = unfilter(src.ctypes.data, h, w * nch, nch, pix.ctypes.data)
+        if err:
+            raise ValueError(f"PNG row {err - 1}: unknown filter type"
+                             if err > 0 else "PNG unfilter failed")
+    if pix is not out and to_chw(pix.ctypes.data, h, w, nch, channels,
+                                 out.ctypes.data):
+        raise ValueError(f"cannot convert {nch} channels to {channels}")
+
+
+def decode_batch(paths: Sequence[str], channels: int,
+                 pool: Optional[Executor] = None,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Decode 8-bit PNG / PGM / PPM frames of one size to (B, C, H, W)
+    uint8: C = 1 gray through OpenCV's fixed-point BGR2GRAY, C = 3 in BGR
+    order, as cv::imread gives them (equal to `utils.io.load_image`'s
+    values). `pool`, if given, decodes the frames side by side; `out`, if
+    given, is the C-contiguous (B, C, H, W) uint8 array to fill (a pinned
+    host buffer, say). Raises ValueError on a frame it cannot decode or of
+    another size, and RuntimeError if the decoder library cannot be
+    built."""
+    if channels not in (1, 3):
+        raise ValueError(f"channels must be 1 or 3, got {channels}")
+    paths = list(paths)
+    if not paths:
+        raise ValueError("decode_batch: no frames")
+    fns = _entries()
+    first = _read(paths[0])
+    shape = (len(paths), channels, first[1], first[0])
+    if out is None:
+        out = np.empty(shape, np.uint8)
+    elif (out.dtype != np.uint8 or not out.flags.c_contiguous
+          or out.shape[:2] != shape[:2]):
+        raise ValueError(f"out must be a C-contiguous uint8 array of shape "
+                         f"{shape}, got {out.dtype} {out.shape}")
+
+    def one(i: int) -> None:
+        frame = first if i == 0 else _read(paths[i])
+        if (frame[1], frame[0]) != out.shape[2:]:
+            raise ValueError(f"{paths[i]}: {frame[0]}x{frame[1]} frame in a "
+                             f"batch of {out.shape[3]}x{out.shape[2]}")
+        _decode_into(fns, frame, channels, out[i])
+
+    if pool is None:
+        for i in range(len(paths)):
+            one(i)
+    else:
+        for fut in [pool.submit(one, i) for i in range(len(paths))]:
+            fut.result()
+    return out

@@ -4,16 +4,18 @@
 Forward: each valid patch splats its displacement over its p x p integer
 footprint, weighted per pixel by 1/max(minerrval, residual)
 (patchgrid.cpp:223-275). The grid is regular, so coverage is separable per
-axis: two float32 contractions against static 0/1 cover matrices.
+axis: two contractions against static 0/1 cover matrices.
 
 Backward merge (`usefbcon`): the complementary grid's patches splat their
 NEGATED displacement bilinearly at their converged position
 (patchgrid.cpp:278-375). The positions are run-time values, so the 0/1
 cover matrices become soft one-hot matrices built from them (the two
 bilinear taps of an axis folded in), and the placement is again two
-float32 contractions.
+contractions.
 
-Neither path scatters or uses atomics: two runs give the same bits. Every
+The contractions take float32 values and accumulate in float64, rounded
+once, so a pair's dense flow does not depend on how many pairs share its
+batch. Neither path scatters or uses atomics: two runs give the same bits. Every
 pixel is finally normalised by its accumulated weight
 (patchgrid.cpp:377-394).
 """
@@ -63,11 +65,15 @@ def _cover_matrix(size: int, n_axis: int, off: int, steps: int, psz: int
 
 @lru_cache(maxsize=32)
 def _cover_pair(spec: LevelSpec, psz: int, device: str):
+    """The level's two cover matrices as float64 tensors on `device`: the
+    (H, psz, noph) vertical one and the transposed (psz*nopw, W)
+    horizontal one."""
     u = _cover_matrix(spec.height, spec.noph, spec.offseth, spec.steps, psz)
     v = _cover_matrix(spec.width, spec.nopw, spec.offsetw, spec.steps, psz)
     u4 = torch.as_tensor(u.reshape(spec.height, psz, spec.noph),
-                         device=device)
-    return u4, torch.as_tensor(v, device=device)
+                         dtype=torch.float64, device=device)
+    return u4, torch.as_tensor(np.ascontiguousarray(v.T), dtype=torch.float64,
+                               device=device)
 
 
 # Bytes of the backward merge's soft one-hot operands held at once; more
@@ -76,8 +82,9 @@ _MERGE_CHUNK_BYTES = 512 << 20
 
 
 def _merge_chunk(b: int, n: int, psz: int, h: int, w: int) -> int:
-    """Patches per chunk of the backward merge: its operands are the
-    (B, n, psz, H) row and the two (B, n, psz, W) column arrays."""
+    """Patches per chunk of the backward merge: its float32 operands are
+    the (B, n, psz, H) row and the two (B, n, psz, W) column arrays (their
+    float64 copies for the products take twice that again)."""
     return max(1, min(n, _MERGE_CHUNK_BYTES // (4 * b * psz * (h + 2 * w))))
 
 
@@ -92,7 +99,11 @@ def _backward_splat(spec: LevelSpec, params: DISParams, compl: PatchResult
     anchor + i - psz/2) and is valid for 1 <= x < W-1, 1 <= y < H-1; its
     weight 1 / pweight goes to that cell and its upper / left neighbours
     by the bilinear weights. Both taps of an axis fold into one soft
-    one-hot matrix, so the placement is `rows^T @ (weights @ columns)`."""
+    one-hot matrix, so the placement is `rows^T @ (weights @ columns)`.
+    The products take float32 operands and accumulate in float64 across
+    the chunks, rounded once: a float32 product's sum order, and the
+    chunks, follow the batch size, which would make a pair's flow depend
+    on the pairs batched with it."""
     psz, nop = params.p_samp_s, params.nop
     h, w = spec.height, spec.width
     dev = compl.p.device
@@ -101,7 +112,7 @@ def _backward_splat(spec: LevelSpec, params: DISParams, compl: PatchResult
     ar = torch.arange(psz, device=dev)
     yio = torch.arange(h, device=dev)
     xio = torch.arange(w, device=dev)
-    out = torch.zeros((b, 1 + nop, h, w), dtype=torch.float32, device=dev)
+    out = torch.zeros((b, 1 + nop, h, w), dtype=torch.float64, device=dev)
     step = _merge_chunk(b, n, psz, h, w)
     for lo in range(0, n, step):
         pt = compl.pt[:, lo:lo + step]                       # (B, n, 2)
@@ -122,13 +133,13 @@ def _backward_splat(spec: LevelSpec, params: DISParams, compl: PatchResult
                  + (yio == ycell + 1).to(torch.float32) * ry)  # (B,n,P,H)
         xsoft = ((xio == xcell).to(torch.float32) * (1.0 - rx)
                  + (xio == xcell + 1).to(torch.float32) * rx)  # (B,n,P,W)
-        vrow = torch.matmul(wgt, xsoft)                        # (B,n,P,W)
-        ysoft_t = ysoft.reshape(b, -1, h).transpose(1, 2)      # (B,H,nP)
-        p_neg = -compl.p[:, lo:lo + step]                      # (B, n, nop)
+        vrow = torch.matmul(wgt.double(), xsoft.double())      # (B,n,P,W)
+        ysoft_t = ysoft.double().reshape(b, -1, h).transpose(1, 2)
+        p_neg = -compl.p[:, lo:lo + step].double()             # (B, n, nop)
         for f in range(1 + nop):
             rows = vrow if f == 0 else vrow * p_neg[..., f - 1, None, None]
             out[:, f] += torch.matmul(ysoft_t, rows.reshape(b, -1, w))
-    return out
+    return out.to(torch.float32)
 
 
 def aggregate_flow_dense(spec: LevelSpec, params: DISParams,
@@ -147,20 +158,23 @@ def aggregate_flow_dense(spec: LevelSpec, params: DISParams,
     psz, nop = params.p_samp_s, params.nop
     nopw, noph = spec.nopw, spec.noph
     b = res.p.shape[0]
-    u4, v = _cover_pair(spec, psz, str(res.p.device))
+    u4, vt = _cover_pair(spec, psz, str(res.p.device))
     q = torch.reciprocal(res.pweight).reshape(b, psz, psz * nopw, noph)
     p4 = res.p.reshape(b, nopw, noph, nop)
-
-    def dens(f):
-        # (B, oy, (ox,ix), iy) -> (B, H, psz*nopw) -> (B, H, W)
-        b2 = torch.einsum("hoy,bozy->bhz", u4, f)
-        return torch.matmul(b2, v.T)
-
-    we = dens(q)
-    flow = torch.stack(
-        [dens(q * p4[:, None, :, :, ch].expand(b, psz, nopw, noph)
-              .reshape(b, 1, psz * nopw, noph))
-         for ch in range(nop)], dim=-1)
+    # the weight and each weighted parameter, (1 + nop, B, oy, (ox,ix), iy)
+    fields = torch.stack([q] + [
+        q * p4[:, None, :, :, ch].expand(b, psz, nopw, noph)
+        .reshape(b, 1, psz * nopw, noph) for ch in range(nop)])
+    # -> (1 + nop, B, H, psz*nopw) -> (1 + nop, B, H, W). Both contractions
+    # accumulate in float64 and round once: a float32 product's sum order
+    # follows the batch size (one pair alone takes another matrix-product
+    # route), so a pair's flow would depend on the pairs batched with it.
+    # Each output sums at most ((psz-1)//steps+1)^2 float32 terms, exact in
+    # float64.
+    dense = torch.matmul(torch.einsum("hoy,kbozy->kbhz", u4, fields.double()),
+                         vt).to(torch.float32)
+    we = dense[0]
+    flow = dense[1:].movedim(0, -1)
     if compl_res is not None:
         back = _backward_splat(spec, params, compl_res)
         we = we + back[:, 0]

@@ -101,9 +101,14 @@ def _avg_row(row: np.ndarray, prev: np.ndarray, nch: int) -> np.ndarray:
     return np.frombuffer(bytes(out), np.uint8)
 
 
-def _decode_png(raw: bytes) -> np.ndarray:
-    """8-bit non-interlaced PNG (gray, RGB, gray+alpha, RGBA) -> (H, W, nch)
-    uint8 (io_native.cpp:68-141)."""
+def png_chunks(raw: bytes):
+    """The header and the inflated image data of an 8-bit non-interlaced
+    PNG (gray, RGB, gray+alpha, RGBA): (width, height, channels, data), data
+    the (height * (width * channels + 1)) bytes of filtered rows, each led
+    by its filter type (io_native.cpp:68-110). Raises ValueError on any
+    other PNG, a truncated file or a bad zlib stream."""
+    if raw[:8] != _PNG_MAGIC:
+        raise ValueError("not a PNG")
     pos = 8
     width = height = 0
     bit_depth, color_type, interlace = 0, -1, 0
@@ -111,6 +116,8 @@ def _decode_png(raw: bytes) -> np.ndarray:
     while pos + 8 <= len(raw):
         length = struct.unpack(">I", raw[pos:pos + 4])[0]
         ctype = raw[pos + 4:pos + 8]
+        if pos + 12 + length > len(raw):
+            raise ValueError("truncated PNG")
         payload = raw[pos + 8:pos + 8 + length]
         if ctype == b"IHDR":
             width, height = struct.unpack(">II", payload[:8])
@@ -125,11 +132,22 @@ def _decode_png(raw: bytes) -> np.ndarray:
         raise ValueError("unsupported PNG (need 8-bit non-interlaced "
                          "gray/RGB/RGBA)")
     nch = {0: 1, 2: 3, 4: 2, 6: 4}[color_type]
-    stride = width * nch
-    data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if data.size != (stride + 1) * height:
+    size = (width * nch + 1) * height
+    try:
+        data = zlib.decompress(b"".join(idat), bufsize=max(size, 1))
+    except zlib.error as e:
+        raise ValueError(f"PNG image data: {e}") from e
+    if len(data) != size:
         raise ValueError("PNG payload size mismatch")
-    data = data.reshape(height, stride + 1)
+    return width, height, nch, data
+
+
+def _decode_png(raw: bytes) -> np.ndarray:
+    """8-bit non-interlaced PNG (gray, RGB, gray+alpha, RGBA) -> (H, W, nch)
+    uint8 (io_native.cpp:68-141)."""
+    width, height, nch, raw_rows = png_chunks(raw)
+    stride = width * nch
+    data = np.frombuffer(raw_rows, np.uint8).reshape(height, stride + 1)
     pix = np.empty((height, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(height):
@@ -152,7 +170,7 @@ def _decode_png(raw: bytes) -> np.ndarray:
     return pix.reshape(height, width, nch)
 
 
-def _decode_pnm(raw: bytes) -> np.ndarray:
+def decode_pnm(raw: bytes) -> np.ndarray:
     """Binary PGM/PPM (P5/P6, maxval 255) -> (H, W, nch) uint8
     (io_native.cpp:143-181)."""
     nch = 1 if raw[1:2] == b"5" else 3
@@ -191,7 +209,7 @@ def load_image(path: str, channels: int = 1) -> np.ndarray:
     if raw[:8] == _PNG_MAGIC:
         pix = _decode_png(raw)
     elif raw[:1] == b"P" and raw[1:2] in (b"5", b"6"):
-        pix = _decode_pnm(raw)
+        pix = decode_pnm(raw)
     else:
         raise ValueError(f"{path}: unsupported image format "
                          "(PNG/PGM/PPM supported)")

@@ -1054,6 +1054,16 @@ def run_path(cfg, dev, rows, totals, walls_by_path):
     ratio = epe_ratio(ours4, ref4)
     print(f"path {label}: EPE ratio, kernel path vs plain path on the card, "
           f"{few} pairs: {ratio:.3e}", flush=True)
+    # the batch split: the first pairs as a batch of their own, and the
+    # first pair alone, against the same pairs in the full batch
+    alone = run(im_a[:1], im_b[:1])
+    split = max(float((ours4 - flow[:few]).abs().max()),
+                float((alone - flow[:1]).abs().max()))
+    print(f"path {label}: {few} pairs and 1 pair alone vs in the batch of "
+          f"{batch}: max |diff| {split:.3e} px", flush=True)
+    if not split <= 1e-5:
+        raise AssertionError(f"path {label}: a pair's flow depends on its "
+                             f"batch by {split} px")
     if not ratio < 1e-3:
         raise AssertionError(f"path {label}: kernel path EPE ratio {ratio} "
                              ">= 1e-3")

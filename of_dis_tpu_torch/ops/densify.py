@@ -14,8 +14,13 @@ bilinear taps of an axis folded in), and the placement is again two
 contractions.
 
 The contractions take float32 values and accumulate in float64, rounded
-once, so a pair's dense flow does not depend on how many pairs share its
-batch. Neither path scatters or uses atomics: two runs give the same bits. Every
+once. In float32 a product's sum order follows the batch size (one pair
+alone takes another matrix-product route), so a pair's dense flow would
+depend on the pairs batched with it; in float64 another order moves a sum
+by about 2^-53 of its terms' magnitude, which changes the float32 result
+only where the sum lies that close to a float32 rounding boundary. So a
+batch split gives the same bits in practice, not by construction.
+Neither path scatters or uses atomics: two runs give the same bits. Every
 pixel is finally normalised by its accumulated weight
 (patchgrid.cpp:377-394).
 """
@@ -76,16 +81,18 @@ def _cover_pair(spec: LevelSpec, psz: int, device: str):
                                device=device)
 
 
-# Bytes of the backward merge's soft one-hot operands held at once; more
-# patches than fit are merged in chunks.
-_MERGE_CHUNK_BYTES = 512 << 20
+# Bytes a pair of the backward merge's soft one-hot operands held at once;
+# more patches than fit are merged in chunks.
+_MERGE_CHUNK_BYTES = 8 << 20
 
 
-def _merge_chunk(b: int, n: int, psz: int, h: int, w: int) -> int:
-    """Patches per chunk of the backward merge: its float32 operands are
-    the (B, n, psz, H) row and the two (B, n, psz, W) column arrays (their
-    float64 copies for the products take twice that again)."""
-    return max(1, min(n, _MERGE_CHUNK_BYTES // (4 * b * psz * (h + 2 * w))))
+def _merge_chunk(n: int, psz: int, h: int, w: int) -> int:
+    """Patches per chunk of the backward merge: a pair's float32 operands
+    are the (n, psz, H) row and the two (n, psz, W) column arrays (their
+    float64 copies for the products take twice that again). Sized per
+    pair, so the chunks, and the order their sums take, do not follow the
+    batch size."""
+    return max(1, min(n, _MERGE_CHUNK_BYTES // (4 * psz * (h + 2 * w))))
 
 
 def _backward_splat(spec: LevelSpec, params: DISParams, compl: PatchResult
@@ -101,9 +108,9 @@ def _backward_splat(spec: LevelSpec, params: DISParams, compl: PatchResult
     by the bilinear weights. Both taps of an axis fold into one soft
     one-hot matrix, so the placement is `rows^T @ (weights @ columns)`.
     The products take float32 operands and accumulate in float64 across
-    the chunks, rounded once: a float32 product's sum order, and the
-    chunks, follow the batch size, which would make a pair's flow depend
-    on the pairs batched with it."""
+    the chunks, rounded once (see the module docstring); a term is a
+    product of three or four float32 factors, so the float64 sums round
+    too, and equal bits across batch sizes hold in practice only."""
     psz, nop = params.p_samp_s, params.nop
     h, w = spec.height, spec.width
     dev = compl.p.device
@@ -113,7 +120,7 @@ def _backward_splat(spec: LevelSpec, params: DISParams, compl: PatchResult
     yio = torch.arange(h, device=dev)
     xio = torch.arange(w, device=dev)
     out = torch.zeros((b, 1 + nop, h, w), dtype=torch.float64, device=dev)
-    step = _merge_chunk(b, n, psz, h, w)
+    step = _merge_chunk(n, psz, h, w)
     for lo in range(0, n, step):
         pt = compl.pt[:, lo:lo + step]                       # (B, n, 2)
         pos_c = torch.ceil(pt + 1e-5).to(torch.int64)
@@ -165,12 +172,10 @@ def aggregate_flow_dense(spec: LevelSpec, params: DISParams,
     fields = torch.stack([q] + [
         q * p4[:, None, :, :, ch].expand(b, psz, nopw, noph)
         .reshape(b, 1, psz * nopw, noph) for ch in range(nop)])
-    # -> (1 + nop, B, H, psz*nopw) -> (1 + nop, B, H, W). Both contractions
-    # accumulate in float64 and round once: a float32 product's sum order
-    # follows the batch size (one pair alone takes another matrix-product
-    # route), so a pair's flow would depend on the pairs batched with it.
-    # Each output sums at most ((psz-1)//steps+1)^2 float32 terms, exact in
-    # float64.
+    # -> (1 + nop, B, H, psz*nopw) -> (1 + nop, B, H, W), both contractions
+    # in float64 and rounded once (see the module docstring). Each output
+    # sums at most ((psz-1)//steps+1)^2 float32 terms, which float64 holds
+    # exactly unless their magnitudes lie more than about 2^24 apart.
     dense = torch.matmul(torch.einsum("hoy,kbozy->kbhz", u4, fields.double()),
                          vt).to(torch.float32)
     we = dense[0]

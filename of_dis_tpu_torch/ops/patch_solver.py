@@ -132,13 +132,17 @@ def extract_templates(spec: LevelSpec, params: DISParams, im: torch.Tensor,
     tmpl = _gather_templates(spec, psz, im)
     tdx = _gather_templates(spec, psz, dx)
     tdy = _gather_templates(spec, psz, dy)
+    # The template mean and the Hessian's sums accumulate in float64 and
+    # round once, the Hessian's entries in one reduction: a float32 sum's
+    # order follows the number of outputs on CUDA (how torch splits the
+    # reduction), so a pair's templates, and its flow, would depend on the
+    # pairs batched with it (the mean only where its float32 sum rounds:
+    # 192 values of an RGB patch, or 144 of a 12-pixel one, at the coarse
+    # levels' fine value steps).
     if params.patnorm > 0:
-        tmpl = tmpl - tmpl.mean(dim=-2, keepdim=True)
+        tmpl = tmpl - tmpl.mean(dim=-2, keepdim=True,
+                                dtype=torch.float64).to(torch.float32)
 
-    # The Hessian's sums accumulate in float64 and round once, all entries
-    # in one reduction: a float32 sum's order follows the number of outputs
-    # on CUDA (how torch splits the reduction), so a pair's Hessian, and its
-    # flow, would depend on the pairs batched with it.
     prods = [tdx * tdx] + ([tdx * tdy, tdy * tdy] if params.nop == 2 else [])
     sums = torch.sum(torch.stack(prods, dim=-3), dim=-2,
                      dtype=torch.float64).to(torch.float32)

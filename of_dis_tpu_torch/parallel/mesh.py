@@ -52,38 +52,41 @@ def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
     return Mesh(devs)
 
 
-def _chunks(mesh: Mesh, x, dim: int) -> List[torch.Tensor]:
-    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
-    n = t.shape[dim]
+def shard_bounds(mesh: Mesh, n: int) -> List[slice]:
+    """The split rule: a batch of n cut into one contiguous chunk a device,
+    in order; slice d is device d's. Raises unless n divides evenly."""
     if n % mesh.size:
-        raise ValueError(f"axis {dim} of size {n} does not divide over "
+        raise ValueError(f"a batch of {n} does not divide over "
                          f"{mesh.size} devices")
     per = n // mesh.size
-    return [t.narrow(dim, d * per, per).to(dev).contiguous()
-            for d, dev in enumerate(mesh.devices)]
+    return [slice(d * per, (d + 1) * per) for d in range(mesh.size)]
+
+
+def _chunks(mesh: Mesh, x, dim: int) -> List[torch.Tensor]:
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    return [t[(slice(None),) * dim + (s,)].to(dev).contiguous()
+            for s, dev in zip(shard_bounds(mesh, t.shape[dim]),
+                              mesh.devices)]
 
 
 def shard_batch(mesh: Mesh, *arrays):
-    """Each array cut on its leading (batch) axis into one contiguous chunk
-    a device, chunk d on the mesh's device d: a list of chunks per array
-    (the list itself for one array)."""
+    """Each array cut on its leading (batch) axis by `shard_bounds`, chunk
+    d on the mesh's device d: a list of chunks per array (the list itself
+    for one array)."""
     out = tuple(_chunks(mesh, a, 0) for a in arrays)
     return out if len(out) > 1 else out[0]
 
 
 def dis_flow_sharded(mesh: Mesh, im_a, im_b, params: DISParams,
-                     full_w: int, full_h: int, channels_last: bool = True
-                     ) -> List[torch.Tensor]:
+                     full_w: int, full_h: int) -> List[torch.Tensor]:
     """Batched DIS flow with the frame-pair axis split over the mesh.
 
     im_a / im_b: (B, C, H, W) with B divisible by the mesh size, or the
     lists `shard_batch` made of them. Returns the per-device results in
-    batch order, each (B / n, H, W, nop) on its device ((B / n, nop, H, W)
-    with channels_last=False)."""
+    batch order, each (B / n, H, W, nop) on its device."""
     if not isinstance(im_a, (list, tuple)):
         im_a, im_b = shard_batch(mesh, im_a, im_b)
-    return [dis.dis_flow_batched(a, b, params, full_w, full_h,
-                                 channels_last=channels_last, device=dev)
+    return [dis.dis_flow_batched(a, b, params, full_w, full_h, device=dev)
             for a, b, dev in zip(im_a, im_b, mesh.devices)]
 
 

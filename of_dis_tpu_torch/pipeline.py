@@ -28,9 +28,8 @@ Usage:
 
 --streams S enables warm-start sequence serving: S contiguous video
 segments advance in lockstep, each lane warm-starting from its previous
-pair's flow. --mesh all splits over every CUDA device; --mesh N over N
-devices, taken in turn from those present (so N may exceed their number,
-repeating devices; on --device cpu, N times the CPU).
+pair's flow. --mesh all splits over every CUDA device; --mesh N over the
+first N (on --device cpu, over the CPU N times).
 
 Frames (PNG, PGM, PPM; JPEG is refused) are sorted lexicographically; pair
 t produces OUT_DIR/<frame_t>.flo (.pfm for depth modes), cropped to the
@@ -113,16 +112,15 @@ class _Shard:
     ib: torch.Tensor
 
 
-def _decode_shards(step: _Step, n_dev: int, shape, pin: bool,
+def _decode_shards(step: _Step, mesh: pmesh.Mesh, shape, pin: bool,
                    pool) -> List[_Shard]:
-    """Split a step's pairs into n_dev contiguous shards and decode each
-    shard's distinct frames (C, H, W) = `shape` once (consecutive pairs
-    share a frame)."""
-    per = len(step.pairs) // n_dev
+    """Split a step's pairs over the mesh (`parallel.mesh.shard_bounds`)
+    and decode each shard's distinct frames (C, H, W) = `shape` once
+    (consecutive pairs share a frame)."""
     shards = []
-    for d in range(n_dev):
+    for bounds in pmesh.shard_bounds(mesh, len(step.pairs)):
         rows = {}
-        own = step.pairs[d * per:(d + 1) * per]
+        own = step.pairs[bounds]
         ia = [rows.setdefault(a, len(rows)) for a, _ in own]
         ib = [rows.setdefault(b, len(rows)) for _, b in own]
         frames = torch.empty((len(rows),) + tuple(shape), dtype=torch.uint8,
@@ -233,10 +231,11 @@ def run_pipeline(frame_dir: str, out_dir: str, *, op_point: int = 2,
     """
     if mode not in MODES:
         raise ValueError(f"unknown pipeline mode {mode}")
-    devs = mesh.devices if mesh is not None else (dis.resolve_device(device),)
+    if mesh is None:
+        mesh = pmesh.make_mesh([device])
+    devs, n_dev = mesh.devices, mesh.size
     nop = 1 if "DE" in mode else 2
     noc = 3 if "RGB" in mode else 1
-    n_dev = len(devs)
     if not batch:
         batch = default_batch(op_point) * n_dev
     batch += -batch % n_dev
@@ -265,9 +264,10 @@ def run_pipeline(frame_dir: str, out_dir: str, *, op_point: int = 2,
     else:
         steps = _cold_steps(pairs, batch, name)
         lanes = batch
-    per = lanes // n_dev
-    carry = [dis.warm_carry_init(per, params, full_w, full_h, device=dev)
-             for dev in devs] if streams else None
+    shards = pmesh.shard_bounds(mesh, lanes)
+    carry = [dis.warm_carry_init(s.stop - s.start, params, full_w, full_h,
+                                 device=dev)
+             for s, dev in zip(shards, devs)] if streams else None
 
     def compute(d: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         dev = devs[d]
@@ -284,7 +284,7 @@ def run_pipeline(frame_dir: str, out_dir: str, *, op_point: int = 2,
     decoder = ThreadPoolExecutor(max_workers=DECODE_THREADS)
     writer = ThreadPoolExecutor(max_workers=WRITE_THREADS)
     producer = _Producer(steps, lambda step: _decode_shards(
-        step, n_dev, first.shape[1:], where.cuda, decoder))
+        step, mesh, first.shape[1:], where.cuda, decoder))
     n_done = 0
     t0 = time.perf_counter()
     pending = []   # (step, pinned results, events) in flight
@@ -306,15 +306,15 @@ def run_pipeline(frame_dir: str, out_dir: str, *, op_point: int = 2,
             if isinstance(item, _ProducerError):
                 raise RuntimeError(
                     f"frame decode failed in {frame_dir}") from item.exc
-            step, shards = item
+            step, decoded = item
             res = torch.empty((lanes, h_org, w_org, nop), dtype=torch.float32,
                               pin_memory=where.cuda)
             events = []
-            for d, (dev, shard) in enumerate(zip(devs, shards)):
+            for d, (dev, shard) in enumerate(zip(devs, decoded)):
                 a, b = where.upload(shard, dev, params.sc_f)
                 flow = compute(d, a, b)[:, top:top + h_org,
                                         left:left + w_org].contiguous()
-                res[d * per:(d + 1) * per].copy_(flow, non_blocking=True)
+                res[shards[d]].copy_(flow, non_blocking=True)
                 if dev.type == "cuda":
                     ev = torch.cuda.Event()
                     ev.record(torch.cuda.current_stream(dev))
@@ -363,8 +363,8 @@ def _stream_steps(pairs, s: int, name):
 
 
 def _mesh_from_spec(spec: str, device: str) -> pmesh.Mesh:
-    """--mesh all: every CUDA device; --mesh N: N devices, taken in turn
-    from those present (the CPU N times with --device cpu)."""
+    """--mesh all: every CUDA device; --mesh N: the first N of them (the
+    CPU N times with --device cpu)."""
     if device == "cpu":
         if spec == "all":
             raise ValueError("--mesh all needs CUDA devices; give a count")
@@ -372,9 +372,10 @@ def _mesh_from_spec(spec: str, device: str) -> pmesh.Mesh:
     if spec == "all":
         return pmesh.make_mesh()
     dis.resolve_device("cuda")
-    count = torch.cuda.device_count()
-    return pmesh.make_mesh([torch.device("cuda", i % count)
-                            for i in range(int(spec))])
+    n, count = int(spec), torch.cuda.device_count()
+    if n > count:
+        raise ValueError(f"--mesh {n}: only {count} CUDA devices")
+    return pmesh.make_mesh([torch.device("cuda", i) for i in range(n)])
 
 
 def main(argv=None):

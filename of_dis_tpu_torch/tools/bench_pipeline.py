@@ -17,7 +17,7 @@ pairs/s, with the card's name and power limit. op-2 runs on 513 frames
 (batches of up to 256 pairs then divide the run), op-3 and op-4 on the
 first 161.
 
-Usage: python -m of_dis_tpu_torch.tools.bench_pipeline [--device cuda|cpu]
+Usage: python -m of_dis_tpu_torch.tools.bench_pipeline   (needs CUDA)
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import os
 import shutil
 import statistics
 import subprocess
-import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -109,28 +108,26 @@ def make_frames(frame_dir: str, n: int, step=STEP, seed: int = 0,
 
 
 def card() -> str:
-    """The `nvidia-smi` name and power-limit line, or "cpu"."""
-    if not torch.cuda.is_available():
-        return "cpu"
+    """The `nvidia-smi` name and power-limit line."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True, timeout=60)
     return r.stdout.strip().splitlines()[0]
 
 
-def sweep(frame_dir: str, out_dir: str, op: int, batches, rounds: int,
-          device) -> list:
-    """Wall seconds of `run_pipeline` at each batch, in turns (forward,
-    then backward, `rounds` times), after one warm-up run."""
+def sweep(frame_dir: str, out_dir: str, op: int, batches, rounds: int
+          ) -> list:
+    """Wall seconds of `run_pipeline` on the card at each batch, in turns
+    (forward, then backward, `rounds` times), after one warm-up run."""
     walls = {b: [] for b in batches}
     pipeline.run_pipeline(frame_dir, out_dir, op_point=op, batch=batches[0],
-                          verbose=False, device=device)
+                          verbose=False)
     order = list(batches) + list(batches)[::-1]
     for _ in range(rounds):
         for b in order:
             t0 = time.perf_counter()
             n = pipeline.run_pipeline(frame_dir, out_dir, op_point=op,
-                                      batch=b, verbose=False, device=device)
+                                      batch=b, verbose=False)
             walls[b].append(time.perf_counter() - t0)
     return [{"bench": "pipeline_batch", "op": op, "batch": b, "pairs": n,
              "wall_s": walls[b],
@@ -138,14 +135,9 @@ def sweep(frame_dir: str, out_dir: str, op: int, batches, rounds: int,
             for b in batches]
 
 
-def main(argv=None) -> list:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda"
-    if "--device" in argv:
-        device = argv[argv.index("--device") + 1]
-    dev = dis.resolve_device(device)
-    if dev.type == "cuda":
-        build.build()
+def main() -> list:
+    dev = dis.resolve_device("cuda")
+    build.build()
     root = os.path.join(build.BUILD_DIR, "bench_pipeline")
     big, small = os.path.join(root, "frames"), os.path.join(root, "small")
     make_frames(big, FRAMES, device=dev)
@@ -157,8 +149,7 @@ def main(argv=None) -> list:
     rows = []
     for op, batches in SWEEP.items():
         for row in sweep(big if op == 2 else small,
-                         os.path.join(root, "out"), op, batches, ROUNDS,
-                         dev):
+                         os.path.join(root, "out"), op, batches, ROUNDS):
             row["card"] = card()
             print(json.dumps(row), flush=True)
             rows.append(row)

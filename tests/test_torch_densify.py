@@ -156,11 +156,11 @@ def test_backward_merge_chunks_give_the_unchunked_sums(monkeypatch):
     per-patch terms (1e-6 relative: partial sums in another order)."""
     params, spec, fw, bw = _merge_case(2, 1, (96, 80), 5)
     _, whole, args = _merge_both(params, spec, fw, bw)
-    b, n, psz = 2, spec.nopatches, params.p_samp_s
-    assert td._merge_chunk(b, n, psz, spec.height, spec.width) == n
+    n, psz = spec.nopatches, params.p_samp_s
+    assert td._merge_chunk(n, psz, spec.height, spec.width) == n
     monkeypatch.setattr(td, "_MERGE_CHUNK_BYTES",
-                        4 * b * psz * (spec.height + 2 * spec.width) * 100)
-    assert td._merge_chunk(b, n, psz, spec.height, spec.width) == 100 < n
+                        4 * psz * (spec.height + 2 * spec.width) * 100)
+    assert td._merge_chunk(n, psz, spec.height, spec.width) == 100 < n
     chunked = td.aggregate_flow_dense(*args)
     np.testing.assert_allclose(chunked.numpy(), whole.numpy(),
                                atol=1e-6 * float(whole.abs().max()), rtol=0)

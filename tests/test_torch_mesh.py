@@ -19,9 +19,9 @@ from of_dis_tpu.models import dis as jax_dis
 from of_dis_tpu.parallel import mesh as jax_mesh
 from of_dis_tpu.params import DISParams as JaxParams
 from of_dis_tpu_torch.models import dis
-from of_dis_tpu_torch.ops import pyramid
+from of_dis_tpu_torch.ops import densify, pyramid
 from of_dis_tpu_torch.parallel import mesh as pmesh
-from of_dis_tpu_torch.params import DISParams, op_point_params
+from of_dis_tpu_torch.params import DISParams, make_level_spec, op_point_params
 
 H, W = 32, 64
 # The port against the JAX package: EPE ratio (mean endpoint error over
@@ -206,3 +206,33 @@ def test_one_pair_alone_equals_it_in_a_batch(op, fbcon):
                                             fw, fh, device="cpu")
                        for i in range(8)])
     assert torch.equal(alone, whole)
+
+
+def test_one_pair_alone_equals_it_in_a_batch_over_merge_chunks(monkeypatch):
+    """The merge over many chunks (a few patches each): the chunks are
+    sized per pair, so 4 batches of 1 still equal the batch of 4."""
+    monkeypatch.setattr(densify, "_MERGE_CHUNK_BYTES", 1 << 16)
+    params = op_point_params(128, 2, nop=2, noc=1, verbosity=0)
+    params = dataclasses.replace(params, usefbcon=True)
+    fr = pyramid.pad_to_divisible(_shifted_frames(5), params.sc_f)
+    fh, fw = fr.shape[-2:]
+    a, b = fr[:-1], fr[1:]
+    spec = make_level_spec(params.sc_l, fw, fh, params)
+    assert densify._merge_chunk(spec.nopatches, params.p_samp_s,
+                                spec.height, spec.width) < spec.nopatches
+    whole = dis.dis_flow_batched(a, b, params, fw, fh, device="cpu")
+    alone = torch.cat([dis.dis_flow_batched(a[i:i + 1], b[i:i + 1], params,
+                                            fw, fh, device="cpu")
+                       for i in range(4)])
+    assert torch.equal(alone, whole)
+
+
+def test_shard_bounds_is_the_split_rule(mesh8):
+    """One contiguous chunk a device, in order; `shard_batch` cuts by it."""
+    bounds = pmesh.shard_bounds(mesh8, 16)
+    assert bounds == [slice(2 * d, 2 * d + 2) for d in range(8)]
+    x = torch.arange(16 * 3).reshape(16, 3)
+    for chunk, s in zip(pmesh.shard_batch(mesh8, x), bounds):
+        assert torch.equal(chunk, x[s])
+    with pytest.raises(ValueError, match="does not divide"):
+        pmesh.shard_bounds(mesh8, 12)

@@ -175,6 +175,23 @@ def test_templates_match_jax_depth_and_rgb(nop, noc):
     np.testing.assert_allclose(a.p.numpy(), b.p.numpy(), atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("noc", [1, 3])
+def test_template_mean_is_the_rounded_exact_mean(noc):
+    """The template mean is the float64 mean rounded once, on level-5
+    values (multiples of 1/1024): a float32 sum of an RGB patch's 192
+    such values rounds (a gray 8-pixel patch's 64 do not), in an order
+    that follows the batch on CUDA."""
+    params = jparams.op_point_params(48, 2, nop=2, noc=noc)
+    spec, tparams, _, _, ta, _ = _setup(params)
+    rng = np.random.default_rng(3)
+    im = torch.as_tensor((rng.integers(0, 255 * 1024, ta[0].shape)
+                          / 1024).astype(np.float32))
+    got = tps.extract_templates(spec, tparams, im, ta[1], ta[2]).tmpl
+    raw = tps._gather_templates(spec, params.p_samp_s, im)
+    mean = raw.double().mean(dim=-2, keepdim=True).float()
+    assert torch.equal(got, raw - mean)
+
+
 @pytest.mark.parametrize("nop", [1, 2])
 def test_flat_template_hessian_guard_matches_jax(nop):
     """A flat image has zero gradients: h00 == 0 (depth) or det == 0

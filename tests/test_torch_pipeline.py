@@ -189,6 +189,42 @@ def test_mesh_equals_one_device(runs, tmp_path):
     assert_same_bytes(s_single, s_split)
 
 
+def test_decode_shards_follow_the_mesh_split(runs):
+    """The pipeline cuts a step by `parallel.mesh.shard_bounds`, the rule
+    `shard_batch` follows: shard d holds the frames of pairs
+    bounds[d], each distinct frame decoded once."""
+    frames = pipeline.list_frames(runs["streams"])
+    pairs = list(zip(frames[:-1], frames[1:]))
+    mesh = pmesh.make_mesh(["cpu"] * 3)
+    step = pipeline._Step(pairs, [])
+    shards = pipeline._decode_shards(step, mesh, (1, H, W), False, None)
+    whole = torch.as_tensor(nio.decode_batch(frames, 1))
+    bounds = pmesh.shard_bounds(mesh, len(pairs))
+    assert [s.stop - s.start for s in bounds] == [2, 2, 2]
+    for shard, s in zip(shards, bounds):
+        assert shard.frames.shape[0] == 3      # 2 pairs share a frame
+        first = s.start
+        assert torch.equal(shard.frames[shard.ia], whole[first:s.stop])
+        assert torch.equal(shard.frames[shard.ib],
+                           whole[first + 1:s.stop + 1])
+    with pytest.raises(ValueError, match="does not divide"):
+        pipeline._decode_shards(pipeline._Step(pairs[:5], []), mesh,
+                                (1, H, W), False, None)
+
+
+def test_mesh_count_takes_the_first_cuda_devices(monkeypatch):
+    """--mesh N on CUDA takes the first N devices and refuses more than
+    there are; only --device cpu repeats its device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    mesh = pipeline._mesh_from_spec("2", "cuda")
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    with pytest.raises(ValueError, match="only 2 CUDA devices"):
+        pipeline._mesh_from_spec("3", "cuda")
+    assert pipeline._mesh_from_spec("3", "cpu").devices == \
+        (torch.device("cpu"),) * 3
+
+
 def test_corrupt_frame_fails_the_run(tmp_path):
     """A truncated frame fails the run with a clear error, not a hang: the
     producer thread hands its exception through the queue."""

@@ -76,7 +76,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel's level-3 device time of path A (per pair) and the large-level
      GN kernel's level-0 device time of path F, with the card's name and
      power limit;
- 11. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
+ 11. the row-sharded TV refinement (`parallel.spatial`, routed by
+     `params.with_spatial_tv`) on 1920x1080 u8 pairs, every split over a
+     list of cuda:0 repeated (the card has one GPU): S1 op-4 gray flow
+     and S2 op-4 gray depth (batch 4, L1 544x960 over 4 devices), S3
+     op-3 RGB flow (L2 272x480 over 2) through `dis_flow_batched`; S4
+     `dis._tv_refine` on a level-0 spec of 1920x1080 (batch 4, flow and
+     depth, over 8 devices, 135 rows a shard and both row parities, and
+     over 4); S5 `tv_refine_spatial_batched` on S1's level, pairs x rows =
+     2 x 2. Each: the routed result equal to the unrouted one (0.0 px),
+     launches asserted (n K3 and n K2 / K5 in place of one of each),
+     every shard's K3 and K2 / K5 call against its twin with its row
+     origin and parity, the device ms of the split level beside the
+     unsharded level's, wall ms of a routed and an unrouted call. S6: the
+     fuzzed configuration of seed 0 (tests/test_fuzz_params.py) at
+     64x128, drawn and with TV on, through `dis_flow_batched`, every
+     kernel call against its twin;
+ 12. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
      last line `{"ok": true, "device": {...}}`.
 
 Synthetic pairs follow the JAX package's bench workload (a blurred random
@@ -113,7 +129,10 @@ from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.native import io as native_io
 from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
 from of_dis_tpu_torch.parallel import mesh as pmesh
-from of_dis_tpu_torch.params import op_point_params, pad_amounts
+from of_dis_tpu_torch.parallel import spatial
+from of_dis_tpu_torch.params import (DISParams, make_level_spec,
+                                     op_point_params, pad_amounts,
+                                     with_spatial_tv)
 from of_dis_tpu_torch.tools import (bench_gn_stages, bench_i8_dot,
                                     bench_pipeline)
 from of_dis_tpu_torch.utils import io, viz
@@ -768,22 +787,28 @@ def check_tv(name, args, kw, kernel_fn):
         library_device_ms=None, bound=bound(nbytes, flops))
 
 
-def check_warp(args, kernel_fn):
+def check_warp(args, kw, kernel_fn):
+    """One warp call against its twin; `kw` may hold the row origin of a
+    block of a row-sharded level (src then has more rows than the
+    fields)."""
     src, wx, wy = args
-    o_k, m_k = kernel_fn(*args)
-    o_p, m_p = tv.warp_image(*args)
+    row0 = kw.get("row0", 0)
+    o_k, m_k = kernel_fn(*args, **kw)
+    o_p, m_p = tv.warp_image(*args, row0)
     torch.cuda.synchronize()
     err = float((o_k - o_p).abs().max())
     if not (err <= TOL["warp"] and torch.equal(m_k, m_p)):
         raise AssertionError(f"warp {tuple(src.shape)}: err {err}, masks "
                              f"equal {torch.equal(m_k, m_p)}")
-    b, c, h, w = src.shape
+    b, c, hs, w = src.shape
+    h = wx.shape[-2]
     # library yardstick: grid_sample with border padding at the same
     # absolute positions (no mask); the grid is built outside the timing
-    gy = torch.arange(h, dtype=torch.float32, device=src.device)[:, None]
+    gy = torch.arange(row0, row0 + h, dtype=torch.float32,
+                      device=src.device)[:, None]
     gx = torch.arange(w, dtype=torch.float32, device=src.device)[None, :]
     grid = torch.stack([(gx + wx) * (2.0 / (w - 1)) - 1.0,
-                        (gy + wy) * (2.0 / (h - 1)) - 1.0], dim=-1)
+                        (gy + wy) * (2.0 / (hs - 1)) - 1.0], dim=-1)
 
     def lib_call(planes, g):
         return F.grid_sample(planes, g, mode="bilinear",
@@ -791,15 +816,24 @@ def check_warp(args, kernel_fn):
 
     lib = lambda: lib_call(src, grid)  # noqa: E731
     lib_diff = float((lib() - o_p).abs().max())
-    nbytes = 4 * b * h * w * (2 * c + 3)
+    # the flow read, the output and mask written, and of the source the
+    # rows this call's samples reach (each pair's span of clamped corner
+    # rows; the whole frame on a whole-frame call, about the block's own
+    # rows on a block of a row-sharded level), each read once
+    yy = gy + wy
+    lo = yy.amin(dim=(1, 2)).floor().clamp(0, hs - 1)
+    hi = (yy.amax(dim=(1, 2)).floor() + 1).clamp(0, hs - 1)
+    src_rows = float((hi - lo + 1).sum())
+    nbytes = 4 * (c * src_rows * w + b * h * w * (c + 3))
     flops = b * h * w * (10 + 13 * c)
     return dict(
-        shape=f"B{b} C{c} {h}x{w}", max_abs_err=err,
-        library_max_abs_diff=lib_diff,
-        wrapper_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
-        plain_ms=cuda_ms(lambda: tv.warp_image(*args), 5, 5),
+        shape=f"B{b} C{c} {h}x{w}" + (f" rows {row0}.. of {hs}"
+                                      if (row0, hs) != (0, h) else ""),
+        max_abs_err=err, library_max_abs_diff=lib_diff,
+        wrapper_ms=cuda_ms(lambda: kernel_fn(*args, **kw), 5, 10),
+        plain_ms=cuda_ms(lambda: tv.warp_image(*args, row0), 5, 5),
         library_wrapper_ms=cuda_ms(lib, 5, 10),
-        device_ms=device_ms(kernel_fn, args),
+        device_ms=device_ms(lambda *a: kernel_fn(*a, **kw), args),
         library_device_ms=device_ms(lib_call, (src, grid)),
         bound=bound(nbytes, flops))
 
@@ -871,7 +905,7 @@ def epe_ratio(ours, ref):
 CHECKS = {"gn_fused": lambda name, args, kw, fn: check_gn(name, args, fn),
           "gn_tiled": lambda name, args, kw, fn: check_gn(name, args, fn),
           "bilerp_extract": lambda name, args, kw, fn: check_extract(args, fn),
-          "warp": lambda name, args, kw, fn: check_warp(args, fn),
+          "warp": lambda name, args, kw, fn: check_warp(args, kw, fn),
           "upscale": lambda name, args, kw, fn: check_upscale(args, fn)}
 
 
@@ -895,6 +929,17 @@ def call_level(name, args, full_w, finest):
 PER_LEVEL = ("gn_fused", "bilerp_extract", "tv_de_inner")
 
 
+def check_call(name, args, kw, wrapper, rows):
+    """One recorded call of a kernel against its twin (CHECKS, else
+    check_tv), its bound split into bound_ms / bytes_ms / ops_ms; the row
+    is appended to rows[name] and returned."""
+    r = CHECKS.get(name, check_tv)(name, args, kw, wrapper)
+    b_ms, by_ms, op_ms = r.pop("bound")
+    r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
+    rows[name].append(r)
+    return r
+
+
 def check_calls(label, calls, wrappers, rows, full_w, finest, de_routes=None):
     """Hold every recorded call of every kernel against its twin, time it,
     print one JSON line per call and append the rows to rows[name]; for
@@ -905,10 +950,7 @@ def check_calls(label, calls, wrappers, rows, full_w, finest, de_routes=None):
         seen = {}
         per_level = {}
         for args, kw in recorded:
-            r = CHECKS.get(name, check_tv)(name, args, kw, wrappers[name])
-            b_ms, by_ms, op_ms = r.pop("bound")
-            r.update(bound_ms=b_ms, bytes_ms=by_ms, ops_ms=op_ms)
-            rows[name].append(r)
+            r = check_call(name, args, kw, wrappers[name], rows)
             level, _ = call_level(name, args, full_w, finest)
             if "route" in r and tuple(r["route"]) != de_routes[level]:
                 raise AssertionError(f"path {label} {name} level {level}: "
@@ -1830,6 +1872,320 @@ def run_gn_stages(dev, rows, totals):
                 "card": nvidia_smi_line()}), flush=True)
 
 
+# --------------------------------------------- row-sharded TV (phase 11)
+
+# Full-HD pairs: 1080 rows pad to 1088 at op-3 and op-4 (sc_f 6), so the
+# model's routed levels are L1 544x960 (op-4) and L2 272x480 (op-3).
+SPATIAL_H, SPATIAL_W = 1080, 1920
+# The model cases, each routed over `devices` x cuda:0 with a threshold
+# between the working sets (`dis._TV_FIELDS` fields a pixel) of the
+# routed level (`level`) and the next coarser one: S1 op-4 gray flow (L1
+# 217 MB, L2 54 MB; n_inner 2, halo 20, 136 rows a shard), S2 the same in
+# depth (K5), S3 op-3 RGB flow (L2 54 MB, L3 14 MB; n_inner 3, halo 28,
+# 136 rows a shard).
+SPATIAL = [
+    dict(name="S1", what="op-4 gray flow", op=4, nop=2, noc=1, batch=4,
+         devices=4, level=1, min_bytes=100 << 20),
+    dict(name="S2", what="op-4 gray depth", op=4, nop=1, noc=1, batch=4,
+         devices=4, level=1, min_bytes=100 << 20),
+    dict(name="S3", what="op-3 RGB flow", op=3, nop=2, noc=3, batch=4,
+         devices=2, level=2, min_bytes=32 << 20),
+]
+# tests/test_fuzz_params.py's configuration for seed 0 (numpy
+# default_rng(1000), then sc_f), which tests/test_torch_fuzz_params.py
+# holds this copy to
+FUZZ_SEED0 = dict(
+    p_samp_s=4, patove=0.4623051082037978, costfct=2, patnorm=0,
+    max_iter=8, min_iter=2, dp_thresh=0.13690216614881262,
+    dr_thresh=0.8382072560161578, res_thresh=0.0, usetvref=False,
+    usefbcon=False, tv_alpha=16.30522328287391, tv_gamma=13.275076650968213,
+    tv_delta=7.182332454250331, tv_innerit=2, tv_solverit=3,
+    tv_sor=1.4490235979236834)
+FUZZ_SEED0_SC_F = 2
+
+
+def _tv_kernel(nop):
+    return "tv_of_inner" if nop == 2 else "tv_de_inner"
+
+
+def _whole_level(nop, kw):
+    """The unsharded level on a recorded split's inputs: K3, then K2 or
+    K5, once for the whole frame."""
+    if nop == 2:
+        return lambda f, i1, i2: torch.stack(tv.ref_level_of_batched(
+            f[..., 0].contiguous(), f[..., 1].contiguous(), i1, i2, **kw),
+            dim=-1)
+    return lambda wx, i1, i2: tv.ref_level_de_batched(wx.contiguous(), i1,
+                                                      i2, **kw)
+
+
+def split_level(label, split, whole, args, nop, row0s, rows):
+    """One split of a level on its recorded inputs `args` (flow or
+    disparity, im1, im2): every shard's K3 and K2 / K5 call held against
+    its twin (one JSON line a call, appended to rows[name]), their row
+    origins `row0s` and parities asserted, the split equal to the
+    unsharded level (0.0 px), and the device ms of both (`device_ms`),
+    with the card's name and power limit."""
+    tv_name = _tv_kernel(nop)
+    calls = {name: [] for name in KERNELS}
+    with swapped(_recorder(calls)) as wrappers:
+        out = split(*args)
+    torch.cuda.synchronize()
+    calls = {name: c for name, c in calls.items() if c}
+    got_row0 = [kw["row0"] for _, kw in calls.get("warp", [])]
+    parities = [kw["row_parity"] for _, kw in calls.get(tv_name, [])]
+    if set(calls) != {"warp", tv_name} or got_row0 != row0s or \
+            parities != [g % 2 for g in row0s]:
+        raise AssertionError(f"{label}: calls {sorted(calls)}, row origins "
+                             f"{got_row0} (expected {row0s}), parities "
+                             f"{parities}")
+    for name, recorded in calls.items():
+        for i, (a, kw) in enumerate(recorded):
+            r = check_call(name, a, kw, wrappers[name], rows)
+            print(json.dumps({"spatial": label, "kernel": name, "shard": i,
+                              "row0": row0s[i],
+                              "row_parity": row0s[i] % 2, "launches": 1,
+                              "tolerance": TOL[name], **r}), flush=True)
+    want = whole(*args)
+    torch.cuda.synchronize()
+    diff = float((out - want).abs().max())
+    if not torch.equal(out, want):
+        raise AssertionError(f"{label}: the split is {diff} px off the "
+                             "unsharded level")
+    print(json.dumps({"spatial": label, "level": tuple(args[0].shape[:3]),
+                      "shards": len(row0s), "parities": sorted(
+                          {g % 2 for g in row0s}),
+                      "max_abs_diff_vs_unsharded_px": diff,
+                      "split_device_ms": device_ms(split, args),
+                      "unsharded_device_ms": device_ms(whole, args),
+                      "card": nvidia_smi_line()}), flush=True)
+
+
+def _wall_ms(fn):
+    """Host ms of 3 calls of a warm fn, each ending in a synchronize."""
+    return [w * 1e3 for w in _timed(fn)[0]]
+
+
+def _row0s(mesh, h, kw):
+    return [g0 for _, g0, _ in spatial._row_blocks(
+        mesh, h, spatial.halo_depth(kw["n_inner"], kw["n_solver"]))]
+
+
+def _check_split_launches(label, routed, unrouted, tv_name, n):
+    """A routed call launches n K3 and n K2 / K5 in place of one of each,
+    and everything else as the unrouted call."""
+    want = dict(unrouted)
+    for name in ("warp", tv_name):
+        want[name] = want[name] + n - 1
+    print(f"{label}: launches routed {json.dumps(routed)}, unrouted "
+          f"{json.dumps(unrouted)}", flush=True)
+    if routed != want:
+        raise AssertionError(f"{label}: launches {routed}, expected {want}")
+
+
+def run_spatial_model(cfg, dev, rows, totals):
+    """S1-S3: `dis_flow_batched` on full-HD pairs with the finest level's
+    TV row-sharded (`params.with_spatial_tv`) against the unrouted call
+    (0.0 px), launches asserted, the routed level's split checked call by
+    call (`split_level`), wall ms of both calls. Returns the routed
+    level's inputs and arguments."""
+    label, nop, noc, n = cfg["name"], cfg["nop"], cfg["noc"], cfg["devices"]
+    params = op_point_params(SPATIAL_W, cfg["op"], nop=nop, noc=noc)
+    mesh = pmesh.make_mesh([dev] * n)
+    routed = with_spatial_tv(params, mesh, min_bytes=cfg["min_bytes"])
+    field = _flow_field if nop == 2 else _disparity_field
+    a_u8, b_u8, _, _ = make_pairs(cfg["batch"], SPATIAL_H, SPATIAL_W, 0,
+                                  dev, channels=noc, field=field)
+    im_a = pyramid.pad_to_divisible(a_u8, params.sc_f)
+    im_b = pyramid.pad_to_divisible(b_u8, params.sc_f)
+    full_h, full_w = im_a.shape[2], im_a.shape[3]
+
+    def run(p):
+        return dis.dis_flow_batched(im_a, im_b, p, full_w, full_h,
+                                    device=dev)
+
+    entry = "tv_refine_spatial" if nop == 2 else "tv_refine_spatial_de"
+    fn = getattr(spatial, entry)
+    seen = []
+
+    def recorded(m, *args, **kw):
+        seen.append((args, kw))
+        return fn(m, *args, **kw)
+
+    setattr(spatial, entry, recorded)
+    try:
+        reset_launches()
+        out = run(routed)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        setattr(spatial, entry, fn)
+    reset_launches()
+    want = run(params)
+    torch.cuda.synchronize()
+    _check_split_launches(label, launches, read_launches(), _tv_kernel(nop),
+                          n)
+    for name, k in launches.items():
+        totals[name] = totals.get(name, 0) + k
+    lh, lw = full_h >> cfg["level"], full_w >> cfg["level"]
+    if len(seen) != 1 or tuple(seen[0][0][0].shape[1:3]) != (lh, lw):
+        raise AssertionError(f"{label}: routed levels "
+                             f"{[tuple(a[0].shape) for a, _ in seen]}, "
+                             f"expected one of {lh}x{lw}")
+    diff = float((out - want).abs().max())
+    print(f"{label} ({cfg['what']}, batch {cfg['batch']}, {SPATIAL_W}x"
+          f"{SPATIAL_H} padded to {full_w}x{full_h}): L{cfg['level']} "
+          f"{lh}x{lw} over {n} x {dev}: routed vs unrouted max |diff| "
+          f"{diff} px", flush=True)
+    if not torch.equal(out, want):
+        raise AssertionError(f"{label}: routed differs by {diff} px")
+    args, kw = seen[0]
+    split_level(label, lambda *a: fn(mesh, *a, **kw), _whole_level(nop, kw),
+                args, nop, _row0s(mesh, lh, kw), rows)
+    print(json.dumps({"spatial": label, "e2e": "dis_flow_batched",
+                      "routed_wall_ms": _wall_ms(lambda: run(routed)),
+                      "unrouted_wall_ms": _wall_ms(lambda: run(params)),
+                      "card": nvidia_smi_line()}), flush=True)
+    return args, kw
+
+
+def run_spatial_level(dev, rows, totals):
+    """S4: `dis._tv_refine` on a level-0 spec of 1920x1080 (n_inner 1,
+    halo 12), batch 4, gray flow and gray depth, routed over 8 x cuda:0
+    (135 rows a shard: odd shards run K2 / K5 at parity 1) and 4 x cuda:0
+    (270), against the unrouted level (0.0 px), launches asserted, every
+    shard's calls against their twins, wall ms of one call."""
+    h, w = SPATIAL_H, SPATIAL_W
+    for nop, field in ((2, _flow_field), (1, _disparity_field)):
+        params = DISParams(sc_f=0, sc_l=0, max_iter=1, min_iter=1,
+                           p_samp_s=8, patove=0.4, nop=nop, noc=1,
+                           tv_innerit=1, tv_solverit=3)
+        spec = make_level_spec(0, w, h, params)
+        p = spec.pad
+        a_u8, b_u8, u, v = make_pairs(4, h + 2 * p, w + 2 * p, 1, dev,
+                                      field=field)
+        im_a, im_b = a_u8.float(), b_u8.float()
+        flow = torch.stack([u, v], dim=-1)[p:-p, p:-p, :nop].expand(
+            4, h, w, nop).contiguous()
+        level = (flow, im_a, im_b, spec)
+        reset_launches()
+        want = dis._tv_refine(*level, params)
+        torch.cuda.synchronize()
+        unrouted = read_launches()
+        kw = dict(alpha=params.tv_alpha, gamma=params.tv_gamma,
+                  delta=params.tv_delta, n_inner=1,
+                  n_solver=params.tv_solverit, omega=params.tv_sor)
+        if nop == 1:
+            kw["camlr"] = spec.camlr
+        args = ((flow if nop == 2 else flow[..., 0]),
+                im_a[:, :, p:-p, p:-p].contiguous(),
+                im_b[:, :, p:-p, p:-p].contiguous())
+        entry = (spatial.tv_refine_spatial if nop == 2
+                 else spatial.tv_refine_spatial_de)
+        for n in (8, 4):
+            label = f"S4 {'flow' if nop == 2 else 'depth'} x{n}"
+            mesh = pmesh.make_mesh([dev] * n)
+            routed = with_spatial_tv(params, mesh, min_bytes=0)
+            if dis._spatial_tv_route(4, h, w, routed) is not mesh:
+                raise AssertionError(f"{label}: the level is not routed")
+            reset_launches()
+            got = dis._tv_refine(*level, routed)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            _check_split_launches(label, launches, unrouted,
+                                  _tv_kernel(nop), n)
+            for name, k in launches.items():
+                totals[name] = totals.get(name, 0) + k
+            diff = float((got - want).abs().max())
+            print(f"{label}: _tv_refine at {w}x{h}, batch 4, {h // n} rows "
+                  f"a shard: routed vs unrouted max |diff| {diff} px",
+                  flush=True)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: routed differs by {diff} px")
+            split_level(label, lambda *a, m=mesh: entry(m, *a, **kw),
+                        _whole_level(nop, kw), args, nop,
+                        _row0s(mesh, h, kw), rows)
+            print(json.dumps({
+                "spatial": label, "e2e": "_tv_refine",
+                "routed_wall_ms": _wall_ms(
+                    lambda r=routed: dis._tv_refine(*level, r)),
+                "unrouted_wall_ms": _wall_ms(
+                    lambda: dis._tv_refine(*level, params)),
+                "card": nvidia_smi_line()}), flush=True)
+
+
+def run_spatial_2d(dev, level_args, kw, rows, totals):
+    """S5: `tv_refine_spatial_batched` on S1's routed level, pairs x rows
+    = 2 x 2 on cuda:0: launches (4 K3, 4 K2), every call against its twin,
+    equal to the unsharded level."""
+    meshes = (pmesh.make_mesh([dev] * 2),) * 2
+    flow = level_args[0]
+    reset_launches()
+    spatial.tv_refine_spatial_batched(meshes, *level_args, **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"S5: launches {json.dumps(launches)}", flush=True)
+    if launches != {"warp": 4, "tv_of_inner": 4}:
+        raise AssertionError(f"S5: launches {launches}")
+    for name, k in launches.items():
+        totals[name] = totals.get(name, 0) + k
+    split_level("S5 pairs x rows 2 x 2",
+                lambda *a: spatial.tv_refine_spatial_batched(meshes, *a,
+                                                             **kw),
+                _whole_level(2, kw), level_args, 2,
+                _row0s(meshes[0], flow.shape[1], kw) * 2, rows)
+
+
+def run_fuzz_config(dev, rows, totals):
+    """S6: the fuzzed configuration of seed 0 (64x128, sc_f 2, patch 4,
+    pseudo-Huber, no mean normalisation), as drawn (TV off) and with TV
+    on, through `dis_flow_batched` on 4 pairs: every kernel call against
+    its twin, launches counted, the kernel path against the plain path."""
+    h, w = 64, 128
+    a_u8, b_u8, _, _ = make_pairs(4, h, w, 3, dev)
+    for tv_on in (False, True):
+        label = "S6" + (" TV on" if tv_on else "")
+        params = DISParams(sc_f=FUZZ_SEED0_SC_F, sc_l=0, noc=1, nop=2,
+                           **dict(FUZZ_SEED0, usetvref=tv_on))
+
+        def run():
+            return dis.dis_flow_batched(a_u8, b_u8, params, w, h,
+                                        device=dev)
+
+        calls = {name: [] for name in KERNELS}
+        with swapped(_recorder(calls)) as wrappers:
+            run()
+        torch.cuda.synchronize()
+        check_calls(label, {n: c for n, c in calls.items() if c}, wrappers,
+                    rows, w, 0)
+        reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        for name, k in launches.items():
+            totals[name] = totals.get(name, 0) + k
+        with swapped(lambda name, _: PLAIN[name]):
+            ref = run()
+        ratio = epe_ratio(out, ref)
+        print(f"{label}: launches {json.dumps(launches)}; EPE ratio, kernel "
+              f"path vs plain path: {ratio:.3e}", flush=True)
+        if tuple(out.shape) != (4, h, w, 2) or \
+                not bool(torch.isfinite(out).all()) or not ratio < 1e-3:
+            raise AssertionError(f"{label}: shape {tuple(out.shape)}, "
+                                 f"EPE ratio {ratio}")
+
+
+def run_spatial_phase(dev, rows, totals):
+    """Phase 11: S1-S6."""
+    t0 = time.perf_counter()
+    level = {cfg["name"]: run_spatial_model(cfg, dev, rows, totals)
+             for cfg in SPATIAL}
+    run_spatial_level(dev, rows, totals)
+    run_spatial_2d(dev, *level["S1"], rows, totals)
+    run_fuzz_config(dev, rows, totals)
+    print(f"spatial phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1877,7 +2233,10 @@ def main() -> int:
     run_i8_dot(dev, rows, totals)
     run_gn_stages(dev, rows, totals)
 
-    # 11. summary: per kernel, summed over its calls in one run of every
+    # 11. the row-sharded TV refinement, and one fuzzed configuration
+    run_spatial_phase(dev, rows, totals)
+
+    # 12. summary: per kernel, summed over its calls in one run of every
     # path or tool
     summary = []
     for name, rs in rows.items():

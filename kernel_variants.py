@@ -5,8 +5,8 @@ the calls that `chip_smoke.py`'s paths hand the kernel.
     python3 kernel_variants.py tv_de_inner --routes
 
 Run from the repository root on a machine with an NVIDIA GPU. KERNEL is
-`gn_fused`, `gn_tiled`, `bilerp_extract`, `tv_de_inner`, `i8_dot` or
-`gn_stages`; each SOURCE is a version of
+`gn_fused`, `gn_tiled`, `bilerp_extract`, `tv_de_inner`, `warp`, `i8_dot`
+or `gn_stages`; each SOURCE is a version of
 `of_dis_tpu_torch/csrc/KERNEL.cu` with the same C entry (say the parent's,
 from `git show HEAD:of_dis_tpu_torch/csrc/gn_fused.cu`, and trial edits),
 named by its file stem. Every SOURCE is compiled with the build's nvcc
@@ -49,30 +49,33 @@ import chip_smoke as cs
 from of_dis_tpu_torch import cli
 from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
                                       gn_stages, gn_tiled, i8_dot,
-                                      tv_de_inner)
+                                      tv_de_inner, warp)
 from of_dis_tpu_torch.models import dis
-from of_dis_tpu_torch.ops import patch_solver, pyramid
+from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
 from of_dis_tpu_torch.params import op_point_params
 from of_dis_tpu_torch.tools import bench_gn_stages, bench_i8_dot
 
 # each kernel's wrapper, its plain twin and the chip_smoke paths that
-# launch it: every call of K1 (24), K6 (11: 7 on E and F, 4 on I), K7 (68)
-# and K5 (12) on the main path; T1 and T2 run on none (their calls are the
-# tools')
+# launch it: every call of K1 (24), K6 (11: 7 on E and F, 4 on I), K7 (68),
+# K5 (12) and K3 (38) on the main path; T1 and T2 run on none (their calls
+# are the tools')
 KERNELS = {"gn_fused": gn_fused.gn_fused,
            "gn_tiled": gn_tiled.gn_tiled,
            "bilerp_extract": bilerp_extract.bilerp_extract,
            "tv_de_inner": tv_de_inner.de_inner,
+           "warp": warp.warp_image_batched,
            "i8_dot": i8_dot.dot_sum,
            "gn_stages": gn_stages.gn_stages}
 TWINS = {"gn_fused": patch_solver._gn_plain,
          "gn_tiled": patch_solver._gn_tiled_plain,
          "bilerp_extract": patch_solver.extract_bilinear,
          "tv_de_inner": tv_de_inner._plain,
+         "warp": tv.warp_image,
          "i8_dot": i8_dot._plain,
          "gn_stages": gn_stages._plain}
 PATHS = {"gn_fused": "ABCDEFGI", "gn_tiled": "EFI", "bilerp_extract": "H",
-         "tv_de_inner": "BDI", "i8_dot": "", "gn_stages": ""}
+         "tv_de_inner": "BDI", "warp": "ABCDEFGHI", "i8_dot": "",
+         "gn_stages": ""}
 ROUNDS = 2
 
 
@@ -152,6 +155,8 @@ def agrees(kernel, out, twin) -> bool:
     if kernel == "gn_stages":
         scale = float(twin.abs().max())
         return float((out - twin).abs().max()) <= cs.TOL[kernel] * scale
+    if kernel == "warp":
+        return all(torch.equal(o, t) for o, t in zip(out, twin))
     if kernel not in ("gn_fused", "gn_tiled"):
         return torch.equal(out, twin)
     p_k, pw_k, it_k = out

@@ -15,18 +15,24 @@ import torch
 from of_dis_tpu_torch.params import DISParams
 
 
-def params_from_reference(fields: dict) -> DISParams:
+def params_from_reference(fields: dict, mesh=None) -> DISParams:
     """DISParams from `dataclasses.asdict` of a reference parameter set.
 
-    The spatial-TV mesh has no counterpart in the port yet; a set that
-    carries one is refused rather than silently dropped."""
+    A reference set that routes TV through a row-sharded mesh routes over
+    the caller's port `mesh` (a `parallel.mesh.Mesh`) instead, with its
+    threshold and axis name; such a set without a port mesh is refused
+    rather than silently run unrouted. `mesh` is not read for a set that
+    does not route."""
     names = {f.name for f in dataclasses.fields(DISParams)}
     unknown = set(fields) - names
     if unknown:
         raise ValueError(f"unknown DISParams fields: {sorted(unknown)}")
     if fields.get("spatial_tv_mesh") is not None:
-        raise NotImplementedError(
-            "spatial TV routing is not ported yet (ROADMAP queue 1, item 18)")
+        if mesh is None:
+            raise ValueError(
+                "the reference set routes TV over a row-sharded mesh: pass "
+                "the port's own as params_from_reference(fields, mesh=...)")
+        fields = dict(fields, spatial_tv_mesh=mesh)
     return DISParams(**fields)
 
 

@@ -32,6 +32,15 @@
 //   pixel and reused over the C channels; corners go through the read-only
 //   path (__ldg). The lerp keeps the twin's four terms in their order, so
 //   with --fmad=false it equals ops.tv.warp_image bit for bit.
+// - A row origin (row0) and the source's own height (Hs) let a block of H
+//   rows of a row-sharded level (parallel/spatial.py) sample the whole
+//   frame: output row y samples at global row row0 + y, corners clamp to
+//   [0, Hs - 1] and the mask to yy <= Hs - 1, as the JAX package's
+//   spatial._warp_global does. A call of the whole frame (row0 = 0,
+//   Hs = H, every call but a row-sharded level's) takes an instance
+//   without them: with them the 4-pixel instance needs 80 registers in
+//   place of 64 (3 blocks an SM in place of 4; capped at 64 it spills),
+//   and its calls ran 20-30% longer on an H100 (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -42,12 +51,15 @@ namespace {
 
 constexpr int kThreads = 256;  // threads a block
 
-// kPix consecutive pixels a thread: 1, or 4 with 16-byte loads and stores
-template <int kPix>
+// kPix consecutive pixels a thread: 1, or 4 with 16-byte loads and stores;
+// kRows: a block of rows of a taller source (row0, Hs), else the whole
+// frame (row0 = 0, Hs = H, both unread)
+template <int kPix, bool kRows>
 __global__ void __launch_bounds__(kThreads)
     warp_kernel(const float* __restrict__ src, const float* __restrict__ wx,
                 const float* __restrict__ wy, float* __restrict__ out,
-                float* __restrict__ mask, int C, int H, int W) {
+                float* __restrict__ mask, int C, int H, int W, int row0,
+                int Hs) {
   static_assert(kPix == 1 || kPix == 4, "one pixel or one vector");
   constexpr bool kVec = kPix == 4;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -55,7 +67,9 @@ __global__ void __launch_bounds__(kThreads)
   if (y >= H || x0 >= W) return;
   const int b = blockIdx.z;
   const long long hw = static_cast<long long>(H) * W;
-  // (b, y, x0) in the (B, H, W) fields; (y, x0) in a plane
+  const int hs = kRows ? Hs : H;
+  const int gy = kRows ? row0 + y : y;
+  // (b, y, x0) in the (B, H, W) fields; (y, x0) in an output plane
   const long long field = (static_cast<long long>(b) * H + y) * W + x0;
   const int in_plane = y * W + x0;
 
@@ -77,9 +91,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
     const float xx = static_cast<float>(x0 + k) + fx[k];
-    const float yy = static_cast<float>(y) + fy[k];
+    const float yy = static_cast<float>(gy) + fy[k];
     m[k] = (xx >= 0.0f && xx <= static_cast<float>(W - 1) && yy >= 0.0f &&
-            yy <= static_cast<float>(H - 1))
+            yy <= static_cast<float>(hs - 1))
                ? 1.0f
                : 0.0f;
     const float xf = floorf(xx), yf = floorf(yy);
@@ -89,9 +103,9 @@ __global__ void __launch_bounds__(kThreads)
     const int xi =
         static_cast<int>(fminf(fmaxf(xf, -1.0f), static_cast<float>(W)));
     const int yi =
-        static_cast<int>(fminf(fmaxf(yf, -1.0f), static_cast<float>(H)));
+        static_cast<int>(fminf(fmaxf(yf, -1.0f), static_cast<float>(hs)));
     const int x1 = min(max(xi, 0), W - 1), x2 = min(max(xi + 1, 0), W - 1);
-    const int y1 = min(max(yi, 0), H - 1), y2 = min(max(yi + 1, 0), H - 1);
+    const int y1 = min(max(yi, 0), hs - 1), y2 = min(max(yi + 1, 0), hs - 1);
     o11[k] = y1 * W + x1;
     o12[k] = y1 * W + x2;
     o21[k] = y2 * W + x1;
@@ -107,7 +121,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int c = 0; c < C; ++c) {
     const long long plane = (static_cast<long long>(b) * C + c) * hw;
-    const float* s = src + plane;
+    const float* s =
+        src + (kRows ? (static_cast<long long>(b) * C + c) * hs * W : plane);
     float v[kPix];
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
@@ -153,16 +168,22 @@ extern "C" int of_warp_vec_min_pixels() {
   return 2 * sm_count() * kThreads * 4;
 }
 
-// C entry (bound with ctypes). src/out (B,C,H,W); wx, wy, mask (B,H,W).
-// Returns the launch's cudaError_t.
+// C entry (bound with ctypes). src (B,C,Hs,W); out (B,C,H,W); wx, wy, mask
+// (B,H,W); output row y samples at global row row0 + y of src. Returns the
+// launch's cudaError_t.
 extern "C" int of_warp(const float* src, const float* wx, const float* wy,
                        float* out, float* mask, int B, int C, int H, int W,
-                       void* stream) {
+                       int row0, int Hs, void* stream) {
   if (B == 0 || H == 0 || W == 0) return 0;
   const bool vec =
       W % 4 == 0 && aligned16(wx) && aligned16(wy) && aligned16(out) &&
       aligned16(mask) &&
       static_cast<long long>(B) * H * W >= of_warp_vec_min_pixels();
+  const bool rows = row0 != 0 || Hs != H;
+  void (*kernel)(const float*, const float*, const float*, float*, float*,
+                 int, int, int, int, int) =
+      vec ? (rows ? warp_kernel<4, true> : warp_kernel<4, false>)
+          : (rows ? warp_kernel<1, true> : warp_kernel<1, false>);
   const int pix = vec ? 4 : 1;
   // block: up to 32 threads across, the rest of 256 down, no taller than
   // the level
@@ -174,19 +195,15 @@ extern "C" int of_warp(const float* src, const float* wx, const float* wy,
   const dim3 block(bx, by);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long hw = static_cast<long long>(H) * W;
+  const long long hw_src = static_cast<long long>(Hs) * W;
   // chunks of at most kMaxGridZ pairs; a chunk's offset keeps the 16-byte
   // alignment of the vector route (W % 4 == 0)
   for (int b0 = 0; b0 < B; b0 += kMaxGridZ) {
     const dim3 grid((groups + bx - 1) / bx, (H + by - 1) / by,
                     std::min(B - b0, kMaxGridZ));
-    const long long f = b0 * hw, p = f * C;
-    if (vec) {
-      warp_kernel<4><<<grid, block, 0, s>>>(src + p, wx + f, wy + f, out + p,
-                                            mask + f, C, H, W);
-    } else {
-      warp_kernel<1><<<grid, block, 0, s>>>(src + p, wx + f, wy + f, out + p,
-                                            mask + f, C, H, W);
-    }
+    const long long f = b0 * hw, p = f * C, ps = b0 * hw_src * C;
+    kernel<<<grid, block, 0, s>>>(src + ps, wx + f, wy + f, out + p,
+                                  mask + f, C, H, W, row0, Hs);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

@@ -22,7 +22,9 @@ camera's for depth, merged into the forward densification); a warm start
 of the coarsest level from an initial flow (`init_flow`, oflow.cpp:215-217)
 and sequence mode on top of it (`dis_sequence`, `dis_sequence_batched`,
 `dis_step_warm`: each pair of a video warm-started from the previous
-pair's flow).
+pair's flow); and the row-sharded TV route (`params.with_spatial_tv`: a
+large level's refinement split by rows over a list of devices,
+`parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -59,13 +61,38 @@ def _check_supported(params: DISParams) -> None:
                          f"nop={params.nop}, noc={params.noc}")
 
 
+# Spatial (row-sharded) TV routing: when params carry a spatial_tv_mesh
+# (params.with_spatial_tv) and a level's TV working set reaches
+# params.spatial_tv_min_bytes, _tv_refine splits the level by rows over
+# the mesh (parallel.spatial). The route travels inside the parameter set,
+# so every entry point that reaches _dis_flow_core routes.
+_TV_FIELDS = 26   # ~fields of (H, W) f32 live per pair in the TV loop
+
+
+def _spatial_tv_route(b: int, h: int, w: int, params: DISParams):
+    """params.spatial_tv_mesh, if a level of b pairs of h x w should be
+    row-sharded over it (the JAX package's models/dis.py:44-58): its
+    working set reaches the threshold and h divides by the mesh size.
+    Shard heights need not be even: each shard's row parity is threaded
+    into the red-black sweeps."""
+    mesh = params.spatial_tv_mesh
+    if mesh is None:
+        return None
+    if b * _TV_FIELDS * h * w * 4 < params.spatial_tv_min_bytes:
+        return None
+    if h % mesh.size != 0:
+        return None
+    return mesh
+
+
 def _tv_refine(flow: torch.Tensor, im_a: torch.Tensor, im_b: torch.Tensor,
                spec, params: DISParams) -> torch.Tensor:
     """Batched variational refinement of one scale's dense flow
     (VarRefClass, refine_variational.cpp:25-116). flow (B, H, W, nop);
     im_a/im_b (B, C, ...) padded level images, de-padded here
     (refine_variational.cpp:119-149). Depth clamps to the sign of
-    `spec.camlr`."""
+    `spec.camlr`. A level that `_spatial_tv_route` routes is split by
+    rows over the parameter set's mesh, the whole batch at once."""
     pad = spec.pad
     im1 = im_a[:, :, pad:-pad, pad:-pad].contiguous()
     im2 = im_b[:, :, pad:-pad, pad:-pad].contiguous()
@@ -73,6 +100,15 @@ def _tv_refine(flow: torch.Tensor, im_a: torch.Tensor, im_b: torch.Tensor,
     kw = dict(alpha=params.tv_alpha, gamma=params.tv_gamma,
               delta=params.tv_delta, n_inner=n_inner,
               n_solver=params.tv_solverit, omega=params.tv_sor)
+    mesh = _spatial_tv_route(flow.shape[0], im1.shape[2], im1.shape[3],
+                             params)
+    if mesh is not None:
+        from of_dis_tpu_torch.parallel import spatial
+
+        if params.nop == 2:
+            return spatial.tv_refine_spatial(mesh, flow, im1, im2, **kw)
+        return spatial.tv_refine_spatial_de(
+            mesh, flow[..., 0], im1, im2, camlr=spec.camlr, **kw)[..., None]
     if params.nop == 2:
         wx, wy = tv.ref_level_of_batched(
             flow[..., 0].contiguous(), flow[..., 1].contiguous(), im1, im2,

@@ -41,34 +41,40 @@ EPS_SMOOTH = 0.001 * 0.001
 
 # ---------------------------------------------------------------- warping
 
-def warp_image(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def warp_image(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
+               row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bilinear backward warp with clamped sampling + in-bounds mask
-    (image_warp, opticalflow_aux.c:33-75). src (..., C, H, W); wx/wy
-    (..., H, W). Returns (out (..., C, H, W), mask (..., H, W))."""
-    h, w = src.shape[-2], src.shape[-1]
-    gy = torch.arange(h, dtype=torch.float32, device=src.device)[:, None]
+    (image_warp, opticalflow_aux.c:33-75). src (..., C, Hs, W); wx/wy
+    (..., H, W), whose row y lies at global row row0 + y of src (a block
+    of a row-sharded level, the JAX package's spatial._warp_global; the
+    whole frame at row0 = 0, H = Hs). Returns (out (..., C, H, W), mask
+    (..., H, W))."""
+    hs, w = src.shape[-2], src.shape[-1]
+    h = wx.shape[-2]
+    gy = torch.arange(row0, row0 + h, dtype=torch.float32,
+                      device=src.device)[:, None]
     gx = torch.arange(w, dtype=torch.float32, device=src.device)[None, :]
     xx = gx + wx
     yy = gy + wy
-    mask = ((xx >= 0) & (xx <= w - 1) & (yy >= 0) & (yy <= h - 1)
+    mask = ((xx >= 0) & (xx <= w - 1) & (yy >= 0) & (yy <= hs - 1)
             ).to(torch.float32)
     x0 = torch.floor(xx)
     y0 = torch.floor(yy)
     dx = (xx - x0)[..., None, :, :]
     dy = (yy - y0)[..., None, :, :]
     x0i = x0.clamp(-1, w).to(torch.int64)
-    y0i = y0.clamp(-1, h).to(torch.int64)
+    y0i = y0.clamp(-1, hs).to(torch.int64)
     x1 = x0i.clamp(0, w - 1)
     x2 = (x0i + 1).clamp(0, w - 1)
-    y1 = y0i.clamp(0, h - 1)
-    y2 = (y0i + 1).clamp(0, h - 1)
-    flat = src.reshape(src.shape[:-2] + (h * w,))
+    y1 = y0i.clamp(0, hs - 1)
+    y2 = (y0i + 1).clamp(0, hs - 1)
+    flat = src.reshape(src.shape[:-2] + (hs * w,))
+    out_shape = src.shape[:-2] + (h, w)
 
     def take(iy, ix):
         idx = (iy * w + ix).reshape(iy.shape[:-2] + (1, h * w))
-        idx = idx.expand(flat.shape)
-        return torch.gather(flat, -1, idx).reshape(src.shape)
+        idx = idx.expand(flat.shape[:-1] + (h * w,))
+        return torch.gather(flat, -1, idx).reshape(out_shape)
 
     v11 = take(y1, x1)
     v12 = take(y1, x2)

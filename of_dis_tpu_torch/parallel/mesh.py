@@ -53,10 +53,11 @@ def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
 
 
 def shard_bounds(mesh: Mesh, n: int) -> List[slice]:
-    """The split rule: a batch of n cut into one contiguous chunk a device,
-    in order; slice d is device d's. Raises unless n divides evenly."""
+    """The split rule: a batch of n (or, for `parallel.spatial`, n rows)
+    cut into one contiguous chunk a device, in order; slice d is device
+    d's. Raises unless n divides evenly."""
     if n % mesh.size:
-        raise ValueError(f"a batch of {n} does not divide over "
+        raise ValueError(f"an axis of {n} does not divide over "
                          f"{mesh.size} devices")
     per = n // mesh.size
     return [slice(d * per, (d + 1) * per) for d in range(mesh.size)]

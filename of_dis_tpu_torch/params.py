@@ -73,9 +73,12 @@ class DISParams:
     nop: int = 2               # parameters per pixel: 2 flow, 1 depth
     noc: int = 1               # channels: 1 gray, 3 RGB
 
-    # Spatial (row-sharded) TV routing, kept so the field set matches the
-    # reference package's. The port has no spatial route yet: the mesh is
-    # always None.
+    # Spatial (row-sharded) TV routing (`with_spatial_tv`): a level whose TV
+    # working set reaches spatial_tv_min_bytes is split by rows over
+    # spatial_tv_mesh, a `parallel.mesh.Mesh` (one axis of devices; the
+    # axis name is kept for the reference package's field set). The Mesh
+    # is a frozen dataclass, so a routed set stays hashable and differs
+    # from the unrouted one.
     spatial_tv_mesh: object = None
     spatial_tv_min_bytes: int = 4 << 30
     spatial_tv_axis: str = "rows"
@@ -103,6 +106,19 @@ class DISParams:
     def dp_thresh_sq(self) -> float:
         # reference: oflow.cpp:87
         return self.dp_thresh * self.dp_thresh
+
+
+def with_spatial_tv(params: DISParams, mesh, min_bytes: int = None,
+                    axis_name: str = "rows") -> DISParams:
+    """A parameter set that routes large-level TV refinement through the
+    row-sharded spatial path over `mesh` (mesh=None clears the route)
+    (the JAX package's params.with_spatial_tv, params.py:111-122). The
+    route travels inside the parameter set, so every entry point that
+    takes it routes."""
+    return dataclasses.replace(
+        params, spatial_tv_mesh=mesh,
+        spatial_tv_min_bytes=(4 << 30) if min_bytes is None else min_bytes,
+        spatial_tv_axis=axis_name)
 
 
 def op_point_params(width: int, sel_oppoint: int = 2, *, nop: int = 2,

@@ -1,15 +1,11 @@
-"""Port's end-to-end model and CLI at op-3 / op-4 and with the
-forward-backward merge, against the JAX package and the compiled-reference
-goldens.
+"""Port's end-to-end model at op-3 / op-4 and with the forward-backward
+merge, against the JAX package (the goldens of these modes through the
+port's CLI are in tests/test_torch_goldens_op34.py).
 
-Tolerances:
-  - dis_flow_batched on the 192x160 goldens' inputs: EPE ratio <= 1e-3
-    against JAX, as at op-2 (float32 sums in another order, exact float32
-    extraction where the JAX CPU path reads bf16 hi/lo planes); one case
-    states a wider budget with its reason;
-  - goldens through the port's cli.main at the budgets of
-    test_golden_parity.py: 1% (the red-black SOR order), and 1e-3 for the
-    TV-free pseudo-Huber run (sweep-order free)."""
+Tolerance: dis_flow_batched on the 192x160 goldens' inputs: EPE ratio
+<= 1e-3 against JAX, as at op-2 (float32 sums in another order, exact
+float32 extraction where the JAX CPU path reads bf16 hi/lo planes); one
+case states a wider budget with its reason."""
 
 import dataclasses
 import os
@@ -24,7 +20,6 @@ from of_dis_tpu.params import op_point_params as j_op_point_params
 from of_dis_tpu.utils import io as jio
 from of_dis_tpu_torch import cli, convert
 from of_dis_tpu_torch.models import dis as tdis
-from of_dis_tpu_torch.utils import io as tio
 
 G = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -42,9 +37,6 @@ def _pairs():
     b = np.stack([jio.load_image(os.path.join(G, f)) for f in
                   ("b.png", "a.png")]).astype(np.uint8)
     return a, b
-
-
-FB20 = "3 1 12 12 0.05 0.95 0 8 0.4 1 1 {cost} 1 10 10 5 1 3 1.6 0"
 
 
 @pytest.mark.parametrize("nop,what,budget", [
@@ -166,38 +158,3 @@ def test_large_levels_take_the_tiled_route_in_the_model(monkeypatch):
     assert seen == [("gn_fused", 2, 0), ("gn_fused", 2, 1),
                     ("gn_tiled", 1, 0), ("gn_tiled", 1, 1),
                     ("gn_tiled", 0, 0), ("gn_tiled", 0, 1)]
-
-
-# (mode, inputs, golden, trailing arguments, budget): the goldens of
-# op-3/4, the merge and the explicit 20-parameter settings, at the budgets
-# of tests/test_golden_parity.py
-GOLDENS_OP34_FB = [
-    ("run_OF_INT", ("a.png", "b.png"), "of_int_op3.flo", ["3"], 1e-2),
-    ("run_OF_INT", ("a.png", "b.png"), "of_int_op4.flo", ["4"], 1e-2),
-    ("run_OF_RGB", ("ac.png", "bc.png"), "of_rgb_op3.flo", ["3"], 1e-2),
-    ("run_OF_GRD", ("a.png", "b.png"), "of_grd_op3.flo", ["3"], 1e-2),
-    ("run_DE_INT", ("a.png", "bs.png"), "de_int_op3.pfm", ["3"], 1e-2),
-    ("run_OF_INT", ("a.png", "b.png"), "of_int_l1_fb.flo",
-     FB20.format(cost=1).split(), 1e-2),
-    ("run_DE_INT", ("a.png", "bs.png"), "de_int_l2_fb.pfm",
-     FB20.format(cost=0).split(), 1e-2),
-    ("run_OF_INT", ("a.png", "b.png"), "of_int_huber_notv.flo",
-     "3 1 12 12 0.05 0.95 0 8 0.4 0 1 2 0 10 10 5 1 3 1.6 0".split(), 1e-3),
-]
-
-
-@pytest.mark.parametrize("mode,inputs,golden,args,budget", GOLDENS_OP34_FB,
-                         ids=[g[2][:-4] for g in GOLDENS_OP34_FB])
-def test_cli_goldens_op34_fbcon(tmp_path, mode, inputs, golden, args, budget):
-    out = str(tmp_path / ("out" + golden[-4:]))
-    cli.main([mode] + [os.path.join(G, f) for f in inputs] + [out] + args
-             + ["--quiet", "--device", "cpu"])
-    if golden.endswith(".flo"):
-        ours, ref = tio.read_flo(out), tio.read_flo(os.path.join(G, golden))
-    else:
-        ours, ref = (tio.read_pfm(f)[..., None]
-                     for f in (out, os.path.join(G, golden)))
-        assert ours.max() <= 0.0           # left camera: disparity <= 0
-    assert ours.shape == ref.shape
-    ratio = _epe_ratio(ours, ref)
-    assert ratio < budget, ratio

@@ -24,7 +24,7 @@ def test_kernels_are_the_builds_with_paths_of_the_smoke(name):
     assert set(kernel_variants.PATHS[name]) == launching
 
 
-@pytest.mark.parametrize("argv", [[], ["gn_fused"], ["warp", "w.cu"]])
+@pytest.mark.parametrize("argv", [[], ["gn_fused"], ["upscale", "u.cu"]])
 def test_refuses_without_a_kernel_it_times_and_a_version(argv):
     with pytest.raises(SystemExit):
         kernel_variants.main(argv)

@@ -364,6 +364,46 @@ def test_warp_kernel_equals_plain_on_ragged_widths(cuda, w, h, large, c):
     assert torch.equal(m_k, m_p)
 
 
+# (hs, h, row0, w, large): blocks of h rows at row origin row0 of a source
+# of hs rows, first, inner and last blocks, odd and even origins, widths
+# that are and are not a multiple of 4, and batches large enough for 4
+# pixels a thread where the width allows
+WARP_ROW0_SHAPES = [(37, 9, 0, 41, False), (37, 9, 13, 41, False),
+                    (37, 9, 28, 5, False), (37, 37, 0, 3, False),
+                    (150, 19, 19, 128, False), (150, 19, 57, 128, True),
+                    (150, 40, 110, 64, True), (151, 27, 61, 129, True)]
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("hs,h,row0,w,large", WARP_ROW0_SHAPES)
+def test_warp_kernel_row_origin_equals_plain(cuda, hs, h, row0, w, large,
+                                             c):
+    """K3 on a block of rows sampling the whole source from its row origin
+    (the row-sharded TV, parallel/spatial.py), with flows past every edge
+    of the source: equal to the twin at the same origin, masks equal, and
+    equal to the same rows of the whole-frame warp."""
+    b = _warp_batch(h, w, large)
+    rng = np.random.default_rng(hs + h + row0 + w + c)
+    src = torch.as_tensor(rng.random((b, c, hs, w)) * 255,
+                          dtype=torch.float32, device=cuda)
+    wx, wy = (torch.as_tensor(rng.standard_normal((b, hs, w)) * 6,
+                              dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    wy[0, :, ::2] = 1e6
+    wy[1, :, 1::3] = -1e6
+    wy[2, :, ::5] = -(row0 + 0.5)          # just above the source's top
+    wx[2, :, ::3] = 1e6
+    bx, by = (f[:, row0:row0 + h].contiguous() for f in (wx, wy))
+    o_k, m_k = warp.warp_image_batched(src, bx, by, row0=row0)
+    o_p, m_p = tv.warp_image(src, bx, by, row0)
+    assert tuple(o_k.shape) == (b, c, h, w)
+    assert float((o_k - o_p).abs().max()) == 0.0
+    assert torch.equal(m_k, m_p)
+    o_f, m_f = warp.warp_image_batched(src, wx, wy)
+    assert torch.equal(o_k, o_f[:, :, row0:row0 + h])
+    assert torch.equal(m_k, m_f[:, row0:row0 + h])
+
+
 def test_warp_kernel_on_unaligned_tensors(cuda):
     """Fields that start 4 bytes past a 16-byte boundary take one pixel a
     thread at a width that is a multiple of 4 and a batch large enough

@@ -92,12 +92,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      fuzzed configuration of seed 0 (tests/test_fuzz_params.py) at
      64x128, drawn and with TV on, through `dis_flow_batched`, every
      kernel call against its twin;
- 12. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
+ 12. the measurement tools (`of_dis_tpu_torch/tools/`), chained as an
+     operator would: `warmup` for op-2 gray flow at 1024x436, batch 64,
+     then a check that the next calls build nothing (no new file under
+     `build/of_dis_tpu_torch/`); `bench` with BENCH_ITERS=2 on its primary
+     row and the rows `op3`, `de_op2` and `seq_op3` (its JSON line, each
+     row's launch check, a number and a busy share per row); `eval_epe` on
+     phase 7's cold `.flo` files against files of their true motion, the
+     constant (1.3, 0.4) px: its lines printed, its mean finite;
+ 13. one `{"kernels": [...]}` JSON line, the `nvidia-smi` line, and as the
      last line `{"ok": true, "device": {...}}`.
 
 Synthetic pairs follow the JAX package's bench workload (a blurred random
 frame, backward-warped by a smooth subpixel field, both frames rounded to
-u8), generated on the card from a seed. Flow pairs move by a field of mean
+u8), generated on the card from a seed (`of_dis_tpu_torch/tools/synth.py`,
+shared with the port's measurement tools). Flow pairs move by a field of mean
 ~(2.5, 1.0) px; stereo pairs shift horizontally only, by a disparity in
 [-4.6, -1.4] px (the left camera's disparity is <= 0).
 """
@@ -110,6 +119,7 @@ import io as io_mod
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -133,8 +143,9 @@ from of_dis_tpu_torch.parallel import spatial
 from of_dis_tpu_torch.params import (DISParams, make_level_spec,
                                      op_point_params, pad_amounts,
                                      with_spatial_tv)
-from of_dis_tpu_torch.tools import (bench_gn_stages, bench_i8_dot,
-                                    bench_pipeline)
+from of_dis_tpu_torch.tools import (bench, bench_gn_stages, bench_i8_dot,
+                                    bench_pipeline, eval_epe, synth, warmup)
+from of_dis_tpu_torch.tools.profile_pipeline import profile_call
 from of_dis_tpu_torch.utils import io, viz
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -409,103 +420,6 @@ def bound(bytes_moved: float, flops: float, peak: float = F32_FLOP_PER_S):
     b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     o_ms = flops / peak * 1e3
     return max(b_ms, o_ms), b_ms, o_ms
-
-
-# ------------------------------------------------------ synthetic workload
-
-def _flow_field(h, w, device):
-    """Smooth subpixel motion (px): affine ramp plus sinusoids, mean
-    ~(2.5, 1.0), +-~1.5 px across the frame."""
-    yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
-    xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
-    u = (2.5 + 0.8 * torch.sin(2 * math.pi * yy / 180.0)
-         + 0.5 * torch.cos(2 * math.pi * xx / 260.0) + 0.4 * (xx / w - 0.5))
-    v = (1.0 + 0.7 * torch.sin(2 * math.pi * xx / 210.0)
-         + 0.4 * (yy / h - 0.5)).expand(h, w)
-    return u.expand(h, w), v
-
-
-def _disparity_field(h, w, device):
-    """Smooth horizontal-only stereo shift (px), negative everywhere (the
-    left camera's disparity): -3 -+ 1.6, no vertical component."""
-    yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
-    xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
-    d = -(3.0 + 1.0 * torch.sin(2 * math.pi * yy / 180.0)
-          + 0.6 * torch.cos(2 * math.pi * xx / 260.0))
-    return d.expand(h, w), torch.zeros((h, w), device=device)
-
-
-def _blur7(x):
-    """7-tap Gaussian blur, sigma 2, reflect-101 borders, on (..., H, W)."""
-    t = np.arange(-3, 4, dtype=np.float64)
-    k = np.exp(-t * t / 8.0)
-    k /= k.sum()
-    for dim in (-1, -2):
-        n = x.shape[dim]
-        idx = torch.arange(-3, n + 3, device=x.device).abs()
-        idx = torch.where(idx > n - 1, 2 * (n - 1) - idx, idx)
-        p = x.index_select(dim, idx)
-        x = sum(float(k[j]) * p.narrow(dim, j, n) for j in range(7))
-    return x
-
-
-def _remap(img, mx, my):
-    """Bilinear backward warp of (B, C, H, W) at (mx, my), edge clamp."""
-    b, c, h, w = img.shape
-    x0 = mx.floor().long().clamp(0, w - 1)
-    y0 = my.floor().long().clamp(0, h - 1)
-    x1 = (x0 + 1).clamp(max=w - 1)
-    y1 = (y0 + 1).clamp(max=h - 1)
-    fx = (mx - x0).clamp(0.0, 1.0)
-    fy = (my - y0).clamp(0.0, 1.0)
-    flat = img.reshape(b * c, h * w)
-
-    def g(yy, xx):
-        return flat[:, (yy * w + xx).reshape(-1)].reshape(b, c, h, w)
-
-    return ((1 - fy) * ((1 - fx) * g(y0, x0) + fx * g(y0, x1))
-            + fy * ((1 - fx) * g(y1, x0) + fx * g(y1, x1)))
-
-
-def _to_u8(x):
-    return x.round().clamp(0, 255).to(torch.uint8)
-
-
-def _base_frames(batch, channels, h, w, seed, device):
-    """Blurred random frames (B, channels, h, w) in [0, 255], from a
-    numpy draw of `seed` (the first b frames of a draw of B > b are the
-    draw of b)."""
-    rng = np.random.default_rng(seed)
-    base = torch.as_tensor(rng.random((batch, channels, h, w),
-                                      dtype=np.float32),
-                           device=device) * 255.0
-    return _blur7(base)
-
-
-def make_pairs(batch, h, w, seed, device, channels=1, field=_flow_field):
-    """u8 frame pairs (B, channels, h, w), each channel an independent
-    blurred random frame, and the true field (u, v) that moves the first
-    frame of a pair onto the second."""
-    base = _base_frames(batch, channels, h, w, seed, device)
-    u, v = field(h, w, device)
-    yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
-    xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
-    shifted = _remap(base, xx - u, yy - v)
-    return _to_u8(base), _to_u8(shifted), u, v
-
-
-def make_sequence(streams, frames, h, w, seed, device):
-    """u8 videos (T, S, 1, h, w): frame t of stream s is the blurred random
-    frame s (that of `make_pairs`' pair s) backward-warped by t times the
-    flow field, so each pair of consecutive frames moves by about the
-    field (u, v), which is returned too."""
-    base = _base_frames(streams, 1, h, w, seed, device)
-    u, v = _flow_field(h, w, device)
-    yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
-    xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
-    out = [base] + [_remap(base, xx - t * u, yy - t * v)
-                    for t in range(1, frames)]
-    return _to_u8(torch.stack(out)), u, v
 
 
 # ---------------------------------------------- kernel inputs of the path
@@ -870,31 +784,6 @@ def check_upscale(args, kernel_fn):
         bound=bound(nbytes, flops))
 
 
-def profile_call(label, fn, wall_s: float, top: int = 12) -> None:
-    """Device time by kernel over one call under torch.profiler, and the
-    device's busy share of the call's unprofiled wall time `wall_s` (one
-    stream: kernels do not overlap, so their sum is the busy time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    print(json.dumps({"profile": label, "device_busy_ms": busy_ms,
-                      "wall_ms": wall_s * 1e3,
-                      "busy_share": busy_ms / (wall_s * 1e3),
-                      "kernels": len(rows),
-                      "launches": sum(r[1] for r in rows)}), flush=True)
-    for us, count, key in rows[:top]:
-        print(f"  {us / 1e3:9.4f} ms {count:5d}x  {key[:90]}")
-
-
 def epe_ratio(ours, ref):
     """Mean end-point error over the reference's mean magnitude, over the
     trailing parameter axis (2 for flow, 1 for depth)."""
@@ -997,9 +886,9 @@ def run_path(cfg, dev, rows, totals, walls_by_path):
     if cfg.get("fbcon"):
         params = dataclasses.replace(params, usefbcon=True)
     t0 = time.perf_counter()
-    field = _flow_field if nop == 2 else _disparity_field
-    a_u8, b_u8, u_true, v_true = make_pairs(batch, H_ORG, W_ORG, 0, dev,
-                                            channels=noc, field=field)
+    field = synth.flow_field if nop == 2 else synth.disparity_field
+    a_u8, b_u8, u_true, v_true = synth.make_pairs(
+        batch, H_ORG, W_ORG, 0, dev, channels=noc, field=field)
     im_a = pyramid.pad_to_divisible(a_u8, params.sc_f)
     im_b = pyramid.pad_to_divisible(b_u8, params.sc_f)
     full_h, full_w = im_a.shape[2], im_a.shape[3]
@@ -1188,7 +1077,8 @@ def run_sequence(dev, rows, totals, walls_by_path):
     cfg = SEQUENCE
     label, s, t_n = cfg["name"], cfg["streams"], cfg["frames"]
     params = op_point_params(W_ORG, cfg["op"], nop=2, noc=1)
-    frames, u_true, v_true = make_sequence(s, t_n, H_ORG, W_ORG, 0, dev)
+    frames, u_true, v_true = synth.make_sequence(s, t_n, H_ORG, W_ORG, 0,
+                                                 dev)
     frames = pyramid.pad_to_divisible(frames, params.sc_f + 1)
     full_h, full_w = frames.shape[-2], frames.shape[-1]
     k = 2 ** (params.sc_f + 1)
@@ -1604,6 +1494,7 @@ def run_pipeline_phase(dev, totals, walls_by_path):
                      verbose=False), cold_wall)
     print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return cold_dir
 
 
 # The explicit 20-parameter forms of the merge and TV-free goldens
@@ -1993,9 +1884,9 @@ def run_spatial_model(cfg, dev, rows, totals):
     params = op_point_params(SPATIAL_W, cfg["op"], nop=nop, noc=noc)
     mesh = pmesh.make_mesh([dev] * n)
     routed = with_spatial_tv(params, mesh, min_bytes=cfg["min_bytes"])
-    field = _flow_field if nop == 2 else _disparity_field
-    a_u8, b_u8, _, _ = make_pairs(cfg["batch"], SPATIAL_H, SPATIAL_W, 0,
-                                  dev, channels=noc, field=field)
+    field = synth.flow_field if nop == 2 else synth.disparity_field
+    a_u8, b_u8, _, _ = synth.make_pairs(cfg["batch"], SPATIAL_H, SPATIAL_W,
+                                        0, dev, channels=noc, field=field)
     im_a = pyramid.pad_to_divisible(a_u8, params.sc_f)
     im_b = pyramid.pad_to_divisible(b_u8, params.sc_f)
     full_h, full_w = im_a.shape[2], im_a.shape[3]
@@ -2056,14 +1947,15 @@ def run_spatial_level(dev, rows, totals):
     (270), against the unrouted level (0.0 px), launches asserted, every
     shard's calls against their twins, wall ms of one call."""
     h, w = SPATIAL_H, SPATIAL_W
-    for nop, field in ((2, _flow_field), (1, _disparity_field)):
+    for nop, field in ((2, synth.flow_field),
+                       (1, synth.disparity_field)):
         params = DISParams(sc_f=0, sc_l=0, max_iter=1, min_iter=1,
                            p_samp_s=8, patove=0.4, nop=nop, noc=1,
                            tv_innerit=1, tv_solverit=3)
         spec = make_level_spec(0, w, h, params)
         p = spec.pad
-        a_u8, b_u8, u, v = make_pairs(4, h + 2 * p, w + 2 * p, 1, dev,
-                                      field=field)
+        a_u8, b_u8, u, v = synth.make_pairs(4, h + 2 * p, w + 2 * p, 1,
+                                            dev, field=field)
         im_a, im_b = a_u8.float(), b_u8.float()
         flow = torch.stack([u, v], dim=-1)[p:-p, p:-p, :nop].expand(
             4, h, w, nop).contiguous()
@@ -2142,7 +2034,7 @@ def run_fuzz_config(dev, rows, totals):
     on, through `dis_flow_batched` on 4 pairs: every kernel call against
     its twin, launches counted, the kernel path against the plain path."""
     h, w = 64, 128
-    a_u8, b_u8, _, _ = make_pairs(4, h, w, 3, dev)
+    a_u8, b_u8, _, _ = synth.make_pairs(4, h, w, 3, dev)
     for tv_on in (False, True):
         label = "S6" + (" TV on" if tv_on else "")
         params = DISParams(sc_f=FUZZ_SEED0_SC_F, sc_l=0, noc=1, nop=2,
@@ -2186,6 +2078,83 @@ def run_spatial_phase(dev, rows, totals):
     print(f"spatial phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------ the measurement tools (phase 12)
+
+# the bench's rows beside its primary one, and its timed calls a row
+TOOLS_BENCH_ROWS = ("op3_pairs_per_sec", "de_op2_pairs_per_sec",
+                    "seq_op3_pairs_per_sec")
+TOOLS_BENCH_ITERS = 2
+
+
+def _built_files() -> set:
+    return {f for f in os.listdir(build.BUILD_DIR)
+            if os.path.isfile(os.path.join(build.BUILD_DIR, f))}
+
+
+def run_tools_phase(dev, totals, cold_dir):
+    """Phase 12 (see the module docstring): warmup, then the bench (its
+    rows' launches added to the kernels' totals), then eval_epe on the
+    pipeline's cold files."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    warmup.main(["--w", str(W_ORG), "--h", str(H_ORG), "--batch", "64",
+                 "--ops", "2", "--modes", "of_int"])
+    torch.cuda.synchronize()
+    for name, n in read_launches().items():
+        totals[name] = totals.get(name, 0) + n
+    built = _built_files()
+
+    saved = os.environ.get("BENCH_ITERS")
+    os.environ["BENCH_ITERS"] = str(TOOLS_BENCH_ITERS)
+    try:
+        line = bench.main([], rows=TOOLS_BENCH_ROWS, h=H_ORG, w=W_ORG)
+    finally:
+        if saved is None:
+            del os.environ["BENCH_ITERS"]
+        else:
+            os.environ["BENCH_ITERS"] = saved
+    new = _built_files() - built
+    if new:
+        raise AssertionError(f"the calls after warmup built {sorted(new)}")
+    names = (bench.PRIMARY,) + TOOLS_BENCH_ROWS
+    values = [line["value"]] + [line["secondary"][k]
+                                for k in TOOLS_BENCH_ROWS]
+    if (set(line["secondary"]) != set(TOOLS_BENCH_ROWS)
+            or not all(math.isfinite(v) and v > 0 for v in values)
+            or any(line["busy_share"][k] is None for k in names)
+            or line["vs_baseline"] is not None or not line["card"]):
+        raise AssertionError(f"bench line: {line}")
+    for counts in line["launches"].values():
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+
+    gt_dir = os.path.join(OUT_DIR, "tools", "gt")
+    shutil.rmtree(gt_dir, ignore_errors=True)
+    os.makedirs(gt_dir)
+    flos = sorted(f for f in os.listdir(cold_dir) if f.endswith(".flo"))
+    gt = np.empty((H_ORG, W_ORG, 2), np.float32)
+    gt[...] = PIPELINE["step"]
+    for f in flos:
+        io.write_flo(os.path.join(gt_dir, f), gt)
+    out = io_mod.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = eval_epe.main([cold_dir, gt_dir])
+    text = out.getvalue()
+    print(text, end="")
+    last = text.strip().splitlines()[-1]
+    mean = float(last.rsplit("EPE", 1)[1])
+    if rc != 0 or not last.startswith(f"mean over {len(flos)} files") \
+            or not math.isfinite(mean):
+        raise AssertionError(f"eval_epe: rc {rc}, {last!r}")
+    print(json.dumps({"tools": "warmup, bench, eval_epe",
+                      "bench_pairs_per_s": dict(zip(names, values)),
+                      "eval_epe_files": len(flos),
+                      "eval_epe_mean_px": mean,
+                      "true_motion_px": PIPELINE["step"],
+                      "seconds": time.perf_counter() - t_phase,
+                      "card": nvidia_smi_line()}), flush=True)
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2223,7 +2192,7 @@ def main() -> int:
 
     # 7. the serving pipeline: decode, cold batches, streams, depth, two
     # devices
-    run_pipeline_phase(dev, totals, walls)
+    cold_dir = run_pipeline_phase(dev, totals, walls)
 
     # 8. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()
@@ -2236,7 +2205,10 @@ def main() -> int:
     # 11. the row-sharded TV refinement, and one fuzzed configuration
     run_spatial_phase(dev, rows, totals)
 
-    # 12. summary: per kernel, summed over its calls in one run of every
+    # 12. the measurement tools: warmup, bench, eval_epe
+    run_tools_phase(dev, totals, cold_dir)
+
+    # 13. summary: per kernel, summed over its calls in one run of every
     # path or tool
     summary = []
     for name, rs in rows.items():

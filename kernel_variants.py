@@ -53,7 +53,7 @@ from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
 from of_dis_tpu_torch.params import op_point_params
-from of_dis_tpu_torch.tools import bench_gn_stages, bench_i8_dot
+from of_dis_tpu_torch.tools import bench_gn_stages, bench_i8_dot, synth
 
 # each kernel's wrapper, its plain twin and the chip_smoke paths that
 # launch it: every call of K1 (24), K6 (11: 7 on E and F, 4 on I), K7 (68),
@@ -134,9 +134,9 @@ def record(kernel, dev):
             params = op_point_params(cs.W_ORG, cfg["op"], nop=nop, noc=noc)
         if cfg.get("fbcon"):
             params = dataclasses.replace(params, usefbcon=True)
-        field = cs._flow_field if nop == 2 else cs._disparity_field
-        a_u8, b_u8, _, _ = cs.make_pairs(cfg["batch"], cs.H_ORG, cs.W_ORG, 0,
-                                         dev, channels=noc, field=field)
+        field = synth.flow_field if nop == 2 else synth.disparity_field
+        a_u8, b_u8, _, _ = synth.make_pairs(cfg["batch"], cs.H_ORG, cs.W_ORG,
+                                            0, dev, channels=noc, field=field)
         im_a = pyramid.pad_to_divisible(a_u8, params.sc_f)
         im_b = pyramid.pad_to_divisible(b_u8, params.sc_f)
         calls = {name: [] for name in cs.KERNELS}

@@ -37,6 +37,7 @@ import torch
 from of_dis_tpu_torch import pipeline
 from of_dis_tpu_torch.kernels import build
 from of_dis_tpu_torch.models import dis
+from of_dis_tpu_torch.tools import synth
 from of_dis_tpu_torch.utils import viz
 
 H, W = 436, 1024
@@ -46,20 +47,6 @@ SWEEP = {2: (32, 64, 128, 256), 3: (8, 16, 32), 4: (2, 4, 8)}
 # frames of the op-2 sweep (512 pairs: every batch divides them), of the
 # op-3 / op-4 sweeps (the chip phase's 161), and rounds of turns
 FRAMES, SMALL_RUN, ROUNDS = 513, 161, 2
-
-
-def _blur7(x: torch.Tensor) -> torch.Tensor:
-    """7-tap Gaussian blur, sigma 2, reflect-101 borders, on (H, W)."""
-    t = np.arange(-3, 4, dtype=np.float64)
-    k = np.exp(-t * t / 8.0)
-    k /= k.sum()
-    for dim in (-1, -2):
-        n = x.shape[dim]
-        idx = torch.arange(-3, n + 3, device=x.device).abs()
-        idx = torch.where(idx > n - 1, 2 * (n - 1) - idx, idx)
-        p = x.index_select(dim, idx)
-        x = sum(float(k[j]) * p.narrow(dim, j, n) for j in range(7))
-    return x
 
 
 def frame_stack(n: int, step=STEP, seed: int = 0, device="cuda",
@@ -73,8 +60,8 @@ def frame_stack(n: int, step=STEP, seed: int = 0, device="cuda",
     bw = max(1280, w + math.ceil(span_x) + 16)
     bh = max(512, h + math.ceil(span_y) + 16)
     rng = np.random.default_rng(seed)
-    base = _blur7(torch.as_tensor(rng.random((bh, bw), dtype=np.float32),
-                                  device=device) * 255.0)
+    base = synth.blur7(torch.as_tensor(
+        rng.random((bh, bw), dtype=np.float32), device=device) * 255.0)
     # window origin: the sampled span centred in the base
     x0 = (bw - w - math.ceil(span_x)) // 2 + math.ceil(max(0.0, dx) * (n - 1))
     y0 = (bh - h - math.ceil(span_y)) // 2 + math.ceil(max(0.0, dy) * (n - 1))

@@ -36,6 +36,7 @@ from of_dis_tpu.ops import patch_solver as jps  # noqa: E402
 from of_dis_tpu_torch.models import dis  # noqa: E402
 from of_dis_tpu_torch.ops import patch_solver as tps, pyramid  # noqa: E402
 from of_dis_tpu_torch.params import op_point_params  # noqa: E402
+from of_dis_tpu_torch.tools import synth  # noqa: E402
 
 
 class _Stop(Exception):
@@ -44,8 +45,8 @@ class _Stop(Exception):
 
 def main(last_level: int) -> None:
     params = op_point_params(chip_smoke.W_ORG, 4)
-    a, b, _, _ = chip_smoke.make_pairs(4, chip_smoke.H_ORG, chip_smoke.W_ORG,
-                                       0, "cpu")
+    a, b, _, _ = synth.make_pairs(4, chip_smoke.H_ORG, chip_smoke.W_ORG, 0,
+                                  "cpu")
     im_a = pyramid.pad_to_divisible(a, params.sc_f)
     im_b = pyramid.pad_to_divisible(b, params.sc_f)
     levels = []

@@ -65,12 +65,12 @@ def test_dis_flow_batched_matches_jax(op):
 
 
 def test_sintel_sized_pair_matches_jax_and_true_field():
-    """One pair of chip_smoke.py's synthetic workload at its full 1024x436
-    size, on the CPU: port vs JAX EPE ratio <= 1e-3 (as above), and both
+    """One pair of chip_smoke.py's synthetic workload (`tools/synth.py`) at
+    its full 1024x436 size, on the CPU: port vs JAX EPE ratio <= 1e-3 (as above), and both
     within the field limits chip_smoke.py holds the card to (median 0.25
     px, mean EPE 0.6 px in the interior: op-2 stops at 1/8 resolution)."""
-    import chip_smoke
-    a, b, u, v = chip_smoke.make_pairs(1, 436, 1024, 0, torch.device("cpu"))
+    from of_dis_tpu_torch.tools import synth
+    a, b, u, v = synth.make_pairs(1, 436, 1024, 0, torch.device("cpu"))
     jp = j_op_point_params(1024, 2)
     im_a = tpyr.pad_to_divisible(a, jp.sc_f)
     im_b = tpyr.pad_to_divisible(b, jp.sc_f)

@@ -1,6 +1,7 @@
-"""Guards on the port's boundaries: it never loads JAX or the JAX package,
-never runs on the CPU in place of CUDA, and every kernel has its source,
-its C entry and a launch counter."""
+"""Guards on the port's boundaries: it never loads JAX, the JAX package or
+the JAX system's bench and tools (`bench.py`, `tools/`), never runs on the
+CPU in place of CUDA, and every kernel has its source, its C entry and a
+launch counter."""
 
 import ast
 import importlib
@@ -40,7 +41,8 @@ def test_import_loads_neither_jax_nor_reference_package():
             f"for m in {_modules()!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'of_dis_tpu' or "
-            "m.startswith('of_dis_tpu.')]\n"
+            "m.startswith('of_dis_tpu.') or m in ('bench', 'tools') or "
+            "m.startswith('tools.')]\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -49,8 +51,8 @@ def test_import_loads_neither_jax_nor_reference_package():
 
 
 def test_sources_never_import_reference_or_jax():
-    pat = re.compile(r"^\s*(from|import)\s+(of_dis_tpu|jax)(\.|\s|$)",
-                     re.MULTILINE)
+    pat = re.compile(r"^\s*(from|import)\s+(of_dis_tpu|jax|bench|tools)"
+                     r"(\.|\s|$)", re.MULTILINE)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -59,6 +61,19 @@ def test_sources_never_import_reference_or_jax():
         with open(f) as fh:
             src = fh.read()
         assert not pat.search(src), f
+
+
+# the JAX system's measurement and operations tools that have a module in
+# the port's tools/ (the rest are listed in ROADMAP.md)
+TOOLS = ("synth", "bench", "bench_op", "bench_seq", "warmup",
+         "profile_pipeline", "bench_stages", "bench_tv_parts", "eval_epe",
+         "bench_gn_stages", "bench_i8_dot", "bench_pipeline")
+
+
+def test_every_tool_module_is_walked_by_the_guards():
+    """The import guards above walk every tools module."""
+    mods = set(_modules())
+    assert {f"of_dis_tpu_torch.tools.{t}" for t in TOOLS} <= mods
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch, tmp_path):

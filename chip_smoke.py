@@ -57,6 +57,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      same decoded frames, medians against the motion, the split's files
      against one device's, pairs/s beside the bare calls' and the device's
      busy share of a cold run; one `utils.viz.main` call;
+  7b. JPEG frames (`run_jpeg_part`, the fixtures of
+     tests/torch_fixtures/jpeg): every fixture decoded by the port's own
+     decoder (`csrc/jpeg.cpp`) through `decode_batch` and `load_image`,
+     gray and colour, each plane's SHA-256 equal to the manifest's
+     cv2.imread hash; JPEG frames/s at 1, 4, 8 and 16 threads and
+     `load_image`'s; `run_pipeline` at op-2 on the nine 1024x436 frames
+     (one batch of 8 pairs), gray and RGB flow: launches those of a path-A
+     (C) call, every file against `dis_flow_batched` on the same decoded
+     frames, medians within 0.25 px of the motion, pairs/s and the busy
+     share; `cli.main` on the first pair, gray and RGB, against
+     `dis_flow_batched`;
   8. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
      the merge for flow and depth, the TV-free pseudo-Huber run), and the
@@ -115,6 +126,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io as io_mod
 import json
 import math
@@ -1497,6 +1509,158 @@ def run_pipeline_phase(dev, totals, walls_by_path):
     return cold_dir
 
 
+# Part 7b: JPEG frames, decoded by the port's own decoder
+# (`csrc/jpeg.cpp`) as cv::imread decodes them. The fixtures of
+# tests/torch_fixtures/jpeg (made with cv2 by its make_fixtures.py): nine
+# 1024x436 colour frames, q90 4:2:0, moving by the manifest's motion, and
+# twelve small variants; the manifest holds the SHA-256 of cv2.imread's
+# gray and colour planes of each, which the card machine's build of the
+# decoder must reproduce (there is no cv2 there). The eight pairs serve
+# as one batch of 8, gray flow (path A's launches) and RGB flow (C's).
+JPEG_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg")
+JPEG = dict(op=2, batch=8, decode_threads=(1, 4, 8, 16), decode_repeats=8,
+            load_image_frames=4,
+            modes=(("run_OF_INT", 1, "A"), ("run_OF_RGB", 3, "C")))
+
+
+def _sha256(planes) -> str:
+    return hashlib.sha256(np.ascontiguousarray(planes).tobytes()).hexdigest()
+
+
+def run_jpeg_part(dev, totals, walls_by_path):
+    """Phase 7, part 7b (see JPEG): every fixture's planes against the
+    manifest's cv2 hashes, through `decode_batch` and `load_image`; the
+    decode rate at each thread count; `run_pipeline` at op-2 on the nine
+    frames, gray and RGB flow, counted, each file against
+    `dis_flow_batched` on the same decoded frames and its median against
+    the motion, pairs/s and the busy share; `cli.main` on the first pair,
+    gray and RGB, against `dis_flow_batched`."""
+    cfg = JPEG
+    t_part = time.perf_counter()
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    motion = manifest["motion_px"]
+
+    # decode check: both entries, both channel counts, every file
+    checked, bad = 0, []
+    for rel, rec in sorted(manifest["files"].items()):
+        path = os.path.join(JPEG_DIR, rel)
+        for key, ch in (("gray", 1), ("color", 3)):
+            for how, planes in (
+                    ("decode_batch", native_io.decode_batch([path], ch)[0]),
+                    ("load_image", io.load_image(path, ch).astype(np.uint8))):
+                checked += 1
+                if (list(planes.shape) != rec[key]["shape"]
+                        or _sha256(planes) != rec[key]["sha256"]):
+                    bad.append(f"{rel} {key} {how}")
+    print(json.dumps({"jpeg": "decode check", "planes": checked,
+                      "files": len(manifest["files"]),
+                      "against": f"cv2 {manifest['cv2']} "
+                                 f"({manifest['libjpeg']})",
+                      "mismatches": bad}), flush=True)
+    if bad:
+        raise AssertionError(f"JPEG planes differ from cv2's: {bad}")
+
+    # decode rate: the nine frames, repeated, at each thread count
+    frame_dir = os.path.join(JPEG_DIR, "frames")
+    paths = pipeline.list_frames(frame_dir)
+    many = paths * cfg["decode_repeats"]
+    rates = {}
+    for key, ch in (("gray", 1), ("color", 3)):
+        once = native_io.decode_batch(paths, ch)
+        rates[key] = {}
+        for k in cfg["decode_threads"]:
+            with ThreadPoolExecutor(k) as pool:
+                t0 = time.perf_counter()
+                again = native_io.decode_batch(many, ch, pool=pool)
+                rates[key][k] = len(many) / (time.perf_counter() - t0)
+            if not np.array_equal(again[:len(paths)], once):
+                raise AssertionError(f"JPEG decode_batch with {k} threads "
+                                     "differs")
+    few = paths[:cfg["load_image_frames"]]
+    t0 = time.perf_counter()
+    for p in few:
+        io.load_image(p, 1)
+    plain_rate = len(few) / (time.perf_counter() - t0)
+    print(json.dumps({"jpeg": "decode", "frames": len(many),
+                      "size": f"{W_ORG}x{H_ORG}", "coding": "q90 4:2:0",
+                      "frames_per_s_by_threads": rates,
+                      "load_image_gray_frames_per_s": plain_rate,
+                      "cpu_count": os.cpu_count(),
+                      "card": nvidia_smi_line()}), flush=True)
+
+    # serving: one batch of the eight pairs, gray and RGB flow
+    n_pairs = len(paths) - 1
+    names = [os.path.splitext(os.path.basename(p))[0] + ".flo"
+             for p in paths[:-1]]
+    result = {}
+    for mode, noc, path_name in cfg["modes"]:
+        params = op_point_params(W_ORG, cfg["op"], nop=2, noc=noc)
+        top, bot, left, right = pad_amounts(W_ORG, H_ORG, params.sc_f)
+        full_h, full_w = H_ORG + top + bot, W_ORG + left + right
+        x = pyramid.pad_to_divisible(torch.as_tensor(
+            native_io.decode_batch(paths, noc)).to(dev), params.sc_f)
+        want = dis.dis_flow_batched(x[:-1], x[1:], params, full_w, full_h,
+                                    device=dev)[:, top:top + H_ORG,
+                                                left:left + W_ORG]
+        per = next(c["launches"] for c in PATHS if c["name"] == path_name)
+        out_dir = os.path.join(OUT_DIR, "jpeg", mode)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        reset_launches()
+        n = pipeline.run_pipeline(frame_dir, out_dir, op_point=cfg["op"],
+                                  batch=cfg["batch"], mode=mode,
+                                  verbose=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if n != n_pairs or sorted(os.listdir(out_dir)) != names:
+            raise AssertionError(f"jpeg pipeline {mode}: {n} pairs")
+        if launches != per:
+            raise AssertionError(f"jpeg pipeline {mode}: launches "
+                                 f"{launches}, expected {per} (one batch)")
+        for name, c in launches.items():
+            totals[name] = totals.get(name, 0) + c
+        err, meds = _pipeline_files(out_dir, names, want, 2)
+        off = _check_medians(f"jpeg {mode}", meds, motion)
+        if not err <= PIPELINE_TOL:
+            raise AssertionError(f"jpeg pipeline {mode}: files differ by "
+                                 f"{err} px")
+        walls, _ = _timed(lambda: pipeline.run_pipeline(
+            frame_dir, out_dir, op_point=cfg["op"], batch=cfg["batch"],
+            mode=mode, verbose=False))
+        wall = statistics.median(walls)
+        result[mode] = {"max_abs_vs_dis_flow_batched": err,
+                        "median_off_motion_px": off, "launches": launches,
+                        "wall_s": walls, "pairs_per_s": n_pairs / wall,
+                        "path_wall_ms_per_call":
+                            walls_by_path[path_name] * 1e3}
+        print(json.dumps({"jpeg": f"pipeline {mode}", "pairs": n_pairs,
+                          "batch": cfg["batch"], **result[mode],
+                          "card": nvidia_smi_line()}), flush=True)
+        profile_call(f"run_pipeline JPEG {mode} (every device activity)",
+                     lambda: pipeline.run_pipeline(
+                         frame_dir, out_dir, op_point=cfg["op"],
+                         batch=cfg["batch"], mode=mode, verbose=False), wall)
+
+        # the CLI on the first pair
+        cli_out = os.path.join(OUT_DIR, "jpeg", f"cli_{mode}.flo")
+        reset_launches()
+        cli.main([mode, paths[0], paths[1], cli_out, str(cfg["op"]),
+                  "--quiet"])
+        launches = read_launches()
+        if launches != per:
+            raise AssertionError(f"jpeg cli {mode}: launches {launches}")
+        for name, c in launches.items():
+            totals[name] = totals.get(name, 0) + c
+        got = torch.as_tensor(io.read_flo(cli_out))
+        cli_err = float((got - want[0].cpu()).abs().max())
+        print(f"jpeg cli {mode}: {tuple(got.shape)} flow, max abs vs "
+              f"dis_flow_batched {cli_err}", flush=True)
+        if not cli_err <= PIPELINE_TOL:
+            raise AssertionError(f"jpeg cli {mode}: differs by {cli_err} px")
+    print(f"jpeg part: {time.perf_counter() - t_part:.1f} s", flush=True)
+    return result
+
+
 # The explicit 20-parameter forms of the merge and TV-free goldens
 # (tests/test_golden_parity.py): levels 3..1, 12 trips, patch size 8,
 # overlap 0.4, then usefbcon, patnorm, costfct, usetvref.
@@ -2193,6 +2357,8 @@ def main() -> int:
     # 7. the serving pipeline: decode, cold batches, streams, depth, two
     # devices
     cold_dir = run_pipeline_phase(dev, totals, walls)
+    # 7b. JPEG frames: the decoder against cv2's hashes, serving, the CLI
+    run_jpeg_part(dev, totals, walls)
 
     # 8. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()

@@ -1,0 +1,1308 @@
+// JPEG decoding on the host, pixel for pixel as cv::imread decodes a JPEG:
+// libjpeg-turbo with its default settings (the islow IDCT, "fancy"
+// upsampling, no block smoothing needed), output BGR or gray, then the
+// EXIF orientation applied as OpenCV's ApplyExifOrientation does.
+//
+// Reached through native/io.py (`decode_batch`) and utils/io.py
+// (`load_image`); the JAX package reads the same files with cv2.imread
+// (of_dis_tpu/utils/io.py::load_image, the reference's cv::imread at
+// run_dense.cpp:200-210). Plain C entries, no CUDA: a ctypes call
+// releases the interpreter lock, so a thread pool decodes frames side by
+// side.
+//
+// What it reads: baseline and extended sequential Huffman (SOF0, SOF1)
+// and progressive Huffman (SOF2) of 8-bit samples, one component (gray)
+// or three (YCbCr, or RGB under an Adobe APP14 transform 0), any sampling
+// factors 1-4 with integral ratios, any number of scans, restart markers.
+// What it refuses, each with its own code (`of_jpeg_strerror`):
+// arithmetic coding, lossless and hierarchical processes, other sample
+// precisions, 2 or 4 components, a missing table, and any stream that
+// libjpeg would decode only with a warning (truncated or corrupt entropy
+// data, a bad Huffman code, a bogus progression): a frame that cannot be
+// decoded cleanly fails, it is never padded. Two further refusals keep
+// the output equal to libjpeg-turbo's SIMD build, which cv2 uses:
+//   - a coefficient block whose dequantised values or first-pass IDCT
+//     outputs leave +-16383 (no 8-bit image makes one): the SIMD IDCT
+//     works in 16-bit lanes there and wraps where the C IDCT does not;
+//   - a progressive image whose scans leave some of the first nine AC
+//     coefficients unrefined: libjpeg then smooths blocks
+//     (jdcoefct.c::decompress_smooth_data), which is not reproduced.
+// Every read is bounds-checked: corrupt input returns an error code.
+
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <new>
+#include <vector>
+
+namespace {
+
+enum Code {
+  kOk = 0,
+  kNotJpeg = -1,
+  kTruncated = -2,
+  kBadMarker = -3,
+  kArithmetic = -4,
+  kLossless = -5,
+  kHierarchical = -6,
+  kPrecision = -7,
+  kComponents = -8,
+  kSampling = -9,
+  kNoHuffTable = -10,
+  kNoQuantTable = -11,
+  kBadHuffTable = -12,
+  kBadCode = -13,
+  kCorrupt = -14,
+  kProgression = -15,
+  kSmoothing = -16,
+  kRange = -17,
+  kSize = -18,
+  kChannels = -19,
+  kNoMemory = -20,
+  kNoImage = -21,
+  kRestart = -22,
+  kExtraneous = -23,
+};
+
+struct Error {
+  int code;
+};
+
+[[noreturn]] void fail(int code) { throw Error{code}; }
+
+// zigzag index -> natural (row-major) index (jutils.c jpeg_natural_order)
+constexpr int kNatural[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+constexpr int kMaxDim = 65500;   // JPEG_MAX_DIMENSION
+constexpr int kMaxBlocksInMcu = 10;
+constexpr int kLookBits = 9;
+
+inline int extend(int v, int s) {  // HUFF_EXTEND
+  return v < (1 << (s - 1)) ? v + (-(1 << s) + 1) : v;
+}
+
+// A Huffman table as DHT gives it and its decoding form (jdhuff.c
+// jpeg_make_d_derived_tbl): maxcode / valoffset per code length, and a
+// table of the codes of at most kLookBits bits.
+struct Huffman {
+  bool defined = false;
+  bool derived = false;
+  uint8_t bits[17] = {};
+  uint8_t vals[256] = {};
+  int32_t maxcode[18] = {};
+  int32_t valoffset[18] = {};
+  uint16_t look[1 << kLookBits] = {};  // (length << 8) | symbol, 0 = none
+  // AC tables: where a code and its magnitude bits fit in kLookBits, the
+  // coefficient itself (jdhuff.c decode_mcu_fast's idea): its value, the
+  // zero run before it, and the bits the pair takes (0 = none)
+  struct FastAc {
+    int16_t value;
+    uint8_t run, len;
+  } fast_ac[1 << kLookBits] = {};
+
+  // dc: a DC table (jdhuff.c: its symbols must be 0..15), else AC
+  void derive(bool dc) {
+    if (derived) return;
+    uint8_t size[257];
+    uint32_t code_of[257];
+    int p = 0;
+    for (int l = 1; l <= 16; ++l) {
+      int n = bits[l];
+      if (p + n > 256) fail(kBadHuffTable);
+      while (n--) size[p++] = static_cast<uint8_t>(l);
+    }
+    size[p] = 0;
+    const int nsym = p;
+    uint32_t code = 0;
+    int si = size[0];
+    p = 0;
+    while (size[p]) {
+      while (size[p] == si) code_of[p++] = code++;
+      // no code may be all ones: the next code must still fit in si bits
+      if (code >= (1u << si)) fail(kBadHuffTable);
+      code <<= 1;
+      ++si;
+    }
+    p = 0;
+    for (int l = 1; l <= 16; ++l) {
+      if (bits[l]) {
+        valoffset[l] = p - static_cast<int32_t>(code_of[p]);
+        p += bits[l];
+        maxcode[l] = static_cast<int32_t>(code_of[p - 1]);
+      } else {
+        maxcode[l] = -1;
+      }
+    }
+    valoffset[17] = 0;
+    maxcode[17] = 0xFFFFF;
+    std::memset(look, 0, sizeof(look));
+    p = 0;
+    for (int l = 1; l <= kLookBits; ++l) {
+      for (int i = 1; i <= bits[l]; ++i, ++p) {
+        int base = static_cast<int>(code_of[p]) << (kLookBits - l);
+        for (int c = 0; c < (1 << (kLookBits - l)); ++c)
+          look[base + c] = static_cast<uint16_t>((l << 8) | vals[p]);
+      }
+    }
+    if (dc) {
+      for (int i = 0; i < nsym; ++i)
+        if (vals[i] > 15) fail(kBadHuffTable);
+    }
+    std::memset(fast_ac, 0, sizeof(fast_ac));
+    for (int i = 0; !dc && i < (1 << kLookBits); ++i) {
+      const int l = look[i] >> 8, rs = look[i] & 0xFF, sz = rs & 15;
+      if (!l || !sz || l + sz > kLookBits) continue;
+      const int mag = (i >> (kLookBits - l - sz)) & ((1 << sz) - 1);
+      fast_ac[i] = {static_cast<int16_t>(extend(mag, sz)),
+                    static_cast<uint8_t>(rs >> 4),
+                    static_cast<uint8_t>(l + sz)};
+    }
+    derived = true;
+  }
+};
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int dw = 0, dh = 0;        // downsampled size (samples)
+  int wb = 0, hb = 0;        // blocks that hold samples: ceil(dw / 8)...
+  int stride_b = 0;          // blocks a row of the coefficient array
+  int rows_b = 0;            // block rows of the coefficient array
+  int16_t q[64] = {};        // latched quantisation table, natural order
+  bool latched = false;
+  bool seen = false;         // in a scan already (sequential)
+  int coef_bits[64];         // progressive: -1 not yet seen, else Al
+  std::vector<int16_t> coef; // (rows_b, stride_b, 64)
+  int16_t* block(int by, int bx) {
+    return coef.data() + (static_cast<size_t>(by) * stride_b + bx) * 64;
+  }
+};
+
+// The entropy-coded bytes of a scan, read as bits (jdhuff.c
+// jpeg_fill_bit_buffer): FF 00 is a data FF, any run of FF fill bytes
+// before a marker code is skipped, and a marker ends the data. Past the
+// end, zeros are supplied and counted as `fake`; consuming one of them is
+// an error (libjpeg pads them in with a warning).
+struct BitReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t buf = 0;
+  int n = 0;      // bits in buf (the low n bits)
+  int fake = 0;   // the last `fake` of them are padding
+  int marker = -1;  // marker code that ended the data, 256 = end of file
+
+  BitReader(const uint8_t* p_, const uint8_t* end_) : p(p_), end(end_) {}
+
+  void fill() {
+    while (n <= 56) {
+      uint32_t c = 0;
+      if (marker < 0 && p < end && *p != 0xFF) {
+        c = *p++;
+      } else if (marker >= 0) {
+        fake += 8;
+      } else if (p >= end) {
+        marker = 256;
+        fake += 8;
+      } else {
+        const uint8_t* q = p + 1;
+        while (q < end && *q == 0xFF) ++q;
+        if (q >= end) {
+          marker = 256;
+          fake += 8;
+        } else if (*q == 0) {
+          c = 0xFF;
+          p = q + 1;
+        } else {
+          marker = *q;
+          p = q - 1;  // at the FF before the marker code
+          fake += 8;
+        }
+      }
+      buf = (buf << 8) | c;
+      n += 8;
+    }
+  }
+
+  void consume(int k) {
+    n -= k;
+    if (n < fake) fail(marker == 256 ? kTruncated : kCorrupt);
+  }
+
+  int bits(int k) {  // k in 1..16
+    if (n < k) fill();
+    int v = static_cast<int>((buf >> (n - k)) & ((1u << k) - 1));
+    consume(k);
+    return v;
+  }
+
+  int bit() { return bits(1); }
+
+  int peek() const {
+    return static_cast<int>((buf >> (n - kLookBits)) &
+                            ((1u << kLookBits) - 1));
+  }
+
+  int decode(const Huffman& t) {
+    if (n < 16) fill();
+    int look = peek();
+    int e = t.look[look];
+    if (e) {
+      consume(e >> 8);
+      return e & 0xFF;
+    }
+    int code = static_cast<int>((buf >> (n - 16)) & 0xFFFF);
+    for (int l = kLookBits + 1; l <= 16; ++l) {
+      int c = code >> (16 - l);
+      if (c <= t.maxcode[l]) {
+        consume(l);
+        return t.vals[(c + t.valoffset[l]) & 0xFF];
+      }
+    }
+    fail(kBadCode);
+  }
+
+  // After a scan's (or a restart interval's) last MCU: the bits left over
+  // must be less than a byte, and a marker must follow. Returns its code,
+  // with `p` at the FF before it.
+  int finish() {
+    if (n - fake >= 8) fail(kExtraneous);
+    if (marker < 0) {
+      if (p >= end) fail(kTruncated);
+      if (*p != 0xFF) fail(kExtraneous);
+      const uint8_t* q = p + 1;
+      while (q < end && *q == 0xFF) ++q;
+      if (q >= end) fail(kTruncated);
+      if (*q == 0) fail(kExtraneous);
+      marker = *q;
+      p = q - 1;
+    }
+    if (marker == 256) fail(kTruncated);
+    int m = marker;
+    buf = 0;
+    n = fake = 0;
+    marker = -1;
+    return m;
+  }
+};
+
+struct Decoder {
+  const uint8_t* data;
+  const uint8_t* end;
+  const uint8_t* p;
+
+  int width = 0, height = 0, ncomp = 0;
+  bool progressive = false;
+  bool have_sof = false;
+  bool jfif = false, adobe = false;
+  int adobe_transform = -1;
+  int orientation = 1;
+  bool saw_exif = false;
+  int restart_interval = 0;
+  int max_h = 1, max_v = 1;
+  int mcus_x = 0, mcus_y = 0;
+  int scans = 0;
+
+  Component comp[3];
+  Huffman dc_tab[4], ac_tab[4];
+  bool qt_defined[4] = {};
+  uint16_t qt[4][64] = {};
+
+  Decoder(const uint8_t* buf, int64_t len)
+      : data(buf), end(buf + len), p(buf) {}
+
+  int byte() {
+    if (p >= end) fail(kTruncated);
+    return *p++;
+  }
+  int u16() {
+    int hi = byte();
+    return (hi << 8) | byte();
+  }
+
+  // the next marker code: FF, any FF fill, then the code (jdmarker.c
+  // next_marker; the garbage it skips with a warning is an error here)
+  int next_marker() {
+    if (byte() != 0xFF) fail(kExtraneous);
+    int c;
+    do {
+      c = byte();
+    } while (c == 0xFF);
+    if (c == 0) fail(kExtraneous);
+    return c;
+  }
+
+  // a marker segment's payload: [begin, begin + length - 2)
+  const uint8_t* segment(int* len) {
+    int length = u16();
+    if (length < 2) fail(kBadMarker);
+    if (end - p < length - 2) fail(kTruncated);
+    const uint8_t* s = p;
+    p += length - 2;
+    *len = length - 2;
+    return s;
+  }
+
+  void read_dqt(const uint8_t* s, int len) {  // jdmarker.c get_dqt
+    int i = 0;
+    while (i < len) {
+      int pq = s[i] >> 4, tq = s[i] & 15;
+      ++i;
+      if (tq >= 4 || pq > 1) fail(kBadMarker);
+      int need = 64 * (pq + 1);
+      if (len - i < need) fail(kBadMarker);
+      for (int k = 0; k < 64; ++k) {
+        int v = pq ? (s[i + 2 * k] << 8) | s[i + 2 * k + 1] : s[i + k];
+        qt[tq][kNatural[k]] = static_cast<uint16_t>(v);
+      }
+      qt_defined[tq] = true;
+      i += need;
+    }
+  }
+
+  void read_dht(const uint8_t* s, int len) {  // jdmarker.c get_dht
+    int i = 0;
+    while (i < len) {
+      if (len - i < 17) fail(kBadMarker);
+      int index = s[i];
+      int count = 0;
+      uint8_t bits[17] = {};
+      for (int l = 1; l <= 16; ++l) {
+        bits[l] = s[i + l];
+        count += bits[l];
+      }
+      i += 17;
+      if (count > 256 || count > len - i) fail(kBadHuffTable);
+      Huffman* t;
+      if (index & 0x10) {
+        index -= 0x10;
+        if (index < 0 || index >= 4) fail(kBadHuffTable);
+        t = &ac_tab[index];
+      } else {
+        if (index < 0 || index >= 4) fail(kBadHuffTable);
+        t = &dc_tab[index];
+      }
+      *t = Huffman();
+      std::memcpy(t->bits, bits, sizeof(bits));
+      std::memcpy(t->vals, s + i, static_cast<size_t>(count));
+      t->defined = true;
+      i += count;
+    }
+  }
+
+  // OpenCV's ExifReader (exif.cpp) on the first APP1 segment that starts
+  // "Exif\0\0", before the first SOS: a TIFF header ("II" little-endian,
+  // else big-endian), then IFD0's entries in order until the first 0x0112
+  // tag, whose value is the u16 at entry + 8. A read out of bounds ends
+  // the walk with no orientation, as ExifParsingError does: the offsets
+  // that OpenCV's readers of the string and rational tags follow are
+  // checked too, since they throw before a later orientation is reached.
+  void read_exif(const uint8_t* s, int len) {
+    if (len <= 6 || std::memcmp(s, "Exif\0\0", 6) != 0) return;
+    const uint8_t* t = s + 6;
+    const int64_t size = len - 6;
+    const bool intel = t[0] == 'I' && size > 1 && t[1] == 'I';
+    auto u16at = [&](int64_t off, int* v) {
+      if (off < 0 || off + 1 >= size) return false;
+      *v = intel ? t[off] | (t[off + 1] << 8) : (t[off] << 8) | t[off + 1];
+      return true;
+    };
+    auto u32at = [&](int64_t off, uint32_t* v) {
+      if (off < 0 || off + 3 >= size) return false;
+      *v = intel ? static_cast<uint32_t>(t[off]) | (t[off + 1] << 8) |
+                       (t[off + 2] << 16) |
+                       (static_cast<uint32_t>(t[off + 3]) << 24)
+                 : (static_cast<uint32_t>(t[off]) << 24) |
+                       (t[off + 1] << 16) | (t[off + 2] << 8) | t[off + 3];
+      return true;
+    };
+    auto rationals = [&](int64_t off, int n) {  // getResolution & co.
+      uint32_t at, v;
+      if (!u32at(off + 8, &at)) return false;
+      for (int i = 0; i < n; ++i)
+        if (!u32at(int64_t{at} + 8 * i, &v) ||
+            !u32at(int64_t{at} + 8 * i + 4, &v))
+          return false;
+      return true;
+    };
+    int mark, count, v;
+    uint32_t ifd, n, at;
+    if (!u16at(2, &mark) || mark != 0x2A) return;
+    if (!u32at(4, &ifd) || !u16at(ifd, &count)) return;
+    int64_t off = int64_t{ifd} + 2;
+    for (int e = 0; e < count; ++e, off += 12) {
+      int tag;
+      if (!u16at(off, &tag)) return;
+      bool ok = true;
+      switch (tag) {
+        case 0x0112:  // ORIENTATION
+          if (u16at(off + 8, &v)) orientation = v;
+          return;
+        case 0x010E: case 0x010F: case 0x0110: case 0x0131: case 0x0132:
+        case 0x8298:  // getString
+          at = 8;
+          ok = u32at(off + 4, &n) && (n <= 4 || u32at(off + 8, &at)) &&
+               int64_t{at} <= size && int64_t{at} + n <= size;
+          break;
+        case 0x011A: case 0x011B: ok = rationals(off, 1); break;
+        case 0x013E: ok = rationals(off, 2); break;
+        case 0x013F: case 0x0214: ok = rationals(off, 6); break;
+        case 0x0211: ok = rationals(off, 3); break;
+        case 0x0128: case 0x0213: ok = u16at(off + 8, &v); break;
+        default: break;
+      }
+      if (!ok) return;
+    }
+  }
+
+  void read_app(int code, const uint8_t* s, int len) {
+    if (code == 0xE0 && len >= 14 && std::memcmp(s, "JFIF\0", 5) == 0)
+      jfif = true;
+    if (code == 0xEE && len >= 12 && std::memcmp(s, "Adobe", 5) == 0) {
+      adobe = true;
+      adobe_transform = s[11];
+    }
+    if (code == 0xE1 && !saw_exif && !scans && len > 6 &&
+        std::memcmp(s, "Exif\0\0", 6) == 0) {
+      saw_exif = true;
+      read_exif(s, len);
+    }
+  }
+
+  void read_sof(int code, const uint8_t* s, int len) {  // get_sof
+    if (have_sof) fail(kBadMarker);
+    if (len < 6) fail(kBadMarker);
+    int precision = s[0];
+    height = (s[1] << 8) | s[2];
+    width = (s[3] << 8) | s[4];
+    ncomp = s[5];
+    if (code == 0xC3) fail(kLossless);
+    if (code == 0xC5 || code == 0xC6 || code == 0xC7) fail(kHierarchical);
+    if (code >= 0xC9) fail(kArithmetic);
+    if (precision != 8) fail(kPrecision);
+    if (height <= 0 || width <= 0 || ncomp <= 0) fail(kSize);
+    if (height > kMaxDim || width > kMaxDim) fail(kSize);
+    if (ncomp != 1 && ncomp != 3) fail(kComponents);
+    if (len != 6 + 3 * ncomp) fail(kBadMarker);
+    progressive = code == 0xC2;
+    for (int c = 0; c < ncomp; ++c) {
+      Component& k = comp[c];
+      k.id = s[6 + 3 * c];
+      k.h = s[7 + 3 * c] >> 4;
+      k.v = s[7 + 3 * c] & 15;
+      k.tq = s[8 + 3 * c];
+      if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4) fail(kSampling);
+      if (k.tq >= 4) fail(kNoQuantTable);
+      max_h = k.h > max_h ? k.h : max_h;
+      max_v = k.v > max_v ? k.v : max_v;
+    }
+    have_sof = true;
+  }
+
+  void setup_components() {
+    mcus_x = (width + 8 * max_h - 1) / (8 * max_h);
+    mcus_y = (height + 8 * max_v - 1) / (8 * max_v);
+    for (int c = 0; c < ncomp; ++c) {
+      Component& k = comp[c];
+      k.dw = static_cast<int>((static_cast<int64_t>(width) * k.h + max_h - 1) / max_h);
+      k.dh = static_cast<int>((static_cast<int64_t>(height) * k.v + max_v - 1) / max_v);
+      k.wb = (k.dw + 7) / 8;
+      k.hb = (k.dh + 7) / 8;
+      k.stride_b = mcus_x * k.h;
+      k.rows_b = mcus_y * k.v;
+      k.coef.assign(static_cast<size_t>(k.stride_b) * k.rows_b * 64, 0);
+      for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
+    }
+  }
+
+  // The header: markers up to the first SOS (jdmarker.c read_markers, as
+  // jpeg_read_header runs them). Returns with `p` after the SOS code.
+  void read_header() {
+    if (end - p < 2 || p[0] != 0xFF || p[1] != 0xD8) fail(kNotJpeg);
+    p += 2;
+    for (;;) {
+      int code = next_marker();
+      if (code == 0xDA) {
+        if (!have_sof) fail(kBadMarker);
+        return;
+      }
+      if (code == 0xD9) fail(kNoImage);  // tables only (JERR_NO_IMAGE)
+      handle_marker(code);
+    }
+  }
+
+  // every marker but SOI, SOS and EOI
+  void handle_marker(int code) {
+    if ((code >= 0xD0 && code <= 0xD7) || code == 0x01) return;  // no payload
+    if (code == 0xD8 || code == 0xD9) fail(kBadMarker);
+    int len;
+    const uint8_t* s = segment(&len);
+    if (code >= 0xC0 && code <= 0xCF && code != 0xC4 && code != 0xC8 &&
+        code != 0xCC) {
+      read_sof(code, s, len);
+    } else if (code == 0xCC) {
+      fail(kArithmetic);  // DAC: arithmetic-coding conditioning
+    } else if (code == 0xC4) {
+      read_dht(s, len);
+    } else if (code == 0xDB) {
+      read_dqt(s, len);
+    } else if (code == 0xDD) {
+      if (len != 2) fail(kBadMarker);
+      restart_interval = (s[0] << 8) | s[1];
+    } else if (code >= 0xE0 && code <= 0xEF) {
+      read_app(code, s, len);
+    } else if (code == 0xFE) {
+      // COM
+    } else {
+      fail(kBadMarker);  // DNL, DHP, EXP, JPGn, reserved
+    }
+  }
+
+  // ---- scans ----
+
+  struct Scan {
+    int n = 0;
+    int ci[4];
+    int td[4], ta[4];
+    int ss = 0, se = 63, ah = 0, al = 0;
+  };
+
+  Scan read_sos() {  // get_sos
+    int len;
+    const uint8_t* s = segment(&len);
+    Scan sc;
+    if (len < 1) fail(kBadMarker);
+    sc.n = s[0];
+    if (sc.n < 1 || sc.n > 4 || len != 2 * sc.n + 4) fail(kBadMarker);
+    for (int i = 0; i < sc.n; ++i) {
+      int cid = s[1 + 2 * i], t = s[2 + 2 * i];
+      int found = -1;
+      for (int c = 0; c < ncomp; ++c)
+        if (comp[c].id == cid) found = c;
+      if (found < 0) fail(kBadMarker);
+      for (int j = 0; j < i; ++j)
+        if (sc.ci[j] == found) fail(kBadMarker);
+      sc.ci[i] = found;
+      sc.td[i] = t >> 4;
+      sc.ta[i] = t & 15;
+    }
+    sc.ss = s[1 + 2 * sc.n];
+    sc.se = s[2 + 2 * sc.n];
+    sc.ah = s[3 + 2 * sc.n] >> 4;
+    sc.al = s[3 + 2 * sc.n] & 15;
+    return sc;
+  }
+
+  Huffman& table(Huffman* tabs, int index, bool dc) {
+    if (index < 0 || index >= 4 || !tabs[index].defined) fail(kNoHuffTable);
+    tabs[index].derive(dc);
+    return tabs[index];
+  }
+
+  void latch(Component& k) {  // jdinput.c latch_quant_tables
+    if (k.latched) return;
+    if (!qt_defined[k.tq]) fail(kNoQuantTable);
+    for (int i = 0; i < 64; ++i) k.q[i] = static_cast<int16_t>(qt[k.tq][i]);
+    k.latched = true;
+  }
+
+  void check_scan(const Scan& sc) {
+    if (!progressive) {
+      // jdhuff.c start_pass_huff_decoder (a warning in libjpeg)
+      if (sc.ss != 0 || sc.se != 63 || sc.ah != 0 || sc.al != 0)
+        fail(kProgression);
+      for (int i = 0; i < sc.n; ++i) {
+        Component& k = comp[sc.ci[i]];
+        if (k.seen) fail(kProgression);
+        k.seen = true;
+      }
+      return;
+    }
+    // jdphuff.c start_pass_phuff_decoder
+    const bool dc = sc.ss == 0;
+    bool bad = false;
+    if (dc) {
+      if (sc.se != 0) bad = true;
+    } else {
+      if (sc.ss > sc.se || sc.se > 63) bad = true;
+      if (sc.n != 1) bad = true;
+    }
+    if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
+    if (sc.al > 13) bad = true;
+    if (bad) fail(kProgression);
+    for (int i = 0; i < sc.n; ++i) {
+      int* cb = comp[sc.ci[i]].coef_bits;
+      if (!dc && cb[0] < 0) fail(kProgression);
+      for (int k = sc.ss; k <= sc.se; ++k) {
+        int expected = cb[k] < 0 ? 0 : cb[k];
+        if (sc.ah != expected) fail(kProgression);
+        cb[k] = sc.al;
+      }
+    }
+  }
+
+  // one scan's entropy-coded data, from `p` to the marker after it
+  int decode_scan(const Scan& sc) {
+    check_scan(sc);
+    Huffman* dct[4] = {};
+    Huffman* act[4] = {};
+    int blocks = 0;
+    for (int i = 0; i < sc.n; ++i) {
+      Component& k = comp[sc.ci[i]];
+      latch(k);
+      blocks += sc.n == 1 ? 1 : k.h * k.v;
+      if (!progressive) {
+        dct[i] = &table(dc_tab, sc.td[i], true);
+        act[i] = &table(ac_tab, sc.ta[i], false);
+      } else if (sc.ss == 0) {
+        if (sc.ah == 0) dct[i] = &table(dc_tab, sc.td[i], true);
+      } else {
+        act[i] = &table(ac_tab, sc.ta[i], false);
+      }
+    }
+    if (blocks > kMaxBlocksInMcu) fail(kSampling);
+
+    int nx, ny;
+    if (sc.n == 1) {
+      nx = comp[sc.ci[0]].wb;
+      ny = comp[sc.ci[0]].hb;
+    } else {
+      nx = mcus_x;
+      ny = mcus_y;
+    }
+    BitReader br(p, end);
+    int last_dc[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    int next_rst = 0;
+    int to_go = restart_interval;
+    const int total = nx * ny;
+    for (int m = 0; m < total; ++m) {
+      if (restart_interval) {
+        if (to_go == 0) {  // jdhuff.c process_restart
+          int mk = br.finish();
+          if (mk != 0xD0 + next_rst) fail(kRestart);
+          br.p += 2;
+          next_rst = (next_rst + 1) & 7;
+          last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
+          eobrun = 0;
+          to_go = restart_interval;
+        }
+        --to_go;
+      }
+      const int mx = m % nx, my = m / nx;
+      if (sc.n == 1) {
+        decode_block(br, sc, 0, comp[sc.ci[0]].block(my, mx), dct[0],
+                     act[0], last_dc, eobrun);
+      } else {
+        for (int i = 0; i < sc.n; ++i) {
+          Component& k = comp[sc.ci[i]];
+          for (int by = 0; by < k.v; ++by)
+            for (int bx = 0; bx < k.h; ++bx)
+              decode_block(br, sc, i, k.block(my * k.v + by, mx * k.h + bx),
+                           dct[i], act[i], last_dc, eobrun);
+        }
+      }
+    }
+    int mk = br.finish();
+    p = br.p;
+    return mk;
+  }
+
+  void decode_block(BitReader& br, const Scan& sc, int i, int16_t* blk,
+                    const Huffman* dct, const Huffman* act, int* last_dc,
+                    int& eobrun) {
+    if (!progressive) {  // jdhuff.c decode_mcu_slow
+      int s = br.decode(*dct);
+      if (s) s = extend(br.bits(s), s);
+      // libjpeg sums in unsigned arithmetic and keeps a 16-bit JCOEF
+      last_dc[i] = static_cast<int>(static_cast<unsigned>(s) +
+                                    static_cast<unsigned>(last_dc[i]));
+      blk[0] = static_cast<int16_t>(last_dc[i]);
+      for (int k = 1; k < 64; ++k) {
+        if (br.n < 16) br.fill();
+        const Huffman::FastAc f = act->fast_ac[br.peek()];
+        if (f.len) {
+          br.consume(f.len);
+          k += f.run;
+          if (k > 63) fail(kCorrupt);
+          blk[kNatural[k]] = f.value;
+          continue;
+        }
+        int rs = br.decode(*act);
+        int r = rs >> 4;
+        s = rs & 15;
+        if (s) {
+          k += r;
+          if (k > 63) fail(kCorrupt);
+          blk[kNatural[k]] = static_cast<int16_t>(extend(br.bits(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+      return;
+    }
+    if (sc.ss == 0) {
+      if (sc.ah == 0) {  // jdphuff.c decode_mcu_DC_first
+        int s = br.decode(*dct);
+        if (s) s = extend(br.bits(s), s);
+        int64_t sum = static_cast<int64_t>(s) + last_dc[i];
+        if (sum > INT32_MAX || sum < INT32_MIN) fail(kCorrupt);
+        last_dc[i] = static_cast<int>(sum);
+        blk[0] = static_cast<int16_t>(
+            static_cast<uint32_t>(last_dc[i]) << sc.al);
+      } else {  // decode_mcu_DC_refine
+        if (br.bit()) blk[0] = static_cast<int16_t>(blk[0] | (1 << sc.al));
+      }
+      return;
+    }
+    if (sc.ah == 0) {  // decode_mcu_AC_first
+      if (eobrun > 0) {
+        --eobrun;
+        return;
+      }
+      for (int k = sc.ss; k <= sc.se; ++k) {
+        if (br.n < 16) br.fill();
+        const Huffman::FastAc f = act->fast_ac[br.peek()];
+        if (f.len) {
+          br.consume(f.len);
+          k += f.run;
+          if (k > sc.se) fail(kCorrupt);
+          blk[kNatural[k]] = static_cast<int16_t>(
+              static_cast<uint32_t>(f.value) << sc.al);
+          continue;
+        }
+        int rs = br.decode(*act);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          if (k > sc.se) fail(kCorrupt);
+          int v = extend(br.bits(s), s);
+          blk[kNatural[k]] =
+              static_cast<int16_t>(static_cast<uint32_t>(v) << sc.al);
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          eobrun = 1 << r;
+          if (r) eobrun += br.bits(r);
+          --eobrun;
+          break;
+        }
+      }
+      return;
+    }
+    // decode_mcu_AC_refine
+    const int p1 = 1 << sc.al;
+    const int m1 = -(1 << sc.al);
+    int k = sc.ss;
+    auto correct = [&](int16_t* c) {
+      if (br.bit() && (*c & p1) == 0)
+        *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c + m1);
+    };
+    if (eobrun == 0) {
+      for (; k <= sc.se; ++k) {
+        int rs = br.decode(*act);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) fail(kCorrupt);
+          s = br.bit() ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.bits(r);
+          break;
+        }
+        do {
+          int16_t* c = blk + kNatural[k];
+          if (*c != 0) {
+            correct(c);
+          } else {
+            if (--r < 0) break;
+          }
+          ++k;
+        } while (k <= sc.se);
+        if (s) {
+          if (k > sc.se) fail(kCorrupt);
+          blk[kNatural[k]] = static_cast<int16_t>(s);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= sc.se; ++k) {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) correct(c);
+      }
+      --eobrun;
+    }
+  }
+
+  // All scans to EOI. Returns with every component's coefficients whole.
+  void decode_all() {
+    setup_components();
+    int code = 0xDA;
+    for (;;) {
+      if (code == 0xDA) {
+        Scan sc = read_sos();
+        ++scans;
+        code = decode_scan(sc);
+        p += 2;  // past FF and the marker code
+        continue;
+      }
+      if (code == 0xD9) return;
+      handle_marker(code);
+      code = next_marker();
+    }
+  }
+
+  // jdcoefct.c smoothing_ok: would libjpeg smooth this component's blocks?
+  bool smoothing_changes(int c) {
+    if (!progressive) return false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& k = comp[i];
+      if (!k.latched) return false;
+      static constexpr int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+      for (int j : kPos)
+        if (k.q[j] == 0) return false;
+      if (k.coef_bits[0] < 0) return false;
+    }
+    for (int j = 1; j <= 9; ++j)
+      if (comp[c].coef_bits[j] != 0) return true;
+    return false;
+  }
+};
+
+// ---- pixels ----
+
+constexpr int kConstBits = 13;
+constexpr int kPass1Bits = 2;
+
+inline uint8_t clamp8(int v) {
+  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+// One 1-D islow IDCT of the 8 values x[0], x[s], ..., x[7s] (jidctint.c,
+// both passes share it), the eight outputs before their descale in
+// o[0..7]. T is int32_t where the inputs are within +-8191 (no sum then
+// leaves 31 bits), else int64_t.
+template <typename T>
+inline void idct_1d(const T* x, int s, T* o) {
+  T z2 = x[2 * s], z3 = x[6 * s];
+  T z1 = (z2 + z3) * T{4433};                     // FIX_0_541196100
+  T tmp2 = z1 + z3 * T{-15137};                   // -FIX_1_847759065
+  T tmp3 = z1 + z2 * T{6270};                     // FIX_0_765366865
+  T tmp0 = (x[0] + x[4 * s]) * T{1 << kConstBits};
+  T tmp1 = (x[0] - x[4 * s]) * T{1 << kConstBits};
+  T tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  T tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  tmp0 = x[7 * s];
+  tmp1 = x[5 * s];
+  tmp2 = x[3 * s];
+  tmp3 = x[s];
+  z1 = tmp0 + tmp3;
+  z2 = tmp1 + tmp2;
+  z3 = tmp0 + tmp2;
+  T z4 = tmp1 + tmp3;
+  T z5 = (z3 + z4) * T{9633};                     // FIX_1_175875602
+  tmp0 *= T{2446};                                // FIX_0_298631336
+  tmp1 *= T{16819};                               // FIX_2_053119869
+  tmp2 *= T{25172};                               // FIX_3_072711026
+  tmp3 *= T{12299};                               // FIX_1_501321110
+  z1 *= T{-7373};                                 // -FIX_0_899976223
+  z2 *= T{-20995};                                // -FIX_2_562915447
+  z3 = z3 * T{-16069} + z5;                       // -FIX_1_961570560
+  z4 = z4 * T{-3196} + z5;                        // -FIX_0_390180644
+  tmp0 += z1 + z3;
+  tmp1 += z2 + z4;
+  tmp2 += z2 + z3;
+  tmp3 += z1 + z4;
+  o[0] = tmp10 + tmp3;
+  o[7] = tmp10 - tmp3;
+  o[1] = tmp11 + tmp2;
+  o[6] = tmp11 - tmp2;
+  o[2] = tmp12 + tmp1;
+  o[5] = tmp12 - tmp1;
+  o[3] = tmp13 + tmp0;
+  o[4] = tmp13 - tmp0;
+}
+
+// Pass 1 (columns) of dequantised `d` into `ws`, scaled by 2^PASS1_BITS;
+// a column whose AC terms are all zero is its DC shifted, as in
+// jidctint.c (the full formula gives the same).
+template <typename T>
+void idct_pass1(const int32_t* d, int32_t* ws) {
+  for (int c = 0; c < 8; ++c) {
+    const int32_t* x = d + c;
+    if (!(x[8] | x[16] | x[24] | x[32] | x[40] | x[48] | x[56])) {
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = x[0] * (1 << kPass1Bits);
+      continue;
+    }
+    T xv[8], o[8];
+    for (int r = 0; r < 8; ++r) xv[r] = x[8 * r];
+    idct_1d<T>(xv, 1, o);
+    const int sh = kConstBits - kPass1Bits;
+    for (int r = 0; r < 8; ++r)
+      ws[8 * r + c] = static_cast<int32_t>((o[r] + (T{1} << (sh - 1))) >> sh);
+  }
+}
+
+// Pass 2 (rows) of `ws` into 8-bit samples, +128 and clamped.
+template <typename T>
+void idct_pass2(const int32_t* ws, uint8_t* out, int stride) {
+  const int sh = kConstBits + kPass1Bits + 3;
+  for (int r = 0; r < 8; ++r) {
+    const int32_t* w = ws + 8 * r;
+    uint8_t* op = out + static_cast<ptrdiff_t>(r) * stride;
+    if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
+      const int sh0 = kPass1Bits + 3;
+      uint8_t v = clamp8(((w[0] + (1 << (sh0 - 1))) >> sh0) + 128);
+      for (int c = 0; c < 8; ++c) op[c] = v;
+      continue;
+    }
+    T xv[8], o[8];
+    for (int c = 0; c < 8; ++c) xv[c] = w[c];
+    idct_1d<T>(xv, 1, o);
+    for (int c = 0; c < 8; ++c)
+      op[c] = clamp8(
+          static_cast<int>((o[c] + (T{1} << (sh - 1))) >> sh) + 128);
+  }
+}
+
+// jidctint.c jpeg_idct_islow on one block into `out` (row stride
+// `stride`). The output is clamped to 0..255 as the SIMD build's saturating
+// packs do (the C build's range-limit table agrees inside +-384). Returns
+// false where the two builds part: a dequantised value or a first-pass
+// output beyond +-16383, past what the SIMD build's 16-bit lanes hold
+// (pairs of them are summed in 16 bits).
+bool idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
+                int stride) {
+  int32_t d[64], ws[64];
+  int32_t lo = 0, hi = 0;
+  for (int i = 0; i < 64; ++i) {
+    d[i] = static_cast<int32_t>(in[i]) * q[i];
+    lo = d[i] < lo ? d[i] : lo;
+    hi = d[i] > hi ? d[i] : hi;
+  }
+  if (lo < -16383 || hi > 16383) return false;
+  if (lo >= -8191 && hi <= 8191)
+    idct_pass1<int32_t>(d, ws);
+  else
+    idct_pass1<int64_t>(d, ws);
+  lo = hi = 0;
+  for (int i = 0; i < 64; ++i) {
+    lo = ws[i] < lo ? ws[i] : lo;
+    hi = ws[i] > hi ? ws[i] : hi;
+  }
+  if (lo < -16383 || hi > 16383) return false;
+  if (lo >= -8191 && hi <= 8191)
+    idct_pass2<int32_t>(ws, out, stride);
+  else
+    idct_pass2<int64_t>(ws, out, stride);
+  return true;
+}
+
+// A component's samples: (hb * 8, wb * 8), stride wb * 8.
+struct Plane {
+  std::vector<uint8_t> px;
+  int w = 0, h = 0, stride = 0;
+  const uint8_t* row(int y) const {
+    return px.data() + static_cast<size_t>(y) * stride;
+  }
+};
+
+Plane inverse_dct(Component& k) {
+  Plane pl;
+  pl.stride = k.wb * 8;
+  pl.w = k.dw;
+  pl.h = k.dh;
+  pl.px.resize(static_cast<size_t>(k.hb) * 8 * pl.stride);
+  for (int by = 0; by < k.hb; ++by)
+    for (int bx = 0; bx < k.wb; ++bx)
+      if (!idct_islow(k.block(by, bx), k.q,
+                      pl.px.data() + static_cast<size_t>(by) * 8 * pl.stride +
+                          bx * 8,
+                      pl.stride))
+        fail(kRange);
+  return pl;
+}
+
+// jdsample.c, one output row at a time: with fancy upsampling on, h2v1
+// and h2v2 triangle filters where the component is more than 2 samples
+// wide, h1v2 (libjpeg-turbo >= 2.1) always; every other ratio, and h2 at
+// 1-2 samples wide, replicates. Edge samples and rows repeat (jdmainct.c's
+// context rows).
+class Upsampler {
+ public:
+  Upsampler(const Plane& in, int hx, int vx, int width)
+      : in_(in), hx_(hx), vx_(vx), width_(width),
+        colsum_(static_cast<size_t>(in.w)),
+        line_(static_cast<size_t>(2 * in.w + 2 > width ? 2 * in.w + 2
+                                                       : width)) {}
+
+  // output row y (`width` samples), in the plane itself where the
+  // component is full size
+  const uint8_t* row(int y) {
+    const int dw = in_.w;
+    uint8_t* l = line_.data();
+    if (hx_ == 1 && vx_ == 1) return in_.row(y);  // fullsize_upsample
+    if (hx_ == 2 && vx_ == 1 && dw > 2) {         // h2v1_fancy_upsample
+      const uint8_t* r = in_.row(y);
+      l[0] = r[0];
+      l[1] = static_cast<uint8_t>((3 * r[0] + r[1] + 2) >> 2);
+      for (int i = 1; i < dw - 1; ++i) {
+        int v = 3 * r[i];
+        l[2 * i] = static_cast<uint8_t>((v + r[i - 1] + 1) >> 2);
+        l[2 * i + 1] = static_cast<uint8_t>((v + r[i + 1] + 2) >> 2);
+      }
+      l[2 * dw - 2] = static_cast<uint8_t>((3 * r[dw - 1] + r[dw - 2] + 1) >> 2);
+      l[2 * dw - 1] = r[dw - 1];
+    } else if (hx_ == 2 && vx_ == 2 && dw > 2) {  // h2v2_fancy_upsample
+      const int iy = y >> 1;
+      const uint8_t* r0 = in_.row(iy);
+      const uint8_t* r1 = in_.row(clampy((y & 1) ? iy + 1 : iy - 1));
+      int* cs = colsum_.data();
+      for (int i = 0; i < dw; ++i) cs[i] = 3 * r0[i] + r1[i];
+      l[0] = static_cast<uint8_t>((4 * cs[0] + 8) >> 4);
+      l[1] = static_cast<uint8_t>((3 * cs[0] + cs[1] + 7) >> 4);
+      for (int i = 1; i < dw - 1; ++i) {
+        int v = 3 * cs[i];
+        l[2 * i] = static_cast<uint8_t>((v + cs[i - 1] + 8) >> 4);
+        l[2 * i + 1] = static_cast<uint8_t>((v + cs[i + 1] + 7) >> 4);
+      }
+      l[2 * dw - 2] = static_cast<uint8_t>((3 * cs[dw - 1] + cs[dw - 2] + 8) >> 4);
+      l[2 * dw - 1] = static_cast<uint8_t>((4 * cs[dw - 1] + 7) >> 4);
+    } else if (hx_ == 1 && vx_ == 2) {  // h1v2_fancy_upsample
+      const int iy = y >> 1;
+      const uint8_t* r0 = in_.row(iy);
+      const bool lower = y & 1;
+      const uint8_t* r1 = in_.row(clampy(lower ? iy + 1 : iy - 1));
+      const int bias = lower ? 2 : 1;
+      for (int x = 0; x < width_; ++x)
+        l[x] = static_cast<uint8_t>((3 * r0[x] + r1[x] + bias) >> 2);
+    } else {  // int_upsample, h2v1_upsample, h2v2_upsample
+      const uint8_t* r = in_.row(y / vx_);
+      for (int x = 0; x < width_; ++x) l[x] = r[x / hx_];
+    }
+    return l;
+  }
+
+ private:
+  int clampy(int y) const { return y < 0 ? 0 : (y >= in_.h ? in_.h - 1 : y); }
+
+  const Plane& in_;
+  int hx_, vx_, width_;
+  std::vector<int> colsum_;
+  std::vector<uint8_t> line_;
+};
+
+// out[y][x] = src[base + y * sy + x * sx] over the oriented (oh, ow)
+// grid: OpenCV's ApplyExifOrientation (1 identity, 2 flip left-right,
+// 3 rotate 180, 4 flip up-down, 5 transpose, 6 transpose + flip
+// left-right, 7 transpose + both flips, 8 transpose + flip up-down).
+void orient_copy(const uint8_t* src, int stride, int w, int h, int o,
+                 uint8_t* out) {
+  const int64_t S = stride, W1 = w - 1, H1 = h - 1;
+  int64_t base = 0, sy = S, sx = 1;
+  int ow = w, oh = h;
+  switch (o) {
+    case 2: base = W1; sx = -1; break;
+    case 3: base = H1 * S + W1; sy = -S; sx = -1; break;
+    case 4: base = H1 * S; sy = -S; break;
+    case 5: base = 0; sy = 1; sx = S; break;
+    case 6: base = H1 * S; sy = 1; sx = -S; break;
+    case 7: base = H1 * S + W1; sy = -1; sx = -S; break;
+    case 8: base = W1; sy = -1; sx = S; break;
+    default: break;
+  }
+  if (o >= 5 && o <= 8) {
+    ow = h;
+    oh = w;
+  }
+  for (int y = 0; y < oh; ++y) {
+    const uint8_t* s = src + base + y * sy;
+    uint8_t* d = out + static_cast<size_t>(y) * ow;
+    if (sx == 1) {
+      std::memcpy(d, s, static_cast<size_t>(ow));
+    } else {
+      for (int x = 0; x < ow; ++x) d[x] = s[x * sx];
+    }
+  }
+}
+
+struct ColorTables {  // jdcolor.c build_ycc_rgb_table, build_rgb_y_table
+  int cr_r[256], cb_b[256];
+  int32_t cr_g[256], cb_g[256];
+  int32_t r_y[256], g_y[256], b_y[256];
+  ColorTables() {
+    for (int i = 0; i < 256; ++i) {
+      int x = i - 128;
+      cr_r[i] = static_cast<int>((91881 * x + 32768) >> 16);    // FIX(1.40200)
+      cb_b[i] = static_cast<int>((116130 * x + 32768) >> 16);   // FIX(1.77200)
+      cr_g[i] = -46802 * x;                                     // -FIX(0.71414)
+      cb_g[i] = -22554 * x + 32768;                             // -FIX(0.34414)
+      r_y[i] = 19595 * i;                                       // FIX(0.29900)
+      g_y[i] = 38470 * i;                                       // FIX(0.58700)
+      b_y[i] = 7471 * i + 32768;                                // FIX(0.11400)
+    }
+  }
+};
+
+const ColorTables& color_tables() {
+  static const ColorTables t;
+  return t;
+}
+
+void oriented_size(const Decoder& d, int* w, int* h) {
+  bool swap = d.orientation >= 5 && d.orientation <= 8;
+  *w = swap ? d.height : d.width;
+  *h = swap ? d.width : d.height;
+}
+
+void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
+  if (channels != 1 && channels != 3) fail(kChannels);
+  Decoder d(buf, len);
+  d.read_header();
+  // jdapimin.c default_decompress_parms: the colour space of 3 components
+  bool rgb = false;
+  if (d.ncomp == 3 && !d.jfif) {
+    if (d.adobe)
+      rgb = d.adobe_transform == 0;
+    else
+      rgb = d.comp[0].id == 'R' && d.comp[1].id == 'G' && d.comp[2].id == 'B';
+  }
+  d.decode_all();
+
+  // components the output needs (jdcolor.c: YCbCr to gray reads Y only)
+  const int need = (d.ncomp == 3 && (channels == 3 || rgb)) ? 3 : 1;
+  const int W = d.width, H = d.height;
+  std::vector<Plane> planes;
+  std::vector<Upsampler> ups;
+  planes.reserve(need);
+  ups.reserve(need);
+  for (int c = 0; c < need; ++c) {
+    Component& k = d.comp[c];
+    if (d.max_h % k.h || d.max_v % k.v) fail(kSampling);
+    if (d.smoothing_changes(c)) fail(kSmoothing);
+    if (!k.latched) fail(kNoQuantTable);  // never in a scan
+    planes.push_back(inverse_dct(k));
+    ups.emplace_back(planes.back(), d.max_h / k.h, d.max_v / k.v, W);
+  }
+  // rows are written in place where the orientation is the identity, else
+  // into `tmp` and then turned
+  const size_t npx = static_cast<size_t>(W) * H;
+  const int o = d.orientation >= 1 && d.orientation <= 8 ? d.orientation : 1;
+  std::vector<uint8_t> tmp(o == 1 ? 0 : npx * channels);
+  uint8_t* dst = o == 1 ? out : tmp.data();
+  const ColorTables& t = color_tables();
+  for (int y = 0; y < H; ++y) {
+    const size_t at = static_cast<size_t>(y) * W;
+    const uint8_t* c0 = ups[0].row(y);
+    if (need == 1) {  // grayscale_convert, gray_rgb_convert
+      for (int ch = 0; ch < channels; ++ch)
+        std::memcpy(dst + ch * npx + at, c0, static_cast<size_t>(W));
+      continue;
+    }
+    const uint8_t* c1 = ups[1].row(y);
+    const uint8_t* c2 = ups[2].row(y);
+    if (channels == 1) {  // rgb_gray_convert
+      uint8_t* g = dst + at;
+      for (int x = 0; x < W; ++x)
+        g[x] = static_cast<uint8_t>(
+            (t.r_y[c0[x]] + t.g_y[c1[x]] + t.b_y[c2[x]]) >> 16);
+    } else if (rgb) {  // rgb_rgb_convert, to BGR
+      std::memcpy(dst + at, c2, static_cast<size_t>(W));
+      std::memcpy(dst + npx + at, c1, static_cast<size_t>(W));
+      std::memcpy(dst + 2 * npx + at, c0, static_cast<size_t>(W));
+    } else {  // ycc_rgb_convert, to BGR
+      uint8_t* b = dst + at;
+      uint8_t* g = dst + npx + at;
+      uint8_t* r = dst + 2 * npx + at;
+      for (int x = 0; x < W; ++x) {
+        int yy = c0[x], cb = c1[x], cr = c2[x];
+        r[x] = clamp8(yy + t.cr_r[cr]);
+        g[x] = clamp8(yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+        b[x] = clamp8(yy + t.cb_b[cb]);
+      }
+    }
+  }
+  if (o != 1) {
+    for (int ch = 0; ch < channels; ++ch)
+      orient_copy(tmp.data() + ch * npx, W, W, H, o, out + ch * npx);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// The oriented size and component count of a JPEG: 0, or a negative code.
+int of_jpeg_info(const uint8_t* buf, int64_t len, int* width, int* height,
+                 int* ncomp) {
+  try {
+    Decoder d(buf, len);
+    d.read_header();
+    oriented_size(d, width, height);
+    *ncomp = d.ncomp;
+    return 0;
+  } catch (const Error& e) {
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  }
+}
+
+// Decode into `out`, a C-contiguous (channels, height, width) uint8 array
+// of of_jpeg_info's size: channels 1 gray (the Y plane of a YCbCr image),
+// 3 BGR. Returns 0, or a negative code (of_jpeg_strerror).
+int of_jpeg_decode(const uint8_t* buf, int64_t len, int channels,
+                   uint8_t* out) {
+  try {
+    decode(buf, len, channels, out);
+    return 0;
+  } catch (const Error& e) {
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  }
+}
+
+const char* of_jpeg_strerror(int code) {
+  switch (code) {
+    case kOk: return "no error";
+    case kNotJpeg: return "not a JPEG (no SOI marker)";
+    case kTruncated: return "truncated JPEG data";
+    case kBadMarker: return "corrupt or unsupported JPEG marker segment";
+    case kArithmetic: return "arithmetic-coded JPEG is not supported";
+    case kLossless: return "lossless JPEG (SOF3) is not supported";
+    case kHierarchical: return "hierarchical JPEG is not supported";
+    case kPrecision: return "JPEG sample precision other than 8 bits "
+                            "(12-bit) is not supported";
+    case kComponents: return "JPEG with other than 1 or 3 components "
+                             "(CMYK / 4-component) is not supported";
+    case kSampling: return "unsupported JPEG sampling factors";
+    case kNoHuffTable: return "JPEG scan uses a Huffman table that is not "
+                              "defined";
+    case kNoQuantTable: return "JPEG component uses a quantization table "
+                               "that is not defined";
+    case kBadHuffTable: return "corrupt JPEG Huffman table";
+    case kBadCode: return "corrupt JPEG data: bad Huffman code";
+    case kCorrupt: return "corrupt JPEG data";
+    case kProgression: return "corrupt JPEG data: invalid scan or "
+                              "progression parameters";
+    case kSmoothing: return "progressive JPEG whose scans leave low-frequency "
+                            "coefficients unrefined (block smoothing) is not "
+                            "supported";
+    case kRange: return "corrupt JPEG data: coefficient out of range for "
+                        "8-bit samples";
+    case kSize: return "JPEG image size is empty or too large";
+    case kChannels: return "channels must be 1 or 3";
+    case kNoMemory: return "out of memory decoding JPEG";
+    case kNoImage: return "JPEG has no image (no scan)";
+    case kRestart: return "corrupt JPEG data: wrong restart marker";
+    case kExtraneous: return "corrupt JPEG data: extraneous bytes before "
+                             "marker";
+    default: return "unknown JPEG error";
+  }
+}
+
+}  // extern "C"

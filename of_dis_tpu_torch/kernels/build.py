@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 # host libraries: `csrc/<name>.cpp`, compiled with the host C++ compiler
-HOST_LIBS = ("io_native",)
+HOST_LIBS = ("io_native", "jpeg")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}

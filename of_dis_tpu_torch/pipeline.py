@@ -31,9 +31,10 @@ segments advance in lockstep, each lane warm-starting from its previous
 pair's flow. --mesh all splits over every CUDA device; --mesh N over the
 first N (on --device cpu, over the CPU N times).
 
-Frames (PNG, PGM, PPM; JPEG is refused) are sorted lexicographically; pair
-t produces OUT_DIR/<frame_t>.flo (.pfm for depth modes), cropped to the
-frames' size.
+Frames (PNG, PGM, PPM and JPEG, which is decoded as cv::imread decodes it
+by the port's own decoder, csrc/jpeg.cpp) are sorted lexicographically;
+pair t produces OUT_DIR/<frame_t>.flo (.pfm for depth modes), cropped to
+the frames' size.
 """
 
 from __future__ import annotations
@@ -76,14 +77,9 @@ def default_batch(op_point: int) -> int:
 
 
 def list_frames(frame_dir: str) -> List[str]:
-    """The frames of a directory, sorted; raises ValueError on a JPEG
-    frame (the port decodes PNG, PGM and PPM only)."""
+    """The frames (PNG, PGM, PPM, JPEG) of a directory, sorted."""
     names = sorted(f for f in os.listdir(frame_dir) if f.lower().endswith(
         (".png", ".pgm", ".ppm", ".jpg", ".jpeg")))
-    jpeg = [f for f in names if f.lower().endswith((".jpg", ".jpeg"))]
-    if jpeg:
-        raise ValueError(f"{frame_dir}: JPEG frames are not supported "
-                         f"({jpeg[0]}); convert them to PNG")
     return [os.path.join(frame_dir, f) for f in names]
 
 

@@ -8,7 +8,10 @@ Byte-compatible with the reference writers/readers:
   - image loading decodes 8-bit non-interlaced PNG and binary PGM/PPM with
     zlib and numpy (no OpenCV or PIL needed), with OpenCV's fixed-point
     BGR2GRAY conversion so gray values equal cv::imread(GRAYSCALE)'s
-    (run_dense.cpp:200-210).
+    (run_dense.cpp:200-210); JPEG through the port's own decoder
+    (`native.io.decode_jpeg`, csrc/jpeg.cpp), pixel for pixel as
+    cv::imread: gray is the image's decoded Y plane, not BGR2GRAY of its
+    colour decode, and the EXIF orientation is applied.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 
 _FLO_MAGIC = b"PIEH"
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+JPEG_MAGIC = b"\xff\xd8\xff"  # SOI, then a marker's FF
 
 
 def write_flo(path: str, data: np.ndarray) -> None:
@@ -199,20 +203,33 @@ def decode_pnm(raw: bytes) -> np.ndarray:
 
 
 def load_image(path: str, channels: int = 1) -> np.ndarray:
-    """Load an 8-bit PNG/PGM/PPM as float32 (C, H, W).
+    """Load an 8-bit PNG/PGM/PPM or a JPEG as float32 (C, H, W), the
+    values cv::imread gives.
 
-    channels=1: gray through OpenCV's fixed-point BGR2GRAY,
+    PNG / PNM: channels=1 gray through OpenCV's fixed-point BGR2GRAY,
     (R*4899 + G*9617 + B*1868 + 8192) >> 14 (io_native.cpp:208-210);
-    channels=3: BGR order, as cv::imread(COLOR) gives it."""
+    channels=3 BGR order, as cv::imread(COLOR) gives it.
+    JPEG (csrc/jpeg.cpp, through `native.io.decode_jpeg`): channels=1 the
+    decoded Y plane, as libjpeg hands cv::imread(GRAYSCALE) (not BGR2GRAY
+    of the colour decode); channels=3 BGR; the EXIF orientation applied.
+    Raises ValueError naming the cause on a JPEG it refuses (arithmetic
+    coding, 12-bit, lossless, CMYK, corrupt data)."""
     with open(path, "rb") as f:
         raw = f.read()
+    if raw[:3] == JPEG_MAGIC:
+        from of_dis_tpu_torch.native import io as native_io
+        try:
+            pix = native_io.decode_jpeg(raw, channels)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+        return pix.astype(np.float32)
     if raw[:8] == _PNG_MAGIC:
         pix = _decode_png(raw)
     elif raw[:1] == b"P" and raw[1:2] in (b"5", b"6"):
         pix = decode_pnm(raw)
     else:
         raise ValueError(f"{path}: unsupported image format "
-                         "(PNG/PGM/PPM supported)")
+                         "(PNG/PGM/PPM/JPEG supported)")
     pix = pix.astype(np.int32)
     if pix.shape[2] in (1, 2):          # gray (+ alpha)
         r = g = b = pix[:, :, 0]

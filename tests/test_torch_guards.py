@@ -1,7 +1,8 @@
 """Guards on the port's boundaries: it never loads JAX, the JAX package or
-the JAX system's bench and tools (`bench.py`, `tools/`), never runs on the
-CPU in place of CUDA, and every kernel has its source, its C entry and a
-launch counter."""
+the JAX system's bench and tools (`bench.py`, `tools/`), nor an image
+library (cv2, PIL, imageio: each would hide the port's own decoders on a
+machine that has it), never runs on the CPU in place of CUDA, and every
+kernel has its source, its C entry and a launch counter."""
 
 import ast
 import importlib
@@ -36,13 +37,25 @@ def _modules():
         of_dis_tpu_torch.__path__, "of_dis_tpu_torch."))
 
 
+FORBIDDEN = ("jax", "of_dis_tpu", "bench", "tools", "cv2", "PIL",
+             "imageio")
+JPEG = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg", "variants",
+                    "s420.jpg")
+
+
 def test_import_loads_neither_jax_nor_reference_package():
+    """Every module of the port and chip_smoke.py imported, and a JPEG and
+    a PNG decoded through `load_image` and `decode_batch`: none of
+    FORBIDDEN (nor a submodule) is loaded."""
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}: importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'of_dis_tpu' or "
-            "m.startswith('of_dis_tpu.') or m in ('bench', 'tools') or "
-            "m.startswith('tools.')]\n"
+            "import chip_smoke\n"
+            "from of_dis_tpu_torch.native import io as nio\n"
+            "from of_dis_tpu_torch.utils import io as uio\n"
+            f"for p in ({JPEG!r}, {os.path.join(ROOT, 'tests/goldens/a.png')!r}):\n"
+            "    uio.load_image(p, 3); nio.decode_batch([p], 1)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -51,8 +64,14 @@ def test_import_loads_neither_jax_nor_reference_package():
 
 
 def test_sources_never_import_reference_or_jax():
-    pat = re.compile(r"^\s*(from|import)\s+(of_dis_tpu|jax|bench|tools)"
-                     r"(\.|\s|$)", re.MULTILINE)
+    pat = re.compile(r"^\s*(from|import)\s+(of_dis_tpu|jax|bench|tools|cv2|"
+                     r"PIL|imageio)(\.|\s|$)", re.MULTILINE)
+    dynamic = re.compile(r"(import_module|__import__)\(\s*[\"'](cv2|PIL|"
+                         r"imageio)")
+    for line in ("import cv2\n", "from PIL import Image\n",
+                 "    import imageio.v3 as iio\n"):
+        assert pat.search(line), line
+    assert dynamic.search("importlib.import_module('cv2')")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -61,6 +80,7 @@ def test_sources_never_import_reference_or_jax():
         with open(f) as fh:
             src = fh.read()
         assert not pat.search(src), f
+        assert not dynamic.search(src), f
 
 
 # the JAX system's measurement and operations tools that have a module in

@@ -242,13 +242,24 @@ def test_corrupt_frame_fails_the_run(tmp_path):
 
 
 def test_jpeg_frames_are_refused(tmp_path):
+    """No longer refused: the directory of this test with a real JPEG frame
+    (the next frame of the sequence, written by cv2) runs, both pairs, and
+    its files meet the JAX pipeline's on the same directory."""
     frame_dir = str(tmp_path / "frames")
-    write_shift_frames(frame_dir, 2, 1.5, 0.5)
-    with open(os.path.join(frame_dir, "frame_0002.jpg"), "wb") as f:
-        f.write(b"\xff\xd8\xff\xe0")
-    with pytest.raises(ValueError, match="JPEG"):
-        pipeline.run_pipeline(frame_dir, str(tmp_path / "out"),
+    write_shift_frames(frame_dir, 3, 1.5, 0.5)
+    third = os.path.join(frame_dir, "frame_0002.png")
+    img = uio.load_image(third, 1)[0].astype(np.uint8)
+    os.remove(third)
+    cv2.imwrite(os.path.join(frame_dir, "frame_0002.jpg"), img,
+                [cv2.IMWRITE_JPEG_QUALITY, 95])
+    out, jax_out = str(tmp_path / "out"), str(tmp_path / "jax")
+    n = pipeline.run_pipeline(frame_dir, out, op_point=1, batch=2,
                               verbose=False, device="cpu")
+    assert n == 2
+    jax_pipeline.run_pipeline(frame_dir, jax_out, op_point=1, batch=2,
+                              verbose=False)
+    assert assert_files_match_jax(out, jax_out) == [
+        "frame_0000.flo", "frame_0001.flo"]
 
 
 @pytest.mark.parametrize("op,mesh", [(1, 1), (3, 1), (4, 1), (3, 2)])

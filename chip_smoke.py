@@ -48,9 +48,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. the serving pipeline (`pipeline.run_pipeline`) at op-2 gray flow on
      161 PNG frames of 1024x436 written on the card's host
      (`tools.bench_pipeline.make_frames`: content moving 1.3, 0.4 px a
-     frame): the batch decoder's frames/s at 1, 4, 8 and 16 threads and
-     the plain `load_image`'s; cold batches of 64 (two full and a ragged
-     tail of 32), `--streams 16`, depth on 17 frames moving -1.3 px, and
+     frame): the batch decoder's frames/s at 1, 4, 8 and 16 threads
+     (its pixels held to cv2's in part 7c); cold batches of 64 (two full
+     and a ragged tail of 32), `--streams 16`, depth on 17 frames moving
+     -1.3 px, and
      the cold run split over two devices (`cuda:0` twice): launches per
      batch equal to a path-A call's, every file against
      `dis_flow_batched` (a `dis_step_warm` loop for the streams) on the
@@ -68,6 +69,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      frames, medians within 0.25 px of the motion, pairs/s and the busy
      share; `cli.main` on the first pair, gray and RGB, against
      `dis_flow_batched`;
+  7c. PNG, PNM and BMP frames (`run_formats_part`): part 7b's nine frames
+     re-encoded on the card's host by the numpy-only generator of
+     tests/torch_fixtures/formats as 16-bit gray PNG, palette PNG, Adam7
+     RGB PNG with sRGB, 24-bit BMP, 16-bit PGM and 8-bit gray PNG; every
+     frame and committed variant decoded by the port's own decoder
+     (`csrc/io_native.cpp`) through `decode_batch` and `load_image`, gray
+     and colour, each plane's SHA-256 equal to the manifest's cv2.imread
+     hash; decode frames/s per format at 1 and 8 threads; `run_pipeline`
+     at op-2 gray flow (one batch of 8 pairs) and `cli.main` on the first
+     pair of the 16-bit PNG and the sRGB RGB PNG frames: launches those of
+     a path-A call, every file against `dis_flow_batched` on the same
+     decoded frames, medians within 0.25 px of the motion;
   8. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
      the merge for flow and depth, the TV-free pseudo-Huber run), and the
@@ -127,6 +140,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib.util
 import io as io_mod
 import json
 import math
@@ -1260,7 +1274,7 @@ def run_cli_init_flow():
 # <= 0); the split runs the cold batches over two devices (the card twice).
 PIPELINE = dict(op=2, frames=161, step=(1.3, 0.4), batch=64, streams=16,
                 depth_frames=17, depth_step=(-1.3, 0.0),
-                decode_threads=(1, 4, 8, 16), load_image_frames=4)
+                decode_threads=(1, 4, 8, 16))
 # px: a file against `dis_flow_batched` on the same decoded frames; a
 # pair's flow does not depend on its batch (the Hessian's and the
 # densification's sums in float64), so 0 is expected
@@ -1320,8 +1334,9 @@ def run_pipeline_phase(dev, totals, walls_by_path):
     n_pairs = len(paths) - 1
     made = time.perf_counter() - t_phase
 
-    # decode rate: the batch decoder on every frame at each thread count,
-    # against the plain twin on a few
+    # decode rate: the batch decoder on every frame at each thread count
+    # (its pixels are held to cv2's by part 7c's manifest, whose 8-bit
+    # gray PNG frames use all five filters)
     decoded = native_io.decode_batch(paths, 1)
     rates = {}
     for k in cfg["decode_threads"]:
@@ -1331,16 +1346,9 @@ def run_pipeline_phase(dev, totals, walls_by_path):
             rates[k] = len(paths) / (time.perf_counter() - t0)
         if not np.array_equal(again, decoded):
             raise AssertionError(f"decode_batch with {k} threads differs")
-    few = paths[:cfg["load_image_frames"]]
-    t0 = time.perf_counter()
-    plain = np.stack([io.load_image(p, 1) for p in few])
-    plain_rate = len(few) / (time.perf_counter() - t0)
-    if not np.array_equal(plain.astype(np.uint8), decoded[:len(few)]):
-        raise AssertionError("decode_batch differs from load_image")
     print(json.dumps({"pipeline": "decode", "frames": len(paths),
                       "size": f"{W_ORG}x{H_ORG}", "png_rows": "filters 0-4",
                       "frames_per_s_by_threads": rates,
-                      "load_image_frames_per_s": plain_rate,
                       "cpu_count": os.cpu_count(), "card": nvidia_smi_line()}),
           flush=True)
 
@@ -1527,6 +1535,40 @@ def _sha256(planes) -> str:
     return hashlib.sha256(np.ascontiguousarray(planes).tobytes()).hexdigest()
 
 
+def _check_planes(files):
+    """(planes checked, mismatches): each (path, manifest record) decoded
+    through `decode_batch` and `load_image`, gray and colour, against the
+    record's shapes and SHA-256s."""
+    checked, bad = 0, []
+    for path, rec in files:
+        for key, ch in (("gray", 1), ("color", 3)):
+            for how, planes in (
+                    ("decode_batch", native_io.decode_batch([path], ch)[0]),
+                    ("load_image", io.load_image(path, ch).astype(np.uint8))):
+                checked += 1
+                if (list(planes.shape) != rec[key]["shape"]
+                        or _sha256(planes) != rec[key]["sha256"]):
+                    bad.append(f"{os.path.relpath(path, ROOT)} {key} {how}")
+    return checked, bad
+
+
+def _decode_rates(paths, channels, repeats, threads):
+    """Frames/s of `decode_batch` over `paths` repeated, at each thread
+    count; each run's first frames against one serial decode."""
+    many = list(paths) * repeats
+    once = native_io.decode_batch(paths, channels)
+    rates = {}
+    for k in threads:
+        with ThreadPoolExecutor(k) as pool:
+            t0 = time.perf_counter()
+            again = native_io.decode_batch(many, channels, pool=pool)
+            rates[k] = len(many) / (time.perf_counter() - t0)
+        if not np.array_equal(again[:len(paths)], once):
+            raise AssertionError(f"decode_batch with {k} threads differs "
+                                 f"({paths[0]})")
+    return rates
+
+
 def run_jpeg_part(dev, totals, walls_by_path):
     """Phase 7, part 7b (see JPEG): every fixture's planes against the
     manifest's cv2 hashes, through `decode_batch` and `load_image`; the
@@ -1542,17 +1584,9 @@ def run_jpeg_part(dev, totals, walls_by_path):
     motion = manifest["motion_px"]
 
     # decode check: both entries, both channel counts, every file
-    checked, bad = 0, []
-    for rel, rec in sorted(manifest["files"].items()):
-        path = os.path.join(JPEG_DIR, rel)
-        for key, ch in (("gray", 1), ("color", 3)):
-            for how, planes in (
-                    ("decode_batch", native_io.decode_batch([path], ch)[0]),
-                    ("load_image", io.load_image(path, ch).astype(np.uint8))):
-                checked += 1
-                if (list(planes.shape) != rec[key]["shape"]
-                        or _sha256(planes) != rec[key]["sha256"]):
-                    bad.append(f"{rel} {key} {how}")
+    checked, bad = _check_planes(
+        (os.path.join(JPEG_DIR, rel), rec)
+        for rel, rec in sorted(manifest["files"].items()))
     print(json.dumps({"jpeg": "decode check", "planes": checked,
                       "files": len(manifest["files"]),
                       "against": f"cv2 {manifest['cv2']} "
@@ -1565,18 +1599,9 @@ def run_jpeg_part(dev, totals, walls_by_path):
     frame_dir = os.path.join(JPEG_DIR, "frames")
     paths = pipeline.list_frames(frame_dir)
     many = paths * cfg["decode_repeats"]
-    rates = {}
-    for key, ch in (("gray", 1), ("color", 3)):
-        once = native_io.decode_batch(paths, ch)
-        rates[key] = {}
-        for k in cfg["decode_threads"]:
-            with ThreadPoolExecutor(k) as pool:
-                t0 = time.perf_counter()
-                again = native_io.decode_batch(many, ch, pool=pool)
-                rates[key][k] = len(many) / (time.perf_counter() - t0)
-            if not np.array_equal(again[:len(paths)], once):
-                raise AssertionError(f"JPEG decode_batch with {k} threads "
-                                     "differs")
+    rates = {key: _decode_rates(paths, ch, cfg["decode_repeats"],
+                                cfg["decode_threads"])
+             for key, ch in (("gray", 1), ("color", 3))}
     few = paths[:cfg["load_image_frames"]]
     t0 = time.perf_counter()
     for p in few:
@@ -1658,6 +1683,146 @@ def run_jpeg_part(dev, totals, walls_by_path):
         if not cli_err <= PIPELINE_TOL:
             raise AssertionError(f"jpeg cli {mode}: differs by {cli_err} px")
     print(f"jpeg part: {time.perf_counter() - t_part:.1f} s", flush=True)
+    return result
+
+
+# Part 7c: PNG, PNM and BMP frames beyond 8-bit PNG, decoded by the port's
+# own decoder (`csrc/io_native.cpp`) as cv::imread decodes them. The
+# frames are the nine JPEG frames of part 7b, decoded by the port's JPEG
+# decoder (cv2's planes, 7b's manifest) and re-encoded at 1024x436 by the
+# numpy-only generator tests/torch_fixtures/formats/make_fixtures.py in
+# each of its FORMATS (16-bit gray PNG, palette PNG, Adam7 RGB PNG with
+# sRGB, 24-bit BMP, 16-bit PGM, and 8-bit gray PNG as the rate's
+# yardstick); its manifest holds the SHA-256 of cv2.imread's gray and
+# colour planes of every frame and of its small committed variants, which
+# the card machine's build must reproduce. `served`: the formats whose
+# eight pairs serve as one batch of 8 at op-2 gray flow (path A's
+# launches) and whose first pair goes through `cli.main`.
+FORMATS_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "formats")
+FORMATS_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=4,
+                    served=("png16", "adam7_srgb"))
+
+
+def _format_fixtures():
+    """tests/torch_fixtures/formats/make_fixtures.py, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        "formats_fixtures", os.path.join(FORMATS_DIR, "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_formats_part(dev, totals, walls_by_path):
+    """Phase 7, part 7c (see FORMATS_PART): the frames written; every
+    frame's and variant's planes against the manifest's cv2 hashes,
+    through `decode_batch` and `load_image`; decode frames/s per format at
+    1 and 8 threads; `run_pipeline` at op-2 gray flow and `cli.main` on
+    the served formats, counted, each file against `dis_flow_batched` on
+    the same decoded frames and its median against the motion."""
+    cfg = FORMATS_PART
+    t_part = time.perf_counter()
+    fixtures = _format_fixtures()
+    with open(os.path.join(FORMATS_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    motion = manifest["motion_px"]
+    root = os.path.join(OUT_DIR, "formats")
+    shutil.rmtree(root, ignore_errors=True)
+    jpeg_paths = pipeline.list_frames(os.path.join(JPEG_DIR, "frames"))
+    planes = [(native_io.decode_batch([p], 1)[0, 0],
+               native_io.decode_batch([p], 3)[0]) for p in jpeg_paths]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        paths = fixtures.write_frames(root, planes, pool=pool)
+    write_s = time.perf_counter() - t0
+
+    # decode check: both entries, both channel counts, every file
+    files = [(os.path.join(FORMATS_DIR, rel), rec)
+             for rel, rec in sorted(manifest["files"].items())]
+    files += [(p, manifest["frames"][f"{fmt}/{os.path.basename(p)}"])
+              for fmt, ps in paths.items() for p in ps]
+    if len(files) != len(manifest["files"]) + len(manifest["frames"]):
+        raise AssertionError("formats: the frames written differ from the "
+                             "manifest's")
+    checked, bad = _check_planes(files)
+    print(json.dumps({"formats": "decode check", "planes": checked,
+                      "files": len(files), "frames_written_s": write_s,
+                      "against": f"cv2 {manifest['cv2']}",
+                      "mismatches": bad}), flush=True)
+    if bad:
+        raise AssertionError(f"PNG / PNM / BMP planes differ from cv2's: "
+                             f"{bad}")
+
+    # decode rate: each format's nine frames, repeated, gray, at each
+    # thread count
+    rates = {fmt: _decode_rates(ps, 1, cfg["decode_repeats"],
+                                cfg["decode_threads"])
+             for fmt, ps in paths.items()}
+    print(json.dumps({"formats": "decode", "size": f"{W_ORG}x{H_ORG}",
+                      "channels": 1, "frames": 9 * cfg["decode_repeats"],
+                      "frames_per_s_by_threads": rates,
+                      "cpu_count": os.cpu_count(),
+                      "card": nvidia_smi_line()}), flush=True)
+
+    # serving: one batch of the eight pairs at op-2 gray flow, and the CLI
+    per = next(c["launches"] for c in PATHS if c["name"] == "A")
+    params = op_point_params(W_ORG, cfg["op"], nop=2, noc=1)
+    top, bot, left, right = pad_amounts(W_ORG, H_ORG, params.sc_f)
+    full_h, full_w = H_ORG + top + bot, W_ORG + left + right
+    result = {}
+    for fmt in cfg["served"]:
+        ps = paths[fmt]
+        frame_dir = os.path.dirname(ps[0])
+        names = [os.path.splitext(os.path.basename(p))[0] + ".flo"
+                 for p in ps[:-1]]
+        x = pyramid.pad_to_divisible(torch.as_tensor(
+            native_io.decode_batch(ps, 1)).to(dev), params.sc_f)
+        want = dis.dis_flow_batched(x[:-1], x[1:], params, full_w, full_h,
+                                    device=dev)[:, top:top + H_ORG,
+                                                left:left + W_ORG]
+        out_dir = os.path.join(root, f"out_{fmt}")
+        reset_launches()
+        n = pipeline.run_pipeline(frame_dir, out_dir, op_point=cfg["op"],
+                                  batch=cfg["batch"], mode="run_OF_INT",
+                                  verbose=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if n != len(names) or sorted(os.listdir(out_dir)) != names:
+            raise AssertionError(f"{fmt} pipeline: {n} pairs")
+        if launches != per:
+            raise AssertionError(f"{fmt} pipeline: launches {launches}, "
+                                 f"expected {per} (one batch)")
+        for name, c in launches.items():
+            totals[name] = totals.get(name, 0) + c
+        err, meds = _pipeline_files(out_dir, names, want, 2)
+        off = _check_medians(f"{fmt}", meds, motion)
+        if not err <= PIPELINE_TOL:
+            raise AssertionError(f"{fmt} pipeline: files differ by {err} px")
+        walls, _ = _timed(lambda: pipeline.run_pipeline(
+            frame_dir, out_dir, op_point=cfg["op"], batch=cfg["batch"],
+            mode="run_OF_INT", verbose=False), runs=2)
+        cli_out = os.path.join(root, f"cli_{fmt}.flo")
+        reset_launches()
+        cli.main(["run_OF_INT", ps[0], ps[1], cli_out, str(cfg["op"]),
+                  "--quiet"])
+        cli_launches = read_launches()
+        if cli_launches != per:
+            raise AssertionError(f"{fmt} cli: launches {cli_launches}")
+        for name, c in cli_launches.items():
+            totals[name] = totals.get(name, 0) + c
+        got = torch.as_tensor(io.read_flo(cli_out))
+        cli_err = float((got - want[0].cpu()).abs().max())
+        if not cli_err <= PIPELINE_TOL:
+            raise AssertionError(f"{fmt} cli: differs by {cli_err} px")
+        result[fmt] = {"max_abs_vs_dis_flow_batched": err,
+                       "cli_max_abs_vs_dis_flow_batched": cli_err,
+                       "median_off_motion_px": off, "launches": launches,
+                       "wall_s": walls,
+                       "pairs_per_s": len(names) / statistics.median(walls)}
+        print(json.dumps({"formats": f"pipeline and cli {fmt} run_OF_INT",
+                          "pairs": len(names), "batch": cfg["batch"],
+                          **result[fmt], "card": nvidia_smi_line()}),
+              flush=True)
+    print(f"formats part: {time.perf_counter() - t_part:.1f} s", flush=True)
     return result
 
 
@@ -2359,6 +2524,8 @@ def main() -> int:
     cold_dir = run_pipeline_phase(dev, totals, walls)
     # 7b. JPEG frames: the decoder against cv2's hashes, serving, the CLI
     run_jpeg_part(dev, totals, walls)
+    # 7c. PNG, PNM and BMP frames: the same, at op-2 gray flow
+    run_formats_part(dev, totals, walls)
 
     # 8. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()

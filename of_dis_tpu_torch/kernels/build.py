@@ -42,7 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # host libraries: `csrc/<name>.cpp`, compiled with the host C++ compiler
 HOST_LIBS = ("io_native", "jpeg")
-HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# -ffp-contract=off: no fused multiply-add, so the decoders' float
+# arithmetic rounds as OpenCV's and libpng's separate operations do
+HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _host_libs: Dict[str, ctypes.CDLL] = {}
@@ -132,6 +134,9 @@ def load_host(name: str) -> ctypes.CDLL:
     (process and thread) and renames it into place, so processes that
     build at once each load a whole library. Raises RuntimeError with the
     compiler's output if the build fails."""
+    lib = _host_libs.get(name)      # loaded: no lock on a decoder's path
+    if lib is not None:
+        return lib
     with _host_lock:
         lib = _host_libs.get(name)
         if lib is not None:

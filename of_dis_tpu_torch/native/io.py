@@ -1,54 +1,79 @@
 """Batch frame decoder of the serving pipeline (the counterpart of the JAX
-package's native `decode_batch`).
+package's native `decode_batch` and of its cv2.imread fallback), and the
+decoder under `utils.io.load_image`.
 
-A PNG frame is read, its chunks parsed and its image data inflated in
-Python (`utils.io.png_chunks`, `zlib.decompress`); the row filters are
-undone and the pixels converted to (C, H, W) uint8 by the C entries of
-`csrc/io_native.cpp`. A JPEG frame is decoded whole by `csrc/jpeg.cpp`,
-pixel for pixel as cv::imread decodes it (gray is the image's Y plane,
-colour BGR, the EXIF orientation applied). Both libraries are built with
-the host compiler at first use (`kernels.build.load_host`). zlib and
-ctypes release the interpreter lock, so a thread pool over the frames of
-a batch decodes them side by side. Binary PGM / PPM frames skip the
-unfilter. The plain twin is `utils.io.load_image`, which gives the same
-pixels (through the same JPEG decoder); there is no fallback to it, nor to
-cv2 or PIL: if a library cannot be built or loaded, `decode_batch`
-raises.
+Every frame gets the pixels cv::imread gives it (gray IMREAD_GRAYSCALE,
+colour IMREAD_COLOR in BGR order), with no OpenCV or PIL:
+  - PNG, every variant cv::imread reads (gray, RGB, palette, gray+alpha,
+    RGBA; 1, 2, 4, 8 and 16 bits; Adam7): chunks parsed and the image data
+    inflated in Python (`utils.io.png_chunks`, `zlib.decompress`), then
+    unfiltered, unpacked, de-interlaced and converted by
+    `csrc/io_native.cpp`. Gray of a colour PNG is libpng's rgb_to_gray,
+    the rule OpenCV asks libpng for (0.299 / 0.587 in 1/32768ths,
+    truncated, or through the file's gamma when it has an sRGB or a
+    significant gAMA chunk), not OpenCV's BGR2GRAY; 16-bit samples keep
+    their high byte; alpha and tRNS are dropped.
+  - PNM P1-P6 (`utils.io.pnm_header`, pixels by `csrc/io_native.cpp`):
+    bitmaps, ASCII and binary, maxval 1-65535 as OpenCV's PxM reader
+    takes them; gray of colour by OpenCV's BGR2GRAY.
+  - BMP (`utils.io.bmp_header`, pixels by `csrc/io_native.cpp`): 1, 4 and
+    8-bit palettes with RLE4 / RLE8, 16-bit 5-5-5 and 5-6-5, 24 and 32-bit,
+    bottom-up or top-down; gray by OpenCV's BGR2GRAY.
+  - JPEG, decoded whole by `csrc/jpeg.cpp` (gray is the image's Y plane,
+    colour BGR, the EXIF orientation applied).
+Both libraries are built with the host compiler at first use
+(`kernels.build.load_host`). zlib and ctypes release the interpreter lock,
+so a thread pool over the frames of a batch decodes them side by side.
+There is no fallback to cv2 or PIL: a file refused raises ValueError
+naming the cause, and a library that cannot be built raises RuntimeError.
 """
 
 from __future__ import annotations
 
 import ctypes
 from concurrent.futures import Executor
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
 from of_dis_tpu_torch.kernels import build
 from of_dis_tpu_torch.utils import io as uio
 
+_I64, _PTR = ctypes.c_int64, ctypes.c_void_p
 _ARGS = {
-    "of_png_unfilter": ((ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                         ctypes.c_int, ctypes.c_void_p), ctypes.c_int64),
-    "of_to_chw": ((ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p), ctypes.c_int),
+    "of_png_decode": ((_PTR, _I64, _I64, _I64, _PTR, _I64, _I64, _I64,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR, _I64,
+                       ctypes.c_int, ctypes.c_int, _PTR), _I64),
+    "of_pnm_decode": ((_PTR, _I64, ctypes.c_int, _I64, _I64, ctypes.c_int,
+                       ctypes.c_int, _PTR), _I64),
+    "of_bmp_decode": ((_PTR, _I64, _I64, _I64, _I64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, _PTR, _PTR, ctypes.c_int,
+                       _PTR), _I64),
 }
+
+
+# library name -> (the loaded library, its bound entries)
+_bound: dict = {}
 
 
 def _bind(lib_name: str, args: dict):
     """The C entries `args` names of host library `lib_name`, in order,
-    their argtypes and restypes set."""
+    their argtypes and restypes set once for each library loaded (a
+    rebuilt library is bound anew)."""
     lib = build.load_host(lib_name)
-    fns = []
-    for name, (argtypes, restype) in args.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = list(argtypes), restype
-        fns.append(fn)
-    return fns
+    bound = _bound.get(lib_name)
+    if bound is None or bound[0] is not lib:
+        fns = []
+        for name, (argtypes, restype) in args.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(argtypes), restype
+            fns.append(fn)
+        bound = _bound[lib_name] = (lib, tuple(fns))
+    return bound[1]
 
 
 def _entries():
-    """The PNG library's two C entries."""
+    """The PNG, PNM and BMP entries of `csrc/io_native.cpp`."""
     return _bind("io_native", _ARGS)
 
 
@@ -109,75 +134,125 @@ def decode_jpeg(raw: bytes, channels: int,
     return out
 
 
-def _read(path: str):
-    """(width, height, channels, data, kind) of one frame: "png" image data
-    still filtered, "pnm" pixels, or the "jpeg" file's bytes."""
+class Frame(NamedTuple):
+    kind: str               # "png", "pnm", "bmp" or "jpeg"
+    width: int
+    height: int
+    info: object            # utils.io.Png / Pnm / Bmp, or the JPEG's bytes
+    raw: bytes              # the file
+
+
+def parse(raw: bytes) -> Frame:
+    """A frame's format, size and parsed header (for a PNG its inflated
+    image data too). Raises ValueError naming the cause on a file the
+    decoders refuse in its header or chunks."""
+    raw = bytes(raw)        # the decoders take its buffer (no copy of bytes)
+    kind = uio.image_kind(raw)
+    if kind == "png":
+        info = uio.png_chunks(raw)
+    elif kind == "pnm":
+        info = uio.pnm_header(raw)
+    elif kind == "bmp":
+        info = uio.bmp_header(raw)
+    else:
+        w, h, _ = jpeg_info(raw)
+        return Frame(kind, w, h, raw, raw)
+    return Frame(kind, info.width, info.height, info, raw)
+
+
+def _read(path: str) -> Frame:
     with open(path, "rb") as f:
         raw = f.read()
-    if raw[:8] == b"\x89PNG\r\n\x1a\n":
-        return (*uio.png_chunks(raw), "png")
-    if raw[:1] == b"P" and raw[1:2] in (b"5", b"6"):
-        pix = uio.decode_pnm(raw)
-        return pix.shape[1], pix.shape[0], pix.shape[2], pix, "pnm"
-    if raw[:3] == uio.JPEG_MAGIC:
-        try:
-            return (*jpeg_info(raw), raw, "jpeg")
-        except ValueError as e:
-            raise ValueError(f"{path}: {e}") from None
-    raise ValueError(f"{path}: unsupported image format (PNG, PGM, PPM and "
-                     "JPEG supported)")
+    try:
+        return parse(raw)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
-def _decode_into(fns, frame, channels: int, out: np.ndarray,
-                 path: str) -> None:
-    """Decode one frame into `out` (channels, H, W) uint8, C-contiguous:
-    a JPEG whole, a PNG unfiltered and converted."""
-    unfilter, to_chw = fns
-    w, h, nch, data, kind = frame
-    if kind == "jpeg":
-        try:
-            decode_jpeg(data, channels, out=out)
-        except ValueError as e:
-            raise ValueError(f"{path}: {e}") from None
+_PNG_ERRORS = {-1: "out of memory", -2: "bad PNG layout",
+               -4: "PNG image data of the wrong size",
+               -5: "PNG IDAT chunk: CRC error"}
+_PNM_ERRORS = {-1: "truncated PNM data",
+               -2: "bad byte or number in ASCII PNM data"}
+_BMP_ERRORS = {-1: "truncated BMP data", -2: "bad BMP layout",
+               -3: "corrupt BMP: an RLE run crosses its row's end"}
+
+
+def decode_into(frame: Frame, channels: int, out: np.ndarray) -> None:
+    """Decode one parsed frame into `out` (channels, H, W) uint8,
+    C-contiguous. Raises ValueError naming the cause."""
+    if frame.kind == "jpeg":
+        decode_jpeg(frame.info, channels, out=out)
         return
-    filtered = kind == "png"
-    if not filtered:
-        pix = np.ascontiguousarray(data)
-    elif nch == 1 and channels == 1:
-        pix = out                       # gray to gray: unfilter in place
+    png, pnm, bmp = _entries()
+    info = frame.info
+    if frame.kind == "png":
+        if channels == 1 and info.color_type & 2:
+            if uio.icc_may_be_srgb(info.iccp):
+                raise ValueError("colour PNG with an sRGB ICC profile read "
+                                 "as gray: libpng's gamma for it is not "
+                                 "reproduced")
+            if 0 < info.gamma < 5 or info.gamma > 0x7FFFFFFF:
+                raise ValueError(f"PNG gAMA {info.gamma} out of range for "
+                                 "a gray read")
+        # bytes pass as pointers to their buffers, without a copy
+        err = png(frame.raw, len(frame.raw), info.idat_at, info.idat_count,
+                  info.data, len(info.data), info.width, info.height,
+                  info.bit_depth, info.color_type, info.interlace,
+                  info.palette, info.gamma, info.sig_bit, channels,
+                  out.ctypes.data)
+        if err > 0:
+            raise ValueError(f"bad PNG filter: row {err - 1}: unknown "
+                             "filter type")
+        msgs = _PNG_ERRORS
+    elif frame.kind == "pnm":
+        body = np.frombuffer(frame.raw, np.uint8)[info.offset:]
+        err = pnm(body.ctypes.data, body.size, info.kind, info.width,
+                  info.height, info.maxval, channels, out.ctypes.data)
+        msgs = _PNM_ERRORS
     else:
-        pix = np.empty((h, w * nch), np.uint8)
-    if filtered:
-        src = np.frombuffer(data, np.uint8)
-        err = unfilter(src.ctypes.data, h, w * nch, nch, pix.ctypes.data)
-        if err:
-            raise ValueError(f"PNG row {err - 1}: unknown filter type"
-                             if err > 0 else "PNG unfilter failed")
-    if pix is not out and to_chw(pix.ctypes.data, h, w, nch, channels,
-                                 out.ctypes.data):
-        raise ValueError(f"cannot convert {nch} channels to {channels}")
+        src = np.frombuffer(frame.raw, np.uint8)
+        pal = np.frombuffer(info.palette, np.uint8)
+        masks = None if info.masks is None else \
+            np.asarray(info.masks, np.uint32)
+        err = bmp(src.ctypes.data, src.size, info.offset, info.width,
+                  info.height, int(info.top_down), info.bpp, info.rle,
+                  pal.ctypes.data, None if masks is None else
+                  masks.ctypes.data, channels, out.ctypes.data)
+        msgs = _BMP_ERRORS
+    if err:
+        raise ValueError(msgs.get(err, f"decoder error {err}"))
+
+
+def decode_image(raw: bytes, channels: int) -> np.ndarray:
+    """One PNG, PNM, BMP or JPEG file's bytes to (channels, H, W) uint8,
+    as cv::imread gives it (see the module docstring)."""
+    if channels not in (1, 3):
+        raise ValueError(f"channels must be 1 or 3, got {channels}")
+    frame = parse(raw)
+    out = np.empty((channels, frame.height, frame.width), np.uint8)
+    decode_into(frame, channels, out)
+    return out
 
 
 def decode_batch(paths: Sequence[str], channels: int,
                  pool: Optional[Executor] = None,
                  out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Decode 8-bit PNG / PGM / PPM and JPEG frames of one size, mixed or
-    not, to (B, C, H, W) uint8 as cv::imread gives them (equal to
-    `utils.io.load_image`'s values): C = 1 gray (PNG / PNM through
-    OpenCV's fixed-point BGR2GRAY, JPEG its decoded Y plane), C = 3 in BGR
-    order. `pool`, if given, decodes the frames side by side; `out`, if
-    given, is the C-contiguous (B, C, H, W) uint8 array to fill (a pinned
-    host buffer, say). Raises ValueError on a frame it cannot decode or of
-    another size, and RuntimeError if the decoder library cannot be
-    built."""
+    """Decode PNG, PNM, BMP and JPEG frames of one size, mixed or not, to
+    (B, C, H, W) uint8 as cv::imread gives them (equal to
+    `utils.io.load_image`'s values): C = 1 gray (IMREAD_GRAYSCALE), C = 3
+    in BGR order. Each frame is read, parsed and decoded on `pool`'s
+    threads, if given; `out`, if given, is the C-contiguous (B, C, H, W)
+    uint8 array to fill (a pinned host buffer, say). Raises ValueError on
+    a frame it cannot decode or of another size, and RuntimeError if a
+    decoder library cannot be built."""
     if channels not in (1, 3):
         raise ValueError(f"channels must be 1 or 3, got {channels}")
     paths = list(paths)
     if not paths:
         raise ValueError("decode_batch: no frames")
-    fns = _entries()
     first = _read(paths[0])
-    shape = (len(paths), channels, first[1], first[0])
+    shape = (len(paths), channels, first.height, first.width)
     if out is None:
         out = np.empty(shape, np.uint8)
     elif (out.dtype != np.uint8 or not out.flags.c_contiguous
@@ -187,10 +262,14 @@ def decode_batch(paths: Sequence[str], channels: int,
 
     def one(i: int) -> None:
         frame = first if i == 0 else _read(paths[i])
-        if (frame[1], frame[0]) != out.shape[2:]:
-            raise ValueError(f"{paths[i]}: {frame[0]}x{frame[1]} frame in a "
-                             f"batch of {out.shape[3]}x{out.shape[2]}")
-        _decode_into(fns, frame, channels, out[i], paths[i])
+        if (frame.height, frame.width) != out.shape[2:]:
+            raise ValueError(f"{paths[i]}: {frame.width}x{frame.height} "
+                             f"frame in a batch of {out.shape[3]}x"
+                             f"{out.shape[2]}")
+        try:
+            decode_into(frame, channels, out[i])
+        except ValueError as e:
+            raise ValueError(f"{paths[i]}: {e}") from None
 
     if pool is None:
         for i in range(len(paths)):

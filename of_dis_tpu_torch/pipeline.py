@@ -31,8 +31,9 @@ segments advance in lockstep, each lane warm-starting from its previous
 pair's flow. --mesh all splits over every CUDA device; --mesh N over the
 first N (on --device cpu, over the CPU N times).
 
-Frames (PNG, PGM, PPM and JPEG, which is decoded as cv::imread decodes it
-by the port's own decoder, csrc/jpeg.cpp) are sorted lexicographically;
+Frames (PNG, PNM (P1-P6), BMP and JPEG, each decoded as cv::imread
+decodes it by the port's own decoders, csrc/io_native.cpp and
+csrc/jpeg.cpp) are sorted lexicographically;
 pair t produces OUT_DIR/<frame_t>.flo (.pfm for depth modes), cropped to
 the frames' size.
 """
@@ -77,9 +78,9 @@ def default_batch(op_point: int) -> int:
 
 
 def list_frames(frame_dir: str) -> List[str]:
-    """The frames (PNG, PGM, PPM, JPEG) of a directory, sorted."""
+    """The frames (PNG, PNM, BMP, JPEG) of a directory, sorted."""
     names = sorted(f for f in os.listdir(frame_dir) if f.lower().endswith(
-        (".png", ".pgm", ".ppm", ".jpg", ".jpeg")))
+        (".png", ".pgm", ".ppm", ".pbm", ".pnm", ".bmp", ".jpg", ".jpeg")))
     return [os.path.join(frame_dir, f) for f in names]
 
 

@@ -1,18 +1,21 @@
 """The port's batch frame decoder (`of_dis_tpu_torch.native.io`, C entries
 in `csrc/io_native.cpp`, built here with the host compiler) against its
-plain twin `utils.io.load_image` and the JAX package's native
-`decode_batch`, bit for bit: every PNG row filter, gray, gray+alpha, RGB
-and RGBA, PGM and PPM, frames written by OpenCV and PIL, a thread pool
-against a serial run, and the inputs it must refuse."""
+`utils.io.load_image` and the JAX package's native `decode_batch`, bit for
+bit (a colour PNG read as gray against cv2.imread and the JAX package's
+cv2 route instead): every PNG row filter, gray, gray+alpha, RGB and RGBA,
+PGM and PPM, frames written by OpenCV and PIL, a thread pool against a
+serial run, and the inputs it must refuse."""
 
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import pytest
 
 from of_dis_tpu.native import io as jax_native_io
+from of_dis_tpu.utils import io as jax_io
 from of_dis_tpu_torch.kernels import build
 from of_dis_tpu_torch.native import io as nio
 from of_dis_tpu_torch.utils import io as uio
@@ -68,14 +71,36 @@ def _frame(seed, h=23, w=37, nch=1):
     return rng.integers(0, 256, (h, w, nch), dtype=np.uint8)
 
 
+def _colour_png(path):
+    with open(path, "rb") as f:
+        head = f.read(26)
+    return head[:8] == b"\x89PNG\r\n\x1a\n" and head[25] & 2
+
+
 def _check(paths, channels, pool=None):
-    """decode_batch == load_image == the JAX package's decode_batch."""
+    """decode_batch == the JAX package's decode_batch; a colour PNG read
+    as gray == cv2.imread == the JAX package's cv2 route (`load_image`
+    without its native decoder). The JAX native decoder converts a colour
+    PNG to gray by OpenCV's BGR2GRAY, where cv::imread takes libpng's
+    rgb_to_gray: on 8-bit RGB noise 1,028 of 2,000 pixels differ, each by
+    one level. The port's `load_image` runs the same C decoder as
+    `decode_batch`: the two entry points must agree, which holds the
+    wiring between them, not the decoder."""
     ours = nio.decode_batch(paths, channels, pool=pool)
-    twin = np.stack([uio.load_image(p, channels) for p in paths])
-    jax = jax_native_io.decode_batch(paths, channels, dtype=np.uint8)
-    assert ours.dtype == np.uint8 and ours.shape == twin.shape
-    np.testing.assert_array_equal(ours, twin.astype(np.uint8))
-    np.testing.assert_array_equal(ours, jax)
+    single = np.stack([uio.load_image(p, channels) for p in paths])
+    assert ours.dtype == np.uint8 and ours.shape == single.shape
+    np.testing.assert_array_equal(ours, single.astype(np.uint8))
+    for k, p in enumerate(paths):
+        if channels == 1 and _colour_png(p):
+            cv2 = pytest.importorskip("cv2")
+            np.testing.assert_array_equal(
+                ours[k, 0], cv2.imread(p, cv2.IMREAD_GRAYSCALE))
+            with mock.patch.object(jax_io, "_native_io", None):
+                ref = jax_io.load_image(p, 1)
+        else:
+            ref = jax_native_io.decode_batch([p], channels,
+                                             dtype=np.uint8)[0]
+        np.testing.assert_array_equal(ours[k], ref)
     return ours
 
 
@@ -173,9 +198,9 @@ def test_truncated_jpeg_and_mixed_sizes_raise(tmp_path):
 def test_unknown_filter_type_raises(tmp_path):
     p = write_png(tmp_path / "a.png", _frame(0), kinds=[0])
     raw = open(p, "rb").read()
-    w, h, nch, data = uio.png_chunks(raw)
-    rows = bytearray(data)
-    rows[5 * (w * nch + 1)] = 7          # row 5 under filter type 7
+    png = uio.png_chunks(raw)
+    rows = bytearray(png.data)
+    rows[5 * (png.width + 1)] = 7        # row 5 under filter type 7
     z = zlib.compress(bytes(rows))
     bad = tmp_path / "bad.png"
     bad.write_bytes(raw[:33] + struct.pack(">I", len(z)) + b"IDAT" + z

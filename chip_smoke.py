@@ -81,6 +81,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      pair of the 16-bit PNG and the sRGB RGB PNG frames: launches those of
      a path-A call, every file against `dis_flow_batched` on the same
      decoded frames, medians within 0.25 px of the motion;
+  7d. WebP, Sun raster, PAM, HDR and PFM frames (`run_webp_part`,
+     `run_raster_part`): every committed WebP fixture of
+     tests/torch_fixtures/webp (nine lossy 1024x436 frames, three lossless
+     gray ones, small variants) and part 7b's frames re-encoded on the
+     card's host by the numpy writers of tests/torch_fixtures/raster (24
+     and 8-bit Sun raster, RGB and 16-bit PAM, run-length HDR, gray PFM),
+     with those writers' variants, decoded by the port's own decoders
+     (`csrc/webp.cpp`, `csrc/raster.cpp`) through `decode_batch` and
+     `load_image`, gray and colour, each plane's SHA-256 equal to the
+     manifest's cv2.imread hash (a read cv2.imread fails on must raise);
+     decode frames/s per frame set at 1 and 8 threads; `run_pipeline` at
+     op-2 gray flow (one batch) and `cli.main` on the first pair of the
+     lossy and the lossless WebP frames and of the Sun raster, 16-bit PAM
+     and HDR frames: launches those of a path-A call, every file against
+     `dis_flow_batched` on the same decoded frames, medians within 0.25 px
+     of the motion;
   8. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
      the merge for flow and depth, the TV-free pseudo-Huber run), and the
@@ -1538,10 +1554,22 @@ def _sha256(planes) -> str:
 def _check_planes(files):
     """(planes checked, mismatches): each (path, manifest record) decoded
     through `decode_batch` and `load_image`, gray and colour, against the
-    record's shapes and SHA-256s."""
+    record's shapes and SHA-256s (a read the record has as null, which
+    cv2.imread fails on, must raise ValueError)."""
     checked, bad = 0, []
     for path, rec in files:
         for key, ch in (("gray", 1), ("color", 3)):
+            if rec[key] is None:    # cv2.imread fails: the port must raise
+                for how, fn in (("decode_batch", native_io.decode_batch),
+                                ("load_image", io.load_image)):
+                    checked += 1
+                    try:
+                        fn([path] if how == "decode_batch" else path, ch)
+                        bad.append(f"{os.path.relpath(path, ROOT)} {key} "
+                                   f"{how} read where cv2 fails")
+                    except ValueError:
+                        pass
+                continue
             for how, planes in (
                     ("decode_batch", native_io.decode_batch([path], ch)[0]),
                     ("load_image", io.load_image(path, ch).astype(np.uint8))):
@@ -1712,6 +1740,70 @@ def _format_fixtures():
     return mod
 
 
+def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion):
+    """`run_pipeline` at cfg's op-point, gray flow, on the frames `ps` of
+    one directory (in one batch of cfg["batch"] pairs), and `cli.main` on
+    the first pair: launches those of a path-A call each, every file
+    against `dis_flow_batched` on the same decoded frames, medians against
+    the motion, pairs/s. Prints and returns the result."""
+    per = next(c["launches"] for c in PATHS if c["name"] == "A")
+    params = op_point_params(W_ORG, cfg["op"], nop=2, noc=1)
+    top, bot, left, right = pad_amounts(W_ORG, H_ORG, params.sc_f)
+    full_h, full_w = H_ORG + top + bot, W_ORG + left + right
+    frame_dir = os.path.dirname(ps[0])
+    if pipeline.list_frames(frame_dir) != list(ps):
+        raise AssertionError(f"{label}: the directory lists other frames")
+    names = [os.path.splitext(os.path.basename(p))[0] + ".flo"
+             for p in ps[:-1]]
+    x = pyramid.pad_to_divisible(torch.as_tensor(
+        native_io.decode_batch(ps, 1)).to(dev), params.sc_f)
+    want = dis.dis_flow_batched(x[:-1], x[1:], params, full_w, full_h,
+                                device=dev)[:, top:top + H_ORG,
+                                            left:left + W_ORG]
+    reset_launches()
+    n = pipeline.run_pipeline(frame_dir, out_dir, op_point=cfg["op"],
+                              batch=cfg["batch"], mode="run_OF_INT",
+                              verbose=False)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if n != len(names) or sorted(os.listdir(out_dir)) != names:
+        raise AssertionError(f"{label} pipeline: {n} pairs")
+    if launches != per:
+        raise AssertionError(f"{label} pipeline: launches {launches}, "
+                             f"expected {per} (one batch)")
+    for name, c in launches.items():
+        totals[name] = totals.get(name, 0) + c
+    err, meds = _pipeline_files(out_dir, names, want, 2)
+    off = _check_medians(label, meds, motion)
+    if not err <= PIPELINE_TOL:
+        raise AssertionError(f"{label} pipeline: files differ by {err} px")
+    walls, _ = _timed(lambda: pipeline.run_pipeline(
+        frame_dir, out_dir, op_point=cfg["op"], batch=cfg["batch"],
+        mode="run_OF_INT", verbose=False), runs=2)
+    cli_out = out_dir + "_cli.flo"
+    reset_launches()
+    cli.main(["run_OF_INT", ps[0], ps[1], cli_out, str(cfg["op"]),
+              "--quiet"])
+    cli_launches = read_launches()
+    if cli_launches != per:
+        raise AssertionError(f"{label} cli: launches {cli_launches}")
+    for name, c in cli_launches.items():
+        totals[name] = totals.get(name, 0) + c
+    got = torch.as_tensor(io.read_flo(cli_out))
+    cli_err = float((got - want[0].cpu()).abs().max())
+    if not cli_err <= PIPELINE_TOL:
+        raise AssertionError(f"{label} cli: differs by {cli_err} px")
+    result = {"max_abs_vs_dis_flow_batched": err,
+              "cli_max_abs_vs_dis_flow_batched": cli_err,
+              "median_off_motion_px": off, "launches": launches,
+              "wall_s": walls,
+              "pairs_per_s": len(names) / statistics.median(walls)}
+    print(json.dumps({"serving": f"pipeline and cli {label} run_OF_INT",
+                      "pairs": len(names), "batch": cfg["batch"], **result,
+                      "card": nvidia_smi_line()}), flush=True)
+    return result
+
+
 def run_formats_part(dev, totals, walls_by_path):
     """Phase 7, part 7c (see FORMATS_PART): the frames written; every
     frame's and variant's planes against the manifest's cv2 hashes,
@@ -1764,65 +1856,134 @@ def run_formats_part(dev, totals, walls_by_path):
                       "card": nvidia_smi_line()}), flush=True)
 
     # serving: one batch of the eight pairs at op-2 gray flow, and the CLI
-    per = next(c["launches"] for c in PATHS if c["name"] == "A")
-    params = op_point_params(W_ORG, cfg["op"], nop=2, noc=1)
-    top, bot, left, right = pad_amounts(W_ORG, H_ORG, params.sc_f)
-    full_h, full_w = H_ORG + top + bot, W_ORG + left + right
-    result = {}
-    for fmt in cfg["served"]:
-        ps = paths[fmt]
-        frame_dir = os.path.dirname(ps[0])
-        names = [os.path.splitext(os.path.basename(p))[0] + ".flo"
-                 for p in ps[:-1]]
-        x = pyramid.pad_to_divisible(torch.as_tensor(
-            native_io.decode_batch(ps, 1)).to(dev), params.sc_f)
-        want = dis.dis_flow_batched(x[:-1], x[1:], params, full_w, full_h,
-                                    device=dev)[:, top:top + H_ORG,
-                                                left:left + W_ORG]
-        out_dir = os.path.join(root, f"out_{fmt}")
-        reset_launches()
-        n = pipeline.run_pipeline(frame_dir, out_dir, op_point=cfg["op"],
-                                  batch=cfg["batch"], mode="run_OF_INT",
-                                  verbose=False)
-        torch.cuda.synchronize()
-        launches = read_launches()
-        if n != len(names) or sorted(os.listdir(out_dir)) != names:
-            raise AssertionError(f"{fmt} pipeline: {n} pairs")
-        if launches != per:
-            raise AssertionError(f"{fmt} pipeline: launches {launches}, "
-                                 f"expected {per} (one batch)")
-        for name, c in launches.items():
-            totals[name] = totals.get(name, 0) + c
-        err, meds = _pipeline_files(out_dir, names, want, 2)
-        off = _check_medians(f"{fmt}", meds, motion)
-        if not err <= PIPELINE_TOL:
-            raise AssertionError(f"{fmt} pipeline: files differ by {err} px")
-        walls, _ = _timed(lambda: pipeline.run_pipeline(
-            frame_dir, out_dir, op_point=cfg["op"], batch=cfg["batch"],
-            mode="run_OF_INT", verbose=False), runs=2)
-        cli_out = os.path.join(root, f"cli_{fmt}.flo")
-        reset_launches()
-        cli.main(["run_OF_INT", ps[0], ps[1], cli_out, str(cfg["op"]),
-                  "--quiet"])
-        cli_launches = read_launches()
-        if cli_launches != per:
-            raise AssertionError(f"{fmt} cli: launches {cli_launches}")
-        for name, c in cli_launches.items():
-            totals[name] = totals.get(name, 0) + c
-        got = torch.as_tensor(io.read_flo(cli_out))
-        cli_err = float((got - want[0].cpu()).abs().max())
-        if not cli_err <= PIPELINE_TOL:
-            raise AssertionError(f"{fmt} cli: differs by {cli_err} px")
-        result[fmt] = {"max_abs_vs_dis_flow_batched": err,
-                       "cli_max_abs_vs_dis_flow_batched": cli_err,
-                       "median_off_motion_px": off, "launches": launches,
-                       "wall_s": walls,
-                       "pairs_per_s": len(names) / statistics.median(walls)}
-        print(json.dumps({"formats": f"pipeline and cli {fmt} run_OF_INT",
-                          "pairs": len(names), "batch": cfg["batch"],
-                          **result[fmt], "card": nvidia_smi_line()}),
-              flush=True)
+    result = {fmt: _serve_frames(f"formats {fmt}", paths[fmt], cfg,
+                                 os.path.join(root, f"out_{fmt}"), dev,
+                                 totals, motion)
+              for fmt in cfg["served"]}
     print(f"formats part: {time.perf_counter() - t_part:.1f} s", flush=True)
+    return result
+
+
+# Part 7d: the WebP fixtures of tests/torch_fixtures/webp (committed: the
+# card's machine has no WebP encoder), nine 1024x436 frames lossy at
+# quality 90 and frames 0-2 lossless in gray, and small variants; then
+# part 7b's frames re-encoded on the card's host by the numpy writers of
+# tests/torch_fixtures/raster as Sun raster, PAM, Radiance HDR and PFM.
+# Each manifest holds the SHA-256 of cv2.imread's gray and colour planes
+# (null where cv2.imread fails). `served`: the frame sets whose pairs go
+# through `run_pipeline` (one batch) and `cli.main` at op-2 gray flow.
+WEBP_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "webp")
+RASTER_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "raster")
+WEBP_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=4,
+                 served=("frames", "lossless"))
+RASTER_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=2,
+                   served=("ras24", "pam16", "hdr"))
+
+
+def run_webp_part(dev, totals, walls_by_path):
+    """Phase 7, part 7d, WebP (see WEBP_PART): every fixture's planes
+    against the manifest's cv2 hashes through `decode_batch` and
+    `load_image`; decode frames/s of the lossy and the lossless frames at
+    1 and 8 threads; `run_pipeline` and `cli.main` at op-2 gray flow on
+    the nine lossy frames and on the three lossless ones, each file
+    against `dis_flow_batched` on the same decoded frames."""
+    cfg = WEBP_PART
+    t_part = time.perf_counter()
+    with open(os.path.join(WEBP_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    files = [(os.path.join(WEBP_DIR, rel), rec)
+             for rel, rec in sorted(manifest["files"].items())]
+    checked, bad = _check_planes(files)
+    print(json.dumps({"webp": "decode check", "planes": checked,
+                      "files": len(files),
+                      "against": f"cv2 {manifest['cv2']}, libwebp "
+                                 f"{manifest['webp']}",
+                      "mismatches": bad}), flush=True)
+    if bad:
+        raise AssertionError(f"WebP planes differ from cv2's: {bad}")
+    root = os.path.join(OUT_DIR, "webp")
+    shutil.rmtree(root, ignore_errors=True)
+    sets = {"frames": pipeline.list_frames(os.path.join(WEBP_DIR, "frames"))}
+    lossless_dir = os.path.join(root, "lossless")   # the gray frames alone
+    os.makedirs(lossless_dir)
+    for t in range(3):
+        shutil.copy(os.path.join(WEBP_DIR, "lossless", f"gray_{t:04d}.webp"),
+                    lossless_dir)
+    sets["lossless"] = pipeline.list_frames(lossless_dir)
+    # each set decoded 9 * decode_repeats times a thread count
+    rates = {name: _decode_rates(ps, 1, cfg["decode_repeats"] * 9 // len(ps),
+                                 cfg["decode_threads"])
+             for name, ps in sets.items()}
+    print(json.dumps({"webp": "decode", "size": f"{W_ORG}x{H_ORG}",
+                      "channels": 1, "frames": 9 * cfg["decode_repeats"],
+                      "frames_per_s_by_threads": rates,
+                      "cpu_count": os.cpu_count(),
+                      "card": nvidia_smi_line()}), flush=True)
+    result = {name: _serve_frames(f"webp {name}", sets[name], cfg,
+                                  os.path.join(root, f"out_{name}"), dev,
+                                  totals, manifest["motion_px"])
+              for name in cfg["served"]}
+    print(f"webp part: {time.perf_counter() - t_part:.1f} s", flush=True)
+    return result
+
+
+def _raster_fixtures():
+    """tests/torch_fixtures/raster/make_fixtures.py, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        "raster_fixtures", os.path.join(RASTER_DIR, "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_raster_part(dev, totals, walls_by_path):
+    """Phase 7, part 7d, Sun raster, PAM, HDR and PFM (see RASTER_PART):
+    the frames written; every frame's and variant's planes against the
+    manifest's cv2 hashes; decode frames/s per format at 1 and 8 threads;
+    `run_pipeline` and `cli.main` at op-2 gray flow on the served
+    formats, each file against `dis_flow_batched`."""
+    cfg = RASTER_PART
+    t_part = time.perf_counter()
+    fixtures = _raster_fixtures()
+    with open(os.path.join(RASTER_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    root = os.path.join(OUT_DIR, "raster")
+    shutil.rmtree(root, ignore_errors=True)
+    jpeg_paths = pipeline.list_frames(os.path.join(JPEG_DIR, "frames"))
+    planes = [(native_io.decode_batch([p], 1)[0, 0],
+               native_io.decode_batch([p], 3)[0]) for p in jpeg_paths]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        paths = fixtures.write_frames(root, planes, pool=pool)
+    write_s = time.perf_counter() - t0
+    files = [(os.path.join(RASTER_DIR, rel), rec)
+             for rel, rec in sorted(manifest["files"].items())]
+    files += [(p, manifest["frames"][f"{fmt}/{os.path.basename(p)}"])
+              for fmt, ps in paths.items() for p in ps]
+    if len(files) != len(manifest["files"]) + len(manifest["frames"]):
+        raise AssertionError("raster: the frames written differ from the "
+                             "manifest's")
+    checked, bad = _check_planes(files)
+    print(json.dumps({"raster": "decode check", "planes": checked,
+                      "files": len(files), "frames_written_s": write_s,
+                      "against": f"cv2 {manifest['cv2']}",
+                      "mismatches": bad}), flush=True)
+    if bad:
+        raise AssertionError(f"Sun raster / PAM / HDR / PFM planes differ "
+                             f"from cv2's: {bad}")
+    rates = {fmt: _decode_rates(ps, 1, cfg["decode_repeats"],
+                                cfg["decode_threads"])
+             for fmt, ps in paths.items()}
+    print(json.dumps({"raster": "decode", "size": f"{W_ORG}x{H_ORG}",
+                      "channels": 1, "frames": 9 * cfg["decode_repeats"],
+                      "frames_per_s_by_threads": rates,
+                      "cpu_count": os.cpu_count(),
+                      "card": nvidia_smi_line()}), flush=True)
+    result = {fmt: _serve_frames(f"raster {fmt}", paths[fmt], cfg,
+                                 os.path.join(root, f"out_{fmt}"), dev,
+                                 totals, manifest["motion_px"])
+              for fmt in cfg["served"]}
+    print(f"raster part: {time.perf_counter() - t_part:.1f} s", flush=True)
     return result
 
 
@@ -2526,6 +2687,9 @@ def main() -> int:
     run_jpeg_part(dev, totals, walls)
     # 7c. PNG, PNM and BMP frames: the same, at op-2 gray flow
     run_formats_part(dev, totals, walls)
+    # 7d. WebP, Sun raster, PAM, HDR and PFM frames: the same
+    run_webp_part(dev, totals, walls)
+    run_raster_part(dev, totals, walls)
 
     # 8. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()

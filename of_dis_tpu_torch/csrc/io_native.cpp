@@ -30,6 +30,8 @@
 #include <cstring>
 #include <vector>
 
+#include "gray.h"
+
 #if defined(__x86_64__)
 #include <immintrin.h>
 #endif
@@ -480,12 +482,6 @@ constexpr int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8},
                               {0, 1, 1, 2}};
 
 // ------------------------------------------------------------------ PNM
-
-// OpenCV's fixed-point BGR2GRAY (icvCvt_BGR2Gray_8u_C3C1R): 0.114 B +
-// 0.587 G + 0.299 R in units of 2^-14, rounded.
-inline uint8_t bgr2gray(int b, int g, int r) {
-  return static_cast<uint8_t>((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14);
-}
 
 inline void put_bgr(uint8_t* out, int64_t plane, int64_t i, int want, int b,
                     int g, int r) {

@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` exports plain C functions (no PyTorch headers, so a
 build takes seconds) and compiles on first use into
 `build/of_dis_tpu_torch/lib<name>-<hash>.so` at the repository root; the
-hash covers the source, the shared headers (`csrc/*.cuh`) and the flags, so
-an edited source rebuilds.
+hash covers the source, the shared headers (`csrc/*.cuh`, `csrc/*.h` for
+the host libraries) and the flags, so an edited source rebuilds.
 `build()` starts one nvcc per missing library, all at once, and waits for
 all of them. `entry()` binds a kernel's C entry once, at its first launch,
 so that a launch costs one ctypes call. `load_host()` builds and loads
@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 # host libraries: `csrc/<name>.cpp`, compiled with the host C++ compiler
-HOST_LIBS = ("io_native", "jpeg")
+HOST_LIBS = ("io_native", "jpeg", "webp", "raster")
 # -ffp-contract=off: no fused multiply-add, so the decoders' float
 # arithmetic rounds as OpenCV's and libpng's separate operations do
 HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
@@ -122,9 +122,12 @@ def host_compiler() -> str:
 
 
 def host_library_path(name: str) -> Path:
+    """The built library of host source `name`; its hash covers the source,
+    the host headers (`csrc/*.h`) and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.h")))
     source_bytes = (SRC_DIR / f"{name}.cpp").read_bytes()
-    digest = hashlib.sha256(source_bytes + " ".join(HOST_FLAGS).encode()
-                            ).hexdigest()
+    digest = hashlib.sha256(source_bytes + headers
+                            + " ".join(HOST_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -21,7 +21,27 @@ colour IMREAD_COLOR in BGR order), with no OpenCV or PIL:
     bottom-up or top-down; gray by OpenCV's BGR2GRAY.
   - JPEG, decoded whole by `csrc/jpeg.cpp` (gray is the image's Y plane,
     colour BGR, the EXIF orientation applied).
-Both libraries are built with the host compiler at first use
+  - WebP (`utils.io.webp_chunks`, the bitstream by `csrc/webp.cpp`): lossy
+    VP8 and lossless VP8L, simple and extended (VP8X) files, alpha dropped
+    (a lossy image's ALPH chunk decoded only to fail where libwebp fails),
+    an animation's frame 0 on a canvas of zeros, the EXIF orientation of
+    an extended file applied; colour as libwebp's WebPDecodeBGRInto gives
+    it, gray OpenCV 5's cvtColor BGR2GRAY of that colour (1/32768ths).
+  - Sun raster (`utils.io.ras_header`, pixels by `csrc/raster.cpp`, as
+    for PAM, HDR and PFM):
+    depths 1, 8 (with or without a colour map), 24 and 32, types old and
+    standard; gray by the reader's BGR2GRAY in 1/16384ths, and 0 for a
+    1 or 8-bit raster without a colour map, as OpenCV's reader gives it.
+  - PAM (`utils.io.pam_header`): GRAYSCALE, BLACKANDWHITE and RGB, maxval
+    1-65535 (1: bits, as OpenCV's reader takes them; above 255 the high
+    byte); colour in the file's sample order, gray of RGB in 1/16384ths.
+  - Radiance HDR (`utils.io.hdr_header`): RGBE scanlines, run-length or
+    flat, to floats as OpenCV's rgbe.cpp, times 255 rounded; gray by
+    cvtColor's BGR2GRAY of those bytes.
+  - PFM (`utils.io.pfm_header`): gray `Pf` read as gray, colour `PF` read
+    as colour (BGR), each sample divided by |scale| and rounded, with no
+    factor of 255; the other two reads fail in cv::imread and are refused.
+The libraries are built with the host compiler at first use
 (`kernels.build.load_host`). zlib and ctypes release the interpreter lock,
 so a thread pool over the frames of a batch decodes them side by side.
 There is no fallback to cv2 or PIL: a file refused raises ValueError
@@ -75,6 +95,17 @@ def _bind(lib_name: str, args: dict):
 def _entries():
     """The PNG, PNM and BMP entries of `csrc/io_native.cpp`."""
     return _bind("io_native", _ARGS)
+
+
+_RASTER_ARGS = {
+    "of_ras_decode": ((_PTR, _I64, _I64, _I64, _I64, ctypes.c_int, _PTR,
+                       ctypes.c_int, _PTR), _I64),
+    "of_pam_decode": ((_PTR, _I64, _I64, _I64, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, _PTR), _I64),
+    "of_hdr_decode": ((_PTR, _I64, _I64, _I64, ctypes.c_int, _PTR), _I64),
+    "of_pfm_decode": ((_PTR, _I64, _I64, _I64, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_double, ctypes.c_int, _PTR), _I64),
+}
 
 
 _JPEG_ARGS = {
@@ -134,29 +165,64 @@ def decode_jpeg(raw: bytes, channels: int,
     return out
 
 
+_WEBP_ARGS = {
+    "of_webp_decode": ((_PTR, _I64, ctypes.c_int, _PTR, _I64) +
+                       (ctypes.c_int,) * 8 + (_PTR,), ctypes.c_int),
+    "of_webp_strerror": ((ctypes.c_int,), ctypes.c_char_p),
+}
+
+
+def decode_webp(raw: bytes, info: uio.WebP, channels: int,
+                out: np.ndarray) -> None:
+    """A parsed WebP (`utils.io.webp_chunks`) into `out` (channels, H, W)
+    uint8, C-contiguous. Raises ValueError naming the cause."""
+    decode, strerror = _bind("webp", _WEBP_ARGS)
+    src = np.frombuffer(raw, np.uint8)
+    base = src.ctypes.data
+    err = decode(base + info.data_at, info.data_size, int(info.lossless),
+                 None if info.alpha_at < 0 else base + info.alpha_at,
+                 info.alpha_size, info.frame_width, info.frame_height,
+                 info.canvas_width, info.canvas_height, info.x0, info.y0,
+                 info.orientation, channels, out.ctypes.data)
+    if err:
+        raise ValueError(strerror(err).decode())
+
+
+class JpegHeader(NamedTuple):
+    width: int              # after the EXIF orientation
+    height: int
+
+
 class Frame(NamedTuple):
-    kind: str               # "png", "pnm", "bmp" or "jpeg"
+    kind: str               # a `utils.io.image_kind`
     width: int
     height: int
-    info: object            # utils.io.Png / Pnm / Bmp, or the JPEG's bytes
+    info: object            # utils.io.Png / Pnm / Bmp / WebP / Ras / Pam /
+                            # Hdr / Pfm, or a JpegHeader
     raw: bytes              # the file
+
+
+def _jpeg_header(raw: bytes) -> JpegHeader:
+    return JpegHeader(*jpeg_info(raw)[:2])
+
+
+# kind -> its header parser
+_HEADERS = {"png": uio.png_chunks, "pnm": uio.pnm_header,
+            "bmp": uio.bmp_header, "jpeg": _jpeg_header,
+            "webp": uio.webp_chunks, "ras": uio.ras_header,
+            "pam": uio.pam_header, "hdr": uio.hdr_header,
+            "pfm": uio.pfm_header}
 
 
 def parse(raw: bytes) -> Frame:
     """A frame's format, size and parsed header (for a PNG its inflated
     image data too). Raises ValueError naming the cause on a file the
-    decoders refuse in its header or chunks."""
+    decoders refuse in its header or chunks, or larger than cv::imread
+    reads (`utils.io.check_cv_size`)."""
     raw = bytes(raw)        # the decoders take its buffer (no copy of bytes)
     kind = uio.image_kind(raw)
-    if kind == "png":
-        info = uio.png_chunks(raw)
-    elif kind == "pnm":
-        info = uio.pnm_header(raw)
-    elif kind == "bmp":
-        info = uio.bmp_header(raw)
-    else:
-        w, h, _ = jpeg_info(raw)
-        return Frame(kind, w, h, raw, raw)
+    info = _HEADERS[kind](raw)
+    uio.check_cv_size(info.width, info.height)
     return Frame(kind, info.width, info.height, info, raw)
 
 
@@ -169,6 +235,12 @@ def _read(path: str) -> Frame:
         raise ValueError(f"{path}: {e}") from None
 
 
+def _check(err: int, msgs: dict) -> None:
+    """Raise ValueError for a C decoder's error code (0: none)."""
+    if err:
+        raise ValueError(msgs.get(err, f"decoder error {err}"))
+
+
 _PNG_ERRORS = {-1: "out of memory", -2: "bad PNG layout",
                -4: "PNG image data of the wrong size",
                -5: "PNG IDAT chunk: CRC error"}
@@ -176,57 +248,121 @@ _PNM_ERRORS = {-1: "truncated PNM data",
                -2: "bad byte or number in ASCII PNM data"}
 _BMP_ERRORS = {-1: "truncated BMP data", -2: "bad BMP layout",
                -3: "corrupt BMP: an RLE run crosses its row's end"}
+_RAS_ERRORS = {-1: "truncated Sun raster data", -2: "bad Sun raster layout"}
+_PAM_ERRORS = {-1: "truncated PAM data", -2: "bad PAM layout"}
+_HDR_ERRORS = {-1: "truncated Radiance HDR data",
+               -2: "bad Radiance HDR layout",
+               -3: "corrupt Radiance HDR run-length scanline"}
+_PFM_ERRORS = {-1: "truncated PFM data", -2: "bad PFM layout"}
+
+
+def _decode_png(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    if channels == 1 and info.color_type & 2:
+        if uio.icc_may_be_srgb(info.iccp):
+            raise ValueError("colour PNG with an sRGB ICC profile read as "
+                             "gray: libpng's gamma for it is not "
+                             "reproduced")
+        if 0 < info.gamma < 5 or info.gamma > 0x7FFFFFFF:
+            raise ValueError(f"PNG gAMA {info.gamma} out of range for a "
+                             "gray read")
+    # bytes pass as pointers to their buffers, without a copy
+    err = _entries()[0](frame.raw, len(frame.raw), info.idat_at,
+                        info.idat_count, info.data, len(info.data),
+                        info.width, info.height, info.bit_depth,
+                        info.color_type, info.interlace, info.palette,
+                        info.gamma, info.sig_bit, channels, out.ctypes.data)
+    if err > 0:
+        raise ValueError(f"bad PNG filter: row {err - 1}: unknown filter "
+                         "type")
+    _check(err, _PNG_ERRORS)
+
+
+def _decode_pnm(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    body = np.frombuffer(frame.raw, np.uint8)[info.offset:]
+    _check(_entries()[1](body.ctypes.data, body.size, info.kind, info.width,
+                         info.height, info.maxval, channels,
+                         out.ctypes.data), _PNM_ERRORS)
+
+
+def _decode_bmp(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    src = np.frombuffer(frame.raw, np.uint8)
+    pal = np.frombuffer(info.palette, np.uint8)
+    masks = None if info.masks is None else \
+        np.asarray(info.masks, np.uint32)
+    _check(_entries()[2](src.ctypes.data, src.size, info.offset, info.width,
+                         info.height, int(info.top_down), info.bpp, info.rle,
+                         pal.ctypes.data,
+                         None if masks is None else masks.ctypes.data,
+                         channels, out.ctypes.data), _BMP_ERRORS)
+
+
+def _decode_jpeg(frame: Frame, channels: int, out: np.ndarray) -> None:
+    decode_jpeg(frame.raw, channels, out=out)
+
+
+def _decode_webp(frame: Frame, channels: int, out: np.ndarray) -> None:
+    decode_webp(frame.raw, frame.info, channels, out)
+
+
+def _decode_ras(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    src = np.frombuffer(frame.raw, np.uint8)
+    pal = None if info.palette is None else \
+        np.frombuffer(info.palette, np.uint8)
+    _check(_bind("raster", _RASTER_ARGS)[0](
+        src.ctypes.data, src.size, info.offset, info.width, info.height,
+        info.depth, None if pal is None else pal.ctypes.data, channels,
+        out.ctypes.data), _RAS_ERRORS)
+
+
+def _decode_pam(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    body = np.frombuffer(frame.raw, np.uint8)[info.offset:]
+    _check(_bind("raster", _RASTER_ARGS)[1](
+        body.ctypes.data, body.size, info.width, info.height, info.depth,
+        info.maxval, channels, out.ctypes.data), _PAM_ERRORS)
+
+
+def _decode_hdr(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    body = np.frombuffer(frame.raw, np.uint8)[info.offset:]
+    _check(_bind("raster", _RASTER_ARGS)[2](
+        body.ctypes.data, body.size, info.width, info.height, channels,
+        out.ctypes.data), _HDR_ERRORS)
+
+
+def _decode_pfm(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    if (channels == 3) != info.colour:
+        read = "colour" if channels == 3 else "gray"
+        raise ValueError(f"{'colour PF' if info.colour else 'gray Pf'} PFM "
+                         f"read as {read}: cv::imread fails on it too")
+    body = np.frombuffer(frame.raw, np.uint8)[info.offset:]
+    _check(_bind("raster", _RASTER_ARGS)[3](
+        body.ctypes.data, body.size, info.width, info.height,
+        int(info.colour), int(info.big_endian), info.scale, channels,
+        out.ctypes.data), _PFM_ERRORS)
+
+
+# kind -> its decoder
+_DECODERS = {"png": _decode_png, "pnm": _decode_pnm, "bmp": _decode_bmp,
+             "jpeg": _decode_jpeg, "webp": _decode_webp, "ras": _decode_ras,
+             "pam": _decode_pam, "hdr": _decode_hdr, "pfm": _decode_pfm}
 
 
 def decode_into(frame: Frame, channels: int, out: np.ndarray) -> None:
     """Decode one parsed frame into `out` (channels, H, W) uint8,
     C-contiguous. Raises ValueError naming the cause."""
-    if frame.kind == "jpeg":
-        decode_jpeg(frame.info, channels, out=out)
-        return
-    png, pnm, bmp = _entries()
-    info = frame.info
-    if frame.kind == "png":
-        if channels == 1 and info.color_type & 2:
-            if uio.icc_may_be_srgb(info.iccp):
-                raise ValueError("colour PNG with an sRGB ICC profile read "
-                                 "as gray: libpng's gamma for it is not "
-                                 "reproduced")
-            if 0 < info.gamma < 5 or info.gamma > 0x7FFFFFFF:
-                raise ValueError(f"PNG gAMA {info.gamma} out of range for "
-                                 "a gray read")
-        # bytes pass as pointers to their buffers, without a copy
-        err = png(frame.raw, len(frame.raw), info.idat_at, info.idat_count,
-                  info.data, len(info.data), info.width, info.height,
-                  info.bit_depth, info.color_type, info.interlace,
-                  info.palette, info.gamma, info.sig_bit, channels,
-                  out.ctypes.data)
-        if err > 0:
-            raise ValueError(f"bad PNG filter: row {err - 1}: unknown "
-                             "filter type")
-        msgs = _PNG_ERRORS
-    elif frame.kind == "pnm":
-        body = np.frombuffer(frame.raw, np.uint8)[info.offset:]
-        err = pnm(body.ctypes.data, body.size, info.kind, info.width,
-                  info.height, info.maxval, channels, out.ctypes.data)
-        msgs = _PNM_ERRORS
-    else:
-        src = np.frombuffer(frame.raw, np.uint8)
-        pal = np.frombuffer(info.palette, np.uint8)
-        masks = None if info.masks is None else \
-            np.asarray(info.masks, np.uint32)
-        err = bmp(src.ctypes.data, src.size, info.offset, info.width,
-                  info.height, int(info.top_down), info.bpp, info.rle,
-                  pal.ctypes.data, None if masks is None else
-                  masks.ctypes.data, channels, out.ctypes.data)
-        msgs = _BMP_ERRORS
-    if err:
-        raise ValueError(msgs.get(err, f"decoder error {err}"))
+    _DECODERS[frame.kind](frame, channels, out)
 
 
 def decode_image(raw: bytes, channels: int) -> np.ndarray:
-    """One PNG, PNM, BMP or JPEG file's bytes to (channels, H, W) uint8,
-    as cv::imread gives it (see the module docstring)."""
+    """One image file's bytes (any format of `utils.io.FORMATS`) to
+    (channels, H, W) uint8, as cv::imread gives it (see the module
+    docstring)."""
     if channels not in (1, 3):
         raise ValueError(f"channels must be 1 or 3, got {channels}")
     frame = parse(raw)
@@ -238,8 +374,8 @@ def decode_image(raw: bytes, channels: int) -> np.ndarray:
 def decode_batch(paths: Sequence[str], channels: int,
                  pool: Optional[Executor] = None,
                  out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Decode PNG, PNM, BMP and JPEG frames of one size, mixed or not, to
-    (B, C, H, W) uint8 as cv::imread gives them (equal to
+    """Decode frames of one size in any format of `utils.io.FORMATS`,
+    mixed or not, to (B, C, H, W) uint8 as cv::imread gives them (equal to
     `utils.io.load_image`'s values): C = 1 gray (IMREAD_GRAYSCALE), C = 3
     in BGR order. Each frame is read, parsed and decoded on `pool`'s
     threads, if given; `out`, if given, is the C-contiguous (B, C, H, W)

@@ -31,9 +31,10 @@ segments advance in lockstep, each lane warm-starting from its previous
 pair's flow. --mesh all splits over every CUDA device; --mesh N over the
 first N (on --device cpu, over the CPU N times).
 
-Frames (PNG, PNM (P1-P6), BMP and JPEG, each decoded as cv::imread
-decodes it by the port's own decoders, csrc/io_native.cpp and
-csrc/jpeg.cpp) are sorted lexicographically;
+Frames (PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster, PAM and Radiance
+HDR, each decoded as cv::imread decodes it by the port's own decoders,
+csrc/io_native.cpp, csrc/jpeg.cpp, csrc/webp.cpp and csrc/raster.cpp)
+are sorted lexicographically;
 pair t produces OUT_DIR/<frame_t>.flo (.pfm for depth modes), cropped to
 the frames' size.
 """
@@ -77,10 +78,16 @@ def default_batch(op_point: int) -> int:
     return DEFAULT_BATCH[min(max(op_point, 1), 4)]
 
 
+# frame file extensions: PNG, PNM, BMP, JPEG, WebP, Sun raster, PAM and
+# Radiance HDR (not .pfm: the CLI's depth output)
+FRAME_EXTENSIONS = (".png", ".pgm", ".ppm", ".pbm", ".pnm", ".bmp", ".jpg",
+                    ".jpeg", ".webp", ".ras", ".sr", ".pam", ".hdr", ".pic")
+
+
 def list_frames(frame_dir: str) -> List[str]:
-    """The frames (PNG, PNM, BMP, JPEG) of a directory, sorted."""
-    names = sorted(f for f in os.listdir(frame_dir) if f.lower().endswith(
-        (".png", ".pgm", ".ppm", ".pbm", ".pnm", ".bmp", ".jpg", ".jpeg")))
+    """The frames (`FRAME_EXTENSIONS`) of a directory, sorted."""
+    names = sorted(f for f in os.listdir(frame_dir)
+                   if f.lower().endswith(FRAME_EXTENSIONS))
     return [os.path.join(frame_dir, f) for f in names]
 
 

@@ -6,7 +6,8 @@ checkouts of this repo, run in turns on one host.
 
 The frames are phase 7's of chip_smoke.py (`bench_pipeline.make_frames`:
 161 gray 1024x436 PNGs, all five filters), written once into
-`build/bench_decode/frames` unless `--frames` names a directory. One
+`build/bench_decode/frames` unless `--frames` names a directory (any
+format `pipeline.list_frames` lists: WebP, Sun raster, PAM and HDR too). One
 worker process a checkout imports that checkout's package and waits; for
 each thread count the turns run ABBA (OLD, NEW, NEW, OLD, ...) `pairs`
 times, each turn one `decode_batch` over every frame on a fresh pool of
@@ -64,7 +65,7 @@ def _card() -> str | None:
 
 def _frames(frame_dir: str | None) -> str:
     if frame_dir:
-        return frame_dir
+        return os.path.abspath(frame_dir)   # the workers run in each tree
     from of_dis_tpu_torch.tools import bench_pipeline
     frame_dir = str(build.BUILD_DIR / "bench_decode" / "frames")
     bench_pipeline.make_frames(frame_dir, 161, seed=0, device="cpu")

@@ -5,19 +5,20 @@ Byte-compatible with the reference writers/readers:
     1 (depth), 2 (flow) or 4 (scene flow) channels (reference: run_dense.cpp:17-58).
   - `.pfm`: "Pf" header, bottom-up rows, NEGATED depth values, scale -1.0
     written via printf("%f") (reference: run_dense.cpp:61-82).
-  - image loading reads PNG, PNM (P1-P6), BMP and JPEG frames with the
-    values cv::imread gives (run_dense.cpp:200-210), with no OpenCV or PIL:
-    the headers and chunks are parsed here (the PNG image data inflated by
+  - image loading reads PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster,
+    PAM, Radiance HDR and PFM frames with the values cv::imread gives
+    (run_dense.cpp:200-210), with no OpenCV, PIL or libwebp: the headers,
+    chunks and containers are parsed here (the PNG image data inflated by
     zlib) and the pixels decoded by the port's host libraries
-    (`native.io`: csrc/io_native.cpp, csrc/jpeg.cpp). Gray is what
-    cv::imread(GRAYSCALE) gives: for a colour PNG libpng's rgb_to_gray
-    (0.299 / 0.587 in 1/32768ths, truncated, or through the file's gamma),
-    for PNM and BMP OpenCV's fixed-point BGR2GRAY, for a JPEG its decoded
-    Y plane; the EXIF orientation of a JPEG is applied.
+    (`native.io`: csrc/io_native.cpp, csrc/jpeg.cpp, csrc/webp.cpp,
+    csrc/raster.cpp). Gray is what cv::imread(GRAYSCALE) gives, by each
+    reader's own rule (see `native.io`); the EXIF orientation of a JPEG
+    and a WebP is applied.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from typing import NamedTuple, Optional
@@ -27,7 +28,8 @@ import numpy as np
 _FLO_MAGIC = b"PIEH"
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"  # SOI, then a marker's FF
-FORMATS = "PNG, PNM (P1-P6), BMP and JPEG"
+FORMATS = ("PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster, PAM, Radiance "
+           "HDR and PFM")
 
 
 def write_flo(path: str, data: np.ndarray) -> None:
@@ -95,6 +97,11 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # libpng's limit on either side (PNG_USER_WIDTH_MAX / HEIGHT_MAX)
 MAX_SIDE = 1_000_000
+# cv::imread's limits on any image (validateInputImageSize with the
+# defaults of CV_IO_MAX_IMAGE_WIDTH, _HEIGHT and _PIXELS): it fails on a
+# larger header before it reads the data
+CV_MAX_SIDE = 1 << 20
+CV_MAX_PIXELS = 1 << 30
 # Lengths of the ICC sRGB profiles that libpng 1.6 recognises in an iCCP
 # chunk and then treats as an sRGB chunk (gamma 45455): a colour PNG with
 # such a profile is refused when read as gray (see `icc_may_be_srgb`).
@@ -117,6 +124,15 @@ class Png(NamedTuple):
     idat_at: int        # offset in the file of its first IDAT chunk
     idat_count: int     # its IDAT chunks, consecutive
     data: bytes
+
+
+def check_cv_size(width: int, height: int) -> None:
+    """Raise ValueError for an image larger than cv::imread reads."""
+    if width > CV_MAX_SIDE or height > CV_MAX_SIDE \
+            or width * height > CV_MAX_PIXELS:
+        raise ValueError(f"image of {width}x{height} pixels, above cv::"
+                         "imread's limits of 2^20 a side and 2^30 pixels "
+                         "(it fails on it too)")
 
 
 def png_data_size(width: int, height: int, bit_depth: int, color_type: int,
@@ -222,6 +238,7 @@ def png_chunks(raw: bytes) -> Png:
             w, h, bd, ct, comp, filt, lace = ihdr
             if not (0 < w <= MAX_SIDE and 0 < h <= MAX_SIDE):
                 raise ValueError(f"PNG size {w}x{h} out of range")
+            check_cv_size(w, h)     # before the image data is inflated
             if (ct not in _PNG_TYPES or bd not in _PNG_TYPES[ct][1]
                     or comp != 0 or filt != 0 or lace > 1):
                 raise ValueError(f"corrupt PNG IHDR: bit depth {bd}, colour "
@@ -460,21 +477,538 @@ def bmp_header(raw: bytes) -> Bmp:
                {1: 8, 2: 4}.get(comp, 0), bytes(pal), offset, masks)
 
 
+# ------------------------------------------------------------------ WebP
+
+WEBP_MIN_SIZE = 32       # cv::imread's WebP reader reads a 32-byte header
+_MAX_CHUNK_PAYLOAD = 0xFFFFFFF6   # libwebp's ~0U - CHUNK_HEADER_SIZE - 1
+_VP8X_ANIMATION, _VP8X_EXIF = 0x02, 0x08
+
+
+class WebP(NamedTuple):
+    """What of a WebP file its pixels depend on: frame 0's bitstream (the
+    still image's, or an animation's first frame), where it lies on the
+    canvas, and the EXIF orientation cv::imread applies."""
+    width: int          # the image cv::imread returns, turned
+    height: int
+    lossless: bool      # VP8L, else VP8
+    data_at: int        # offset of the VP8 / VP8L payload
+    data_size: int      # bytes the bitstream decoder is given
+    alpha_at: int       # offset of a lossy image's ALPH payload, -1: none
+    alpha_size: int
+    frame_width: int
+    frame_height: int
+    x0: int             # frame 0's place on the canvas
+    y0: int
+    canvas_width: int
+    canvas_height: int
+    orientation: int    # 1-8
+
+
+def _le24(b: bytes) -> int:
+    return b[0] | (b[1] << 8) | (b[2] << 16)
+
+
+def _chunk_list(raw: bytes, pos: int, end: int):
+    """(tag, payload offset, payload size) of the RIFF chunks from `pos`
+    while a whole chunk header fits before `end`."""
+    out = []
+    while pos + 8 <= end:
+        size = struct.unpack("<I", raw[pos + 4:pos + 8])[0]
+        out.append((raw[pos:pos + 4], pos + 8, size))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def _walk_ends_at(raw: bytes, pos: int, end: int) -> bool:
+    """Whether whole chunks (headers, padded payloads) from `pos` end
+    exactly at `end`."""
+    while pos < end:
+        if pos + 8 > end:
+            return False
+        size = struct.unpack("<I", raw[pos + 4:pos + 8])[0]
+        pos += 8 + size + (size & 1)
+    return pos == end
+
+
+def _bitstream_size(raw: bytes, at: int, size: int, chunk_size: int,
+                    lossless: bool):
+    """(width, height) of a VP8 / VP8L bitstream of `size` bytes at `at`,
+    checked as libwebp's VP8GetInfo / VP8LGetInfo check it."""
+    if lossless:
+        if size < 5 or raw[at] != 0x2F or raw[at + 4] >> 5:
+            raise ValueError("corrupt WebP VP8L header")
+        bits = int.from_bytes(raw[at + 1:at + 5], "little")
+        return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    if size < 10:
+        raise ValueError("truncated WebP VP8 frame header")
+    bits = _le24(raw[at:at + 3])
+    if raw[at + 3:at + 6] != b"\x9d\x01\x2a":
+        raise ValueError("corrupt WebP VP8 frame header (no start code)")
+    if bits & 1:
+        raise ValueError("WebP VP8 frame is not a key frame")
+    if (bits >> 1) & 7 > 3 or not (bits >> 4) & 1 \
+            or bits >> 5 >= chunk_size:
+        raise ValueError("corrupt WebP VP8 frame header")
+    w = struct.unpack("<H", raw[at + 6:at + 8])[0] & 0x3FFF
+    h = struct.unpack("<H", raw[at + 8:at + 10])[0] & 0x3FFF
+    if w == 0 or h == 0:
+        raise ValueError("WebP VP8 frame of size 0")
+    return w, h
+
+
+def _image_chunks(raw: bytes, chunks, riff_size: int, total: int):
+    """The ALPH chunk and the VP8 / VP8L chunk that ends a run of chunks,
+    as libwebp's ParseOptionalChunks walks them: (alpha offset, size or
+    -1, 0), (tag, payload offset, size, index of the chunk)."""
+    alpha = (-1, 0)
+    for k, (tag, at, size) in enumerate(chunks):
+        if size > _MAX_CHUNK_PAYLOAD:
+            raise ValueError("corrupt WebP chunk size")
+        total += 8 + size + (size & 1)
+        if riff_size > 0 and total > riff_size:
+            raise ValueError("WebP chunk beyond the RIFF size")
+        if tag in (b"VP8 ", b"VP8L"):
+            return alpha, (tag, at, size, k)
+        if at + size + (size & 1) > len(raw):
+            raise ValueError(f"truncated WebP (in chunk {tag!r})")
+        if tag == b"ALPH":
+            alpha = (at, size)
+    raise ValueError("WebP has no VP8 / VP8L image chunk")
+
+
+def _opencv_exif_orientation(tiff: bytes) -> int:
+    """The orientation OpenCV's ExifReader finds in a TIFF-structured EXIF
+    block (as csrc/jpeg.cpp's `read_exif`): IFD0's entries in order to the
+    first 0x0112 tag; a read out of bounds, or a string or rational tag
+    before it whose data lies out of bounds, ends the walk with none (1)."""
+    size = len(tiff)
+    order = "<" if tiff[:2] == b"II" else ">"
+
+    def u16(off):
+        return None if off < 0 or off + 1 >= size else \
+            struct.unpack(order + "H", tiff[off:off + 2])[0]
+
+    def u32(off):
+        return None if off < 0 or off + 3 >= size else \
+            struct.unpack(order + "I", tiff[off:off + 4])[0]
+
+    def rationals(off, n):
+        at = u32(off + 8)
+        return at is not None and all(
+            u32(at + 8 * i) is not None and u32(at + 8 * i + 4) is not None
+            for i in range(n))
+
+    ifd = u32(4)
+    if u16(2) != 0x2A or ifd is None or u16(ifd) is None:
+        return 1
+    off = ifd + 2
+    for _ in range(u16(ifd)):
+        tag = u16(off)
+        if tag is None:
+            return 1
+        if tag == 0x0112:
+            v = u16(off + 8)
+            return v if v is not None and 1 <= v <= 8 else 1
+        ok = True
+        if tag in (0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x8298):
+            n, at = u32(off + 4), 8
+            if n is not None and n > 4:
+                at = u32(off + 8)
+            ok = n is not None and at is not None and at + n <= size
+        elif tag in (0x011A, 0x011B):
+            ok = rationals(off, 1)
+        elif tag == 0x013E:
+            ok = rationals(off, 2)
+        elif tag in (0x013F, 0x0214):
+            ok = rationals(off, 6)
+        elif tag == 0x0211:
+            ok = rationals(off, 3)
+        elif tag in (0x0128, 0x0213):
+            ok = u16(off + 8) is not None
+        if not ok:
+            return 1
+        off += 12
+    return 1
+
+
+def webp_chunks(raw: bytes) -> WebP:
+    """Parse a WebP as cv::imread reads it (OpenCV 5's WebP reader over
+    libwebp): the RIFF header and size; a simple file's VP8 or VP8L chunk;
+    an extended file's VP8X canvas and flags, its optional chunks up to
+    the image chunk (the last ALPH counts; ICCP, XMP, unknown chunks are
+    skipped), and the EXIF orientation of its first EXIF chunk where the
+    EXIF flag is set; an animation's first ANMF frame (its rectangle on a
+    canvas of zeros, its ALPH and image sub-chunks). The checks are
+    libwebp's; the image chunk's bitstream is decoded by csrc/webp.cpp,
+    which is given the bytes libwebp gives its decoder (a still image's
+    payload to the end of the file). Raises ValueError naming the cause."""
+    n = len(raw)
+    if raw[:4] != b"RIFF" or raw[8:12] != b"WEBP":
+        raise ValueError("not a WebP")
+    if n < WEBP_MIN_SIZE:
+        raise ValueError(f"WebP of {n} bytes (cv::imread reads 32 at least)")
+    riff_size = struct.unpack("<I", raw[4:8])[0]
+    if riff_size < 12 or riff_size > _MAX_CHUNK_PAYLOAD:
+        raise ValueError(f"corrupt WebP RIFF size {riff_size}")
+    if riff_size > n - 8:
+        raise ValueError("truncated WebP (shorter than its RIFF size)")
+    chunks = _chunk_list(raw, 12, n)
+    if not chunks:
+        raise ValueError("truncated WebP (no chunk)")
+    flags = 0
+    canvas = None
+    first = chunks[0]
+    if first[0] == b"VP8X":
+        if first[2] != 10:
+            raise ValueError(f"corrupt WebP VP8X chunk of {first[2]} bytes")
+        if n < first[1] + 10:
+            raise ValueError("truncated WebP VP8X chunk")
+        at = first[1]
+        flags = struct.unpack("<I", raw[at:at + 4])[0]
+        canvas = (1 + _le24(raw[at + 4:at + 7]),
+                  1 + _le24(raw[at + 7:at + 10]))
+        check_cv_size(*canvas)  # frame 0 is drawn on a canvas this size
+        chunks = chunks[1:]
+    elif first[0] not in (b"VP8 ", b"VP8L"):
+        raise ValueError(f"WebP chunk {first[0]!r} where VP8 / VP8L / VP8X "
+                         "is expected")
+    orientation = 1
+    # OpenCV reads the EXIF chunk, and an animation's frames, through
+    # libwebp's demuxer, which parses the chunks to the RIFF end and
+    # fails if one of them is cut short there
+    whole = _walk_ends_at(raw, 12, riff_size + 8)
+    if canvas is not None and flags & _VP8X_EXIF and whole:
+        exif = next(((at, size) for tag, at, size in chunks
+                     if tag == b"EXIF"), None)
+        if exif is not None and raw[exif[0]:exif[0] + 4] in (b"II*\0",
+                                                             b"MM\0*"):
+            orientation = _opencv_exif_orientation(
+                raw[exif[0]:exif[0] + exif[1]])
+    if canvas is not None and flags & _VP8X_ANIMATION:
+        if not whole:
+            raise ValueError("animated WebP with a chunk cut short (cv::"
+                             "imread fails on it too)")
+        return _webp_animation(raw, chunks, canvas, orientation)
+    # an extended file's chunks count against the RIFF size, a simple
+    # file's one chunk only by its own size (libwebp's ParseVP8Header)
+    (alpha_at, alpha_size), (tag, at, size, _) = _image_chunks(
+        raw, chunks, riff_size if canvas else 0, 22)
+    if size > riff_size - 12:
+        raise ValueError("WebP image chunk beyond the RIFF size")
+    if at + size > n:
+        raise ValueError(f"truncated WebP (in chunk {tag!r})")
+    lossless = tag == b"VP8L"
+    w, h = _bitstream_size(raw, at, n - at, size, lossless)
+    if canvas is not None and canvas != (w, h):
+        raise ValueError(f"WebP VP8X canvas {canvas[0]}x{canvas[1]} differs "
+                         f"from its image's {w}x{h}")
+    swap = orientation >= 5
+    return WebP(h if swap else w, w if swap else h, lossless, at, n - at,
+                -1 if lossless else alpha_at, alpha_size, w, h, 0, 0, w, h,
+                orientation)
+
+
+def _webp_animation(raw: bytes, chunks, canvas, orientation) -> WebP:
+    """Frame 0 of an animated WebP, as WebPAnimDecoder gives it to
+    cv::imread: its ANMF rectangle on a canvas of zeros, no blending (the
+    first frame is a key frame), then the EXIF orientation."""
+    tags = [c[0] for c in chunks]
+    if b"ANIM" not in tags or b"ANMF" not in tags \
+            or tags.index(b"ANIM") > tags.index(b"ANMF"):
+        raise ValueError("corrupt animated WebP (no ANIM before ANMF)")
+    tag, at, size = chunks[tags.index(b"ANMF")]
+    if size < 16 + 8 or at + size > len(raw):
+        raise ValueError("truncated animated WebP frame")
+    x0, y0 = 2 * _le24(raw[at:at + 3]), 2 * _le24(raw[at + 3:at + 6])
+    fw, fh = 1 + _le24(raw[at + 6:at + 9]), 1 + _le24(raw[at + 9:at + 12])
+    if x0 + fw > canvas[0] or y0 + fh > canvas[1]:
+        raise ValueError("animated WebP frame 0 does not fit its canvas")
+    sub = _chunk_list(raw, at + 16, at + size)
+    (alpha_at, alpha_size), (itag, iat, isize, k) = _image_chunks(
+        raw, sub, 0, 0)
+    if [c[0] for c in sub[:k]] not in ([], [b"ALPH"]):
+        raise ValueError("animated WebP frame with chunks other than ALPH "
+                         "before its image is not supported")
+    if iat + isize > at + size:
+        raise ValueError("truncated animated WebP frame")
+    lossless = itag == b"VP8L"
+    w, h = _bitstream_size(raw, iat, isize, isize, lossless)
+    if (w, h) != (fw, fh):
+        raise ValueError("animated WebP frame 0's bitstream size differs "
+                         "from its ANMF rectangle")
+    swap = orientation >= 5
+    return WebP(canvas[swap], canvas[not swap], lossless, iat, isize,
+                -1 if lossless else alpha_at, alpha_size, w, h, x0, y0,
+                canvas[0], canvas[1], orientation)
+
+
+# ----------------------------------------------------------- Sun raster
+
+SUN_MAGIC = b"\x59\xa6\x6a\x95"
+_SUN_TYPES = {0: "old", 1: "standard", 2: "byte-encoded (RLE)", 3: "RGB",
+              4: "TIFF", 5: "IFF"}
+
+
+class Ras(NamedTuple):
+    width: int
+    height: int
+    depth: int          # 1, 8, 24, 32
+    palette: Optional[bytes]  # 256 B, G, R triples of a colour map, None
+    offset: int         # first byte of the pixel data
+
+
+def ras_header(raw: bytes) -> Ras:
+    """The header of a Sun raster as OpenCV's reader takes it: eight
+    big-endian words (magic, width, height, depth, length, type, map type,
+    map length); depth 1, 8, 24 or 32; types old (0) and standard (1); no
+    colour map, or an RGB one (map type 1) of at most 3 * 2^depth bytes
+    for depth 8 or less, R, G and B thirds, entries past its end black.
+    Byte-encoded (RLE) and RGB-order files are refused: cv::imread fails
+    on them too. Raises ValueError naming the cause."""
+    if raw[:4] != SUN_MAGIC:
+        raise ValueError("not a Sun raster")
+    if len(raw) < 32:
+        raise ValueError("truncated Sun raster header")
+    _, w, h, depth, _, typ, maptype, maplen = struct.unpack(">8i", raw[:32])
+    if not (w > 0 and h > 0 and depth in (1, 8, 24, 32)):
+        raise ValueError(f"unsupported Sun raster: {w}x{h}, depth {depth}")
+    if typ not in (0, 1):
+        raise ValueError(f"{_SUN_TYPES.get(typ, f'type {typ}')} Sun raster "
+                         "is not supported (cv::imread fails on it too)")
+    pal_size = (1 << depth) * 3 if depth <= 8 else 0
+    palette = None
+    if maptype == 1 and 0 < maplen <= pal_size:
+        if 32 + maplen > len(raw):
+            raise ValueError("truncated Sun raster colour map")
+        cmap = np.frombuffer(raw, np.uint8, maplen, 32)
+        n = maplen // 3
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:n, 0] = cmap[2 * n:3 * n]
+        pal[:n, 1] = cmap[n:2 * n]
+        pal[:n, 2] = cmap[:n]
+        palette = pal.tobytes()
+    elif not (maptype == 0 and maplen == 0):
+        raise ValueError(f"unsupported Sun raster colour map: type {maptype}"
+                         f", {maplen} bytes, depth {depth}")
+    check_cv_size(w, h)
+    return Ras(w, h, depth, palette, 32 + maplen)
+
+
+# ------------------------------------------------------------------ PAM
+
+_PAM_FIELDS = (b"WIDTH", b"HEIGHT", b"DEPTH", b"MAXVAL", b"TUPLTYPE",
+               b"ENDHDR")
+_PAM_TUPLTYPES = (b"BLACKANDWHITE", b"GRAYSCALE", b"GRAYSCALE_ALPHA",
+                  b"RGB", b"RGB_ALPHA")
+_SPACE = b" \t\n\v\f\r"
+
+
+class Pam(NamedTuple):
+    width: int
+    height: int
+    depth: int          # samples a pixel: 1 or 3
+    maxval: int
+    offset: int         # first byte of the pixel data
+
+
+def pam_header(raw: bytes) -> Pam:
+    """The header of a PAM (P7) as OpenCV's PAM reader takes it: 'P7' and
+    a line end, then lines of a field name and its value ('#' comments),
+    WIDTH, HEIGHT, DEPTH and MAXVAL once each, TUPLTYPE BLACKANDWHITE,
+    GRAYSCALE or RGB (or none: depth 1 or 3 and maxval below 256), to
+    ENDHDR and the one byte after it. Tuple types with alpha are refused:
+    cv::imread fills only part of each row of them. Raises ValueError
+    naming the cause."""
+    if raw[:2] != b"P7" or raw[2:3] not in (b"\n", b"\r"):
+        raise ValueError("not a PAM (P7) file")
+    pos, n = 3, len(raw)
+    fields, tupltype = {}, None
+    while True:
+        while pos < n and raw[pos] in _SPACE:
+            pos += 1
+        if pos >= n:
+            raise ValueError("truncated PAM header")
+        if raw[pos] == 35:                              # '#'
+            while pos < n and raw[pos] not in b"\n\r":
+                pos += 1
+            pos += 1
+            continue
+        start = pos
+        while pos < n and raw[pos] not in _SPACE and pos - start < 8:
+            pos += 1
+        ident = raw[start:pos]
+        if pos >= n or raw[pos] not in _SPACE or ident not in _PAM_FIELDS:
+            raise ValueError(f"corrupt PAM header field {ident[:16]!r}")
+        if ident == b"ENDHDR":
+            if raw[pos] not in b"\n\r":
+                raise ValueError("corrupt PAM header: ENDHDR not at a line "
+                                 "end")
+            pos += 1
+            break
+        if raw[pos] in b"\n\r":
+            raise ValueError(f"PAM header field {ident.decode()} has no "
+                             "value")
+        while pos < n and raw[pos] in _SPACE:
+            pos += 1
+        start = pos
+        while pos < n and raw[pos] not in b"\n\r" and pos - start < 255:
+            pos += 1
+        if pos >= n or raw[pos] not in b"\n\r":
+            raise ValueError("corrupt PAM header: value not ended by a line "
+                             "end")
+        value = raw[start:pos].rstrip(_SPACE)
+        pos += 1
+        if ident == b"TUPLTYPE":
+            if value not in _PAM_TUPLTYPES:
+                raise ValueError(f"unsupported PAM TUPLTYPE {value[:32]!r} "
+                                 "(cv::imread fails on it too)")
+            tupltype = value
+            continue
+        if ident in fields:
+            raise ValueError(f"PAM header field {ident.decode()} twice")
+        if not value.isdigit() or len(value) > 9:
+            raise ValueError(f"PAM {ident.decode()} {value[:32]!r} is not a "
+                             "decimal number")
+        fields[ident] = int(value)
+    missing = [f.decode() for f in _PAM_FIELDS[:4] if f not in fields]
+    if missing:
+        raise ValueError(f"PAM header without {', '.join(missing)}")
+    w, h = fields[b"WIDTH"], fields[b"HEIGHT"]
+    depth, maxval = fields[b"DEPTH"], fields[b"MAXVAL"]
+    if not (w > 0 and h > 0):
+        raise ValueError(f"PAM size {w}x{h} out of range")
+    check_cv_size(w, h)
+    if not 0 < maxval <= 65535:
+        raise ValueError(f"PAM maxval {maxval} out of range")
+    if tupltype is None and not (depth in (1, 3) and maxval < 256):
+        raise ValueError(f"PAM of depth {depth}, maxval {maxval} and no "
+                         "TUPLTYPE (cv::imread fails on it too)")
+    if tupltype is not None and tupltype.endswith(b"_ALPHA"):
+        raise ValueError(f"PAM TUPLTYPE {tupltype.decode()} is not supported"
+                         " (cv::imread fills only part of each row)")
+    if tupltype is not None and depth != (3 if tupltype == b"RGB" else 1):
+        raise ValueError(f"PAM TUPLTYPE {tupltype.decode()} with depth "
+                         f"{depth} is not supported")
+    if depth not in (1, 3):
+        raise ValueError(f"PAM depth {depth} is not supported")
+    return Pam(w, h, depth, maxval, pos)
+
+
+# --------------------------------------------------------- Radiance HDR
+
+HDR_MAGICS = (b"#?RADIANCE", b"#?RGBE")
+_HDR_SIZE = re.compile(rb"-Y\s*([+-]?\d{1,9})\s*\+X\s*([+-]?\d{1,9})")
+
+
+class Hdr(NamedTuple):
+    width: int
+    height: int
+    offset: int         # first byte of the scanlines
+
+
+def _fgets(raw: bytes, pos: int):
+    """C's fgets into a 128-byte buffer: up to 127 bytes, through the
+    first newline. Returns (line, position after it), line None at EOF."""
+    if pos >= len(raw):
+        return None, pos
+    end = raw.find(b"\n", pos, pos + 127)
+    end = min(pos + 127, len(raw)) if end < 0 else end + 1
+    return raw[pos:end], end
+
+
+def hdr_header(raw: bytes) -> Hdr:
+    """The header of a Radiance HDR as OpenCV's RGBE_ReadHeader takes it:
+    lines (as fgets reads them) to an empty one, among them exactly
+    `FORMAT=32-bit_rle_rgbe` (EXPOSURE, GAMMA and other lines ignored);
+    then the resolution line `-Y H +X W`, the pixel data after it. The
+    XYZE format and other orientations are refused: cv::imread fails on
+    them too. Raises ValueError naming the cause."""
+    if not raw.startswith(HDR_MAGICS):
+        raise ValueError("not a Radiance HDR")
+    found = False
+    line, pos = _fgets(raw, 0)
+    while True:
+        if line is None:
+            raise ValueError("truncated Radiance HDR header")
+        if line[:1] in (b"", b"\0", b"\n"):
+            break
+        if line == b"FORMAT=32-bit_rle_rgbe\n":
+            found = True
+        line, pos = _fgets(raw, pos)
+    if not found:
+        raise ValueError("Radiance HDR without FORMAT=32-bit_rle_rgbe (the "
+                         "XYZE format: cv::imread fails on it too)")
+    line, pos = _fgets(raw, pos)
+    m = _HDR_SIZE.match(line or b"")
+    if m is None:
+        raise ValueError("Radiance HDR resolution line other than -Y H +X W"
+                         " (cv::imread fails on it too)")
+    h, w = int(m.group(1)), int(m.group(2))
+    if not (w > 0 and h > 0):
+        raise ValueError(f"Radiance HDR size {w}x{h} out of range")
+    check_cv_size(w, h)
+    if not line.endswith(b"\n"):
+        raise ValueError("Radiance HDR resolution line too long")
+    return Hdr(w, h, pos)
+
+
+# ------------------------------------------------------------------ PFM
+
+class Pfm(NamedTuple):
+    width: int
+    height: int
+    colour: bool        # PF (RGB), else Pf
+    big_endian: bool    # a scale of 0 or more
+    scale: float
+    offset: int
+
+
+def pfm_header(raw: bytes) -> Pfm:
+    """The header of a PFM as OpenCV's PFM reader takes it: 'Pf' (gray) or
+    'PF' (RGB), a newline, then width, height and scale, each ended by one
+    whitespace byte; the scale's sign gives the byte order (negative
+    little-endian). Raises ValueError naming the cause."""
+    if raw[:2] not in (b"Pf", b"PF"):
+        raise ValueError("not a PFM")
+    if raw[2:3] != b"\n":
+        raise ValueError("corrupt PFM header: no newline after its magic")
+    pos, tokens = 3, []
+    for _ in range(3):
+        start = pos
+        while pos < len(raw) and raw[pos] not in _SPACE and pos - start < 64:
+            pos += 1
+        if pos >= len(raw) or raw[pos] not in _SPACE:
+            raise ValueError("truncated PFM header")
+        tokens.append(raw[start:pos])
+        pos += 1
+    w, h, scale = tokens
+    if not (w.isdigit() and h.isdigit()) or len(w) > 9 or len(h) > 9:
+        raise ValueError(f"corrupt PFM size {w[:16]!r} {h[:16]!r}")
+    try:
+        s = float(scale)
+    except ValueError:
+        raise ValueError(f"corrupt PFM scale {scale[:16]!r}") from None
+    if not (int(w) > 0 and int(h) > 0):
+        raise ValueError(f"PFM size {int(w)}x{int(h)} out of range")
+    check_cv_size(int(w), int(h))
+    if s == 0 or s != s or abs(s) == float("inf"):
+        raise ValueError(f"PFM scale {s} (cv::imread fails on it too)")
+    return Pfm(int(w), int(h), raw[1:2] == b"F", s >= 0, s, pos)
+
+
 # ------------------------------------------------------------- any frame
 
 # magic -> name of the formats refused by name
 _OTHER_FORMATS = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"GIF8", "GIF"),
                   (b"\0\0\0\x0cjP  ", "JPEG 2000"),
                   (b"\xff\x4f\xff\x51", "JPEG 2000"),
-                  (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
-                  (b"PF", "PFM"), (b"Pf", "PFM"), (b"P7", "PAM"),
-                  (b"\x59\xa6\x6a\x95", "Sun raster"),
                   (b"\x76\x2f\x31\x01", "OpenEXR"))
 
 
 def image_kind(raw: bytes) -> str:
-    """"png", "pnm", "bmp" or "jpeg" by the file's magic; ValueError
-    naming the format, where it is known, for any other file."""
+    """"png", "pnm", "bmp", "jpeg", "webp", "ras", "pam", "hdr" or "pfm" by
+    the file's magic; ValueError naming the format, where it is known, for
+    any other file."""
     if raw[:8] == PNG_MAGIC:
         return "png"
     if raw[:3] == JPEG_MAGIC:
@@ -483,17 +1017,25 @@ def image_kind(raw: bytes) -> str:
         return "pnm"
     if raw[:2] == b"BM":
         return "bmp"
-    name = next((n for m, n in _OTHER_FORMATS if raw.startswith(m)), None)
     if raw[:4] == b"RIFF" and raw[8:12] == b"WEBP":
-        name = "WebP"
-    elif raw[4:8] == b"ftyp" and raw[8:12] in (b"avif", b"avis"):
+        return "webp"
+    if raw[:4] == SUN_MAGIC:
+        return "ras"
+    if raw[:2] == b"P7":
+        return "pam"
+    if raw[:2] in (b"Pf", b"PF"):
+        return "pfm"
+    if raw.startswith(HDR_MAGICS):
+        return "hdr"
+    name = next((n for m, n in _OTHER_FORMATS if raw.startswith(m)), None)
+    if raw[4:8] == b"ftyp" and raw[8:12] in (b"avif", b"avis"):
         name = "AVIF"
     raise ValueError(f"unsupported image format{f' ({name})' if name else ''}"
                      f": {FORMATS} are read")
 
 
 def load_image(path: str, channels: int = 1) -> np.ndarray:
-    """A PNG, PNM (P1-P6), BMP or JPEG frame as float32 (C, H, W), the
+    """A frame of any format `FORMATS` names as float32 (C, H, W), the
     values cv::imread gives: channels=1 IMREAD_GRAYSCALE, channels=3
     IMREAD_COLOR in BGR order. Decoded by the same host libraries as the
     serving pipeline's `native.io.decode_batch` (see that module for each

@@ -1,14 +1,16 @@
 """Guards on the port's boundaries: it never loads JAX, the JAX package or
 the JAX system's bench and tools (`bench.py`, `tools/`), nor an image
 library (cv2, PIL, imageio: each would hide the port's own decoders on a
-machine that has it), never runs on the CPU in place of CUDA, and every
-kernel has its source, its C entry and a launch counter."""
+machine that has it) nor a codec library (libwebp, libjpeg, libpng, ...),
+never runs on the CPU in place of CUDA, and every kernel has its source,
+its C entry and a launch counter."""
 
 import ast
 import importlib
 import os
 import pkgutil
 import re
+import struct
 import subprocess
 import sys
 
@@ -81,6 +83,69 @@ def test_sources_never_import_reference_or_jax():
             src = fh.read()
         assert not pat.search(src), f
         assert not dynamic.search(src), f
+
+
+WEBP = os.path.join(ROOT, "tests", "torch_fixtures", "webp", "variants")
+PNG = os.path.join(ROOT, "tests", "goldens", "a.png")
+# image codec libraries the host decoders must neither link nor load
+CODEC_LIBS = ("libwebp", "libsharpyuv", "libjpeg", "libturbojpeg", "libpng",
+              "libtiff", "libopenjp2", "libavif")
+
+
+def _needed(path):
+    """The DT_NEEDED entries of an ELF64 little-endian shared library."""
+    with open(path, "rb") as f:
+        elf = f.read()
+    assert elf[:6] == b"\x7fELF\x02\x01", path
+    shoff, = struct.unpack_from("<Q", elf, 0x28)
+    shentsize, shnum = struct.unpack_from("<HH", elf, 0x3A)
+    sections = [struct.unpack_from("<IIQQQQIIQQ", elf, shoff + k * shentsize)
+                for k in range(shnum)]
+    out = []
+    for sh in sections:
+        if sh[1] != 6:                                  # SHT_DYNAMIC
+            continue
+        strtab = sections[sh[6]]                        # sh_link: .dynstr
+        for k in range(sh[5] // 16):
+            tag, val = struct.unpack_from("<qQ", elf, sh[4] + 16 * k)
+            if tag == 1:                                # DT_NEEDED
+                at = strtab[4] + val
+                out.append(elf[at:elf.index(b"\0", at)].decode())
+    return out
+
+
+def test_host_decoders_link_and_load_no_codec_library():
+    """The WebP, JPEG and PNG decoders are the port's own: the host
+    libraries need no codec library (their DT_NEEDED entries), their
+    sources include none, and decoding every format in a fresh process
+    maps no codec library but the port's own builds."""
+    for name in build.HOST_LIBS:
+        src = (build.SRC_DIR / f"{name}.cpp").read_text()
+        assert not re.search(r"#include\s*[<\"](webp|jpeglib|png|zlib)",
+                             src), name
+        needed = _needed(build.load_host(name)._name)
+        assert not [n for n in needed if n.startswith(CODEC_LIBS)], needed
+    files = [os.path.join(WEBP, f) for f in ("q50.webp", "alpha_lossy.webp",
+                                             "anim_offset.webp",
+                                             "gray_lossless.webp")]
+    code = ("import sys\n"
+            "from of_dis_tpu_torch.kernels import build\n"
+            "from of_dis_tpu_torch.native import io as nio\n"
+            "from of_dis_tpu_torch.utils import io as uio\n"
+            f"for p in {files + [JPEG, PNG]!r}:\n"
+            "    uio.load_image(p, 3); nio.decode_batch([p], 1)\n"
+            "own = str(build.BUILD_DIR)\n"
+            "maps = {l.split()[-1] for l in open('/proc/self/maps')\n"
+            "        if l.split()[-1].endswith('.so') or '.so.' in l}\n"
+            f"bad = [m for m in maps if m.rsplit('/', 1)[-1].startswith("
+            f"{CODEC_LIBS!r}) and not m.startswith(own)]\n"
+            "mine = [m for m in maps if m.startswith(own)]\n"
+            "assert len(mine) >= 3, mine\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
 
 
 # the JAX system's measurement and operations tools that have a module in

@@ -486,15 +486,27 @@ def _encoded(ext):
     return buf.tobytes()
 
 
+def _jpeg_sized(w, h):
+    """A cv2-written JPEG whose SOF0 declares w x h."""
+    raw = bytearray(_encoded(".jpg"))
+    at = raw.index(b"\xff\xc0") + 5
+    raw[at:at + 4] = struct.pack(">HH", h, w)
+    return bytes(raw)
+
+
 REFUSED = {
     "tiff": (lambda: _encoded(".tiff"), r"\(TIFF\).*PNG, PNM \(P1-P6\), "
-                                        r"BMP and JPEG"),
-    "webp": (lambda: _encoded(".webp"), r"\(WebP\)"),
+                                        r"BMP, JPEG, WebP"),
+    # WebP, HDR, PFM and PAM are read: a refused variant of each (the
+    # others are in tests/test_torch_webp.py and
+    # tests/test_torch_raster_formats.py)
+    "webp": (lambda: _encoded(".webp")[:40], "truncated WebP"),
     "jpeg2000": (lambda: _encoded(".jp2"), r"\(JPEG 2000\)"),
-    "hdr": (lambda: _encoded(".hdr"), r"\(Radiance HDR\)"),
-    "pfm": (lambda: b"PF\n1 1\n-1\n" + b"\0" * 12, r"\(PFM\)"),
-    "pam": (lambda: b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\n"
-            b"ENDHDR\n\5", r"\(PAM\)"),
+    "hdr": (lambda: _encoded(".hdr").replace(b"rle_rgbe", b"rle_xyze"),
+            "XYZE"),
+    "pfm": (lambda: b"PF\n1 1\n0\n" + b"\0" * 12, "PFM scale 0"),
+    "pam": (lambda: b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 4\nMAXVAL 255\n"
+            b"TUPLTYPE RGB_ALPHA\nENDHDR\n\5\5\5\5", "RGB_ALPHA"),
     "gif": (lambda: b"GIF89a" + b"\0" * 20, r"\(GIF\)"),
     "unknown": (lambda: b"\0\1\2\3" * 8, r"unsupported image format: PNG"),
     "bmp_bi_jpeg": (lambda: _bmp(4, 24), "BI_JPEG"),
@@ -516,6 +528,14 @@ REFUSED = {
     "pnm_no_byte_after_last_value": (lambda: b"P2\n2 1\n255\n10 20",
                                      "truncated PNM"),
     "pnm_maxval_zero": (lambda: b"P5\n1 1\n0\n\0", "maxval 0"),
+    # above 2^30 pixels: cv::imread fails on the header (its size check)
+    "png_above_cv2_limits": (lambda: uio.PNG_MAGIC + mf.chunk(
+        b"IHDR", struct.pack(">IIBBBBB", 32768, 32769, 8, 0, 0, 0, 0))
+        + mf.chunk(b"IEND", b""), "above cv::imread's limits"),
+    "pnm_above_cv2_limits": (lambda: b"P5\n32768 32769\n255\n",
+                             "above cv::imread's limits"),
+    "jpeg_above_cv2_limits": (lambda: _jpeg_sized(40000, 40000),
+                              "above cv::imread's limits"),
 }
 
 

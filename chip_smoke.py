@@ -97,6 +97,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      and HDR frames: launches those of a path-A call, every file against
      `dis_flow_batched` on the same decoded frames, medians within 0.25 px
      of the motion;
+  7e. TIFF and GIF frames (`run_tiff_part`, `run_gif_part`): every
+     committed variant of tests/torch_fixtures/tiff and
+     tests/torch_fixtures/gif (numpy-, cv2- and PIL-written) and part 7b's
+     frames re-encoded on the card's host by their numpy writers (TIFF:
+     LZW with predictor 2 gray, Deflate RGB, PackBits RGB in 64x32 tiles,
+     16-bit gray, the JPEG frames' own bitstreams as YCbCr JPEG-in-TIFF;
+     GIF: gray under a 256-level gray palette, plain and interlaced),
+     decoded by the port's own decoders (`csrc/tiff.cpp` with
+     `csrc/jpeg.cpp` for JPEG strips, `csrc/gif.cpp`) through
+     `decode_batch` and `load_image`, gray and colour, each plane's SHA-256
+     equal to the manifest's cv2.imread hash (a read cv2.imread fails on
+     must raise); decode frames/s per frame set at 1 and 8 threads;
+     `run_pipeline` at op-2 gray flow (one batch) and `cli.main` on the
+     first pair of every TIFF set and of the 256-gray GIF frames: launches
+     those of a path-A call, every file against `dis_flow_batched` on the
+     same decoded frames, medians within 0.25 px of the motion;
   8. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
      the merge for flow and depth, the TV-free pseudo-Huber run), and the
@@ -1731,15 +1747,6 @@ FORMATS_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=4,
                     served=("png16", "adam7_srgb"))
 
 
-def _format_fixtures():
-    """tests/torch_fixtures/formats/make_fixtures.py, loaded by path."""
-    spec = importlib.util.spec_from_file_location(
-        "formats_fixtures", os.path.join(FORMATS_DIR, "make_fixtures.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion):
     """`run_pipeline` at cfg's op-point, gray flow, on the frames `ps` of
     one directory (in one batch of cfg["batch"] pairs), and `cli.main` on
@@ -1804,6 +1811,73 @@ def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion):
     return result
 
 
+def _fixture_module(directory, name):
+    """A fixture directory's make_fixtures.py, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(directory, "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _written_part(label, directory, cfg, write, dev, totals):
+    """Parts 7c, 7d (raster) and 7e, one fixture directory each: the
+    frames written on the host by `write` (root -> {set: paths}); every
+    frame's and committed variant's planes against the manifest's cv2
+    hashes, through `decode_batch` and `load_image`; decode frames/s per
+    set at 1 and 8 threads; `run_pipeline` and `cli.main` at op-2 gray
+    flow on the served sets (`_serve_frames`)."""
+    t_part = time.perf_counter()
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    root = os.path.join(OUT_DIR, label)
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write(root)
+    write_s = time.perf_counter() - t0
+    files = [(os.path.join(directory, rel), rec)
+             for rel, rec in sorted(manifest["files"].items())]
+    files += [(p, manifest["frames"][f"{fmt}/{os.path.basename(p)}"])
+              for fmt, ps in paths.items() for p in ps]
+    if len(files) != len(manifest["files"]) + len(manifest["frames"]):
+        raise AssertionError(f"{label}: the frames written differ from the "
+                             "manifest's")
+    checked, bad = _check_planes(files)
+    print(json.dumps({label: "decode check", "planes": checked,
+                      "files": len(files), "frames_written_s": write_s,
+                      "against": f"cv2 {manifest['cv2']}",
+                      "mismatches": bad}), flush=True)
+    if bad:
+        raise AssertionError(f"{label} planes differ from cv2's: {bad}")
+    rates = {fmt: _decode_rates(ps, 1, cfg["decode_repeats"],
+                                cfg["decode_threads"])
+             for fmt, ps in paths.items()}
+    print(json.dumps({label: "decode", "size": f"{W_ORG}x{H_ORG}",
+                      "channels": 1, "frames": 9 * cfg["decode_repeats"],
+                      "frames_per_s_by_threads": rates,
+                      "cpu_count": os.cpu_count(),
+                      "card": nvidia_smi_line()}), flush=True)
+    result = {fmt: _serve_frames(f"{label} {fmt}", paths[fmt], cfg,
+                                 os.path.join(root, f"out_{fmt}"), dev,
+                                 totals, manifest["motion_px"])
+              for fmt in cfg["served"]}
+    print(f"{label} part: {time.perf_counter() - t_part:.1f} s", flush=True)
+    return result
+
+
+def _jpeg_frames():
+    """Part 7b's frames: (gray, bgr) planes as the port decodes them, and
+    the files' bytes."""
+    jpeg_paths = pipeline.list_frames(os.path.join(JPEG_DIR, "frames"))
+    planes = [(native_io.decode_batch([p], 1)[0, 0],
+               native_io.decode_batch([p], 3)[0]) for p in jpeg_paths]
+    raws = []
+    for p in jpeg_paths:
+        with open(p, "rb") as f:
+            raws.append(f.read())
+    return planes, raws
+
+
 def run_formats_part(dev, totals, walls_by_path):
     """Phase 7, part 7c (see FORMATS_PART): the frames written; every
     frame's and variant's planes against the manifest's cv2 hashes,
@@ -1811,57 +1885,15 @@ def run_formats_part(dev, totals, walls_by_path):
     1 and 8 threads; `run_pipeline` at op-2 gray flow and `cli.main` on
     the served formats, counted, each file against `dis_flow_batched` on
     the same decoded frames and its median against the motion."""
-    cfg = FORMATS_PART
-    t_part = time.perf_counter()
-    fixtures = _format_fixtures()
-    with open(os.path.join(FORMATS_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
-    motion = manifest["motion_px"]
-    root = os.path.join(OUT_DIR, "formats")
-    shutil.rmtree(root, ignore_errors=True)
-    jpeg_paths = pipeline.list_frames(os.path.join(JPEG_DIR, "frames"))
-    planes = [(native_io.decode_batch([p], 1)[0, 0],
-               native_io.decode_batch([p], 3)[0]) for p in jpeg_paths]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
-        paths = fixtures.write_frames(root, planes, pool=pool)
-    write_s = time.perf_counter() - t0
+    fixtures = _fixture_module(FORMATS_DIR, "formats_fixtures")
+    planes = _jpeg_frames()[0]
 
-    # decode check: both entries, both channel counts, every file
-    files = [(os.path.join(FORMATS_DIR, rel), rec)
-             for rel, rec in sorted(manifest["files"].items())]
-    files += [(p, manifest["frames"][f"{fmt}/{os.path.basename(p)}"])
-              for fmt, ps in paths.items() for p in ps]
-    if len(files) != len(manifest["files"]) + len(manifest["frames"]):
-        raise AssertionError("formats: the frames written differ from the "
-                             "manifest's")
-    checked, bad = _check_planes(files)
-    print(json.dumps({"formats": "decode check", "planes": checked,
-                      "files": len(files), "frames_written_s": write_s,
-                      "against": f"cv2 {manifest['cv2']}",
-                      "mismatches": bad}), flush=True)
-    if bad:
-        raise AssertionError(f"PNG / PNM / BMP planes differ from cv2's: "
-                             f"{bad}")
+    def write(root):
+        with ThreadPoolExecutor(8) as pool:
+            return fixtures.write_frames(root, planes, pool=pool)
 
-    # decode rate: each format's nine frames, repeated, gray, at each
-    # thread count
-    rates = {fmt: _decode_rates(ps, 1, cfg["decode_repeats"],
-                                cfg["decode_threads"])
-             for fmt, ps in paths.items()}
-    print(json.dumps({"formats": "decode", "size": f"{W_ORG}x{H_ORG}",
-                      "channels": 1, "frames": 9 * cfg["decode_repeats"],
-                      "frames_per_s_by_threads": rates,
-                      "cpu_count": os.cpu_count(),
-                      "card": nvidia_smi_line()}), flush=True)
-
-    # serving: one batch of the eight pairs at op-2 gray flow, and the CLI
-    result = {fmt: _serve_frames(f"formats {fmt}", paths[fmt], cfg,
-                                 os.path.join(root, f"out_{fmt}"), dev,
-                                 totals, motion)
-              for fmt in cfg["served"]}
-    print(f"formats part: {time.perf_counter() - t_part:.1f} s", flush=True)
-    return result
+    return _written_part("formats", FORMATS_DIR, FORMATS_PART, write, dev,
+                         totals)
 
 
 # Part 7d: the WebP fixtures of tests/torch_fixtures/webp (committed: the
@@ -1927,64 +1959,61 @@ def run_webp_part(dev, totals, walls_by_path):
     return result
 
 
-def _raster_fixtures():
-    """tests/torch_fixtures/raster/make_fixtures.py, loaded by path."""
-    spec = importlib.util.spec_from_file_location(
-        "raster_fixtures", os.path.join(RASTER_DIR, "make_fixtures.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def run_raster_part(dev, totals, walls_by_path):
     """Phase 7, part 7d, Sun raster, PAM, HDR and PFM (see RASTER_PART):
     the frames written; every frame's and variant's planes against the
     manifest's cv2 hashes; decode frames/s per format at 1 and 8 threads;
     `run_pipeline` and `cli.main` at op-2 gray flow on the served
     formats, each file against `dis_flow_batched`."""
-    cfg = RASTER_PART
-    t_part = time.perf_counter()
-    fixtures = _raster_fixtures()
-    with open(os.path.join(RASTER_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
-    root = os.path.join(OUT_DIR, "raster")
-    shutil.rmtree(root, ignore_errors=True)
-    jpeg_paths = pipeline.list_frames(os.path.join(JPEG_DIR, "frames"))
-    planes = [(native_io.decode_batch([p], 1)[0, 0],
-               native_io.decode_batch([p], 3)[0]) for p in jpeg_paths]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
-        paths = fixtures.write_frames(root, planes, pool=pool)
-    write_s = time.perf_counter() - t0
-    files = [(os.path.join(RASTER_DIR, rel), rec)
-             for rel, rec in sorted(manifest["files"].items())]
-    files += [(p, manifest["frames"][f"{fmt}/{os.path.basename(p)}"])
-              for fmt, ps in paths.items() for p in ps]
-    if len(files) != len(manifest["files"]) + len(manifest["frames"]):
-        raise AssertionError("raster: the frames written differ from the "
-                             "manifest's")
-    checked, bad = _check_planes(files)
-    print(json.dumps({"raster": "decode check", "planes": checked,
-                      "files": len(files), "frames_written_s": write_s,
-                      "against": f"cv2 {manifest['cv2']}",
-                      "mismatches": bad}), flush=True)
-    if bad:
-        raise AssertionError(f"Sun raster / PAM / HDR / PFM planes differ "
-                             f"from cv2's: {bad}")
-    rates = {fmt: _decode_rates(ps, 1, cfg["decode_repeats"],
-                                cfg["decode_threads"])
-             for fmt, ps in paths.items()}
-    print(json.dumps({"raster": "decode", "size": f"{W_ORG}x{H_ORG}",
-                      "channels": 1, "frames": 9 * cfg["decode_repeats"],
-                      "frames_per_s_by_threads": rates,
-                      "cpu_count": os.cpu_count(),
-                      "card": nvidia_smi_line()}), flush=True)
-    result = {fmt: _serve_frames(f"raster {fmt}", paths[fmt], cfg,
-                                 os.path.join(root, f"out_{fmt}"), dev,
-                                 totals, manifest["motion_px"])
-              for fmt in cfg["served"]}
-    print(f"raster part: {time.perf_counter() - t_part:.1f} s", flush=True)
-    return result
+    fixtures = _fixture_module(RASTER_DIR, "raster_fixtures")
+    planes = _jpeg_frames()[0]
+
+    def write(root):
+        with ThreadPoolExecutor(8) as pool:
+            return fixtures.write_frames(root, planes, pool=pool)
+
+    return _written_part("raster", RASTER_DIR, RASTER_PART, write, dev,
+                         totals)
+
+
+# Part 7e: the TIFF and GIF fixtures (the committed variants, numpy-, cv2-
+# and PIL-written), and part 7b's frames re-encoded on the card's host by
+# the numpy writers of tests/torch_fixtures/tiff and tests/torch_fixtures/
+# gif (the TIFF "jpeg" set wraps the JPEG frames' own bitstreams). Each
+# manifest holds the SHA-256 of cv2.imread's gray and colour planes (null
+# where cv2.imread fails). `served`: the frame sets whose pairs go through
+# `run_pipeline` (one batch) and `cli.main` at op-2 gray flow.
+TIFF_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "tiff")
+GIF_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "gif")
+TIFF_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=2,
+                 served=("lzw_pred", "deflate_rgb", "packbits_tiled",
+                         "gray16", "jpeg"))
+GIF_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=2,
+                served=("gray256",))
+
+
+def run_tiff_part(dev, totals, walls_by_path):
+    """Phase 7, part 7e, TIFF (see TIFF_PART)."""
+    fixtures = _fixture_module(TIFF_DIR, "tiff_fixtures")
+    planes, raws = _jpeg_frames()
+
+    def write(root):
+        with ThreadPoolExecutor(8) as pool:
+            return fixtures.write_frames(root, planes, raws, pool=pool)
+
+    return _written_part("tiff", TIFF_DIR, TIFF_PART, write, dev, totals)
+
+
+def run_gif_part(dev, totals, walls_by_path):
+    """Phase 7, part 7e, GIF (see GIF_PART)."""
+    fixtures = _fixture_module(GIF_DIR, "gif_fixtures")
+    grays = [g for g, _ in _jpeg_frames()[0]]
+
+    def write(root):
+        with ThreadPoolExecutor(8) as pool:
+            return fixtures.write_frames(root, grays, pool=pool)
+
+    return _written_part("gif", GIF_DIR, GIF_PART, write, dev, totals)
 
 
 # The explicit 20-parameter forms of the merge and TV-free goldens
@@ -2690,6 +2719,9 @@ def main() -> int:
     # 7d. WebP, Sun raster, PAM, HDR and PFM frames: the same
     run_webp_part(dev, totals, walls)
     run_raster_part(dev, totals, walls)
+    # 7e. TIFF and GIF frames: the same
+    run_tiff_part(dev, totals, walls)
+    run_gif_part(dev, totals, walls)
 
     # 8. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()

@@ -13,7 +13,10 @@
 // What it reads: baseline and extended sequential Huffman (SOF0, SOF1)
 // and progressive Huffman (SOF2) of 8-bit samples, one component (gray)
 // or three (YCbCr, or RGB under an Adobe APP14 transform 0), any sampling
-// factors 1-4 with integral ratios, any number of scans, restart markers.
+// factors 1-4 with integral ratios, any number of scans, restart markers,
+// Motion-JPEG frames without DHT (libjpeg-turbo's standard tables), and,
+// for TIFF's compression 7 (`of_jpeg_decode_tiff`), an abbreviated stream
+// after the tables-only stream of the TIFF's JPEGTables tag.
 // What it refuses, each with its own code (`of_jpeg_strerror`):
 // arithmetic coding, lossless and hierarchical processes, other sample
 // precisions, 2 or 4 components, a missing table, and any stream that
@@ -290,6 +293,50 @@ struct BitReader {
   }
 };
 
+// jstdhuff.c: the Huffman tables of JPEG Annex K.3 (bits per code length
+// 1..16, then the symbols), DC and AC luminance, DC and AC chrominance
+constexpr uint8_t kStdBitsDcL[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+constexpr uint8_t kStdValsDcL[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t kStdBitsAcL[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+constexpr uint8_t kStdValsAcL[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+constexpr uint8_t kStdBitsDcC[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+constexpr uint8_t kStdValsDcC[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t kStdBitsAcC[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+constexpr uint8_t kStdValsAcC[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+// DC luminance, AC luminance, DC chrominance, AC chrominance
+const uint8_t* const kStdBits[4] = {kStdBitsDcL, kStdBitsAcL, kStdBitsDcC,
+                                    kStdBitsAcC};
+const uint8_t* const kStdVals[4] = {kStdValsDcL, kStdValsAcL, kStdValsDcC,
+                                    kStdValsAcC};
+
 struct Decoder {
   const uint8_t* data;
   const uint8_t* end;
@@ -520,7 +567,10 @@ struct Decoder {
   }
 
   // The header: markers up to the first SOS (jdmarker.c read_markers, as
-  // jpeg_read_header runs them). Returns with `p` after the SOS code.
+  // jpeg_read_header runs them). Returns with `p` after the SOS code, the
+  // standard Huffman tables installed in DC and AC slots 0 and 1 that no
+  // DHT has defined (jstdhuff.c std_huff_tables, which libjpeg-turbo's
+  // Huffman decoders run as they start: Motion-JPEG frames carry none).
   void read_header() {
     if (end - p < 2 || p[0] != 0xFF || p[1] != 0xD8) fail(kNotJpeg);
     p += 2;
@@ -528,11 +578,41 @@ struct Decoder {
       int code = next_marker();
       if (code == 0xDA) {
         if (!have_sof) fail(kBadMarker);
+        for (int i = 0; i < 2; ++i) {
+          std_table(&dc_tab[i], kStdBits[2 * i], kStdVals[2 * i]);
+          std_table(&ac_tab[i], kStdBits[2 * i + 1], kStdVals[2 * i + 1]);
+        }
         return;
       }
       if (code == 0xD9) fail(kNoImage);  // tables only (JERR_NO_IMAGE)
       handle_marker(code);
     }
+  }
+
+  // A tables-only ("abbreviated table specification") stream: SOI, then
+  // DQT, DHT, DRI, APPn and COM segments to EOI, as jpeg_read_header
+  // takes it before an abbreviated image stream (TIFF's JPEGTables).
+  void read_tables() {
+    if (end - p < 2 || p[0] != 0xFF || p[1] != 0xD8) fail(kNotJpeg);
+    p += 2;
+    for (;;) {
+      int code = next_marker();
+      if (code == 0xD9) return;
+      if (code == 0xDA || (code >= 0xC0 && code <= 0xCF && code != 0xC4))
+        fail(kBadMarker);
+      handle_marker(code);
+    }
+  }
+
+  static void std_table(Huffman* t, const uint8_t* bits, const uint8_t* vals) {
+    if (t->defined) return;
+    int count = 0;
+    for (int l = 1; l <= 16; ++l) {
+      t->bits[l] = bits[l - 1];
+      count += bits[l - 1];
+    }
+    std::memcpy(t->vals, vals, static_cast<size_t>(count));
+    t->defined = true;
   }
 
   // every marker but SOI, SOS and EOI
@@ -1120,6 +1200,24 @@ const ColorTables& color_tables() {
   return t;
 }
 
+// The first `n` components' samples after the IDCT, and an upsampler of
+// each to the image's size. `planes` is reserved first: each upsampler
+// holds a reference to its plane.
+void upsampled(Decoder& d, int n, std::vector<Plane>* planes,
+               std::vector<Upsampler>* ups) {
+  planes->reserve(n);
+  ups->reserve(n);
+  for (int c = 0; c < n; ++c) {
+    Component& k = d.comp[c];
+    if (d.max_h % k.h || d.max_v % k.v) fail(kSampling);
+    if (d.smoothing_changes(c)) fail(kSmoothing);
+    if (!k.latched) fail(kNoQuantTable);  // never in a scan
+    planes->push_back(inverse_dct(k));
+    ups->emplace_back(planes->back(), d.max_h / k.h, d.max_v / k.v,
+                      d.width);
+  }
+}
+
 void oriented_size(const Decoder& d, int* w, int* h) {
   bool swap = d.orientation >= 5 && d.orientation <= 8;
   *w = swap ? d.height : d.width;
@@ -1145,16 +1243,7 @@ void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
   const int W = d.width, H = d.height;
   std::vector<Plane> planes;
   std::vector<Upsampler> ups;
-  planes.reserve(need);
-  ups.reserve(need);
-  for (int c = 0; c < need; ++c) {
-    Component& k = d.comp[c];
-    if (d.max_h % k.h || d.max_v % k.v) fail(kSampling);
-    if (d.smoothing_changes(c)) fail(kSmoothing);
-    if (!k.latched) fail(kNoQuantTable);  // never in a scan
-    planes.push_back(inverse_dct(k));
-    ups.emplace_back(planes.back(), d.max_h / k.h, d.max_v / k.v, W);
-  }
+  upsampled(d, need, &planes, &ups);
   // rows are written in place where the orientation is the identity, else
   // into `tmp` and then turned
   const size_t npx = static_cast<size_t>(W) * H;
@@ -1199,9 +1288,80 @@ void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
   }
 }
 
+// One strip or tile of a JPEG-compressed TIFF, as libtiff's JPEG codec
+// (tif_jpeg.c) has libjpeg decode it for TIFFReadRGBA*: the tables of the
+// JPEGTables stream first (`tables`, may be empty), then the strip's own
+// stream; its size, component count and sampling factors as the TIFF's
+// (component 0 `h0` x `v0`, the others 1 x 1); the components upsampled
+// as ever, then, with `ycc`, YCbCr to RGB (JPEGCOLORMODE_RGB), else left
+// as they are (jpeg_color_space JCS_UNKNOWN). Into `out`, (height,
+// width, ncomp) interleaved.
+void decode_tiff_strip(const uint8_t* tables, int64_t tlen, const uint8_t* buf,
+                       int64_t len, int ycc, int width, int height, int ncomp,
+                       int h0, int v0, uint8_t* out) {
+  Decoder d(buf, len);
+  if (tlen > 0) {
+    d.p = tables;
+    d.end = tables + tlen;
+    d.read_tables();
+    d.data = d.p = buf;
+    d.end = buf + len;
+    d.restart_interval = 0;  // get_soi resets it; the tables persist
+  }
+  d.read_header();
+  if (d.width != width || d.height != height) fail(kSize);
+  if (d.ncomp != ncomp || (ycc && ncomp != 3)) fail(kComponents);
+  for (int c = 0; c < d.ncomp; ++c)
+    if (d.comp[c].h != (c ? 1 : h0) || d.comp[c].v != (c ? 1 : v0))
+      fail(kSampling);
+  d.decode_all();
+  const int W = d.width, H = d.height;
+  std::vector<Plane> planes;
+  std::vector<Upsampler> ups;
+  upsampled(d, ncomp, &planes, &ups);
+  const ColorTables& t = color_tables();
+  for (int y = 0; y < H; ++y) {
+    uint8_t* o = out + static_cast<size_t>(y) * W * ncomp;
+    if (ncomp == 1) {
+      std::memcpy(o, ups[0].row(y), static_cast<size_t>(W));
+      continue;
+    }
+    const uint8_t* c0 = ups[0].row(y);
+    const uint8_t* c1 = ups[1].row(y);
+    const uint8_t* c2 = ups[2].row(y);
+    for (int x = 0; x < W; ++x, o += 3) {
+      if (ycc) {  // ycc_rgb_convert
+        int yy = c0[x], cb = c1[x], cr = c2[x];
+        o[0] = clamp8(yy + t.cr_r[cr]);
+        o[1] = clamp8(yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+        o[2] = clamp8(yy + t.cb_b[cb]);
+      } else {  // null_convert
+        o[0] = c0[x];
+        o[1] = c1[x];
+        o[2] = c2[x];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// decode_tiff_strip: 0, or a negative code (of_jpeg_strerror).
+int of_jpeg_decode_tiff(const uint8_t* tables, int64_t tlen,
+                        const uint8_t* buf, int64_t len, int ycc, int width,
+                        int height, int ncomp, int h0, int v0, uint8_t* out) {
+  try {
+    decode_tiff_strip(tables, tlen, buf, len, ycc, width, height, ncomp, h0,
+                      v0, out);
+    return 0;
+  } catch (const Error& e) {
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  }
+}
 
 // The oriented size and component count of a JPEG: 0, or a negative code.
 int of_jpeg_info(const uint8_t* buf, int64_t len, int* width, int* height,

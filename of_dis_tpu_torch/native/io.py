@@ -41,6 +41,20 @@ colour IMREAD_COLOR in BGR order), with no OpenCV or PIL:
   - PFM (`utils.io.pfm_header`): gray `Pf` read as gray, colour `PF` read
     as colour (BGR), each sample divided by |scale| and rounded, with no
     factor of 255; the other two reads fail in cv::imread and are refused.
+  - TIFF (`utils.io.tiff_ifd`, pixels by `csrc/tiff.cpp`): page 0,
+    strips and tiles, chunky and planar, classic and BigTIFF;
+    uncompressed, LZW, PackBits, Deflate (inflated by zlib here) and JPEG
+    (each strip or tile by `csrc/jpeg.cpp` after the JPEGTables stream,
+    YCbCr to RGB as libtiff has libjpeg convert it); predictor 2; gray 1,
+    8, 16 bits, palette 1, 4, 8 bits, RGB 8 and 16 bits with or without
+    alpha, CMYK; orientations 1-4. Every value as libtiff's RGBA reader,
+    through which cv::imread reads any 8-bit TIFF, gives it; gray by the
+    readers' BGR2GRAY in 1/16384ths of that colour.
+  - GIF (`utils.io.gif_blocks`, pixels by `csrc/gif.cpp`): GIF87a and
+    GIF89a, the first image on its logical screen as OpenCV 5's GIF
+    reader draws it (background colour, local and global tables, the
+    transparent index not drawn, interlace); gray by cvtColor's BGR2GRAY
+    in 1/32768ths.
 The libraries are built with the host compiler at first use
 (`kernels.build.load_host`). zlib and ctypes release the interpreter lock,
 so a thread pool over the frames of a batch decodes them side by side.
@@ -51,6 +65,7 @@ naming the cause, and a library that cannot be built raises RuntimeError.
 from __future__ import annotations
 
 import ctypes
+import zlib
 from concurrent.futures import Executor
 from typing import NamedTuple, Optional, Sequence
 
@@ -116,11 +131,13 @@ _JPEG_ARGS = {
     "of_jpeg_decode": ((ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_void_p), ctypes.c_int),
     "of_jpeg_strerror": ((ctypes.c_int,), ctypes.c_char_p),
+    "of_jpeg_decode_tiff": ((_PTR, _I64, _PTR, _I64) + (ctypes.c_int,) * 6
+                            + (_PTR,), ctypes.c_int),
 }
 
 
 def _jpeg_entries():
-    """The JPEG library's three C entries."""
+    """The JPEG library's four C entries."""
     return _bind("jpeg", _JPEG_ARGS)
 
 
@@ -198,7 +215,7 @@ class Frame(NamedTuple):
     width: int
     height: int
     info: object            # utils.io.Png / Pnm / Bmp / WebP / Ras / Pam /
-                            # Hdr / Pfm, or a JpegHeader
+                            # Hdr / Pfm / Tiff / Gif, or a JpegHeader
     raw: bytes              # the file
 
 
@@ -211,7 +228,8 @@ _HEADERS = {"png": uio.png_chunks, "pnm": uio.pnm_header,
             "bmp": uio.bmp_header, "jpeg": _jpeg_header,
             "webp": uio.webp_chunks, "ras": uio.ras_header,
             "pam": uio.pam_header, "hdr": uio.hdr_header,
-            "pfm": uio.pfm_header}
+            "pfm": uio.pfm_header, "tiff": uio.tiff_ifd,
+            "gif": uio.gif_blocks}
 
 
 def parse(raw: bytes) -> Frame:
@@ -334,6 +352,112 @@ def _decode_hdr(frame: Frame, channels: int, out: np.ndarray) -> None:
         out.ctypes.data), _HDR_ERRORS)
 
 
+_TIFF_ARGS = {
+    "of_tiff_decode": ((_PTR, _PTR, _I64, _PTR, _PTR, ctypes.c_int, _PTR),
+                       _I64),
+}
+_TIFF_ERRORS = {-1: "truncated or corrupt TIFF strip or tile data",
+                -2: "bad TIFF layout", -3: "corrupt TIFF LZW data",
+                -4: "out of memory",
+                -5: "old-style TIFF LZW (TIFF 5.0) is not supported"}
+
+
+# byte -> the byte with its bits reversed (FillOrder 2)
+_REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _tiff_chunks(frame: Frame):
+    """(addresses, sizes, buffers to keep alive) of a TIFF's strips or
+    tiles as `of_tiff_decode` takes them: stored bytes for compression 1,
+    5 and 32773; each Deflate chunk inflated to the bytes its rows hold
+    (libtiff's ZIPDecode stops there too); each JPEG chunk decoded by
+    csrc/jpeg.cpp after the JPEGTables stream, to 8-bit samples."""
+    info = frame.info
+    src = np.frombuffer(frame.raw, np.uint8)
+    base = src.ctypes.data
+    if info.compression in (1, 5, 32773):
+        return [base + o for o in info.offsets], list(info.counts), None
+    spc = 1 if info.planar == 2 and info.spp > 1 else info.spp
+    across = -(-info.width // info.chunk_width)
+    per_plane = across * -(-info.height // info.chunk_height)
+    keep, addrs = [], []
+    for i, (off, cnt) in enumerate(zip(info.offsets, info.counts)):
+        y0 = (i % per_plane) // across * info.chunk_height
+        rows = info.chunk_height if info.tiled else min(
+            info.chunk_height, info.height - y0)
+        if info.compression == 7:
+            buf = np.empty((rows, info.chunk_width, spc), np.uint8)
+            tables = info.jpeg_tables or (0, 0)
+            err = _jpeg_entries()[3](
+                base + tables[0], tables[1], base + off, cnt,
+                int(info.photometric == 6), info.chunk_width, rows, spc,
+                *info.subsampling, buf.ctypes.data)
+            if err:
+                raise _jpeg_error(err)
+        else:
+            data = frame.raw[off:off + cnt]
+            if info.fill_order == 2:
+                data = data.translate(_REVERSED_BITS)
+            need = rows * ((info.chunk_width * spc * info.bits + 7) // 8)
+            try:
+                buf = zlib.decompressobj().decompress(data, need)
+            except zlib.error as e:
+                raise ValueError(f"TIFF Deflate data: {e}") from None
+            if len(buf) < need:
+                raise ValueError("truncated TIFF Deflate data")
+            buf = np.frombuffer(buf, np.uint8)
+        keep.append(buf)
+        addrs.append(buf.ctypes.data)
+    return addrs, [b.nbytes for b in keep], keep
+
+
+def _decode_tiff(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    addrs, sizes, keep = _tiff_chunks(frame)
+    decoded = keep is not None      # inflated or JPEG-decoded: as stored
+    jpeg = info.compression == 7
+    params = np.array([
+        info.width, info.height, 8 if jpeg else info.bits, info.spp,
+        1 if decoded else info.compression,
+        2 if info.photometric == 6 else info.photometric, info.planar,
+        info.predictor, 1 if decoded else info.fill_order, info.alpha,
+        int(info.big_endian), int(info.tiled), info.chunk_width,
+        info.chunk_height, info.orientation], np.int64)
+    pal = np.frombuffer(info.palette or bytes(768), np.uint8)
+    sizes = np.asarray(sizes, np.int64)     # alive through the call
+    _check(_bind("tiff", _TIFF_ARGS)[0](
+        (ctypes.c_void_p * len(addrs))(*addrs), sizes.ctypes.data,
+        len(addrs), params.ctypes.data, pal.ctypes.data, channels,
+        out.ctypes.data), _TIFF_ERRORS)
+
+
+_GIF_ARGS = {
+    "of_gif_decode": ((_PTR, _I64, _I64, ctypes.c_int, _I64, _I64, _I64,
+                       _I64, ctypes.c_int, _I64, _I64, _PTR, ctypes.c_int,
+                       ctypes.c_int, _PTR, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, _PTR), _I64),
+}
+_GIF_ERRORS = {-1: "truncated GIF image data (no LZW End code)",
+               -2: "bad GIF layout", -3: "corrupt GIF LZW data",
+               -4: "GIF image data of more or fewer pixels than the image, "
+                   "or data after its End code",
+               -5: "GIF pixel index outside its colour tables",
+               -6: "out of memory"}
+
+
+def _decode_gif(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    src = np.frombuffer(frame.raw, np.uint8)
+    base = src.ctypes.data
+    gct, ngct = (base + info.gct[0], info.gct[1]) if info.gct else (None, 0)
+    lct, nlct = (base + info.lct[0], info.lct[1]) if info.lct else (None, 0)
+    _check(_bind("gif", _GIF_ARGS)[0](
+        base, src.size, info.data_at, info.min_code_size, info.frame_width,
+        info.frame_height, info.left, info.top, int(info.interlace),
+        info.width, info.height, gct, ngct, info.background, lct, nlct,
+        info.transparent, channels, out.ctypes.data), _GIF_ERRORS)
+
+
 def _decode_pfm(frame: Frame, channels: int, out: np.ndarray) -> None:
     info = frame.info
     if (channels == 3) != info.colour:
@@ -350,7 +474,8 @@ def _decode_pfm(frame: Frame, channels: int, out: np.ndarray) -> None:
 # kind -> its decoder
 _DECODERS = {"png": _decode_png, "pnm": _decode_pnm, "bmp": _decode_bmp,
              "jpeg": _decode_jpeg, "webp": _decode_webp, "ras": _decode_ras,
-             "pam": _decode_pam, "hdr": _decode_hdr, "pfm": _decode_pfm}
+             "pam": _decode_pam, "hdr": _decode_hdr, "pfm": _decode_pfm,
+             "tiff": _decode_tiff, "gif": _decode_gif}
 
 
 def decode_into(frame: Frame, channels: int, out: np.ndarray) -> None:

@@ -31,10 +31,11 @@ segments advance in lockstep, each lane warm-starting from its previous
 pair's flow. --mesh all splits over every CUDA device; --mesh N over the
 first N (on --device cpu, over the CPU N times).
 
-Frames (PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster, PAM and Radiance
-HDR, each decoded as cv::imread decodes it by the port's own decoders,
-csrc/io_native.cpp, csrc/jpeg.cpp, csrc/webp.cpp and csrc/raster.cpp)
-are sorted lexicographically;
+Frames (PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster, PAM, Radiance
+HDR, TIFF and GIF, each decoded as cv::imread decodes it by the port's
+own decoders, csrc/io_native.cpp, csrc/jpeg.cpp, csrc/webp.cpp,
+csrc/raster.cpp, csrc/tiff.cpp and csrc/gif.cpp) are sorted
+lexicographically;
 pair t produces OUT_DIR/<frame_t>.flo (.pfm for depth modes), cropped to
 the frames' size.
 """
@@ -78,10 +79,11 @@ def default_batch(op_point: int) -> int:
     return DEFAULT_BATCH[min(max(op_point, 1), 4)]
 
 
-# frame file extensions: PNG, PNM, BMP, JPEG, WebP, Sun raster, PAM and
-# Radiance HDR (not .pfm: the CLI's depth output)
+# frame file extensions: PNG, PNM, BMP, JPEG, WebP, Sun raster, PAM,
+# Radiance HDR, TIFF and GIF (not .pfm: the CLI's depth output)
 FRAME_EXTENSIONS = (".png", ".pgm", ".ppm", ".pbm", ".pnm", ".bmp", ".jpg",
-                    ".jpeg", ".webp", ".ras", ".sr", ".pam", ".hdr", ".pic")
+                    ".jpeg", ".webp", ".ras", ".sr", ".pam", ".hdr", ".pic",
+                    ".tif", ".tiff", ".gif")
 
 
 def list_frames(frame_dir: str) -> List[str]:

@@ -7,7 +7,9 @@ checkouts of this repo, run in turns on one host.
 The frames are phase 7's of chip_smoke.py (`bench_pipeline.make_frames`:
 161 gray 1024x436 PNGs, all five filters), written once into
 `build/bench_decode/frames` unless `--frames` names a directory (any
-format `pipeline.list_frames` lists: WebP, Sun raster, PAM and HDR too). One
+format `pipeline.list_frames` lists: JPEG, WebP, Sun raster, PAM, HDR,
+TIFF and GIF too; chip_smoke.py leaves part 7c-7e's frames under
+`build/of_dis_tpu_torch/smoke/`). One
 worker process a checkout imports that checkout's package and waits; for
 each thread count the turns run ABBA (OLD, NEW, NEW, OLD, ...) `pairs`
 times, each turn one `decode_batch` over every frame on a fresh pool of

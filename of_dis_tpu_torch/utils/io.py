@@ -6,14 +6,15 @@ Byte-compatible with the reference writers/readers:
   - `.pfm`: "Pf" header, bottom-up rows, NEGATED depth values, scale -1.0
     written via printf("%f") (reference: run_dense.cpp:61-82).
   - image loading reads PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster,
-    PAM, Radiance HDR and PFM frames with the values cv::imread gives
-    (run_dense.cpp:200-210), with no OpenCV, PIL or libwebp: the headers,
-    chunks and containers are parsed here (the PNG image data inflated by
-    zlib) and the pixels decoded by the port's host libraries
-    (`native.io`: csrc/io_native.cpp, csrc/jpeg.cpp, csrc/webp.cpp,
-    csrc/raster.cpp). Gray is what cv::imread(GRAYSCALE) gives, by each
+    PAM, Radiance HDR, PFM, TIFF and GIF frames with the values cv::imread
+    gives (run_dense.cpp:200-210), with no OpenCV, PIL, libwebp, libtiff
+    or giflib: the headers, chunks, IFDs and blocks are parsed here (PNG
+    image data and TIFF Deflate chunks inflated by zlib) and the pixels
+    decoded by the port's host libraries (`native.io`: csrc/io_native.cpp,
+    csrc/jpeg.cpp, csrc/webp.cpp, csrc/raster.cpp, csrc/tiff.cpp,
+    csrc/gif.cpp). Gray is what cv::imread(GRAYSCALE) gives, by each
     reader's own rule (see `native.io`); the EXIF orientation of a JPEG
-    and a WebP is applied.
+    and a WebP, and a TIFF's orientation tag, are applied.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ _FLO_MAGIC = b"PIEH"
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"  # SOI, then a marker's FF
 FORMATS = ("PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster, PAM, Radiance "
-           "HDR and PFM")
+           "HDR, PFM, TIFF and GIF")
 
 
 def write_flo(path: str, data: np.ndarray) -> None:
@@ -996,19 +997,461 @@ def pfm_header(raw: bytes) -> Pfm:
     return Pfm(int(w), int(h), raw[1:2] == b"F", s >= 0, s, pos)
 
 
+# ------------------------------------------------------------------ TIFF
+
+# the unsigned integer field types (BYTE, SHORT, LONG, LONG8) a numeric
+# tag is read from; libtiff fails or skips a tag of another type
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 16: "Q"}
+_TIFF_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
+                      6: "old-style JPEG", 32771: "CCITT RLE (word)",
+                      32809: "ThunderScan", 34661: "JBIG", 34676: "SGI Log",
+                      34677: "SGI Log24", 34712: "JPEG 2000", 34925: "LZMA",
+                      50000: "ZSTD", 50001: "WebP", 32908: "Pixar",
+                      32909: "Pixar", 32947: "DCS", 34892: "lossy JPEG"}
+# compressions cv::imread's libtiff reads and the port decodes
+TIFF_COMPRESSIONS = (1, 5, 7, 8, 32773, 32946)
+_TIFF_PHOTOMETRICS = {4: "transparency mask", 6: "YCbCr", 8: "CIELab",
+                      9: "ICCLab", 10: "ITULab", 32844: "LogL",
+                      32845: "LogLuv", 32803: "CFA", 34892: "linear raw"}
+_TIFF_MAX_TILE = 1 << 24    # OpenCV's TILE_MAX_WIDTH / _HEIGHT
+
+
+class Tiff(NamedTuple):
+    """What of page 0 of a TIFF its pixels depend on, as cv::imread reads
+    it through libtiff's RGBA interface."""
+    width: int
+    height: int
+    bits: int           # 1, 4, 8 or 16
+    spp: int            # samples a pixel, 1-4
+    compression: int    # one of TIFF_COMPRESSIONS
+    photometric: int    # 0, 1, 2, 3, 5, or 6 (YCbCr under JPEG)
+    planar: int         # 1 chunky, 2 planar
+    predictor: int      # 2 where it applies (LZW and Deflate), else 1
+    fill_order: int     # 1, or 2: the bits of each stored byte reversed
+    alpha: int          # 0 none, 1 associated, 2 unassociated (as used)
+    big_endian: bool
+    tiled: bool
+    chunk_width: int    # a tile's width, or the image's
+    chunk_height: int   # a tile's height, or the rows per strip
+    orientation: int    # 1-4
+    palette: Optional[bytes]  # 256 R, G, B entries of a palette, 8-bit
+    offsets: tuple      # of each strip or tile, plane after plane
+    counts: tuple
+    jpeg_tables: Optional[tuple]  # (offset, bytes) of tag 347
+    subsampling: tuple  # YCbCrSubSampling of a YCbCr JPEG, else (1, 1)
+
+
+def _tiff_refuse(what: str, cv2_fails: bool = False):
+    raise ValueError(f"{what} is not supported" + (
+        " (cv::imread fails on it too)" if cv2_fails else ""))
+
+
+def tiff_ifd(raw: bytes) -> Tiff:
+    """Parse page 0 (the first IFD) of a classic or Big TIFF as cv::imread
+    reads it: OpenCV 5's TiffDecoder over libtiff 4.7, whose RGBA
+    interface (TIFFReadRGBAStrip / TIFFReadRGBATile) gives the pixels of
+    every 8-bit read. Reads strips and tiles, chunky and planar, of gray
+    (1, 8, 16 bits, MINISBLACK or MINISWHITE), palette (1, 4, 8 bits), RGB
+    (8, 16 bits) with or without alpha, CMYK (8 bits) and YCbCr under
+    JPEG; compressions none, LZW, PackBits, Deflate and JPEG; predictor 2
+    under LZW and Deflate; orientations 1-4. Every offset and count is
+    checked against the file. Raises ValueError naming the cause, and for
+    a variant cv::imread fails on saying so."""
+    n = len(raw)
+    magic = raw[:4]
+    if magic in (b"II*\0", b"MM\0*"):
+        big, order = False, "<" if magic[0] == 73 else ">"
+    elif magic in (b"II+\0", b"MM\0+"):
+        big, order = True, "<" if magic[0] == 73 else ">"
+    else:
+        raise ValueError("not a TIFF")
+    if big:
+        if n < 16:
+            raise ValueError("truncated TIFF header")
+        size, zero, ifd = struct.unpack(order + "HHQ", raw[4:16])
+        if size != 8 or zero != 0:
+            raise ValueError("corrupt BigTIFF header")
+    else:
+        if n < 8:
+            raise ValueError("truncated TIFF header")
+        ifd = struct.unpack(order + "I", raw[4:8])[0]
+    count_fmt, entry, word = ("Q", 20, 8) if big else ("H", 12, 4)
+    csize = struct.calcsize(count_fmt)
+    if ifd < 8 or ifd + csize > n:
+        raise ValueError("TIFF first IFD offset out of the file")
+    entries = struct.unpack(order + count_fmt, raw[ifd:ifd + csize])[0]
+    if entries == 0 or ifd + csize + entries * entry > n:
+        raise ValueError("truncated TIFF IFD")
+    tags = {}
+    for k in range(entries):
+        at = ifd + csize + k * entry
+        tag, typ = struct.unpack(order + "HH", raw[at:at + 4])
+        count = struct.unpack(order + ("Q" if big else "I"),
+                              raw[at + 4:at + 4 + word])[0]
+        if tag in tags:
+            _tiff_refuse(f"TIFF IFD with tag {tag} twice")
+        if tags and tag < max(tags):    # libtiff reads these otherwise
+            _tiff_refuse("TIFF IFD with its tags out of order")
+        tags[tag] = (typ, count, at + 4 + word)
+
+    def values(tag, default=None, want=None):
+        """A tag's integer values (a tuple), `default` if absent."""
+        if tag not in tags:
+            return default
+        typ, count, at = tags[tag]
+        code = _TIFF_TYPES.get(typ)
+        if code is None or count == 0:
+            raise ValueError(f"TIFF tag {tag} of type {typ} and {count} "
+                             "values is not supported")
+        nbytes = count * struct.calcsize(code)
+        if nbytes > word:
+            at = struct.unpack(order + ("Q" if big else "I"),
+                               raw[at:at + word])[0]
+            if at + nbytes > n:
+                raise ValueError(f"TIFF tag {tag}'s values lie beyond the "
+                                 "file")
+        vals = struct.unpack(order + code * count, raw[at:at + nbytes])
+        if want is not None and len(vals) not in want:
+            raise ValueError(f"TIFF tag {tag} with {len(vals)} values")
+        return vals
+
+    def one(tag, default=None):
+        """A one-value tag (libtiff fails on another count of most)."""
+        v = values(tag, None if default is None else (default,), want=(1,))
+        return None if v is None else v[0]
+
+    def per_sample(tag, default):
+        """A per-sample tag: one value, or at least `spp` equal ones (as
+        libtiff's TIFFReadDirEntryPersampleShort takes it)."""
+        v = values(tag, (default,))
+        if len(v) != 1 and (len(v) < spp or len(set(v[:spp])) != 1):
+            _tiff_refuse(f"TIFF tag {tag} with values {v[:8]} for {spp} "
+                         "samples")
+        return v[0]
+
+    width, height = one(256), one(257)
+    if width is None or height is None:
+        raise ValueError("TIFF without ImageWidth or ImageLength")
+    if not (0 < width and 0 < height):
+        raise ValueError(f"TIFF size {width}x{height} out of range")
+    check_cv_size(width, height)
+    spp = one(277, 1)
+    photometric = one(262)
+    if not 1 <= spp <= 4:
+        _tiff_refuse(f"TIFF of {spp} samples a pixel", spp > 4)
+    if 258 not in tags and photometric not in (0, 1):
+        _tiff_refuse("colour TIFF without BitsPerSample", True)
+    bits = per_sample(258, 1)
+    sample_format = per_sample(339, 1)
+    compression = one(259, 1)
+    planar = one(284, 1)
+    orientation = one(274, 1)
+    extra = values(338, ())
+    if photometric is None:
+        _tiff_refuse("TIFF without PhotometricInterpretation", True)
+    if sample_format not in (1, 2):
+        _tiff_refuse(f"TIFF SampleFormat {sample_format} (floating point "
+                     "or other)", True)
+    if bits not in (1, 4, 8, 16):
+        _tiff_refuse(f"TIFF of {bits}-bit samples", True)
+    if planar not in (1, 2):
+        _tiff_refuse(f"TIFF PlanarConfiguration {planar}")
+    if compression not in TIFF_COMPRESSIONS:
+        name = _TIFF_COMPRESSIONS.get(compression, f"{compression}")
+        _tiff_refuse(f"TIFF compression {name}",
+                     compression in (34925, 50000))
+    if orientation in (5, 6, 7, 8):
+        _tiff_refuse(f"TIFF orientation {orientation} (transposed)", True)
+    if orientation not in (1, 2, 3, 4):
+        _tiff_refuse(f"TIFF orientation {orientation}")
+    if len(extra) >= spp or max(extra, default=0) > 2:
+        _tiff_refuse(f"TIFF ExtraSamples {extra[:4]} for {spp} samples")
+    colour = spp - len(extra)
+    # libtiff's img->alpha
+    alpha = 0
+    if extra:
+        alpha = {0: 1 if spp > 3 else 0, 1: 1, 2: 2}.get(extra[0], 0)
+    planar_many = planar == 2 and spp > 1
+    fill_order = one(266, 1)
+    if fill_order not in (1, 2):
+        _tiff_refuse(f"TIFF FillOrder {fill_order}")
+    subsampling = (1, 1)
+    palette = None
+    if photometric in (0, 1):
+        if bits == 4 or (bits == 1 and spp > 1 and not planar_many):
+            _tiff_refuse(f"{bits}-bit gray TIFF"
+                         f"{' with extra samples' if spp > 1 else ''}",
+                         True)
+        if planar_many and bits == 1:
+            _tiff_refuse("planar 1-bit TIFF", True)
+        if not planar_many:             # chunky gray ignores its alpha
+            alpha = 0
+    elif photometric == 3:
+        if bits not in (1, 4, 8):
+            _tiff_refuse(f"{bits}-bit palette TIFF", True)
+        if planar_many:
+            _tiff_refuse("planar palette TIFF", True)
+        if bits < 8 and spp > 1:
+            _tiff_refuse(f"{bits}-bit palette TIFF with extra samples",
+                         True)
+        cmap = values(320, want=(3 << bits,))
+        if cmap is None:
+            _tiff_refuse("palette TIFF without ColorMap", True)
+        cm = np.asarray(cmap, np.int64).reshape(3, 1 << bits).T
+        if (cm >= 256).any():          # libtiff's checkcmap and cvtcmap
+            cm = cm >> 8
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:1 << bits] = cm
+        palette = pal.tobytes()
+        alpha = 0
+    elif photometric == 2:
+        if colour < 3:
+            _tiff_refuse(f"RGB TIFF of {colour} colour samples", True)
+        if bits not in (8, 16):
+            _tiff_refuse(f"{bits}-bit RGB TIFF", True)
+        if not planar_many and spp < 4:
+            alpha = 0
+    elif photometric == 5:
+        if one(332, 1) != 1:
+            _tiff_refuse("separated TIFF with an InkSet other than CMYK",
+                         True)
+        if spp < 4 or bits != 8:
+            _tiff_refuse(f"{bits}-bit separated TIFF of {spp} samples", True)
+        if planar_many and spp != 4:
+            _tiff_refuse("planar CMYK TIFF with extra samples", True)
+        alpha = 0
+    elif photometric == 6 and compression == 7 and not planar_many:
+        subsampling = values(530, (2, 2), want=(2,))
+        if spp != 3 or bits != 8:
+            _tiff_refuse(f"YCbCr JPEG TIFF of {spp} {bits}-bit samples")
+        alpha = 0                      # libjpeg converts it to RGB
+    else:
+        name = _TIFF_PHOTOMETRICS.get(photometric, f"{photometric}")
+        if photometric == 6:
+            name += " without JPEG compression"
+        _tiff_refuse(f"TIFF PhotometricInterpretation {name}")
+    if compression == 7:
+        if bits != 8 or planar_many or fill_order != 1 \
+                or photometric not in (0, 1, 2, 6) or spp != colour \
+                or spp not in (1, 3):
+            _tiff_refuse("JPEG TIFF other than chunky 8-bit gray, RGB or "
+                         "YCbCr without extra samples")
+    predictor = 1
+    if compression in (5, 8, 32946):
+        predictor = one(317, 1)
+        if predictor not in (1, 2):
+            _tiff_refuse(f"TIFF predictor {predictor}")
+        if predictor == 2 and bits not in (8, 16):
+            _tiff_refuse(f"TIFF predictor 2 with {bits}-bit samples", True)
+    tiled = 322 in tags or 323 in tags
+    # libtiff keeps strip and tile offsets (and counts) in one slot
+    other = (273, 279) if tiled else (322, 323, 324, 325)
+    if any(t in tags for t in other):
+        _tiff_refuse(f"{'tiled' if tiled else 'stripped'} TIFF with "
+                     f"{'strip' if tiled else 'tile'} tags")
+    if tiled:
+        cw, ch = one(322), one(323)
+        if cw is None or ch is None or not (0 < cw <= _TIFF_MAX_TILE
+                                            and 0 < ch <= _TIFF_MAX_TILE):
+            _tiff_refuse(f"TIFF tile of {cw}x{ch}")
+        off_tag, cnt_tag = 324, 325
+    else:
+        cw, ch = width, one(278, 0xFFFFFFFF)
+        if ch == 0:
+            _tiff_refuse("TIFF RowsPerStrip 0", True)
+        if ch == 0xFFFFFFFF:
+            ch = height
+        off_tag, cnt_tag = 273, 279
+    # OpenCV's checks of a strip (rows per strip as stored) or tile, and
+    # of its RGBA buffer
+    if ch > _TIFF_MAX_TILE or cw * ch * 4 >= 1 << 30:
+        _tiff_refuse(f"TIFF strip or tile of {cw}x{ch} (an RGBA buffer of "
+                     "1 GiB or more)", True)
+    ch = min(ch, height) if not tiled else ch
+    nchunks = -(-width // cw) * -(-height // ch) * (spp if planar_many
+                                                     else 1)
+    offsets, counts = values(off_tag), values(cnt_tag)
+    if offsets is None or counts is None:
+        _tiff_refuse(f"TIFF without {'Tile' if tiled else 'Strip'}Offsets "
+                     "and ByteCounts")
+    if len(offsets) != nchunks or len(counts) != nchunks:
+        raise ValueError(f"corrupt TIFF: {len(offsets)} offsets and "
+                         f"{len(counts)} byte counts for {nchunks} chunks")
+    for off, cnt in zip(offsets, counts):
+        if cnt == 0 or off + cnt > n:
+            raise ValueError("TIFF strip or tile beyond the end of the "
+                             "file")
+    spc = 1 if planar_many else spp
+    if tiled and compression == 1 and any(
+            c != ch * ((cw * spc * bits + 7) // 8) for c in counts):
+        _tiff_refuse("uncompressed TIFF tile of another byte count than "
+                     "its size", True)
+    # libtiff reads uncompressed strips of unequal byte counts (the last
+    # of a plane apart) by other sizes than theirs
+    per_plane = len(counts) // (spp if planar_many else 1)
+    if not tiled and compression == 1 and len({
+            c for k, c in enumerate(counts)
+            if k % per_plane != per_plane - 1}) > 1:
+        _tiff_refuse("uncompressed TIFF strips of unequal byte counts")
+    tables = None
+    if compression == 7 and 347 in tags:
+        typ, count, at = tags[347]
+        if typ not in (1, 7) or count < 4:
+            raise ValueError("corrupt TIFF JPEGTables tag")
+        if count > word:
+            at = struct.unpack(order + ("Q" if big else "I"),
+                               raw[at:at + word])[0]
+        if at + count > n:
+            raise ValueError("TIFF tag 347's values lie beyond the file")
+        tables = (at, count)
+    return Tiff(width, height, bits, spp, compression, photometric, planar,
+                predictor, fill_order, alpha, order == ">", tiled, cw, ch,
+                orientation, palette, offsets, counts, tables,
+                tuple(subsampling))
+
+
+# ------------------------------------------------------------------- GIF
+
+class Gif(NamedTuple):
+    """What of a GIF cv::imread's pixels depend on: the logical screen,
+    the colour tables and the first image."""
+    width: int          # the logical screen's
+    height: int
+    gct: Optional[tuple]  # (offset, entries) of the global colour table
+    background: int
+    lct: Optional[tuple]  # (offset, entries) of the first image's table
+    transparent: int    # the index not drawn, -1 for none
+    left: int           # the first image's rectangle
+    top: int
+    frame_width: int
+    frame_height: int
+    interlace: bool
+    min_code_size: int
+    data_at: int        # its first data sub-block's length byte
+
+
+def _gif_table(flags: int, at: int, n: int):
+    """(offset, entries) of the colour table a flags byte declares at
+    `at`, None for none; ValueError if it runs past the file."""
+    if not flags & 0x80:
+        return None
+    entries = 2 << (flags & 7)
+    if at + 3 * entries > n:
+        raise ValueError("truncated GIF colour table")
+    return at, entries
+
+
+def _gif_skip_blocks(raw: bytes, pos: int) -> int:
+    """The position after a run of data sub-blocks and its terminator."""
+    n = len(raw)
+    while True:
+        if pos >= n:
+            raise ValueError("truncated GIF (in a block's data)")
+        size = raw[pos]
+        pos += 1 + size
+        if size == 0:
+            return pos
+
+
+def gif_blocks(raw: bytes) -> Gif:
+    """Parse a GIF87a / GIF89a as cv::imread reads it (OpenCV 5's GIF
+    reader): the logical screen (its size not 0) and global table (the
+    background index inside it); every block to the trailer, which the
+    reader walks to count the frames: images inside the screen with a
+    minimum code size of 2-8, Graphic Control Extensions of 4 bytes and
+    disposal 0-3, NETSCAPE2.0 application extensions, other extensions
+    skipped; the first image and the transparent index of the last
+    Graphic Control Extension before it. Raises ValueError naming the
+    cause, and for a variant cv::imread fails on saying so."""
+    n = len(raw)
+    if raw[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF (GIF87a or GIF89a)")
+    if n < 13:
+        raise ValueError("truncated GIF header")
+    width, height, flags, background = struct.unpack("<HHBB", raw[6:12])
+    if width == 0 or height == 0:
+        raise ValueError(f"GIF logical screen of {width}x{height} (cv::"
+                         "imread fails on it too)")
+    gct = _gif_table(flags, 13, n)
+    if gct is not None and background >= gct[1]:
+        raise ValueError(f"GIF background index {background} outside its "
+                         "global colour table (cv::imread fails on it too)")
+    pos = 13 + (3 * gct[1] if gct else 0)
+    first, transparent = None, -1
+    while True:
+        if pos >= n:
+            raise ValueError("truncated GIF (no trailer)")
+        kind = raw[pos]
+        if kind == 0x3B:
+            break
+        if kind == 0x21:
+            if pos + 2 > n:
+                raise ValueError("truncated GIF extension")
+            label = raw[pos + 1]
+            if label == 0xF9:
+                if raw[pos + 2:pos + 3] != b"\x04" or pos + 7 > n:
+                    raise ValueError("corrupt GIF Graphic Control Extension"
+                                     " (cv::imread fails on it too)")
+                gce_flags = raw[pos + 3]
+                if (gce_flags >> 2) & 7 > 3:
+                    raise ValueError(f"GIF disposal method "
+                                     f"{(gce_flags >> 2) & 7} (cv::imread "
+                                     "fails on it too)")
+                if first is None:
+                    transparent = raw[pos + 6] if gce_flags & 1 else -1
+            elif label == 0xFF and raw[pos + 2:pos + 14] != \
+                    b"\x0bNETSCAPE2.0":
+                raise ValueError("GIF application extension other than "
+                                 "NETSCAPE2.0 is not supported")
+            pos = _gif_skip_blocks(raw, pos + 2)
+            continue
+        if kind != 0x2C:
+            raise ValueError(f"corrupt GIF: block {kind:#04x} (cv::imread "
+                             "fails on it too)")
+        if pos + 11 > n:
+            raise ValueError("truncated GIF image descriptor")
+        left, top, fw, fh, iflags = struct.unpack("<HHHHB",
+                                                  raw[pos + 1:pos + 10])
+        if fw == 0 or fh == 0 or left + fw > width or top + fh > height:
+            raise ValueError(f"GIF image of {fw}x{fh} at ({left}, {top}) "
+                             f"outside its {width}x{height} screen (cv::"
+                             "imread fails on it too)")
+        lct = _gif_table(iflags, pos + 10, n)
+        at = pos + 10 + (3 * lct[1] if lct else 0)
+        if at >= n:
+            raise ValueError("truncated GIF image")
+        min_size = raw[at]
+        if not 2 <= min_size <= 8:
+            raise ValueError(f"GIF LZW minimum code size {min_size} is not "
+                             "supported")
+        if first is None:
+            first = Gif(width, height, gct, background, lct, transparent,
+                        left, top, fw, fh, bool(iflags & 0x40), min_size,
+                        at + 1)
+        pos = _gif_skip_blocks(raw, at + 1)
+    if first is None:
+        raise ValueError("GIF without an image (cv::imread fails on it "
+                         "too)")
+    tables = max(first.lct[1] if first.lct else 0,
+                 gct[1] if gct else 0)
+    if tables and first.transparent >= tables:
+        raise ValueError(f"GIF transparent index {first.transparent} "
+                         "outside its colour tables is not supported")
+    return first
+
+
 # ------------------------------------------------------------- any frame
 
 # magic -> name of the formats refused by name
-_OTHER_FORMATS = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"GIF8", "GIF"),
-                  (b"\0\0\0\x0cjP  ", "JPEG 2000"),
+_OTHER_FORMATS = ((b"\0\0\0\x0cjP  ", "JPEG 2000"),
                   (b"\xff\x4f\xff\x51", "JPEG 2000"),
                   (b"\x76\x2f\x31\x01", "OpenEXR"))
 
 
 def image_kind(raw: bytes) -> str:
-    """"png", "pnm", "bmp", "jpeg", "webp", "ras", "pam", "hdr" or "pfm" by
-    the file's magic; ValueError naming the format, where it is known, for
-    any other file."""
+    """"png", "pnm", "bmp", "jpeg", "webp", "ras", "pam", "hdr", "pfm",
+    "tiff" or "gif" by the file's magic; ValueError naming the format,
+    where it is known, for any other file."""
     if raw[:8] == PNG_MAGIC:
         return "png"
     if raw[:3] == JPEG_MAGIC:
@@ -1027,6 +1470,10 @@ def image_kind(raw: bytes) -> str:
         return "pfm"
     if raw.startswith(HDR_MAGICS):
         return "hdr"
+    if raw[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        return "tiff"
+    if raw[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
     name = next((n for m, n in _OTHER_FORMATS if raw.startswith(m)), None)
     if raw[4:8] == b"ftyp" and raw[8:12] in (b"avif", b"avis"):
         name = "AVIF"

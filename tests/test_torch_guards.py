@@ -86,10 +86,14 @@ def test_sources_never_import_reference_or_jax():
 
 
 WEBP = os.path.join(ROOT, "tests", "torch_fixtures", "webp", "variants")
+TIFF = os.path.join(ROOT, "tests", "torch_fixtures", "tiff", "variants")
+GIF = os.path.join(ROOT, "tests", "torch_fixtures", "gif", "variants")
 PNG = os.path.join(ROOT, "tests", "goldens", "a.png")
 # image codec libraries the host decoders must neither link nor load
 CODEC_LIBS = ("libwebp", "libsharpyuv", "libjpeg", "libturbojpeg", "libpng",
-              "libtiff", "libopenjp2", "libavif")
+              "libtiff", "libgif", "libopenjp2", "libavif")
+# and zlib, which they must not link: Deflate data (PNG's, TIFF's) is
+# inflated by Python's own zlib module, which loads it
 
 
 def _needed(path):
@@ -115,19 +119,28 @@ def _needed(path):
 
 
 def test_host_decoders_link_and_load_no_codec_library():
-    """The WebP, JPEG and PNG decoders are the port's own: the host
-    libraries need no codec library (their DT_NEEDED entries), their
-    sources include none, and decoding every format in a fresh process
-    maps no codec library but the port's own builds."""
+    """The TIFF, GIF, WebP, JPEG and PNG decoders are the port's own: the
+    host libraries (tiff and gif among them) need no codec library nor
+    zlib (their DT_NEEDED entries), their sources include none, and
+    decoding every format in a fresh process maps no codec library but
+    the port's own builds."""
+    assert {"tiff", "gif"} <= set(build.HOST_LIBS)
     for name in build.HOST_LIBS:
         src = (build.SRC_DIR / f"{name}.cpp").read_text()
-        assert not re.search(r"#include\s*[<\"](webp|jpeglib|png|zlib)",
-                             src), name
+        assert not re.search(r"#include\s*[<\"](webp|jpeglib|png|zlib|"
+                             r"tiff|gif_lib)", src), name
         needed = _needed(build.load_host(name)._name)
-        assert not [n for n in needed if n.startswith(CODEC_LIBS)], needed
+        assert not [n for n in needed
+                    if n.startswith(CODEC_LIBS + ("libz",))], needed
     files = [os.path.join(WEBP, f) for f in ("q50.webp", "alpha_lossy.webp",
                                              "anim_offset.webp",
                                              "gray_lossless.webp")]
+    files += [os.path.join(TIFF, f) for f in ("cv2_jpeg_bgr.tif",
+                                              "rgb8_lzw_pred.tif",
+                                              "gray8_deflate_pred.tif",
+                                              "rgb8_tiled_packbits.tif")]
+    files += [os.path.join(GIF, f) for f in ("palette.gif",
+                                             "interlaced.gif")]
     code = ("import sys\n"
             "from of_dis_tpu_torch.kernels import build\n"
             "from of_dis_tpu_torch.native import io as nio\n"
@@ -140,7 +153,7 @@ def test_host_decoders_link_and_load_no_codec_library():
             f"bad = [m for m in maps if m.rsplit('/', 1)[-1].startswith("
             f"{CODEC_LIBS!r}) and not m.startswith(own)]\n"
             "mine = [m for m in maps if m.startswith(own)]\n"
-            "assert len(mine) >= 3, mine\n"
+            "assert len(mine) >= 5, mine\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

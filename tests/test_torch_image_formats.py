@@ -494,9 +494,22 @@ def _jpeg_sized(w, h):
     return bytes(raw)
 
 
+def _tiff_compression(raw, value):
+    """A cv2-written (little-endian) TIFF with its Compression set to
+    `value`."""
+    ifd = struct.unpack("<I", raw[4:8])[0]
+    for k in range(struct.unpack("<H", raw[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * k
+        if struct.unpack("<H", raw[at:at + 2])[0] == 259:
+            return raw[:at + 8] + struct.pack("<H", value) + raw[at + 10:]
+    raise AssertionError("no Compression tag")
+
+
 REFUSED = {
-    "tiff": (lambda: _encoded(".tiff"), r"\(TIFF\).*PNG, PNM \(P1-P6\), "
-                                        r"BMP, JPEG, WebP"),
+    # TIFF and GIF are read (tests/test_torch_tiff.py and
+    # tests/test_torch_gif.py): a refused variant of each
+    "tiff": (lambda: _tiff_compression(_encoded(".tiff"), 34925),
+             "TIFF compression LZMA"),
     # WebP, HDR, PFM and PAM are read: a refused variant of each (the
     # others are in tests/test_torch_webp.py and
     # tests/test_torch_raster_formats.py)
@@ -507,7 +520,7 @@ REFUSED = {
     "pfm": (lambda: b"PF\n1 1\n0\n" + b"\0" * 12, "PFM scale 0"),
     "pam": (lambda: b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 4\nMAXVAL 255\n"
             b"TUPLTYPE RGB_ALPHA\nENDHDR\n\5\5\5\5", "RGB_ALPHA"),
-    "gif": (lambda: b"GIF89a" + b"\0" * 20, r"\(GIF\)"),
+    "gif": (lambda: b"GIF89a" + b"\0" * 20, "GIF logical screen of 0x0"),
     "unknown": (lambda: b"\0\1\2\3" * 8, r"unsupported image format: PNG"),
     "bmp_bi_jpeg": (lambda: _bmp(4, 24), "BI_JPEG"),
     "bmp_bi_png": (lambda: _bmp(5, 24), "BI_PNG"),

@@ -168,6 +168,32 @@ def test_decoder_equals_cv2(tmp_path, h, w, kind, sampling, quality,
     assert_decodes_as_cv2(path)
 
 
+@pytest.mark.parametrize("sampling,kind,restart,gray", [
+    ("420", "blur", 0, False), ("420", "sat", 7, False),
+    ("444", "noise", 0, False), ("422", "blur", 1, False),
+    (None, "blur", 0, True)])
+def test_motion_jpeg_without_dht_equals_cv2(tmp_path, sampling, kind,
+                                            restart, gray):
+    """Motion-JPEG frames carry no DHT: the scans' tables 0 and 1 are the
+    standard ones (libjpeg-turbo's std_huff_tables), which cv2's encoder
+    also writes; the same planes as cv2.imread's of the frame, and of the
+    file with its tables."""
+    img = content(61, 83, kind, 5)
+    raw = encode(cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) if gray else img,
+                 90, sampling or "420", False, restart)
+    segs, sos = segments(raw)
+    bare = raw[:2] + b"".join(raw[a:b] for c, a, b in segs
+                              if c != 0xC4) + raw[sos:]
+    assert b"\xff\xc4" not in bare[:sos]
+    path = str(tmp_path / "mjpeg.jpg")
+    with open(path, "wb") as f:
+        f.write(bare)
+    assert_decodes_as_cv2(path)
+    for ch in (1, 3):
+        np.testing.assert_array_equal(nio.decode_jpeg(bare, ch),
+                                      nio.decode_jpeg(raw, ch))
+
+
 @pytest.mark.parametrize("h,w,progressive", [
     (1, 1, False), (7, 9, False), (17, 33, True), (61, 83, False),
     (437, 1023, True)])
@@ -368,6 +394,16 @@ def _cmyk(raw):
     return buf.getvalue()
 
 
+def _no_dht_slot2(raw):
+    """No DHT, and the first scan's first component on DC and AC table 2,
+    which no standard table fills (those fill slots 0 and 1)."""
+    raw = _without({0xC4})(raw)
+    sos = raw.index(b"\xff\xda")
+    b = bytearray(raw)
+    b[sos + 6] = 0x22           # Ns, then Cs1, then Td1 / Ta1
+    return bytes(b)
+
+
 def _unrefined(raw):
     """A progressive file without its last scan (the final refinement of
     the luma's AC bits): libjpeg would smooth its blocks."""
@@ -382,7 +418,7 @@ def _unrefined(raw):
     (_sof_byte(1, 0xC5), "hierarchical"),
     (_sof_byte(4, 12), "12-bit"),
     (_cmyk, "4-component"),
-    (_without({0xC4}), "Huffman table that is not defined"),
+    (_no_dht_slot2, "Huffman table that is not defined"),
     (_without({0xDB}), "quantization table that is not defined"),
     (_unrefined, "block smoothing"),
     (lambda raw: raw[:len(raw) // 2], "truncated"),

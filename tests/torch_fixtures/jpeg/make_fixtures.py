@@ -12,7 +12,8 @@ records) and runs the port on the CPU for the frames' content:
     a frame;
   - variants/*.jpg: small files, one a feature the decoder must read
     (sampling factors, progressive, restart markers, EXIF orientation 6,
-    gray, saturated colour blocks, Adobe RGB, a 7x9 frame);
+    gray, saturated colour blocks, Adobe RGB, a 7x9 frame, Motion-JPEG
+    frames without DHT, colour and gray);
   - manifest.json: per file the shape and SHA-256 of cv2.imread's gray
     (IMREAD_GRAYSCALE) and colour (IMREAD_COLOR) planes, laid out as the
     port's decoder lays them out ((C, H, W) uint8, C-contiguous), with the
@@ -119,6 +120,18 @@ def after_app0(raw: bytes, insert: bytes, drop_app0: bool = False) -> bytes:
     return raw[:2] + (b"" if drop_app0 else raw[2:end]) + insert + raw[end:]
 
 
+def without_dht(raw: bytes) -> bytes:
+    """`raw` without its DHT segments before the first SOS, as a
+    Motion-JPEG frame that uses the standard Huffman tables comes."""
+    pos, out = 2, bytearray(raw[:2])
+    while raw[pos + 1] != 0xDA:
+        end = pos + 2 + struct.unpack(">H", raw[pos + 2:pos + 4])[0]
+        if raw[pos + 1] != 0xC4:
+            out += raw[pos:end]
+        pos = end
+    return bytes(out + raw[pos:])
+
+
 def variants() -> dict:
     h, w = SMALL
     base = blurred(h, w, 1)
@@ -131,6 +144,10 @@ def variants() -> dict:
     out["adobe_rgb.jpg"] = after_app0(encode(base, sampling="444"),
                                       adobe(0), drop_app0=True)
     out["tiny_7x9.jpg"] = encode(saturated(7, 9, 3), quality=50)
+    # Motion-JPEG frames: cv2 writes the standard tables, which a decoder
+    # installs where a scan uses a table that no DHT defined
+    out["no_dht_420.jpg"] = without_dht(encode(base))
+    out["no_dht_gray.jpg"] = without_dht(out["gray.jpg"])
     return out
 
 

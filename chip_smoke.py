@@ -113,6 +113,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      first pair of every TIFF set and of the 256-gray GIF frames: launches
      those of a path-A call, every file against `dis_flow_batched` on the
      same decoded frames, medians within 0.25 px of the motion;
+  7f. JPEG 2000 frames (`run_jp2_part`): every committed fixture of
+     tests/torch_fixtures/jp2 (nine 1024x436 frames RGB 9/7 at 20:1,
+     frames 0-2 gray 5/3 without loss, small Pillow- and cv2-written
+     variants, the 2K cinema profile at 2048x1080) decoded by the port's
+     own decoder (`csrc/jp2.cpp`) through `decode_batch` and
+     `load_image`, gray and colour, each plane's SHA-256 equal to the
+     manifest's cv2.imread hash (a read cv2.imread fails on must raise);
+     decode frames/s of the lossy and the lossless frames at 1 and 8
+     threads; `run_pipeline` at op-2 gray flow (one batch) and `cli.main`
+     on the first pair of each set: launches those of a path-A call,
+     every file against `dis_flow_batched` on the same decoded frames,
+     medians within 0.25 px of the motion;
   8. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
      the merge for flow and depth, the TV-free pseudo-Huber run), and the
@@ -2016,6 +2028,62 @@ def run_gif_part(dev, totals, walls_by_path):
     return _written_part("gif", GIF_DIR, GIF_PART, write, dev, totals)
 
 
+# Part 7f: the JPEG 2000 fixtures of tests/torch_fixtures/jp2 (committed:
+# the card's machine has no JPEG 2000 encoder), part 7b's nine frames RGB
+# 9/7 at 20:1 (`frames`, the "lossy" set), frames 0-2's gray planes 5/3
+# without loss (`lossless`), and small variants. The manifest holds the
+# SHA-256 of cv2.imread's gray and colour planes (null where cv2.imread
+# fails). `served`: the frame sets whose pairs go through `run_pipeline`
+# (one batch) and `cli.main` at op-2 gray flow.
+JP2_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "jp2")
+JP2_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=2,
+                served=("lossy", "lossless"))
+
+
+def run_jp2_part(dev, totals, walls_by_path):
+    """Phase 7, part 7f, JPEG 2000 (see JP2_PART): every fixture's planes
+    against the manifest's cv2 hashes through `decode_batch` and
+    `load_image`; decode frames/s of the lossy and the lossless frames at
+    1 and 8 threads; `run_pipeline` and `cli.main` at op-2 gray flow on
+    the nine lossy frames and on the three lossless ones, each file
+    against `dis_flow_batched` on the same decoded frames."""
+    cfg = JP2_PART
+    t_part = time.perf_counter()
+    with open(os.path.join(JP2_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    files = [(os.path.join(JP2_DIR, rel), rec)
+             for rel, rec in sorted(manifest["files"].items())]
+    checked, bad = _check_planes(files)
+    print(json.dumps({"jp2": "decode check", "planes": checked,
+                      "files": len(files),
+                      "against": f"cv2 {manifest['cv2']}, OpenJPEG "
+                                 f"{manifest['openjpeg']}",
+                      "mismatches": bad, "card": nvidia_smi_line()}),
+          flush=True)
+    if bad:
+        raise AssertionError(f"JPEG 2000 planes differ from cv2's: {bad}")
+    sets = {"lossy": pipeline.list_frames(os.path.join(JP2_DIR, "frames")),
+            "lossless": pipeline.list_frames(os.path.join(JP2_DIR,
+                                                          "lossless"))}
+    # each set decoded 9 * decode_repeats times a thread count
+    rates = {name: _decode_rates(ps, 1, cfg["decode_repeats"] * 9 // len(ps),
+                                 cfg["decode_threads"])
+             for name, ps in sets.items()}
+    print(json.dumps({"jp2": "decode", "size": f"{W_ORG}x{H_ORG}",
+                      "channels": 1, "frames": 9 * cfg["decode_repeats"],
+                      "frames_per_s_by_threads": rates,
+                      "cpu_count": os.cpu_count(),
+                      "card": nvidia_smi_line()}), flush=True)
+    root = os.path.join(OUT_DIR, "jp2")
+    shutil.rmtree(root, ignore_errors=True)
+    result = {name: _serve_frames(f"jp2 {name}", sets[name], cfg,
+                                  os.path.join(root, f"out_{name}"), dev,
+                                  totals, manifest["motion_px"])
+              for name in cfg["served"]}
+    print(f"jp2 part: {time.perf_counter() - t_part:.1f} s", flush=True)
+    return result
+
+
 # The explicit 20-parameter forms of the merge and TV-free goldens
 # (tests/test_golden_parity.py): levels 3..1, 12 trips, patch size 8,
 # overlap 0.4, then usefbcon, patnorm, costfct, usetvref.
@@ -2722,6 +2790,8 @@ def main() -> int:
     # 7e. TIFF and GIF frames: the same
     run_tiff_part(dev, totals, walls)
     run_gif_part(dev, totals, walls)
+    # 7f. JPEG 2000 frames: the same, on the committed frames
+    run_jp2_part(dev, totals, walls)
 
     # 8. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()

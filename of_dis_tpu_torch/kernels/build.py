@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 # host libraries: `csrc/<name>.cpp`, compiled with the host C++ compiler
-HOST_LIBS = ("io_native", "jpeg", "webp", "raster", "tiff", "gif")
+HOST_LIBS = ("io_native", "jpeg", "webp", "raster", "tiff", "gif", "jp2")
 # -ffp-contract=off: no fused multiply-add, so the decoders' float
 # arithmetic rounds as OpenCV's and libpng's separate operations do
 HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")

@@ -55,6 +55,14 @@ colour IMREAD_COLOR in BGR order), with no OpenCV or PIL:
     reader draws it (background colour, local and global tables, the
     transparent index not drawn, interlace); gray by cvtColor's BGR2GRAY
     in 1/32768ths.
+  - JPEG 2000 (`utils.io.jp2_header`, the codestream by `csrc/jp2.cpp`):
+    JP2 files and raw codestreams, 5/3 and 9/7, tiles and tile-parts,
+    precincts, code-block sizes, the five progression orders, quality
+    layers, the component transforms, as OpenJPEG 2.5 (cv::imread's
+    reader) decodes them; samples above 8 bits shifted down to 8; colour
+    components 2, 1, 0 as B, G, R (a gray colour space's one component
+    replicated), alpha dropped; gray the one component, or cvtColor's
+    BGR2GRAY in 1/32768ths of three.
 The libraries are built with the host compiler at first use
 (`kernels.build.load_host`). zlib and ctypes release the interpreter lock,
 so a thread pool over the frames of a batch decodes them side by side.
@@ -215,7 +223,8 @@ class Frame(NamedTuple):
     width: int
     height: int
     info: object            # utils.io.Png / Pnm / Bmp / WebP / Ras / Pam /
-                            # Hdr / Pfm / Tiff / Gif, or a JpegHeader
+                            # Hdr / Pfm / Tiff / Gif / Jp2, or a
+                            # JpegHeader
     raw: bytes              # the file
 
 
@@ -229,7 +238,7 @@ _HEADERS = {"png": uio.png_chunks, "pnm": uio.pnm_header,
             "webp": uio.webp_chunks, "ras": uio.ras_header,
             "pam": uio.pam_header, "hdr": uio.hdr_header,
             "pfm": uio.pfm_header, "tiff": uio.tiff_ifd,
-            "gif": uio.gif_blocks}
+            "gif": uio.gif_blocks, "jp2": uio.jp2_header}
 
 
 def parse(raw: bytes) -> Frame:
@@ -458,6 +467,37 @@ def _decode_gif(frame: Frame, channels: int, out: np.ndarray) -> None:
         info.transparent, channels, out.ctypes.data), _GIF_ERRORS)
 
 
+_JP2_ARGS = {
+    "of_jp2_decode": ((_PTR, _I64, _I64, _PTR, ctypes.c_int, ctypes.c_int,
+                       _PTR), ctypes.c_int),
+    "of_jp2_strerror": ((ctypes.c_int,), ctypes.c_char_p),
+}
+
+
+def _decode_jp2(frame: Frame, channels: int, out: np.ndarray) -> None:
+    info = frame.info
+    # which components cv::imread's reader lays out (OpenCV 5's
+    # grfmt_jpeg2000_openjpeg.cpp): gray space, component 0 (replicated
+    # for colour); sRGB or unknown, B, G, R of components 2, 1, 0 (gray:
+    # their BGR2GRAY) from three components up, component 0 for gray below
+    if info.colour == "gray" or (channels == 1 and info.components < 3):
+        layout = 0
+    elif info.components < 3:
+        raise ValueError(f"JPEG 2000 of {info.components} components in an "
+                         "sRGB or unspecified colour space read as colour "
+                         "(cv::imread fails on it too)")
+    else:
+        layout = 1 if channels == 3 else 2
+    decode, strerror = _bind("jp2", _JP2_ARGS)
+    src = np.frombuffer(frame.raw, np.uint8)
+    params = np.frombuffer(info.params, np.int64)
+    err = decode(src.ctypes.data + info.stream_at, info.stream_size,
+                 info.sot_at, params.ctypes.data, channels, layout,
+                 out.ctypes.data)
+    if err:
+        raise ValueError(strerror(err).decode())
+
+
 def _decode_pfm(frame: Frame, channels: int, out: np.ndarray) -> None:
     info = frame.info
     if (channels == 3) != info.colour:
@@ -475,7 +515,7 @@ def _decode_pfm(frame: Frame, channels: int, out: np.ndarray) -> None:
 _DECODERS = {"png": _decode_png, "pnm": _decode_pnm, "bmp": _decode_bmp,
              "jpeg": _decode_jpeg, "webp": _decode_webp, "ras": _decode_ras,
              "pam": _decode_pam, "hdr": _decode_hdr, "pfm": _decode_pfm,
-             "tiff": _decode_tiff, "gif": _decode_gif}
+             "tiff": _decode_tiff, "gif": _decode_gif, "jp2": _decode_jp2}
 
 
 def decode_into(frame: Frame, channels: int, out: np.ndarray) -> None:

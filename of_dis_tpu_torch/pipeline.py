@@ -80,10 +80,11 @@ def default_batch(op_point: int) -> int:
 
 
 # frame file extensions: PNG, PNM, BMP, JPEG, WebP, Sun raster, PAM,
-# Radiance HDR, TIFF and GIF (not .pfm: the CLI's depth output)
+# Radiance HDR, TIFF, GIF and JPEG 2000 (JP2 files and raw codestreams;
+# not .pfm: the CLI's depth output)
 FRAME_EXTENSIONS = (".png", ".pgm", ".ppm", ".pbm", ".pnm", ".bmp", ".jpg",
                     ".jpeg", ".webp", ".ras", ".sr", ".pam", ".hdr", ".pic",
-                    ".tif", ".tiff", ".gif")
+                    ".tif", ".tiff", ".gif", ".jp2", ".j2k", ".j2c", ".jpc")
 
 
 def list_frames(frame_dir: str) -> List[str]:

@@ -8,8 +8,9 @@ The frames are phase 7's of chip_smoke.py (`bench_pipeline.make_frames`:
 161 gray 1024x436 PNGs, all five filters), written once into
 `build/bench_decode/frames` unless `--frames` names a directory (any
 format `pipeline.list_frames` lists: JPEG, WebP, Sun raster, PAM, HDR,
-TIFF and GIF too; chip_smoke.py leaves part 7c-7e's frames under
-`build/of_dis_tpu_torch/smoke/`). One
+TIFF, GIF and JPEG 2000 too; chip_smoke.py leaves part 7c-7e's frames
+under `build/of_dis_tpu_torch/smoke/`, and part 7f's JPEG 2000 frames
+are committed in tests/torch_fixtures/jp2/frames and .../lossless). One
 worker process a checkout imports that checkout's package and waits; for
 each thread count the turns run ABBA (OLD, NEW, NEW, OLD, ...) `pairs`
 times, each turn one `decode_batch` over every frame on a fresh pool of

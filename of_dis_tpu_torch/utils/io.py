@@ -6,15 +6,17 @@ Byte-compatible with the reference writers/readers:
   - `.pfm`: "Pf" header, bottom-up rows, NEGATED depth values, scale -1.0
     written via printf("%f") (reference: run_dense.cpp:61-82).
   - image loading reads PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster,
-    PAM, Radiance HDR, PFM, TIFF and GIF frames with the values cv::imread
-    gives (run_dense.cpp:200-210), with no OpenCV, PIL, libwebp, libtiff
-    or giflib: the headers, chunks, IFDs and blocks are parsed here (PNG
-    image data and TIFF Deflate chunks inflated by zlib) and the pixels
-    decoded by the port's host libraries (`native.io`: csrc/io_native.cpp,
+    PAM, Radiance HDR, PFM, TIFF, GIF and JPEG 2000 frames with the values
+    cv::imread gives (run_dense.cpp:200-210), with no OpenCV, PIL,
+    libwebp, libtiff, giflib or OpenJPEG: the headers, chunks, IFDs,
+    blocks, boxes and main headers are parsed here (PNG image data and
+    TIFF Deflate chunks inflated by zlib) and the pixels decoded by the
+    port's host libraries (`native.io`: csrc/io_native.cpp,
     csrc/jpeg.cpp, csrc/webp.cpp, csrc/raster.cpp, csrc/tiff.cpp,
-    csrc/gif.cpp). Gray is what cv::imread(GRAYSCALE) gives, by each
-    reader's own rule (see `native.io`); the EXIF orientation of a JPEG
-    and a WebP, and a TIFF's orientation tag, are applied.
+    csrc/gif.cpp, csrc/jp2.cpp). Gray is what cv::imread(GRAYSCALE)
+    gives, by each reader's own rule (see `native.io`); the EXIF
+    orientation of a JPEG and a WebP, and a TIFF's orientation tag, are
+    applied.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ _FLO_MAGIC = b"PIEH"
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"  # SOI, then a marker's FF
 FORMATS = ("PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster, PAM, Radiance "
-           "HDR, PFM, TIFF and GIF")
+           "HDR, PFM, TIFF, GIF and JPEG 2000")
 
 
 def write_flo(path: str, data: np.ndarray) -> None:
@@ -1440,17 +1442,377 @@ def gif_blocks(raw: bytes) -> Gif:
     return first
 
 
+# ----------------------------------------------------------- JPEG 2000
+
+JP2_MAGIC = b"\0\0\0\x0cjP  \r\n\x87\n"
+J2K_MAGIC = b"\xff\x4f\xff\x51"        # SOC, then SIZ
+# the layout of the parameters `of_jp2_decode` (csrc/jp2.cpp) takes
+_J2K_HEAD, _J2K_MAX_RES = 16, 33
+_J2K_BANDS = 3 * (_J2K_MAX_RES - 1) + 1
+_J2K_PRCW = 8
+_J2K_PRCH = _J2K_PRCW + _J2K_MAX_RES
+_J2K_EXPN = _J2K_PRCH + _J2K_MAX_RES
+_J2K_MANT = _J2K_EXPN + _J2K_BANDS
+_J2K_STRIDE = _J2K_MANT + _J2K_BANDS
+_J2K_CBLK_STYLES = ((1, "BYPASS"), (2, "RESET"), (4, "TERMALL"),
+                    (8, "VSC"), (16, "PTERM"), (32, "SEGSYM"),
+                    (64, "HT (HTJ2K)"))
+# main-header markers refused by name, and those skipped
+_J2K_REFUSED = {0xFF5E: "RGN (region of interest)",
+                0xFF5F: "POC (progression order change)",
+                0xFF60: "PPM (packed packet headers)",
+                0xFF50: "CAP (HTJ2K)", 0xFF59: "CPF (HTJ2K)"}
+_J2K_SKIPPED = (0xFF55, 0xFF57, 0xFF63, 0xFF64)    # TLM, PLM, CRG, COM
+# the most samples (width x height x components) the decoder takes: its
+# planes are int32, and a tile's float32 or int32 too (an 8K RGB frame
+# is 2^26.6)
+JP2_MAX_SAMPLES = 1 << 27
+# top-level JP2 boxes skipped
+_JP2_SKIPPED = (b"xml ", b"uuid", b"uinf", b"jp2i")
+
+
+class Jp2(NamedTuple):
+    """What of a JPEG 2000 file cv::imread's pixels depend on: the size,
+    the components, the colour space its reader picks (JP2 `colr`
+    enumerated 16 "srgb", 17 "gray"; a raw codestream "unknown", read as
+    sRGB), and the codestream with its main header as `of_jp2_decode`
+    takes it."""
+    width: int
+    height: int
+    components: int
+    precision: int          # the largest of the components'
+    colour: str
+    stream_at: int          # the codestream's offset in the file
+    stream_size: int
+    sot_at: int             # its first SOT, from the codestream's start
+    params: bytes           # int64 parameters (csrc/jp2.cpp's layout)
+
+
+def _jp2_refuse(what: str, cv2_fails: bool = False):
+    raise ValueError(f"JPEG 2000 {what} "
+                     + ("(cv::imread fails on it too)" if cv2_fails
+                        else "is not supported"))
+
+
+def _jp2_boxes(raw: bytes, pos: int, end: int):
+    """(type, content start, content end) of each box from pos to end."""
+    while pos < end:
+        if pos + 8 > end:
+            raise ValueError("truncated JP2 box header")
+        size, kind = struct.unpack(">I4s", raw[pos:pos + 8])
+        at = pos + 8
+        if size == 1:
+            if pos + 16 > end:
+                raise ValueError("truncated JP2 box header")
+            size = struct.unpack(">Q", raw[pos + 8:pos + 16])[0]
+            at = pos + 16
+        elif size == 0:
+            size = end - pos
+        if size < at - pos or pos + size > end:
+            raise ValueError(f"JP2 box {kind!r} runs past its end")
+        yield kind, at, pos + size
+        pos += size
+
+
+def _jp2_container(raw: bytes):
+    """(colour, codestream offset, size) of a JP2 file: the signature,
+    ftyp (brand jp2), jp2h (ihdr, colr, cdef, res, bpcc) before jp2c."""
+    n = len(raw)
+    boxes = _jp2_boxes(raw, 0, n)
+    first = next(boxes, None)
+    if first is None or raw[:12] != JP2_MAGIC:
+        raise ValueError("not a JP2 file")
+    ftyp = next(boxes, None)
+    if ftyp is None or ftyp[0] != b"ftyp" or ftyp[2] - ftyp[1] < 8:
+        raise ValueError("JP2 file without an ftyp box second")
+    brand = raw[ftyp[1]:ftyp[1] + 4]
+    if brand != b"jp2 ":
+        _jp2_refuse(f"brand {brand.decode('latin-1')!r} (JPX, Part 2 "
+                    "extensions, or HTJ2K)")
+    header = None
+    for kind, at, end in boxes:
+        if kind == b"jp2h":
+            if header is not None:
+                raise ValueError("JP2 file with two jp2h boxes")
+            header = _jp2_header_box(raw, at, end)
+        elif kind == b"jp2c":
+            if header is None:
+                raise ValueError("JP2 codestream before its jp2h box")
+            return header + (at, end - at)
+        elif kind not in _JP2_SKIPPED:
+            _jp2_refuse(f"box {kind.decode('latin-1')!r}")
+    raise ValueError("JP2 file without a codestream (jp2c box)")
+
+
+def _jp2_header_box(raw: bytes, pos: int, end: int):
+    """(colour, (width, height, components) of ihdr, cdef entries) of a
+    jp2h box."""
+    ihdr = colour = None
+    cdef = ()
+    for kind, at, stop in _jp2_boxes(raw, pos, end):
+        body = raw[at:stop]
+        if ihdr is None and kind != b"ihdr":
+            raise ValueError("JP2 jp2h box without ihdr first")
+        if kind == b"ihdr":
+            if ihdr is not None or len(body) != 14:
+                raise ValueError("corrupt JP2 ihdr box")
+            h, w, nc, _bpc, method = struct.unpack(">IIHBB", body[:12])
+            if method != 7:
+                raise ValueError(f"JP2 ihdr compression {method} is not "
+                                 "JPEG 2000")
+            ihdr = (w, h, nc)
+        elif kind == b"colr":
+            if colour is not None:
+                _jp2_refuse("second colr box")
+            if len(body) < 3:
+                raise ValueError("corrupt JP2 colr box")
+            if body[0] == 2:
+                _jp2_refuse("ICC colour profile (colr method 2)")
+            if body[0] != 1 or len(body) != 7:
+                _jp2_refuse(f"colr method {body[0]} (Part 2)")
+            enumcs = struct.unpack(">I", body[3:7])[0]
+            if enumcs == 18:
+                _jp2_refuse("sYCC colour space (colr enumerated 18)")
+            if enumcs in (12, 24):
+                _jp2_refuse(f"colour space {enumcs} (CMYK or e-sYCC)",
+                            cv2_fails=True)
+            colour = {16: "srgb", 17: "gray"}.get(enumcs, "unknown")
+        elif kind == b"cdef":
+            if len(body) < 2 or cdef:
+                raise ValueError("corrupt JP2 cdef box")
+            count = struct.unpack(">H", body[:2])[0]
+            if len(body) != 2 + 6 * count:
+                raise ValueError("corrupt JP2 cdef box")
+            cdef = tuple(struct.unpack(">HHH", body[2 + 6 * i:8 + 6 * i])
+                         for i in range(count))
+        elif kind in (b"pclr", b"cmap"):
+            _jp2_refuse("palette (pclr / cmap boxes)")
+        elif kind not in (b"res ", b"bpcc"):
+            _jp2_refuse(f"jp2h box {kind.decode('latin-1')!r}")
+    if ihdr is None or colour is None:
+        raise ValueError("JP2 jp2h box without ihdr and colr")
+    return colour, ihdr, cdef
+
+
+def _j2k_coding_style(body: bytes, at: int, precincts: bool):
+    """(numres, cblkw, cblkh, transform, precinct exponents) of SPcod /
+    SPcoc from `at`; the end of it."""
+    if at + 5 > len(body):
+        raise ValueError("truncated JPEG 2000 COD / COC marker")
+    levels, xcb, ycb, style, transform = body[at:at + 5]
+    if levels > 32:
+        raise ValueError(f"JPEG 2000 with {levels} decomposition levels")
+    if xcb > 8 or ycb > 8 or xcb + ycb > 8:
+        raise ValueError("corrupt JPEG 2000 code-block size")
+    if style:
+        _jp2_refuse("code-block style " + " | ".join(
+            name for bit, name in _J2K_CBLK_STYLES if style & bit)
+            if style & 127 else f"code-block style {style:#x}")
+    if transform > 1:
+        raise ValueError(f"corrupt JPEG 2000 wavelet transform {transform}")
+    at += 5
+    if precincts:
+        if at + levels + 1 > len(body):
+            raise ValueError("truncated JPEG 2000 precinct sizes")
+        sizes = tuple((b & 15, b >> 4) for b in body[at:at + levels + 1])
+        if any(r and (pw == 0 or ph == 0) for r, (pw, ph) in
+               enumerate(sizes)):
+            raise ValueError("corrupt JPEG 2000 precinct size")
+        at += levels + 1
+    else:
+        sizes = ((15, 15),) * (levels + 1)
+    return (levels + 1, xcb + 2, ycb + 2, transform, sizes), at
+
+
+def _j2k_quantization(body: bytes, at: int):
+    """(guard bits, [(exponent, mantissa)] by band) of SPqcd / SPqcc."""
+    if at >= len(body):
+        raise ValueError("truncated JPEG 2000 QCD / QCC marker")
+    style, guard = body[at] & 31, body[at] >> 5
+    rest = body[at + 1:]
+    if style == 0:
+        steps = [(b >> 3, 0) for b in rest]
+    elif style in (1, 2):
+        if len(rest) < 2 or (style == 1 and len(rest) != 2):
+            raise ValueError("corrupt JPEG 2000 quantization marker")
+        steps = [(v >> 11, v & 0x7FF) for v in struct.unpack(
+            f">{len(rest) // 2}H", rest[:len(rest) // 2 * 2])]
+        if style == 1:     # scalar derived (E-5)
+            e0, m0 = steps[0]
+            steps = [(e0, m0)] + [(max(e0 - (b - 1) // 3, 0), m0)
+                                  for b in range(1, _J2K_BANDS)]
+    else:
+        raise ValueError(f"corrupt JPEG 2000 quantization style {style}")
+    return guard, steps[:_J2K_BANDS]
+
+
+def jp2_header(raw: bytes) -> Jp2:
+    """Parse a JP2 file or a raw JPEG 2000 codestream as cv::imread reads
+    it (OpenJPEG 2.5 under OpenCV 5's reader): the boxes, then the main
+    header (SIZ, COD, COC, QCD, QCC; TLM, PLM, CRG and COM skipped) up to
+    the first SOT. Raises ValueError naming the cause: corrupt headers,
+    what cv::imread fails on too (signed components, precisions below 8,
+    an image offset, more than 4 components, CMYK), and what the decoder
+    does not take (RGN, POC, PPM, SOP / EPH, CAP and HTJ2K, code-block
+    styles other than 0, subsampled components, precisions above 16,
+    palettes, sYCC and ICC colour, Part 2 brands)."""
+    if raw.startswith(JP2_MAGIC):
+        colour, ihdr, cdef, at, size = _jp2_container(raw)
+    elif raw.startswith(J2K_MAGIC):
+        colour, ihdr, cdef, at, size = "unknown", None, (), 0, len(raw)
+    else:
+        raise ValueError("not a JPEG 2000 file")
+    cs = raw[at:at + size]
+    if cs[:4] != J2K_MAGIC or len(cs) < 6:
+        raise ValueError("JPEG 2000 codestream without SOC and SIZ")
+    lsiz = struct.unpack(">H", cs[4:6])[0]
+    if lsiz < 41 or 4 + lsiz > len(cs):
+        raise ValueError("truncated JPEG 2000 SIZ marker")
+    (rsiz, xsiz, ysiz, xo, yo, xt, yt, xto, yto,
+     nc) = struct.unpack(">HIIIIIIIIH", cs[6:42])
+    if lsiz != 38 + 3 * nc or nc == 0:
+        raise ValueError("corrupt JPEG 2000 SIZ marker")
+    if rsiz & 0x4000:
+        _jp2_refuse("HTJ2K codestream (Rsiz)")
+    if rsiz & 0x8000:
+        _jp2_refuse("Part 2 capabilities (Rsiz)")
+    if xo or yo:
+        _jp2_refuse(f"image offset ({xo}, {yo})", cv2_fails=True)
+    if xsiz == 0 or ysiz == 0 or xt == 0 or yt == 0 or xto or yto:
+        raise ValueError("corrupt JPEG 2000 image or tile size")
+    if nc > 4:
+        _jp2_refuse(f"image of {nc} components", cv2_fails=True)
+    check_cv_size(xsiz, ysiz)
+    if xsiz * ysiz * nc > JP2_MAX_SAMPLES:
+        _jp2_refuse(f"image of {xsiz}x{ysiz}x{nc} samples (above 2^27)")
+    precs = []
+    for c in range(nc):
+        ssiz, dx, dy = cs[42 + 3 * c:45 + 3 * c]
+        if ssiz & 0x80:
+            _jp2_refuse(f"signed component {c}", cv2_fails=True)
+        if (ssiz & 0x7F) + 1 > 38 or dx == 0 or dy == 0:
+            raise ValueError("corrupt JPEG 2000 SIZ component")
+        if dx != 1 or dy != 1:
+            _jp2_refuse(f"component {c} subsampled {dx}x{dy}")
+        precs.append((ssiz & 0x7F) + 1)
+    if max(precs) < 8:
+        _jp2_refuse(f"precision {max(precs)} (below 8)", cv2_fails=True)
+    if max(precs) > 16:
+        _jp2_refuse(f"precision {max(precs)} (above 16)")
+    if ihdr is not None and ihdr != (xsiz, ysiz, nc):
+        raise ValueError("JP2 ihdr box differs from the codestream's SIZ")
+    alpha = 0
+    for cn, typ, asoc in cdef:
+        if cn >= nc or (typ == 0 and asoc != cn + 1) or \
+                (typ != 0 and asoc not in (0, 65535)):
+            _jp2_refuse("cdef box reordering channels")
+        alpha += typ != 0
+    if alpha > 1:
+        _jp2_refuse("cdef box of two alpha channels")
+
+    cod = None
+    coc, qcc = {}, {}
+    qcd = None
+    pos = 4 + lsiz
+    while True:
+        if pos + 2 > len(cs):
+            raise ValueError("truncated JPEG 2000 main header")
+        marker = struct.unpack(">H", cs[pos:pos + 2])[0]
+        if marker == 0xFF90:
+            break
+        if marker < 0xFF40 or pos + 4 > len(cs):
+            raise ValueError(f"corrupt JPEG 2000 main header (marker "
+                             f"{marker:#06x})")
+        length = struct.unpack(">H", cs[pos + 2:pos + 4])[0]
+        if length < 2 or pos + 2 + length > len(cs):
+            raise ValueError("truncated JPEG 2000 main header marker")
+        body = cs[pos + 4:pos + 2 + length]
+        comp_bytes = 1 if nc < 257 else 2
+
+        def component(at=0):
+            c = body[at] if comp_bytes == 1 else \
+                struct.unpack(">H", body[at:at + 2])[0]
+            if c >= nc:
+                raise ValueError("JPEG 2000 COC / QCC of a component the "
+                                 "image lacks")
+            return c
+
+        if marker == 0xFF52:            # COD
+            if cod is not None or len(body) < 5:
+                raise ValueError("corrupt JPEG 2000 COD marker")
+            scod, prog, layers, mct = struct.unpack(">BBHB", body[:5])
+            if scod & 6:
+                _jp2_refuse("SOP / EPH markers")
+            if scod & ~7 or prog > 4 or layers == 0 or mct > 1:
+                raise ValueError("corrupt JPEG 2000 COD marker")
+            style, end = _j2k_coding_style(body, 5, bool(scod & 1))
+            if end != len(body):
+                raise ValueError("corrupt JPEG 2000 COD marker")
+            cod = (prog, layers, mct, style)
+        elif marker == 0xFF53:          # COC
+            if len(body) < comp_bytes + 1:
+                raise ValueError("corrupt JPEG 2000 COC marker")
+            c = component()
+            scoc = body[comp_bytes]
+            style, end = _j2k_coding_style(body, comp_bytes + 1,
+                                           bool(scoc & 1))
+            if c in coc or end != len(body):
+                raise ValueError("corrupt JPEG 2000 COC marker")
+            coc[c] = style
+        elif marker == 0xFF5C:          # QCD
+            if qcd is not None:
+                raise ValueError("JPEG 2000 main header with two QCD")
+            qcd = _j2k_quantization(body, 0)
+        elif marker == 0xFF5D:          # QCC
+            if len(body) < comp_bytes + 1:
+                raise ValueError("corrupt JPEG 2000 QCC marker")
+            c = component()
+            if c in qcc:
+                raise ValueError("corrupt JPEG 2000 QCC marker")
+            qcc[c] = _j2k_quantization(body, comp_bytes)
+        elif marker in _J2K_REFUSED:
+            _jp2_refuse(_J2K_REFUSED[marker] + " marker")
+        elif marker not in _J2K_SKIPPED:
+            _jp2_refuse(f"main header marker {marker:#06x}")
+        pos += 2 + length
+    if cod is None or qcd is None:
+        raise ValueError("JPEG 2000 main header without COD and QCD")
+
+    prog, layers, mct, default_style = cod
+    params = np.zeros(_J2K_HEAD + nc * _J2K_STRIDE, np.int64)
+    params[:9] = (xsiz, ysiz, nc, xt, yt, layers, prog, mct,
+                  max(precs) - 8)
+    for c in range(nc):
+        numres, cbw, cbh, transform, sizes = coc.get(c, default_style)
+        guard, steps = qcc.get(c, qcd)
+        if len(steps) < 3 * numres - 2:
+            raise ValueError(f"JPEG 2000 quantization of component {c} "
+                             "has fewer step sizes than bands")
+        block = params[_J2K_HEAD + c * _J2K_STRIDE:
+                       _J2K_HEAD + (c + 1) * _J2K_STRIDE]
+        block[:7] = (precs[c], numres, cbw, cbh, 0, transform, guard)
+        for r, (pw, ph) in enumerate(sizes):
+            block[_J2K_PRCW + r], block[_J2K_PRCH + r] = pw, ph
+        for b, (e, m) in enumerate(steps):
+            block[_J2K_EXPN + b], block[_J2K_MANT + b] = e, m
+    if mct and (nc < 3 or len({params[_J2K_HEAD + c * _J2K_STRIDE + 5]
+                               for c in range(3)}) != 1):
+        _jp2_refuse("component transform on fewer than 3 components or "
+                    "mixed wavelets")
+    return Jp2(xsiz, ysiz, nc, max(precs), colour, at, size, pos,
+               params.tobytes())
+
+
 # ------------------------------------------------------------- any frame
 
 # magic -> name of the formats refused by name
-_OTHER_FORMATS = ((b"\0\0\0\x0cjP  ", "JPEG 2000"),
-                  (b"\xff\x4f\xff\x51", "JPEG 2000"),
-                  (b"\x76\x2f\x31\x01", "OpenEXR"))
+_OTHER_FORMATS = ((b"\x76\x2f\x31\x01", "OpenEXR"),)
 
 
 def image_kind(raw: bytes) -> str:
     """"png", "pnm", "bmp", "jpeg", "webp", "ras", "pam", "hdr", "pfm",
-    "tiff" or "gif" by the file's magic; ValueError naming the format,
+    "tiff", "gif" or "jp2" (a JP2 file or a raw codestream) by the file's
+    magic; ValueError naming the format,
     where it is known, for any other file."""
     if raw[:8] == PNG_MAGIC:
         return "png"
@@ -1474,6 +1836,8 @@ def image_kind(raw: bytes) -> str:
         return "tiff"
     if raw[:6] in (b"GIF87a", b"GIF89a"):
         return "gif"
+    if raw.startswith(JP2_MAGIC) or raw.startswith(J2K_MAGIC):
+        return "jp2"
     name = next((n for m, n in _OTHER_FORMATS if raw.startswith(m)), None)
     if raw[4:8] == b"ftyp" and raw[8:12] in (b"avif", b"avis"):
         name = "AVIF"

@@ -88,6 +88,7 @@ def test_sources_never_import_reference_or_jax():
 WEBP = os.path.join(ROOT, "tests", "torch_fixtures", "webp", "variants")
 TIFF = os.path.join(ROOT, "tests", "torch_fixtures", "tiff", "variants")
 GIF = os.path.join(ROOT, "tests", "torch_fixtures", "gif", "variants")
+JP2 = os.path.join(ROOT, "tests", "torch_fixtures", "jp2", "variants")
 PNG = os.path.join(ROOT, "tests", "goldens", "a.png")
 # image codec libraries the host decoders must neither link nor load
 CODEC_LIBS = ("libwebp", "libsharpyuv", "libjpeg", "libturbojpeg", "libpng",
@@ -119,16 +120,16 @@ def _needed(path):
 
 
 def test_host_decoders_link_and_load_no_codec_library():
-    """The TIFF, GIF, WebP, JPEG and PNG decoders are the port's own: the
-    host libraries (tiff and gif among them) need no codec library nor
-    zlib (their DT_NEEDED entries), their sources include none, and
-    decoding every format in a fresh process maps no codec library but
-    the port's own builds."""
-    assert {"tiff", "gif"} <= set(build.HOST_LIBS)
+    """The JPEG 2000, TIFF, GIF, WebP, JPEG and PNG decoders are the
+    port's own: the host libraries (jp2, tiff and gif among them) need no
+    codec library nor zlib (their DT_NEEDED entries), their sources
+    include none, and decoding every format in a fresh process maps no
+    codec library but the port's own builds."""
+    assert {"tiff", "gif", "jp2"} <= set(build.HOST_LIBS)
     for name in build.HOST_LIBS:
         src = (build.SRC_DIR / f"{name}.cpp").read_text()
         assert not re.search(r"#include\s*[<\"](webp|jpeglib|png|zlib|"
-                             r"tiff|gif_lib)", src), name
+                             r"tiff|gif_lib|openjpeg|opj_)", src), name
         needed = _needed(build.load_host(name)._name)
         assert not [n for n in needed
                     if n.startswith(CODEC_LIBS + ("libz",))], needed
@@ -141,6 +142,8 @@ def test_host_decoders_link_and_load_no_codec_library():
                                               "rgb8_tiled_packbits.tif")]
     files += [os.path.join(GIF, f) for f in ("palette.gif",
                                              "interlaced.gif")]
+    files += [os.path.join(JP2, f) for f in ("lossy_20.jp2", "rgb.j2k",
+                                             "prog_rpcl.jp2")]
     code = ("import sys\n"
             "from of_dis_tpu_torch.kernels import build\n"
             "from of_dis_tpu_torch.native import io as nio\n"

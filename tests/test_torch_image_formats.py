@@ -505,6 +505,12 @@ def _tiff_compression(raw, value):
     raise AssertionError("no Compression tag")
 
 
+def _signed_jp2(raw):
+    """A JP2 file with its component 0's Ssiz marked signed."""
+    at = raw.index(b"\xff\x4f\xff\x51") + 4 + 38
+    return raw[:at] + bytes([raw[at] | 0x80]) + raw[at + 1:]
+
+
 REFUSED = {
     # TIFF and GIF are read (tests/test_torch_tiff.py and
     # tests/test_torch_gif.py): a refused variant of each
@@ -514,7 +520,10 @@ REFUSED = {
     # others are in tests/test_torch_webp.py and
     # tests/test_torch_raster_formats.py)
     "webp": (lambda: _encoded(".webp")[:40], "truncated WebP"),
-    "jpeg2000": (lambda: _encoded(".jp2"), r"\(JPEG 2000\)"),
+    # JPEG 2000 is read (tests/test_torch_jp2.py): a refused variant, the
+    # cv2-written file with its component 0 signed
+    "jpeg2000": (lambda: _signed_jp2(_encoded(".jp2")),
+                 "signed component 0"),
     "hdr": (lambda: _encoded(".hdr").replace(b"rle_rgbe", b"rle_xyze"),
             "XYZE"),
     "pfm": (lambda: b"PF\n1 1\n0\n" + b"\0" * 12, "PFM scale 0"),

@@ -62,13 +62,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      tests/torch_fixtures/jpeg): every fixture decoded by the port's own
      decoder (`csrc/jpeg.cpp`) through `decode_batch` and `load_image`,
      gray and colour, each plane's SHA-256 equal to the manifest's
-     cv2.imread hash; JPEG frames/s at 1, 4, 8 and 16 threads and
-     `load_image`'s; `run_pipeline` at op-2 on the nine 1024x436 frames
-     (one batch of 8 pairs), gray and RGB flow: launches those of a path-A
-     (C) call, every file against `dis_flow_batched` on the same decoded
-     frames, medians within 0.25 px of the motion, pairs/s and the busy
-     share; `cli.main` on the first pair, gray and RGB, against
-     `dis_flow_batched`;
+     cv2.imread hash (a read the manifest has as null, which cv2 fails on,
+     must raise): Huffman, arithmetic-coded, lossless, CMYK and YCCK
+     files; JPEG frames/s at 1, 4, 8 and 16 threads and `load_image`'s,
+     the arithmetic-coded frames' beside the Huffman ones'; `run_pipeline`
+     at op-2 on the nine 1024x436 frames (one batch of 8 pairs), gray and
+     RGB flow: launches those of a path-A (C) call, every file against
+     `dis_flow_batched` on the same decoded frames, medians within 0.25 px
+     of the motion, pairs/s and the busy share; `cli.main` on the first
+     pair, gray and RGB, against `dis_flow_batched`; then the nine frames
+     arithmetic-coded through `run_pipeline` at op-1 and op-2, gray and
+     RGB flow (launches those of the `dis_flow_batched` call they are held
+     to), and `cli.main` on a lossless gray pair and a YCCK pair;
   7c. PNG, PNM and BMP frames (`run_formats_part`): part 7b's nine frames
      re-encoded on the card's host by the numpy-only generator of
      tests/torch_fixtures/formats as 16-bit gray PNG, palette PNG, Adam7
@@ -1563,16 +1568,24 @@ def run_pipeline_phase(dev, totals, walls_by_path):
 
 # Part 7b: JPEG frames, decoded by the port's own decoder
 # (`csrc/jpeg.cpp`) as cv::imread decodes them. The fixtures of
-# tests/torch_fixtures/jpeg (made with cv2 by its make_fixtures.py): nine
-# 1024x436 colour frames, q90 4:2:0, moving by the manifest's motion, and
-# twelve small variants; the manifest holds the SHA-256 of cv2.imread's
-# gray and colour planes of each, which the card machine's build of the
-# decoder must reproduce (there is no cv2 there). The eight pairs serve
-# as one batch of 8, gray flow (path A's launches) and RGB flow (C's).
+# tests/torch_fixtures/jpeg (made by its make_fixtures.py with cv2, PIL and
+# libjpeg-turbo's own encoder): nine 1024x436 colour frames, q90 4:2:0,
+# moving by the manifest's motion, Huffman-coded (frames/) and
+# arithmetic-coded (frames_arith/), a lossless gray pair and a YCCK pair
+# (pairs/), and small variants; the manifest holds the SHA-256 of
+# cv2.imread's gray and colour planes of each, which the card machine's
+# build of the decoder must reproduce (there is no cv2 there). The eight
+# pairs serve as one batch of 8, gray flow (path A's launches) and RGB flow
+# (C's); the arithmetic-coded ones at op-1 too (`arith_ops`), and each
+# pair of pairs/ serves and goes through the CLI (`pairs`: directory, mode,
+# channels).
 JPEG_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg")
 JPEG = dict(op=2, batch=8, decode_threads=(1, 4, 8, 16), decode_repeats=8,
             load_image_frames=4,
-            modes=(("run_OF_INT", 1, "A"), ("run_OF_RGB", 3, "C")))
+            modes=(("run_OF_INT", 1, "A"), ("run_OF_RGB", 3, "C")),
+            arith_ops=(1, 2),
+            pairs=(("lossless_gray", "run_OF_INT", 1),
+                   ("ycck", "run_OF_INT", 1), ("ycck", "run_OF_RGB", 3)))
 
 
 def _sha256(planes) -> str:
@@ -1632,7 +1645,9 @@ def run_jpeg_part(dev, totals, walls_by_path):
     frames, gray and RGB flow, counted, each file against
     `dis_flow_batched` on the same decoded frames and its median against
     the motion, pairs/s and the busy share; `cli.main` on the first pair,
-    gray and RGB, against `dis_flow_batched`."""
+    gray and RGB, against `dis_flow_batched`; the arithmetic-coded frames
+    served as the PNG-derived formats of 7c are, at op-1 and op-2, gray
+    and RGB flow, and so the lossless gray and the YCCK pair."""
     cfg = JPEG
     t_part = time.perf_counter()
     with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
@@ -1651,24 +1666,28 @@ def run_jpeg_part(dev, totals, walls_by_path):
     if bad:
         raise AssertionError(f"JPEG planes differ from cv2's: {bad}")
 
-    # decode rate: the nine frames, repeated, at each thread count
+    # decode rate: the nine frames, repeated, at each thread count,
+    # Huffman and arithmetic-coded
     frame_dir = os.path.join(JPEG_DIR, "frames")
     paths = pipeline.list_frames(frame_dir)
-    many = paths * cfg["decode_repeats"]
-    rates = {key: _decode_rates(paths, ch, cfg["decode_repeats"],
-                                cfg["decode_threads"])
-             for key, ch in (("gray", 1), ("color", 3))}
-    few = paths[:cfg["load_image_frames"]]
-    t0 = time.perf_counter()
-    for p in few:
-        io.load_image(p, 1)
-    plain_rate = len(few) / (time.perf_counter() - t0)
-    print(json.dumps({"jpeg": "decode", "frames": len(many),
-                      "size": f"{W_ORG}x{H_ORG}", "coding": "q90 4:2:0",
-                      "frames_per_s_by_threads": rates,
-                      "load_image_gray_frames_per_s": plain_rate,
-                      "cpu_count": os.cpu_count(),
-                      "card": nvidia_smi_line()}), flush=True)
+    arith = pipeline.list_frames(os.path.join(JPEG_DIR, "frames_arith"))
+    for coding, ps in (("q90 4:2:0", paths),
+                       ("q90 4:2:0 arithmetic", arith)):
+        many = ps * cfg["decode_repeats"]
+        rates = {key: _decode_rates(ps, ch, cfg["decode_repeats"],
+                                    cfg["decode_threads"])
+                 for key, ch in (("gray", 1), ("color", 3))}
+        few = ps[:cfg["load_image_frames"]]
+        t0 = time.perf_counter()
+        for p in few:
+            io.load_image(p, 1)
+        plain_rate = len(few) / (time.perf_counter() - t0)
+        print(json.dumps({"jpeg": "decode", "frames": len(many),
+                          "size": f"{W_ORG}x{H_ORG}", "coding": coding,
+                          "frames_per_s_by_threads": rates,
+                          "load_image_gray_frames_per_s": plain_rate,
+                          "cpu_count": os.cpu_count(),
+                          "card": nvidia_smi_line()}), flush=True)
 
     # serving: one batch of the eight pairs, gray and RGB flow
     n_pairs = len(paths) - 1
@@ -1738,6 +1757,20 @@ def run_jpeg_part(dev, totals, walls_by_path):
               f"dis_flow_batched {cli_err}", flush=True)
         if not cli_err <= PIPELINE_TOL:
             raise AssertionError(f"jpeg cli {mode}: differs by {cli_err} px")
+
+    # the arithmetic-coded frames at op-1 and op-2; the two CLI pairs
+    for op in cfg["arith_ops"]:
+        for mode, noc, _ in cfg["modes"]:
+            result[f"arith op{op} {mode}"] = _serve_frames(
+                f"jpeg arith op{op}", arith, dict(cfg, op=op),
+                os.path.join(OUT_DIR, "jpeg", f"arith_op{op}_{mode}"), dev,
+                totals, motion, mode, noc)
+    for name, mode, noc in cfg["pairs"]:
+        result[f"{name} {mode}"] = _serve_frames(
+            f"jpeg {name}", pipeline.list_frames(
+                os.path.join(JPEG_DIR, "pairs", name)), cfg,
+            os.path.join(OUT_DIR, "jpeg", f"{name}_{mode}"), dev, totals,
+            motion, mode, noc)
     print(f"jpeg part: {time.perf_counter() - t_part:.1f} s", flush=True)
     return result
 
@@ -1759,14 +1792,15 @@ FORMATS_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=4,
                     served=("png16", "adam7_srgb"))
 
 
-def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion):
-    """`run_pipeline` at cfg's op-point, gray flow, on the frames `ps` of
-    one directory (in one batch of cfg["batch"] pairs), and `cli.main` on
-    the first pair: launches those of a path-A call each, every file
-    against `dis_flow_batched` on the same decoded frames, medians against
-    the motion, pairs/s. Prints and returns the result."""
-    per = next(c["launches"] for c in PATHS if c["name"] == "A")
-    params = op_point_params(W_ORG, cfg["op"], nop=2, noc=1)
+def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion,
+                  mode="run_OF_INT", noc=1):
+    """`run_pipeline` at cfg's op-point, gray flow (or `mode` on `noc`
+    channels), on the frames `ps` of one directory (in one batch of
+    cfg["batch"] pairs), and `cli.main` on the first pair: launches those
+    of the `dis_flow_batched` call on the same decoded frames each (at
+    op-2 a path-A call's, C's for RGB), every file against that call,
+    medians against the motion, pairs/s. Prints and returns the result."""
+    params = op_point_params(W_ORG, cfg["op"], nop=2, noc=noc)
     top, bot, left, right = pad_amounts(W_ORG, H_ORG, params.sc_f)
     full_h, full_w = H_ORG + top + bot, W_ORG + left + right
     frame_dir = os.path.dirname(ps[0])
@@ -1775,14 +1809,20 @@ def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion):
     names = [os.path.splitext(os.path.basename(p))[0] + ".flo"
              for p in ps[:-1]]
     x = pyramid.pad_to_divisible(torch.as_tensor(
-        native_io.decode_batch(ps, 1)).to(dev), params.sc_f)
+        native_io.decode_batch(ps, noc)).to(dev), params.sc_f)
+    reset_launches()
     want = dis.dis_flow_batched(x[:-1], x[1:], params, full_w, full_h,
                                 device=dev)[:, top:top + H_ORG,
                                             left:left + W_ORG]
+    torch.cuda.synchronize()
+    per = read_launches()
+    path = "A" if noc == 1 else "C"
+    if cfg["op"] == 2 and per != next(c["launches"] for c in PATHS
+                                      if c["name"] == path):
+        raise AssertionError(f"{label}: launches {per}, not path {path}'s")
     reset_launches()
     n = pipeline.run_pipeline(frame_dir, out_dir, op_point=cfg["op"],
-                              batch=cfg["batch"], mode="run_OF_INT",
-                              verbose=False)
+                              batch=cfg["batch"], mode=mode, verbose=False)
     torch.cuda.synchronize()
     launches = read_launches()
     if n != len(names) or sorted(os.listdir(out_dir)) != names:
@@ -1798,11 +1838,10 @@ def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion):
         raise AssertionError(f"{label} pipeline: files differ by {err} px")
     walls, _ = _timed(lambda: pipeline.run_pipeline(
         frame_dir, out_dir, op_point=cfg["op"], batch=cfg["batch"],
-        mode="run_OF_INT", verbose=False), runs=2)
+        mode=mode, verbose=False), runs=2)
     cli_out = out_dir + "_cli.flo"
     reset_launches()
-    cli.main(["run_OF_INT", ps[0], ps[1], cli_out, str(cfg["op"]),
-              "--quiet"])
+    cli.main([mode, ps[0], ps[1], cli_out, str(cfg["op"]), "--quiet"])
     cli_launches = read_launches()
     if cli_launches != per:
         raise AssertionError(f"{label} cli: launches {cli_launches}")
@@ -1817,7 +1856,7 @@ def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion):
               "median_off_motion_px": off, "launches": launches,
               "wall_s": walls,
               "pairs_per_s": len(names) / statistics.median(walls)}
-    print(json.dumps({"serving": f"pipeline and cli {label} run_OF_INT",
+    print(json.dumps({"serving": f"pipeline and cli {label} {mode}",
                       "pairs": len(names), "batch": cfg["batch"], **result,
                       "card": nvidia_smi_line()}), flush=True)
     return result

@@ -1,7 +1,8 @@
 // JPEG decoding on the host, pixel for pixel as cv::imread decodes a JPEG:
-// libjpeg-turbo with its default settings (the islow IDCT, "fancy"
-// upsampling, no block smoothing needed), output BGR or gray, then the
-// EXIF orientation applied as OpenCV's ApplyExifOrientation does.
+// libjpeg-turbo 3.1 with its default settings (the islow IDCT, "fancy"
+// upsampling, no block smoothing needed), output BGR or gray (or CMYK, which
+// OpenCV then turns into BGR or gray itself), then the EXIF orientation
+// applied as OpenCV's ApplyExifOrientation does.
 //
 // Reached through native/io.py (`decode_batch`) and utils/io.py
 // (`load_image`); the JAX package reads the same files with cv2.imread
@@ -10,20 +11,29 @@
 // releases the interpreter lock, so a thread pool decodes frames side by
 // side.
 //
-// What it reads: baseline and extended sequential Huffman (SOF0, SOF1)
-// and progressive Huffman (SOF2) of 8-bit samples, one component (gray)
-// or three (YCbCr, or RGB under an Adobe APP14 transform 0), any sampling
-// factors 1-4 with integral ratios, any number of scans, restart markers,
-// Motion-JPEG frames without DHT (libjpeg-turbo's standard tables), and,
-// for TIFF's compression 7 (`of_jpeg_decode_tiff`), an abbreviated stream
-// after the tables-only stream of the TIFF's JPEGTables tag.
-// What it refuses, each with its own code (`of_jpeg_strerror`):
-// arithmetic coding, lossless and hierarchical processes, other sample
-// precisions, 2 or 4 components, a missing table, and any stream that
-// libjpeg would decode only with a warning (truncated or corrupt entropy
-// data, a bad Huffman code, a bogus progression): a frame that cannot be
-// decoded cleanly fails, it is never padded. Two further refusals keep
-// the output equal to libjpeg-turbo's SIMD build, which cv2 uses:
+// What it reads: baseline and extended sequential (SOF0, SOF1, SOF9) and
+// progressive (SOF2, SOF10) frames of 8-bit samples, Huffman or arithmetic
+// coded (jdarith.c: the QM decoder, DAC conditioning), and lossless frames
+// (SOF3, jdlossls.c / jdlhuff.c: predictors 1-7, point transform, sample
+// precision 2-8, returned unscaled as libjpeg returns them); one component
+// (gray), three (YCbCr, or RGB under an Adobe APP14 transform 0) or four
+// (CMYK, or YCCK under an Adobe transform 2, then OpenCV's CMYK to BGR and
+// to gray rules); any sampling factors 1-4 with integral ratios (1x1 in a
+// lossless frame), any number of scans, restart markers, Motion-JPEG
+// frames without DHT (libjpeg-turbo's standard tables), and, for TIFF's
+// compression 7 (`of_jpeg_decode_tiff`), an abbreviated stream after the
+// tables-only stream of the TIFF's JPEGTables tag.
+// What it refuses, each with its own code (`of_jpeg_strerror`): what
+// cv::imread fails on too (hierarchical and lossless arithmetic frames,
+// 12-bit samples, 2 or more than 4 components, a lossless frame read in a
+// colour space libjpeg would have to convert it to), a missing table, and
+// any stream that libjpeg would decode only with a warning (truncated or
+// corrupt entropy data, a bad Huffman or arithmetic code, a bogus
+// progression, an unknown Adobe transform): a frame that cannot be decoded
+// cleanly fails, it is never padded. Arithmetic-coded data that meets a
+// marker early is read on as zeros, as libjpeg reads it without a warning.
+// Two further refusals keep the output equal to libjpeg-turbo's SIMD
+// build, which cv2 uses:
 //   - a coefficient block whose dequantised values or first-pass IDCT
 //     outputs leave +-16383 (no 8-bit image makes one): the SIMD IDCT
 //     works in 16-bit lanes there and wraps where the C IDCT does not;
@@ -38,6 +48,7 @@
 #include <new>
 #include <vector>
 
+#include "gray.h"
 #include "orient.h"
 
 namespace {
@@ -47,8 +58,8 @@ enum Code {
   kNotJpeg = -1,
   kTruncated = -2,
   kBadMarker = -3,
-  kArithmetic = -4,
-  kLossless = -5,
+  kLosslessArith = -4,
+  kLosslessColor = -5,
   kHierarchical = -6,
   kPrecision = -7,
   kComponents = -8,
@@ -67,6 +78,11 @@ enum Code {
   kNoImage = -21,
   kRestart = -22,
   kExtraneous = -23,
+  kArithCode = -24,
+  kAdobeTransform = -25,
+  kLosslessSampling = -26,
+  kLosslessRestart = -27,
+  kTiffLossless = -28,
 };
 
 struct Error {
@@ -109,8 +125,9 @@ struct Huffman {
     uint8_t run, len;
   } fast_ac[1 << kLookBits] = {};
 
-  // dc: a DC table (jdhuff.c: its symbols must be 0..15), else AC
-  void derive(bool dc) {
+  // dc: a DC table (jdhuff.c: its symbols must be 0..15, or 0..16 in a
+  // lossless frame: `max_dc`), else AC
+  void derive(bool dc, int max_dc) {
     if (derived) return;
     uint8_t size[257];
     uint32_t code_of[257];
@@ -155,7 +172,7 @@ struct Huffman {
     }
     if (dc) {
       for (int i = 0; i < nsym; ++i)
-        if (vals[i] > 15) fail(kBadHuffTable);
+        if (vals[i] > max_dc) fail(kBadHuffTable);
     }
     std::memset(fast_ac, 0, sizeof(fast_ac));
     for (int i = 0; !dc && i < (1 << kLookBits); ++i) {
@@ -181,6 +198,10 @@ struct Component {
   bool seen = false;         // in a scan already (sequential)
   int coef_bits[64];         // progressive: -1 not yet seen, else Al
   std::vector<int16_t> coef; // (rows_b, stride_b, 64)
+  // lossless: the undifferenced samples mod 2^16 and the output samples
+  // (dh, dw)
+  std::vector<uint16_t> undiff;
+  std::vector<uint8_t> px;
   int16_t* block(int by, int bx) {
     return coef.data() + (static_cast<size_t>(by) * stride_b + bx) * 64;
   }
@@ -293,6 +314,150 @@ struct BitReader {
   }
 };
 
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16, Next_Index_MPS << 8,
+// Switch_MPS << 7, Next_Index_LPS; entry 113 is the fixed 0.5 bin.
+#define QM(qe, lps, mps, sw) \
+  ((uint32_t{qe} << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+constexpr uint32_t kAriTab[114] = {
+    QM(0x5a1d, 1, 1, 1),      QM(0x2586, 14, 2, 0),     QM(0x1114, 16, 3, 0),
+    QM(0x080b, 18, 4, 0),     QM(0x03d8, 20, 5, 0),     QM(0x01da, 23, 6, 0),
+    QM(0x00e5, 25, 7, 0),     QM(0x006f, 28, 8, 0),     QM(0x0036, 30, 9, 0),
+    QM(0x001a, 33, 10, 0),    QM(0x000d, 35, 11, 0),    QM(0x0006, 9, 12, 0),
+    QM(0x0003, 10, 13, 0),    QM(0x0001, 12, 13, 0),    QM(0x5a7f, 15, 15, 1),
+    QM(0x3f25, 36, 16, 0),    QM(0x2cf2, 38, 17, 0),    QM(0x207c, 39, 18, 0),
+    QM(0x17b9, 40, 19, 0),    QM(0x1182, 42, 20, 0),    QM(0x0cef, 43, 21, 0),
+    QM(0x09a1, 45, 22, 0),    QM(0x072f, 46, 23, 0),    QM(0x055c, 48, 24, 0),
+    QM(0x0406, 49, 25, 0),    QM(0x0303, 51, 26, 0),    QM(0x0240, 52, 27, 0),
+    QM(0x01b1, 54, 28, 0),    QM(0x0144, 56, 29, 0),    QM(0x00f5, 57, 30, 0),
+    QM(0x00b7, 59, 31, 0),    QM(0x008a, 60, 32, 0),    QM(0x0068, 62, 33, 0),
+    QM(0x004e, 63, 34, 0),    QM(0x003b, 32, 35, 0),    QM(0x002c, 33, 9, 0),
+    QM(0x5ae1, 37, 37, 1),    QM(0x484c, 64, 38, 0),    QM(0x3a0d, 65, 39, 0),
+    QM(0x2ef1, 67, 40, 0),    QM(0x261f, 68, 41, 0),    QM(0x1f33, 69, 42, 0),
+    QM(0x19a8, 70, 43, 0),    QM(0x1518, 72, 44, 0),    QM(0x1177, 73, 45, 0),
+    QM(0x0e74, 74, 46, 0),    QM(0x0bfb, 75, 47, 0),    QM(0x09f8, 77, 48, 0),
+    QM(0x0861, 78, 49, 0),    QM(0x0706, 79, 50, 0),    QM(0x05cd, 48, 51, 0),
+    QM(0x04de, 50, 52, 0),    QM(0x040f, 50, 53, 0),    QM(0x0363, 51, 54, 0),
+    QM(0x02d4, 52, 55, 0),    QM(0x025c, 53, 56, 0),    QM(0x01f8, 54, 57, 0),
+    QM(0x01a4, 55, 58, 0),    QM(0x0160, 56, 59, 0),    QM(0x0125, 57, 60, 0),
+    QM(0x00f6, 58, 61, 0),    QM(0x00cb, 59, 62, 0),    QM(0x00ab, 61, 63, 0),
+    QM(0x008f, 61, 32, 0),    QM(0x5b12, 65, 65, 1),    QM(0x4d04, 80, 66, 0),
+    QM(0x412c, 81, 67, 0),    QM(0x37d8, 82, 68, 0),    QM(0x2fe8, 83, 69, 0),
+    QM(0x293c, 84, 70, 0),    QM(0x2379, 86, 71, 0),    QM(0x1edf, 87, 72, 0),
+    QM(0x1aa9, 87, 73, 0),    QM(0x174e, 72, 74, 0),    QM(0x1424, 72, 75, 0),
+    QM(0x119c, 74, 76, 0),    QM(0x0f6b, 74, 77, 0),    QM(0x0d51, 75, 78, 0),
+    QM(0x0bb6, 77, 79, 0),    QM(0x0a40, 77, 48, 0),    QM(0x5832, 80, 81, 1),
+    QM(0x4d1c, 88, 82, 0),    QM(0x438e, 89, 83, 0),    QM(0x3bdd, 90, 84, 0),
+    QM(0x34ee, 91, 85, 0),    QM(0x2eae, 92, 86, 0),    QM(0x299a, 93, 87, 0),
+    QM(0x2516, 86, 71, 0),    QM(0x5570, 88, 89, 1),    QM(0x4ca9, 95, 90, 0),
+    QM(0x44d9, 96, 91, 0),    QM(0x3e22, 97, 92, 0),    QM(0x3824, 99, 93, 0),
+    QM(0x32b4, 99, 94, 0),    QM(0x2e17, 93, 86, 0),    QM(0x56a8, 95, 96, 1),
+    QM(0x4f46, 101, 97, 0),   QM(0x47e5, 102, 98, 0),   QM(0x41cf, 103, 99, 0),
+    QM(0x3c3d, 104, 100, 0),  QM(0x375e, 99, 93, 0),    QM(0x5231, 105, 102, 0),
+    QM(0x4c0f, 106, 103, 0),  QM(0x4639, 107, 104, 0),  QM(0x415e, 103, 99, 0),
+    QM(0x5627, 105, 106, 1),  QM(0x50e7, 108, 107, 0),  QM(0x4b85, 109, 103, 0),
+    QM(0x5597, 110, 109, 0),  QM(0x504f, 111, 107, 0),  QM(0x5a10, 110, 111, 1),
+    QM(0x5522, 112, 109, 0),  QM(0x59eb, 112, 111, 1),  QM(0x5a1d, 113, 113, 0)};
+#undef QM
+
+// The arithmetic-coded bytes of a scan, read by the QM decoder as
+// jdarith.c::arith_decode reads them: FF 00 is a data FF, FF fill bytes
+// before a marker code are skipped, and a marker ends the data, after which
+// zeros are supplied with no warning (the way every arithmetic-coded
+// segment ends). Reading past the end of the file is an error (libjpeg
+// inserts a fake EOI there with a warning).
+struct ArithReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0;    // C register: base of the interval and the bit buffer
+  int64_t a = 0;    // A register: the interval's normalised size
+  int ct = -16;     // bits left in the buffer part of C; -16: none read yet
+  int marker = -1;  // marker code that ended the data, `p` past it
+
+  ArithReader(const uint8_t* p_, const uint8_t* end_) : p(p_), end(end_) {}
+
+  int byte() {
+    if (p >= end) fail(kTruncated);
+    return *p++;
+  }
+
+  // one binary decision in the context `st` (T.81 D.2.4-D.2.6)
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (marker < 0) {
+          data = byte();
+          if (data == 0xFF) {
+            do {
+              data = byte();
+            } while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker = data;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the first 2 bytes in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAriTab[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional LPS exchange
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {  // conditional MPS exchange
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // After a scan's (or a restart interval's) last MCU: the marker that
+  // follows, with `p` at the FF before its code; any byte before it would
+  // be discarded with a warning (jdmarker.c next_marker). The registers
+  // start afresh for the next interval.
+  int finish() {
+    int m = marker;
+    if (m < 0) {
+      if (p >= end) fail(kTruncated);
+      if (*p != 0xFF) fail(kExtraneous);
+      const uint8_t* q = p + 1;
+      while (q < end && *q == 0xFF) ++q;
+      if (q >= end) fail(kTruncated);
+      if (*q == 0) fail(kExtraneous);
+      m = *q;
+      p = q + 1;
+    }
+    p -= 2;
+    c = a = 0;
+    ct = -16;
+    marker = -1;
+    return m;
+  }
+};
+
 // jstdhuff.c: the Huffman tables of JPEG Annex K.3 (bits per code length
 // 1..16, then the symbols), DC and AC luminance, DC and AC chrominance
 constexpr uint8_t kStdBitsDcL[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
@@ -342,8 +507,8 @@ struct Decoder {
   const uint8_t* end;
   const uint8_t* p;
 
-  int width = 0, height = 0, ncomp = 0;
-  bool progressive = false;
+  int width = 0, height = 0, ncomp = 0, precision = 8;
+  bool progressive = false, arithmetic = false, lossless = false;
   bool have_sof = false;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
@@ -354,13 +519,19 @@ struct Decoder {
   int mcus_x = 0, mcus_y = 0;
   int scans = 0;
 
-  Component comp[3];
+  Component comp[4];
   Huffman dc_tab[4], ac_tab[4];
   bool qt_defined[4] = {};
   uint16_t qt[4][64] = {};
+  // arithmetic conditioning per table (DAC; get_soi's defaults)
+  uint8_t dc_L[16], dc_U[16], ac_K[16];
 
   Decoder(const uint8_t* buf, int64_t len)
-      : data(buf), end(buf + len), p(buf) {}
+      : data(buf), end(buf + len), p(buf) {
+    std::memset(dc_L, 0, sizeof(dc_L));
+    std::memset(dc_U, 1, sizeof(dc_U));
+    std::memset(ac_K, 5, sizeof(ac_K));
+  }
 
   int byte() {
     if (p >= end) fail(kTruncated);
@@ -408,6 +579,23 @@ struct Decoder {
       }
       qt_defined[tq] = true;
       i += need;
+    }
+  }
+
+  // jdmarker.c get_dac: per arithmetic table, DC conditioning L <= U
+  // (0-15 each) and the AC threshold Kx
+  void read_dac(const uint8_t* s, int len) {
+    if (len % 2) fail(kBadMarker);
+    for (int i = 0; i < len; i += 2) {
+      const int index = s[i], val = s[i + 1];
+      if (index >= 32) fail(kBadMarker);
+      if (index >= 16) {
+        ac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_L[index] = static_cast<uint8_t>(val & 15);
+        dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_L[index] > dc_U[index]) fail(kBadMarker);
+      }
     }
   }
 
@@ -520,22 +708,28 @@ struct Decoder {
     }
   }
 
-  void read_sof(int code, const uint8_t* s, int len) {  // get_sof
+  // get_sof, and what jdinput.c initial_setup and jdmaster.c then refuse
+  // (hierarchical frames, lossless arithmetic, precisions that cv::imread's
+  // 8-bit reads do not take) or what no colour space of libjpeg's takes
+  // (2 or more than 4 components)
+  void read_sof(int code, const uint8_t* s, int len) {
     if (have_sof) fail(kBadMarker);
     if (len < 6) fail(kBadMarker);
-    int precision = s[0];
+    precision = s[0];
     height = (s[1] << 8) | s[2];
     width = (s[3] << 8) | s[4];
     ncomp = s[5];
-    if (code == 0xC3) fail(kLossless);
-    if (code == 0xC5 || code == 0xC6 || code == 0xC7) fail(kHierarchical);
-    if (code >= 0xC9) fail(kArithmetic);
-    if (precision != 8) fail(kPrecision);
+    if ((code >= 0xC5 && code <= 0xC7) || code >= 0xCD) fail(kHierarchical);
+    if (code == 0xCB) fail(kLosslessArith);
+    lossless = code == 0xC3;
+    arithmetic = code >= 0xC9;
+    progressive = code == 0xC2 || code == 0xCA;
+    if (lossless ? precision < 2 || precision > 8 : precision != 8)
+      fail(kPrecision);
     if (height <= 0 || width <= 0 || ncomp <= 0) fail(kSize);
     if (height > kMaxDim || width > kMaxDim) fail(kSize);
-    if (ncomp != 1 && ncomp != 3) fail(kComponents);
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) fail(kComponents);
     if (len != 6 + 3 * ncomp) fail(kBadMarker);
-    progressive = code == 0xC2;
     for (int c = 0; c < ncomp; ++c) {
       Component& k = comp[c];
       k.id = s[6 + 3 * c];
@@ -543,20 +737,29 @@ struct Decoder {
       k.v = s[7 + 3 * c] & 15;
       k.tq = s[8 + 3 * c];
       if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4) fail(kSampling);
-      if (k.tq >= 4) fail(kNoQuantTable);
+      if (k.tq >= 4 && !lossless) fail(kNoQuantTable);
       max_h = k.h > max_h ? k.h : max_h;
       max_v = k.v > max_v ? k.v : max_v;
     }
     have_sof = true;
   }
 
+  // Sizes and buffers: blocks of 8x8 coefficients, or, in a lossless
+  // frame (a "block" of one sample), the samples themselves.
   void setup_components() {
-    mcus_x = (width + 8 * max_h - 1) / (8 * max_h);
-    mcus_y = (height + 8 * max_v - 1) / (8 * max_v);
+    const int bs = lossless ? 1 : 8;
+    mcus_x = (width + bs * max_h - 1) / (bs * max_h);
+    mcus_y = (height + bs * max_v - 1) / (bs * max_v);
     for (int c = 0; c < ncomp; ++c) {
       Component& k = comp[c];
       k.dw = static_cast<int>((static_cast<int64_t>(width) * k.h + max_h - 1) / max_h);
       k.dh = static_cast<int>((static_cast<int64_t>(height) * k.v + max_v - 1) / max_v);
+      if (lossless) {
+        const size_t n = static_cast<size_t>(k.dw) * k.dh;
+        k.undiff.assign(n, 0);
+        k.px.assign(n, 0);
+        continue;
+      }
       k.wb = (k.dw + 7) / 8;
       k.hb = (k.dh + 7) / 8;
       k.stride_b = mcus_x * k.h;
@@ -625,7 +828,7 @@ struct Decoder {
         code != 0xCC) {
       read_sof(code, s, len);
     } else if (code == 0xCC) {
-      fail(kArithmetic);  // DAC: arithmetic-coding conditioning
+      read_dac(s, len);
     } else if (code == 0xC4) {
       read_dht(s, len);
     } else if (code == 0xDB) {
@@ -679,7 +882,7 @@ struct Decoder {
 
   Huffman& table(Huffman* tabs, int index, bool dc) {
     if (index < 0 || index >= 4 || !tabs[index].defined) fail(kNoHuffTable);
-    tabs[index].derive(dc);
+    tabs[index].derive(dc, lossless ? 16 : 15);
     return tabs[index];
   }
 
@@ -725,8 +928,220 @@ struct Decoder {
     }
   }
 
+  // The Huffman decoding of a scan's blocks (jdhuff.c, jdphuff.c).
+  struct HuffScan {
+    Decoder& d;
+    const Scan& sc;
+    BitReader br;
+    Huffman* dct[4];
+    Huffman* act[4];
+    int last_dc[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+
+    void block(int i, int16_t* blk) {
+      d.decode_block(br, sc, i, blk, dct[i], act[i], last_dc, eobrun);
+    }
+    int finish() { return br.finish(); }
+    void restart() {  // jdhuff.c process_restart, past the RSTn marker
+      br.p += 2;
+      last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
+      eobrun = 0;
+    }
+    const uint8_t* pos() const { return br.p; }
+  };
+
+  // The arithmetic decoding of a scan's blocks (jdarith.c): statistics
+  // areas per table, reset with the DC predictions at the scan's start and
+  // at each restart.
+  struct ArithScan {
+    const Decoder& d;
+    const Scan& sc;
+    ArithReader ar;
+    uint8_t dc_stats[16][64];
+    uint8_t ac_stats[16][256];
+    uint8_t fixed_bin[4] = {113, 0, 0, 0};  // probability 0.5, never moves
+    int last_dc[4] = {0, 0, 0, 0};
+    int dc_context[4] = {0, 0, 0, 0};
+
+    ArithScan(const Decoder& d_, const Scan& sc_, const uint8_t* p,
+              const uint8_t* end)
+        : d(d_), sc(sc_), ar(p, end) {
+      reset();
+    }
+
+    void reset() {
+      for (int i = 0; i < sc.n; ++i) {
+        if (!d.progressive || (sc.ss == 0 && sc.ah == 0)) {
+          std::memset(dc_stats[sc.td[i]], 0, sizeof(dc_stats[0]));
+          last_dc[i] = dc_context[i] = 0;
+        }
+        if (!d.progressive || sc.ss)
+          std::memset(ac_stats[sc.ta[i]], 0, sizeof(ac_stats[0]));
+      }
+    }
+    int finish() { return ar.finish(); }
+    void restart() {  // jdarith.c process_restart, past the RSTn marker
+      ar.p += 2;
+      reset();
+    }
+    const uint8_t* pos() const { return ar.p; }
+
+    // F.2.4.1: a DC difference, and its conditioning category for the
+    // next (the magnitude overflow is JWRN_ARITH_BAD_CODE)
+    int dc_diff(int i) {
+      const int tbl = sc.td[i];
+      uint8_t* st = dc_stats[tbl] + dc_context[i];
+      if (!ar.decode(st)) {
+        dc_context[i] = 0;
+        return 0;
+      }
+      const int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m) {
+        st = dc_stats[tbl] + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) fail(kArithCode);
+          ++st;
+        }
+      }
+      if (m < ((1 << d.dc_L[tbl]) >> 1))
+        dc_context[i] = 0;
+      else if (m > ((1 << d.dc_U[tbl]) >> 1))
+        dc_context[i] = 12 + sign * 4;
+      else
+        dc_context[i] = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      return sign ? -v : v;
+    }
+
+    // F.2.4.2: the AC coefficients ss..se of a block, scaled by 2^al
+    void ac_first(int tbl, int ss, int se, int al, int16_t* blk) {
+      for (int k = ss; k <= se; ++k) {
+        uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+        if (ar.decode(st)) break;  // end of block
+        while (!ar.decode(st + 1)) {
+          st += 3;
+          if (++k > se) fail(kArithCode);
+        }
+        const int sign = ar.decode(fixed_bin);
+        st += 2;
+        int m = ar.decode(st);
+        if (m && ar.decode(st)) {
+          m <<= 1;
+          st = ac_stats[tbl] + (k <= d.ac_K[tbl] ? 189 : 217);
+          while (ar.decode(st)) {
+            if ((m <<= 1) == 0x8000) fail(kArithCode);
+            ++st;
+          }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+          if (ar.decode(st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        blk[kNatural[k]] =
+            static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+      }
+    }
+
+    // decode_mcu_AC_refine: a bit more of each coefficient of ss..se
+    void ac_refine(int16_t* blk) {
+      const int tbl = sc.ta[0];
+      const int p1 = 1 << sc.al, m1 = -(1 << sc.al);
+      int kex = sc.se;  // the previous stage's end of block
+      for (; kex > 0; --kex)
+        if (blk[kNatural[kex]]) break;
+      for (int k = sc.ss; k <= sc.se; ++k) {
+        uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+        if (k > kex && ar.decode(st)) break;  // end of block
+        for (;;) {
+          int16_t* c = blk + kNatural[k];
+          if (*c) {  // nonzero before: a correction bit
+            if (ar.decode(st + 2))
+              *c = static_cast<int16_t>(*c + (*c < 0 ? m1 : p1));
+            break;
+          }
+          if (ar.decode(st + 1)) {  // newly nonzero
+            *c = static_cast<int16_t>(ar.decode(fixed_bin) ? m1 : p1);
+            break;
+          }
+          st += 3;
+          if (++k > sc.se) fail(kArithCode);
+        }
+      }
+    }
+
+    void block(int i, int16_t* blk) {
+      if (!d.progressive) {  // decode_mcu
+        last_dc[i] = (last_dc[i] + dc_diff(i)) & 0xFFFF;
+        blk[0] = static_cast<int16_t>(last_dc[i]);
+        ac_first(sc.ta[i], 1, 63, 0, blk);
+      } else if (sc.ss == 0 && sc.ah == 0) {  // decode_mcu_DC_first
+        last_dc[i] = (last_dc[i] + dc_diff(i)) & 0xFFFF;
+        blk[0] = static_cast<int16_t>(
+            static_cast<uint32_t>(last_dc[i]) << sc.al);
+      } else if (sc.ss == 0) {  // decode_mcu_DC_refine
+        if (ar.decode(fixed_bin))
+          blk[0] = static_cast<int16_t>(blk[0] | (1 << sc.al));
+      } else if (sc.ah == 0) {  // decode_mcu_AC_first
+        ac_first(sc.ta[0], sc.ss, sc.se, sc.al, blk);
+      } else {
+        ac_refine(blk);
+      }
+    }
+  };
+
+  // The blocks of a scan in MCU order, restart markers between intervals;
+  // returns the marker after the scan, with `p` at the FF before it.
+  template <class Entropy>
+  int run_scan(const Scan& sc, Entropy& e) {
+    int nx, ny;
+    if (sc.n == 1) {
+      nx = comp[sc.ci[0]].wb;
+      ny = comp[sc.ci[0]].hb;
+    } else {
+      nx = mcus_x;
+      ny = mcus_y;
+    }
+    int next_rst = 0;
+    int to_go = restart_interval;
+    const int total = nx * ny;
+    for (int m = 0; m < total; ++m) {
+      if (restart_interval) {
+        if (to_go == 0) {
+          if (e.finish() != 0xD0 + next_rst) fail(kRestart);
+          e.restart();
+          next_rst = (next_rst + 1) & 7;
+          to_go = restart_interval;
+        }
+        --to_go;
+      }
+      const int mx = m % nx, my = m / nx;
+      if (sc.n == 1) {
+        e.block(0, comp[sc.ci[0]].block(my, mx));
+      } else {
+        for (int i = 0; i < sc.n; ++i) {
+          Component& k = comp[sc.ci[i]];
+          for (int by = 0; by < k.v; ++by)
+            for (int bx = 0; bx < k.h; ++bx)
+              e.block(i, k.block(my * k.v + by, mx * k.h + bx));
+        }
+      }
+    }
+    const int mk = e.finish();
+    p = e.pos();
+    return mk;
+  }
+
   // one scan's entropy-coded data, from `p` to the marker after it
   int decode_scan(const Scan& sc) {
+    if (lossless) return decode_lossless_scan(sc);
     check_scan(sc);
     Huffman* dct[4] = {};
     Huffman* act[4] = {};
@@ -735,6 +1150,7 @@ struct Decoder {
       Component& k = comp[sc.ci[i]];
       latch(k);
       blocks += sc.n == 1 ? 1 : k.h * k.v;
+      if (arithmetic) continue;  // tables 0-15, defined or not (jdarith.c)
       if (!progressive) {
         dct[i] = &table(dc_tab, sc.td[i], true);
         act[i] = &table(ac_tab, sc.ta[i], false);
@@ -745,51 +1161,147 @@ struct Decoder {
       }
     }
     if (blocks > kMaxBlocksInMcu) fail(kSampling);
-
-    int nx, ny;
-    if (sc.n == 1) {
-      nx = comp[sc.ci[0]].wb;
-      ny = comp[sc.ci[0]].hb;
-    } else {
-      nx = mcus_x;
-      ny = mcus_y;
+    if (arithmetic) {
+      ArithScan e(*this, sc, p, end);
+      return run_scan(sc, e);
     }
+    HuffScan e{*this, sc, BitReader(p, end), {}, {}};
+    for (int i = 0; i < sc.n; ++i) {
+      e.dct[i] = dct[i];
+      e.act[i] = act[i];
+    }
+    return run_scan(sc, e);
+  }
+
+  // A lossless scan (jdlhuff.c, jddiffct.c, jdlossls.c): Huffman-coded
+  // differences, MCU row by MCU row (an interleaved MCU holds h x v samples
+  // of each component, a non-interleaved one a sample), each row then
+  // undifferenced by the scan's predictor. The first row of the scan and of
+  // each restart interval predicts from the left only, starting at
+  // 2^(P - Pt - 1); the first column from above. Samples are kept mod 2^16
+  // and returned as (uint8)(sample << Pt).
+  int decode_lossless_scan(const Scan& sc) {
+    if (sc.ss < 1 || sc.ss > 7 || sc.se != 0 || sc.ah != 0 ||
+        sc.al >= precision)
+      fail(kProgression);
+    const Huffman* dct[4] = {};
+    int blocks = 0;
+    for (int i = 0; i < sc.n; ++i) {
+      Component& k = comp[sc.ci[i]];
+      if (k.seen) fail(kProgression);
+      k.seen = true;
+      dct[i] = &table(dc_tab, sc.td[i], true);
+      blocks += sc.n == 1 ? 1 : k.h * k.v;
+    }
+    if (blocks > kMaxBlocksInMcu) fail(kSampling);
+    const bool inter = sc.n > 1;
+    const int nx = inter ? mcus_x : comp[sc.ci[0]].dw;
+    const int ny = inter ? mcus_y : comp[sc.ci[0]].dh;
+    // jdlossls.c start_pass_lossless (an error, not a warning)
+    if (restart_interval % nx) fail(kLosslessRestart);
+    // one iMCU row of differences a component: v rows
+    std::vector<int32_t> diff[4];
+    int dstride[4];
+    bool first[4];
+    for (int i = 0; i < sc.n; ++i) {
+      const Component& k = comp[sc.ci[i]];
+      dstride[i] = inter ? nx * k.h : nx;
+      diff[i].assign(static_cast<size_t>(k.v) * dstride[i], 0);
+      first[i] = true;
+    }
+    const int init = 1 << (precision - sc.al - 1);
     BitReader br(p, end);
-    int last_dc[4] = {0, 0, 0, 0};
-    int eobrun = 0;
     int next_rst = 0;
-    int to_go = restart_interval;
-    const int total = nx * ny;
-    for (int m = 0; m < total; ++m) {
+    int rows_to_go = restart_interval / nx;
+    for (int my = 0; my < ny; ++my) {
       if (restart_interval) {
-        if (to_go == 0) {  // jdhuff.c process_restart
-          int mk = br.finish();
-          if (mk != 0xD0 + next_rst) fail(kRestart);
+        if (rows_to_go == 0) {  // jddiffct.c process_restart
+          if (br.finish() != 0xD0 + next_rst) fail(kRestart);
           br.p += 2;
           next_rst = (next_rst + 1) & 7;
-          last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
-          eobrun = 0;
-          to_go = restart_interval;
+          for (int i = 0; i < sc.n; ++i) first[i] = true;
+          rows_to_go = restart_interval / nx;
         }
-        --to_go;
+        --rows_to_go;
       }
-      const int mx = m % nx, my = m / nx;
-      if (sc.n == 1) {
-        decode_block(br, sc, 0, comp[sc.ci[0]].block(my, mx), dct[0],
-                     act[0], last_dc, eobrun);
-      } else {
+      for (int mx = 0; mx < nx; ++mx) {
         for (int i = 0; i < sc.n; ++i) {
-          Component& k = comp[sc.ci[i]];
-          for (int by = 0; by < k.v; ++by)
-            for (int bx = 0; bx < k.h; ++bx)
-              decode_block(br, sc, i, k.block(my * k.v + by, mx * k.h + bx),
-                           dct[i], act[i], last_dc, eobrun);
+          const Component& k = comp[sc.ci[i]];
+          const int hh = inter ? k.h : 1, vv = inter ? k.v : 1;
+          for (int yo = 0; yo < vv; ++yo) {
+            int32_t* row = diff[i].data() +
+                           static_cast<size_t>(inter ? yo : my % k.v) *
+                               dstride[i] + mx * hh;
+            for (int xo = 0; xo < hh; ++xo) {
+              const int s = br.decode(*dct[i]);
+              row[xo] = s == 16 ? 32768 : (s ? extend(br.bits(s), s) : 0);
+            }
+          }
+        }
+      }
+      // undifference each component's rows once its iMCU row is whole
+      for (int i = 0; i < sc.n; ++i) {
+        Component& k = comp[sc.ci[i]];
+        int r0, r1;
+        if (inter) {
+          r0 = my * k.v;
+          r1 = r0 + k.v;
+        } else if ((my + 1) % k.v == 0 || my == ny - 1) {
+          r0 = my - my % k.v;
+          r1 = my + 1;
+        } else {
+          continue;
+        }
+        for (int r = r0; r < r1 && r < k.dh; ++r) {
+          undifference(k, r, diff[i].data() +
+                                 static_cast<size_t>(r - r0) * dstride[i],
+                       sc.ss, sc.al, first[i], init);
+          first[i] = false;
         }
       }
     }
-    int mk = br.finish();
+    const int mk = br.finish();
     p = br.p;
     return mk;
+  }
+
+  // jdlossls.c: row r of component k from its differences `d`
+  static void undifference(Component& k, int r, const int32_t* d, int psv,
+                           int al, bool first, int init) {
+    const int w = k.dw;
+    uint16_t* out = k.undiff.data() + static_cast<size_t>(r) * w;
+    if (first) {  // jpeg_undifference_first_row
+      int ra = (d[0] + init) & 0xFFFF;
+      out[0] = static_cast<uint16_t>(ra);
+      for (int x = 1; x < w; ++x) {
+        ra = (d[x] + ra) & 0xFFFF;
+        out[x] = static_cast<uint16_t>(ra);
+      }
+    } else {
+      const uint16_t* prev = out - w;
+      int rb = prev[0];
+      int ra = (d[0] + rb) & 0xFFFF;
+      out[0] = static_cast<uint16_t>(ra);
+      for (int x = 1; x < w; ++x) {
+        const int rc = rb;
+        rb = prev[x];
+        int pred;
+        switch (psv) {
+          case 1: pred = ra; break;
+          case 2: pred = rb; break;
+          case 3: pred = rc; break;
+          case 4: pred = ra + rb - rc; break;
+          case 5: pred = ra + ((rb - rc) >> 1); break;
+          case 6: pred = rb + ((ra - rc) >> 1); break;
+          default: pred = (ra + rb) >> 1; break;
+        }
+        ra = (d[x] + pred) & 0xFFFF;
+        out[x] = static_cast<uint16_t>(ra);
+      }
+    }
+    uint8_t* px = k.px.data() + static_cast<size_t>(r) * w;
+    for (int x = 0; x < w; ++x)
+      px[x] = static_cast<uint8_t>(out[x] << al);
   }
 
   void decode_block(BitReader& br, const Scan& sc, int i, int16_t* blk,
@@ -1200,9 +1712,9 @@ const ColorTables& color_tables() {
   return t;
 }
 
-// The first `n` components' samples after the IDCT, and an upsampler of
-// each to the image's size. `planes` is reserved first: each upsampler
-// holds a reference to its plane.
+// The first `n` components' samples after the IDCT (a lossless frame's
+// samples as decoded), and an upsampler of each to the image's size.
+// `planes` is reserved first: each upsampler holds a reference to its plane.
 void upsampled(Decoder& d, int n, std::vector<Plane>* planes,
                std::vector<Upsampler>* ups) {
   planes->reserve(n);
@@ -1210,9 +1722,18 @@ void upsampled(Decoder& d, int n, std::vector<Plane>* planes,
   for (int c = 0; c < n; ++c) {
     Component& k = d.comp[c];
     if (d.max_h % k.h || d.max_v % k.v) fail(kSampling);
-    if (d.smoothing_changes(c)) fail(kSmoothing);
-    if (!k.latched) fail(kNoQuantTable);  // never in a scan
-    planes->push_back(inverse_dct(k));
+    if (d.lossless) {
+      if (!k.seen) fail(kCorrupt);  // never in a scan
+      Plane pl;
+      pl.px.swap(k.px);
+      pl.w = pl.stride = k.dw;
+      pl.h = k.dh;
+      planes->push_back(std::move(pl));
+    } else {
+      if (d.smoothing_changes(c)) fail(kSmoothing);
+      if (!k.latched) fail(kNoQuantTable);  // never in a scan
+      planes->push_back(inverse_dct(k));
+    }
     ups->emplace_back(planes->back(), d.max_h / k.h, d.max_v / k.v,
                       d.width);
   }
@@ -1224,22 +1745,49 @@ void oriented_size(const Decoder& d, int* w, int* h) {
   *h = swap ? d.width : d.height;
 }
 
+enum Space { kGray, kYcc, kRgb, kCmyk, kYcck };
+
+// jdapimin.c default_decompress_parms: the colour space of the components
+// (an Adobe transform it does not know is a warning)
+Space color_space(const Decoder& d) {
+  if (d.ncomp == 1) return kGray;
+  if (d.ncomp == 4) {
+    if (!d.adobe) return kCmyk;
+    if (d.adobe_transform == 0) return kCmyk;
+    if (d.adobe_transform == 2) return kYcck;
+    fail(kAdobeTransform);
+  }
+  if (d.jfif) return kYcc;
+  if (d.adobe) {
+    if (d.adobe_transform == 0) return kRgb;
+    if (d.adobe_transform == 1) return kYcc;
+    fail(kAdobeTransform);
+  }
+  if (d.comp[0].id == 'R' && d.comp[1].id == 'G' && d.comp[2].id == 'B')
+    return kRgb;
+  return d.lossless ? kRgb : kYcc;  // lossless: "assume RGB w/out marker"
+}
+
 void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
   if (channels != 1 && channels != 3) fail(kChannels);
   Decoder d(buf, len);
   d.read_header();
-  // jdapimin.c default_decompress_parms: the colour space of 3 components
-  bool rgb = false;
-  if (d.ncomp == 3 && !d.jfif) {
-    if (d.adobe)
-      rgb = d.adobe_transform == 0;
-    else
-      rgb = d.comp[0].id == 'R' && d.comp[1].id == 'G' && d.comp[2].id == 'B';
-  }
+  const Space cs = color_space(d);
+  // cv::imread asks libjpeg for gray, BGR, or CMYK from 4 components;
+  // jdcolor.c allows no conversion that changes sample values in a
+  // lossless frame (JERR_CONVERSION_NOTIMPL)
+  if (d.lossless && (cs == kYcc || cs == kYcck ||
+                     (cs == kGray && channels == 3) ||
+                     (cs == kRgb && channels == 1)))
+    fail(kLosslessColor);
+  if (d.lossless)
+    for (int c = 0; c < d.ncomp; ++c)
+      if (d.comp[c].h != 1 || d.comp[c].v != 1) fail(kLosslessSampling);
   d.decode_all();
 
   // components the output needs (jdcolor.c: YCbCr to gray reads Y only)
-  const int need = (d.ncomp == 3 && (channels == 3 || rgb)) ? 3 : 1;
+  const int need = cs == kGray || (cs == kYcc && channels == 1) ? 1
+                   : d.ncomp;
   const int W = d.width, H = d.height;
   std::vector<Plane> planes;
   std::vector<Upsampler> ups;
@@ -1261,19 +1809,42 @@ void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
     }
     const uint8_t* c1 = ups[1].row(y);
     const uint8_t* c2 = ups[2].row(y);
-    if (channels == 1) {  // rgb_gray_convert
-      uint8_t* g = dst + at;
+    uint8_t* b = dst + at;
+    uint8_t* g = dst + npx + at;
+    uint8_t* r = dst + 2 * npx + at;
+    if (need == 4) {
+      // ycck_cmyk_convert or null_convert, then OpenCV's
+      // icvCvt_CMYK2BGR_8u_C4C3R / icvCvt_CMYK2Gray_8u_C4C1R
+      const uint8_t* c3 = ups[3].row(y);
+      for (int x = 0; x < W; ++x) {
+        int cc = c0[x], mm = c1[x], yy = c2[x];
+        const int k = c3[x];
+        if (cs == kYcck) {
+          const int lum = c0[x], cb = c1[x], cr = c2[x];
+          cc = clamp8(255 - (lum + t.cr_r[cr]));
+          mm = clamp8(255 - (lum + ((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+          yy = clamp8(255 - (lum + t.cb_b[cb]));
+        }
+        cc = cmyk_channel(cc, k);
+        mm = cmyk_channel(mm, k);
+        yy = cmyk_channel(yy, k);
+        if (channels == 1) {
+          b[x] = bgr2gray(yy, mm, cc);
+        } else {
+          b[x] = static_cast<uint8_t>(yy);
+          g[x] = static_cast<uint8_t>(mm);
+          r[x] = static_cast<uint8_t>(cc);
+        }
+      }
+    } else if (channels == 1) {  // rgb_gray_convert
       for (int x = 0; x < W; ++x)
-        g[x] = static_cast<uint8_t>(
+        b[x] = static_cast<uint8_t>(
             (t.r_y[c0[x]] + t.g_y[c1[x]] + t.b_y[c2[x]]) >> 16);
-    } else if (rgb) {  // rgb_rgb_convert, to BGR
-      std::memcpy(dst + at, c2, static_cast<size_t>(W));
-      std::memcpy(dst + npx + at, c1, static_cast<size_t>(W));
-      std::memcpy(dst + 2 * npx + at, c0, static_cast<size_t>(W));
+    } else if (cs == kRgb) {  // rgb_rgb_convert, to BGR
+      std::memcpy(b, c2, static_cast<size_t>(W));
+      std::memcpy(g, c1, static_cast<size_t>(W));
+      std::memcpy(r, c0, static_cast<size_t>(W));
     } else {  // ycc_rgb_convert, to BGR
-      uint8_t* b = dst + at;
-      uint8_t* g = dst + npx + at;
-      uint8_t* r = dst + 2 * npx + at;
       for (int x = 0; x < W; ++x) {
         int yy = c0[x], cb = c1[x], cr = c2[x];
         r[x] = clamp8(yy + t.cr_r[cr]);
@@ -1309,8 +1880,10 @@ void decode_tiff_strip(const uint8_t* tables, int64_t tlen, const uint8_t* buf,
     d.restart_interval = 0;  // get_soi resets it; the tables persist
   }
   d.read_header();
+  if (d.lossless) fail(kTiffLossless);
   if (d.width != width || d.height != height) fail(kSize);
   if (d.ncomp != ncomp || (ycc && ncomp != 3)) fail(kComponents);
+  if (ncomp != 1 && ncomp != 3) fail(kComponents);
   for (int c = 0; c < d.ncomp; ++c)
     if (d.comp[c].h != (c ? 1 : h0) || d.comp[c].v != (c ? 1 : v0))
       fail(kSampling);
@@ -1380,8 +1953,9 @@ int of_jpeg_info(const uint8_t* buf, int64_t len, int* width, int* height,
 }
 
 // Decode into `out`, a C-contiguous (channels, height, width) uint8 array
-// of of_jpeg_info's size: channels 1 gray (the Y plane of a YCbCr image),
-// 3 BGR. Returns 0, or a negative code (of_jpeg_strerror).
+// of of_jpeg_info's size: channels 1 gray (the Y plane of a YCbCr image,
+// OpenCV's gray of a CMYK one), 3 BGR. Returns 0, or a negative code
+// (of_jpeg_strerror).
 int of_jpeg_decode(const uint8_t* buf, int64_t len, int channels,
                    uint8_t* out) {
   try {
@@ -1400,13 +1974,19 @@ const char* of_jpeg_strerror(int code) {
     case kNotJpeg: return "not a JPEG (no SOI marker)";
     case kTruncated: return "truncated JPEG data";
     case kBadMarker: return "corrupt or unsupported JPEG marker segment";
-    case kArithmetic: return "arithmetic-coded JPEG is not supported";
-    case kLossless: return "lossless JPEG (SOF3) is not supported";
-    case kHierarchical: return "hierarchical JPEG is not supported";
+    case kLosslessArith: return "lossless arithmetic-coded JPEG (SOF11): "
+                                "cv::imread fails on it too";
+    case kLosslessColor: return "lossless JPEG read in a colour space "
+                                "libjpeg would have to convert it to (gray "
+                                "read as colour, RGB read as gray, YCbCr or "
+                                "YCCK): cv::imread fails on it too";
+    case kHierarchical: return "hierarchical JPEG (SOF5-7, SOF13-15): "
+                               "cv::imread fails on it too";
     case kPrecision: return "JPEG sample precision other than 8 bits "
-                            "(12-bit) is not supported";
-    case kComponents: return "JPEG with other than 1 or 3 components "
-                             "(CMYK / 4-component) is not supported";
+                            "(12-bit), or lossless precision outside 2-8: "
+                            "cv::imread fails on it too";
+    case kComponents: return "JPEG with 2 or more than 4 components: "
+                             "cv::imread fails on it too";
     case kSampling: return "unsupported JPEG sampling factors";
     case kNoHuffTable: return "JPEG scan uses a Huffman table that is not "
                               "defined";
@@ -1429,6 +2009,16 @@ const char* of_jpeg_strerror(int code) {
     case kRestart: return "corrupt JPEG data: wrong restart marker";
     case kExtraneous: return "corrupt JPEG data: extraneous bytes before "
                              "marker";
+    case kArithCode: return "corrupt JPEG data: bad arithmetic code";
+    case kAdobeTransform: return "JPEG with an unknown Adobe colour transform "
+                                 "(libjpeg decodes it only with a warning)";
+    case kLosslessSampling: return "lossless JPEG with subsampled components "
+                                   "is not supported";
+    case kLosslessRestart: return "lossless JPEG whose restart interval is "
+                                  "not a whole number of MCU rows: "
+                                  "cv::imread fails on it too";
+    case kTiffLossless: return "lossless JPEG inside a TIFF is not "
+                               "supported";
     default: return "unknown JPEG error";
   }
 }

@@ -19,8 +19,15 @@ colour IMREAD_COLOR in BGR order), with no OpenCV or PIL:
   - BMP (`utils.io.bmp_header`, pixels by `csrc/io_native.cpp`): 1, 4 and
     8-bit palettes with RLE4 / RLE8, 16-bit 5-5-5 and 5-6-5, 24 and 32-bit,
     bottom-up or top-down; gray by OpenCV's BGR2GRAY.
-  - JPEG, decoded whole by `csrc/jpeg.cpp` (gray is the image's Y plane,
-    colour BGR, the EXIF orientation applied).
+  - JPEG, decoded whole by `csrc/jpeg.cpp`: Huffman or arithmetic
+    coding, sequential, progressive or lossless (predictors 1-7, point
+    transform, precision 2-8, samples unscaled as libjpeg returns them);
+    gray is a YCbCr image's Y plane, colour BGR; a CMYK or YCCK image goes
+    through OpenCV's CMYK to BGR and to gray rules; the EXIF orientation
+    applied. What cv::imread fails on (12-bit, hierarchical, lossless
+    arithmetic, 2 components, a lossless frame read in a colour space
+    libjpeg would have to convert) is refused with "cv::imread fails on it
+    too".
   - WebP (`utils.io.webp_chunks`, the bitstream by `csrc/webp.cpp`): lossy
     VP8 and lossless VP8L, simple and extended (VP8X) files, alpha dropped
     (a lossy image's ALPH chunk decoded only to fail where libwebp fails),
@@ -154,9 +161,10 @@ def _jpeg_error(code: int) -> ValueError:
 
 
 def jpeg_info(raw: bytes):
-    """(width, height, components) of a JPEG, the size after its EXIF
-    orientation. Raises ValueError on a file the decoder refuses in its
-    header (arithmetic coding, 12-bit samples, lossless, CMYK, ...)."""
+    """(width, height, components) of a JPEG (1, 3 or 4 components), the
+    size after its EXIF orientation. Raises ValueError on a file the
+    decoder refuses in its header (12-bit samples, hierarchical or lossless
+    arithmetic frames, 2 components, ...)."""
     info = _jpeg_entries()[0]
     w, h, n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     src = np.frombuffer(raw, np.uint8)
@@ -170,8 +178,8 @@ def jpeg_info(raw: bytes):
 def decode_jpeg(raw: bytes, channels: int,
                 out: Optional[np.ndarray] = None) -> np.ndarray:
     """A JPEG as cv::imread reads it, (channels, H, W) uint8: channels 1
-    its Y plane (IMREAD_GRAYSCALE), 3 BGR (IMREAD_COLOR), the EXIF
-    orientation applied. `out`, if given, is the C-contiguous array to
+    its Y plane, or OpenCV's gray of a CMYK image (IMREAD_GRAYSCALE), 3 BGR
+    (IMREAD_COLOR), the EXIF orientation applied. `out`, if given, is the C-contiguous array to
     fill. Raises ValueError naming the cause on a JPEG it cannot decode."""
     if channels not in (1, 3):
         raise ValueError(f"channels must be 1 or 3, got {channels}")

@@ -9,8 +9,11 @@ The frames are phase 7's of chip_smoke.py (`bench_pipeline.make_frames`:
 `build/bench_decode/frames` unless `--frames` names a directory (any
 format `pipeline.list_frames` lists: JPEG, WebP, Sun raster, PAM, HDR,
 TIFF, GIF and JPEG 2000 too; chip_smoke.py leaves part 7c-7e's frames
-under `build/of_dis_tpu_torch/smoke/`, and part 7f's JPEG 2000 frames
-are committed in tests/torch_fixtures/jp2/frames and .../lossless). One
+under `build/of_dis_tpu_torch/smoke/`; committed are part 7b's JPEG
+frames, Huffman-coded in tests/torch_fixtures/jpeg/frames and
+arithmetic-coded in .../frames_arith, its lossless gray and YCCK pairs in
+.../pairs/*, and part 7f's JPEG 2000 frames in
+tests/torch_fixtures/jp2/frames and .../lossless). One
 worker process a checkout imports that checkout's package and waits; for
 each thread count the turns run ABBA (OLD, NEW, NEW, OLD, ...) `pairs`
 times, each turn one `decode_batch` over every frame on a fresh pool of
@@ -18,7 +21,8 @@ that many threads, its planes checked against the first turn's. A host
 whose other tenants vary moves both trees' turns alike, so the median of
 each tree's turns and of the per-pair ratios is the number to read. The
 decode runs on the host alone: no device work. Prints one JSON line a
-thread count, and the card's `nvidia-smi` line where there is one.
+thread count (with the frame directory), and the card's `nvidia-smi`
+line where there is one.
 """
 
 from __future__ import annotations
@@ -142,7 +146,7 @@ def main(argv=None) -> list:
                   args.channels)
     card = _card()
     for rec in records:
-        rec.update(host_cpus=os.cpu_count(), card=card)
+        rec.update(frames=frame_dir, host_cpus=os.cpu_count(), card=card)
         print(json.dumps(rec), flush=True)
     return records
 

@@ -16,7 +16,8 @@ Byte-compatible with the reference writers/readers:
     csrc/gif.cpp, csrc/jp2.cpp). Gray is what cv::imread(GRAYSCALE)
     gives, by each reader's own rule (see `native.io`); the EXIF
     orientation of a JPEG and a WebP, and a TIFF's orientation tag, are
-    applied.
+    applied; a CMYK or YCCK JPEG is turned into BGR and gray by OpenCV's
+    own CMYK rules, as cv::imread turns it.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ import numpy as np
 _FLO_MAGIC = b"PIEH"
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"  # SOI, then a marker's FF
-FORMATS = ("PNG, PNM (P1-P6), BMP, JPEG, WebP, Sun raster, PAM, Radiance "
-           "HDR, PFM, TIFF, GIF and JPEG 2000")
+FORMATS = ("PNG, PNM (P1-P6), BMP, JPEG (Huffman or arithmetic, sequential, "
+           "progressive or lossless; gray, YCbCr, RGB, CMYK or YCCK), WebP, "
+           "Sun raster, PAM, Radiance HDR, PFM, TIFF, GIF and JPEG 2000")
 
 
 def write_flo(path: str, data: np.ndarray) -> None:

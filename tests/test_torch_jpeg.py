@@ -317,11 +317,17 @@ MANIFEST = _manifest()
 @pytest.mark.parametrize("rel", sorted(MANIFEST["files"]))
 def test_fixture_manifest_matches_cv2_and_the_decoder(rel):
     """The hashes that chip_smoke.py holds the card's build to are cv2's
-    (live here) and the decoder's."""
+    (live here) and the decoder's; a read the manifest has as null cv2
+    fails on, and the decoder refuses it."""
     path = os.path.join(FIXTURES, rel)
     rec = MANIFEST["files"][rel]
     assert os.path.getsize(path) == rec["bytes"]
     for key, ch in (("gray", 1), ("color", 3)):
+        if rec[key] is None:
+            assert cv2_planes(path, ch) is None, (rel, key)
+            with pytest.raises(ValueError, match="fails on it too"):
+                nio.decode_jpeg(open(path, "rb").read(), ch)
+            continue
         for planes in (np.ascontiguousarray(cv2_planes(path, ch)),
                        nio.decode_jpeg(open(path, "rb").read(), ch)):
             assert list(planes.shape) == rec[key]["shape"]
@@ -330,14 +336,22 @@ def test_fixture_manifest_matches_cv2_and_the_decoder(rel):
 
 
 def test_fixtures_stay_small_and_frames_move():
+    """Under 1 MiB for the Huffman frames and variants, and 2.5 MB more
+    for the arithmetic-coded frames, the CLI pairs and the arithmetic,
+    lossless and 4-component variants."""
     total = sum(os.path.getsize(os.path.join(d, n))
                 for d, _, names in os.walk(FIXTURES) for n in names)
-    assert total < 1 << 20
-    frames = sorted(r for r in MANIFEST["files"] if r.startswith("frames/"))
-    assert len(frames) == 9
+    assert total < (1 << 20) + 2_500_000
     assert MANIFEST["motion_px"] == [1.3, 0.4]
-    for r in frames:
-        assert MANIFEST["files"][r]["color"]["shape"] == [3, 436, 1024]
+    for sub in ("frames/", "frames_arith/"):
+        frames = sorted(r for r in MANIFEST["files"] if r.startswith(sub))
+        assert len(frames) == 9
+        for r in frames:
+            assert MANIFEST["files"][r]["color"]["shape"] == [3, 436, 1024]
+    pairs = sorted(r for r in MANIFEST["files"] if r.startswith("pairs/"))
+    assert len(pairs) == 4
+    for r in pairs:
+        assert MANIFEST["files"][r]["gray"]["shape"] == [1, 436, 1024]
 
 
 # ------------------------------------------------------- batches, errors
@@ -386,12 +400,22 @@ def _sof_byte(offset, value):
     return fn
 
 
-def _cmyk(raw):
-    Image = pytest.importorskip("PIL.Image")
-    import io as _io
-    buf = _io.BytesIO()
-    Image.new("CMYK", (41, 29), (10, 20, 30, 40)).save(buf, "JPEG")
-    return buf.getvalue()
+def _variant(name):
+    with open(os.path.join(FIXTURES, "variants", name), "rb") as f:
+        return f.read()
+
+
+def _two_components(raw):
+    """A 2-component file, which no colour space of libjpeg's takes."""
+    return _variant("two_components.jpg")
+
+
+def _lossless_ycbcr(raw):
+    """A lossless RGB file under an Adobe transform 1 (YCbCr), which
+    libjpeg may not convert in a lossless frame."""
+    raw = _variant("lossless_rgb.jpg")
+    at = raw.index(b"\xff\xee")
+    return raw[:at + 15] + b"\x01" + raw[at + 16:]
 
 
 def _no_dht_slot2(raw):
@@ -412,12 +436,16 @@ def _unrefined(raw):
     return prog[:last_sos] + b"\xff\xd9"
 
 
+# "arithmetic", "lossless", "cmyk": what cv2 fails on among those (lossless
+# arithmetic coding, a lossless frame in a colour space libjpeg would have
+# to convert, 2 components), since the decoder reads SOF9 / SOF10, SOF3
+# and CMYK / YCCK as cv2 does
 @pytest.mark.parametrize("make,match", [
-    (_sof_byte(1, 0xC9), "arithmetic"),
-    (_sof_byte(1, 0xC3), "lossless"),
-    (_sof_byte(1, 0xC5), "hierarchical"),
-    (_sof_byte(4, 12), "12-bit"),
-    (_cmyk, "4-component"),
+    (_sof_byte(1, 0xCB), "lossless arithmetic.*fails on it too"),
+    (_lossless_ycbcr, "lossless JPEG read in a colour space.*fails on it"),
+    (_sof_byte(1, 0xC5), "hierarchical.*fails on it too"),
+    (_sof_byte(4, 12), "12-bit.*fails on it too"),
+    (_two_components, "2 or more than 4 components.*fails on it too"),
     (_no_dht_slot2, "Huffman table that is not defined"),
     (_without({0xDB}), "quantization table that is not defined"),
     (_unrefined, "block smoothing"),
@@ -453,7 +481,11 @@ _FUZZ_SOURCES = [encode(content(23, 37, "blur", 20), quality=50,
                         restart=3),
                  encode(content(23, 37, "sat", 21), progressive=True),
                  encode(cv2.cvtColor(content(23, 37, "blur", 22),
-                                     cv2.COLOR_BGR2GRAY), sampling="444")]
+                                     cv2.COLOR_BGR2GRAY), sampling="444"),
+                 _variant("arith_restart7.jpg"),
+                 _variant("arith_progressive.jpg"),
+                 _variant("lossless_gray_rst.jpg"),
+                 _variant("lossless_rgb.jpg")]
 
 
 @settings(max_examples=300, deadline=None, derandomize=True,
@@ -463,8 +495,9 @@ _FUZZ_SOURCES = [encode(content(23, 37, "blur", 20), quality=50,
        flips=st.lists(st.tuples(st.floats(0.0, 1.0), st.integers(1, 255)),
                       max_size=3))
 def test_corrupt_input_raises_or_equals_cv2(src, cut, flips):
-    """Truncated and byte-flipped files: the decoder raises ValueError or
-    gives exactly cv2's planes, never anything else and never a crash."""
+    """Truncated and byte-flipped files (Huffman, arithmetic-coded and
+    lossless): the decoder raises ValueError or gives exactly cv2's planes,
+    never anything else and never a crash."""
     raw = bytearray(_FUZZ_SOURCES[src])
     for where, mask in flips:
         raw[min(int(where * len(raw)), len(raw) - 1)] ^= mask

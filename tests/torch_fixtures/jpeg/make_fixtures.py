@@ -4,20 +4,34 @@ and their manifest.
     python tests/torch_fixtures/jpeg/make_fixtures.py
 
 Needs cv2 (the encoder, and the decoder whose output the manifest
-records) and runs the port on the CPU for the frames' content:
+records), PIL (a CMYK file) and gcc (`jpeg_writer.c`, built against the
+libjpeg-turbo that Pillow bundles: the arithmetic-coded, lossless, CMYK
+and YCCK streams that cv2 and PIL do not write), and runs the port on the
+CPU for the frames' content:
   - frames/frame_0000.jpg ... frame_0008.jpg: nine 1024x436 colour frames,
     quality 90, 4:2:0, of blurred random content (`frames`: a luma and two
     colour-difference planes of `tools.bench_pipeline.frame_stack`, so
     that the chroma planes carry detail of their own) moving by MOTION px
     a frame;
+  - frames_arith/: the same nine frames, arithmetic-coded (SOF9), 4:2:0,
+    quality 90;
+  - pairs/lossless_gray/, pairs/ycck/: frames 0 and 1 as lossless gray
+    (SOF3, predictor 1) and as YCCK (Adobe transform 2), for the serving
+    pipeline and the CLI;
   - variants/*.jpg: small files, one a feature the decoder must read
     (sampling factors, progressive, restart markers, EXIF orientation 6,
     gray, saturated colour blocks, Adobe RGB, a 7x9 frame, Motion-JPEG
-    frames without DHT, colour and gray);
+    frames without DHT, colour and gray; arithmetic coding, sequential and
+    progressive, with restarts and DAC conditioning; lossless gray and RGB
+    at several predictors, point transforms and precisions; CMYK and YCCK)
+    or must refuse as cv2 fails on it (two components);
   - manifest.json: per file the shape and SHA-256 of cv2.imread's gray
     (IMREAD_GRAYSCALE) and colour (IMREAD_COLOR) planes, laid out as the
-    port's decoder lays them out ((C, H, W) uint8, C-contiguous), with the
-    cv2 and libjpeg-turbo versions that made them and the frames' motion.
+    port's decoder lays them out ((C, H, W) uint8, C-contiguous), or null
+    for a read that cv2 fails on (the gray read of a lossless RGB file, the
+    colour read of a lossless gray one), with the cv2 and libjpeg-turbo
+    versions that made them, the writer's libjpeg-turbo and the frames'
+    motion.
 tests/test_torch_jpeg.py holds the manifest to live cv2 and to the port's
 decoder; chip_smoke.py holds the card machine's build of the decoder to
 it, where there is no cv2.
@@ -25,12 +39,15 @@ it, where there is no cv2.
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import json
 import os
 import re
 import struct
+import subprocess
 import sys
+import tempfile
 
 import cv2
 import numpy as np
@@ -132,6 +149,130 @@ def without_dht(raw: bytes) -> bytes:
     return bytes(out + raw[pos:])
 
 
+def pillow_libjpeg() -> str:
+    """The libjpeg-turbo 3 shared library that Pillow bundles."""
+    import PIL
+    libs = glob.glob(os.path.join(os.path.dirname(os.path.dirname(
+        PIL.__file__)), "pillow.libs", "libjpeg-*.so*"))
+    if not libs:
+        raise RuntimeError("Pillow bundles no libjpeg-turbo here")
+    return libs[0]
+
+
+def writer_version() -> str:
+    from PIL import features
+    return f"libjpeg-turbo {features.version('libjpeg_turbo')}"
+
+
+def build_writer(out_dir: str) -> str:
+    """Compile jpeg_writer.c into `out_dir`; the executable's path."""
+    lib = pillow_libjpeg()
+    exe = os.path.join(out_dir, "jpeg_writer")
+    subprocess.run(["gcc", "-O1", "-o", exe,
+                    os.path.join(HERE, "jpeg_writer.c"), lib,
+                    "-Wl,-rpath," + os.path.dirname(lib)], check=True)
+    return exe
+
+
+def write(exe: str, img: np.ndarray, **params) -> bytes:
+    """`img` (H, W) or (H, W, C) samples (uint8, or uint16 above 8 bits of
+    precision; C 3 is RGB, 4 CMYK) as jpeg_writer writes it with `params`
+    (its key=value settings)."""
+    h, w = img.shape[:2]
+    comps = 1 if img.ndim == 2 else img.shape[2]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.raw"), os.path.join(tmp, "out.jpg")
+        np.ascontiguousarray(img).astype(
+            "<u2" if img.dtype == np.uint16 else np.uint8).tofile(src)
+        subprocess.run([exe, src, dst, f"w={w}", f"h={h}", f"comps={comps}"]
+                       + [f"{k}={v}" for k, v in params.items()],
+                       check=True)
+        with open(dst, "rb") as f:
+            return f.read()
+
+
+def pil_cmyk(img: np.ndarray) -> bytes:
+    """PIL's CMYK JPEG of (H, W, 4) uint8 ink values: Adobe APP14
+    transform 0, the samples stored inverted as Photoshop stores them."""
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(buf, "JPEG", quality=90)
+    return buf.getvalue()
+
+
+def cmyk_of(bgr: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """(H, W, 4) stored CMYK samples that cv::imread shows as about `bgr`:
+    the colour planes as R, G, B under the black plane `k` (OpenCV reads
+    the samples as Adobe's inverted ones: 255 is no ink)."""
+    return np.dstack([bgr[..., 2], bgr[..., 1], bgr[..., 0], k])
+
+
+# arithmetic, lossless and 4-component variants: name -> (content, writer
+# settings); content "rgb" the blurred base, "gray" its gray, "cmyk" its
+# CMYK, "tiny" a 7x9 saturated frame
+NEW_VARIANTS = {
+    **{f"arith_s{s}.jpg": ("rgb", {"arith": 1, "samp": f})
+       for s, f in (("444", "1,1;1,1;1,1"), ("422", "2,1;1,1;1,1"),
+                    ("420", "2,2;1,1;1,1"), ("411", "4,1;1,1;1,1"))},
+    "arith_progressive.jpg": ("rgb", {"arith": 1, "prog": 1}),
+    "arith_restart7.jpg": ("rgb", {"arith": 1, "rst": 7}),
+    "arith_dac.jpg": ("rgb", {"arith": 1, "dac": "2,4,1", "rst": 5}),
+    "arith_gray.jpg": ("gray", {"arith": 1}),
+    "arith_prog_gray.jpg": ("gray", {"arith": 1, "prog": 1}),
+    "arith_tiny_7x9.jpg": ("tiny", {"arith": 1, "q": 50}),
+    "lossless_gray.jpg": ("gray", {"lossless": "1,0"}),
+    "lossless_gray_p7_pt2.jpg": ("gray", {"lossless": "7,2"}),
+    "lossless_gray_prec6.jpg": ("gray6", {"lossless": "4,1", "prec": 6}),
+    "lossless_gray_rst.jpg": ("gray", {"lossless": "5,0", "rstrows": 2}),
+    "lossless_rgb.jpg": ("rgb", {"lossless": "6,0"}),
+    "cmyk_adobe.jpg": ("cmyk", {"space": "cmyk"}),
+    "cmyk_no_adobe.jpg": ("cmyk", {"space": "cmyk", "adobe": 0}),
+    "ycck.jpg": ("cmyk", {"space": "ycck"}),
+    "ycck_arith_420.jpg": ("cmyk", {"space": "ycck", "arith": 1,
+                                    "samp": "2,2;1,1;1,1;2,2"}),
+    # no colour space of libjpeg's: both of cv2's reads fail
+    "two_components.jpg": ("two", {}),
+}
+
+
+def new_variants(exe: str) -> dict:
+    h, w = SMALL
+    base = blurred(h, w, 1)
+    gray = cv2.cvtColor(base, cv2.COLOR_BGR2GRAY)
+    k = 255 - blurred(h, w, 4)[..., 0] // 4
+    content = {"rgb": base[..., ::-1], "gray": gray, "gray6": gray >> 2,
+               "cmyk": cmyk_of(base, k),
+               "tiny": saturated(7, 9, 3)[..., ::-1], "two": base[..., :2]}
+    out = {name: write(exe, content[kind], **params)
+           for name, (kind, params) in NEW_VARIANTS.items()}
+    out["cmyk_pil.jpg"] = pil_cmyk(255 - content["cmyk"])
+    ycck = out["ycck.jpg"]             # SOI, then libjpeg's Adobe APP14
+    out["ycck_orient6.jpg"] = ycck[:2] + exif_orientation(6) + ycck[2:]
+    return out
+
+
+def arith_frames(exe: str, imgs: np.ndarray) -> list:
+    """The frames arithmetic-coded (SOF9), 4:2:0, quality 90."""
+    return [write(exe, img[..., ::-1], arith=1, samp="2,2;1,1;1,1")
+            for img in imgs]
+
+
+def pairs(exe: str, imgs: np.ndarray) -> dict:
+    """Frames 0 and 1 as lossless gray and as YCCK, a directory each."""
+    out = {}
+    ks = bench_pipeline.frame_stack(2, MOTION, seed=3, device="cpu",
+                                    h=FRAME_H, w=FRAME_W).numpy()
+    for t in range(2):
+        gray = cv2.cvtColor(imgs[t], cv2.COLOR_BGR2GRAY)
+        out[f"lossless_gray/frame_{t:04d}.jpg"] = write(exe, gray,
+                                                       lossless="1,0")
+        k = 255 - np.clip(ks[t], 0, 255).astype(np.uint8) // 8
+        out[f"ycck/frame_{t:04d}.jpg"] = write(exe, cmyk_of(imgs[t], k),
+                                               space="ycck")
+    return out
+
+
 def variants() -> dict:
     h, w = SMALL
     base = blurred(h, w, 1)
@@ -153,11 +294,14 @@ def variants() -> dict:
 
 def planes(path: str) -> dict:
     """cv2.imread's gray and colour planes of `path`, (C, H, W) layout:
-    shape and SHA-256."""
+    shape and SHA-256, or None where cv2 fails on the read."""
     rec = {}
     for key, flag in (("gray", cv2.IMREAD_GRAYSCALE),
                       ("color", cv2.IMREAD_COLOR)):
         img = cv2.imread(path, flag)
+        if img is None:
+            rec[key] = None
+            continue
         chw = img[None] if img.ndim == 2 else img.transpose(2, 0, 1)
         chw = np.ascontiguousarray(chw)
         rec[key] = {"shape": list(chw.shape),
@@ -172,13 +316,24 @@ def libjpeg_version() -> str:
 
 def main() -> dict:
     files = {}
-    os.makedirs(os.path.join(HERE, "frames"), exist_ok=True)
-    os.makedirs(os.path.join(HERE, "variants"), exist_ok=True)
-    for t, img in enumerate(frames()):
+    for d in ("frames", "frames_arith", "pairs/lossless_gray", "pairs/ycck",
+              "variants"):
+        os.makedirs(os.path.join(HERE, d), exist_ok=True)
+    imgs = frames()
+    for t, img in enumerate(imgs):
         files[f"frames/frame_{t:04d}.jpg"] = encode(img)
     for name, raw in variants().items():
         files[f"variants/{name}"] = raw
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = build_writer(tmp)
+        for name, raw in new_variants(exe).items():
+            files[f"variants/{name}"] = raw
+        for t, raw in enumerate(arith_frames(exe, imgs)):
+            files[f"frames_arith/frame_{t:04d}.jpg"] = raw
+        for name, raw in pairs(exe, imgs).items():
+            files[f"pairs/{name}"] = raw
     manifest = {"cv2": cv2.__version__, "libjpeg": libjpeg_version(),
+                "writer_libjpeg": writer_version(),
                 "motion_px": list(MOTION),
                 "frame_size": [FRAME_W, FRAME_H], "files": {}}
     for rel, raw in sorted(files.items()):

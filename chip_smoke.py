@@ -104,20 +104,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      of the motion;
   7e. TIFF and GIF frames (`run_tiff_part`, `run_gif_part`): every
      committed variant of tests/torch_fixtures/tiff and
-     tests/torch_fixtures/gif (numpy-, cv2- and PIL-written) and part 7b's
-     frames re-encoded on the card's host by their numpy writers (TIFF:
-     LZW with predictor 2 gray, Deflate RGB, PackBits RGB in 64x32 tiles,
-     16-bit gray, the JPEG frames' own bitstreams as YCbCr JPEG-in-TIFF;
-     GIF: gray under a 256-level gray palette, plain and interlaced),
-     decoded by the port's own decoders (`csrc/tiff.cpp` with
-     `csrc/jpeg.cpp` for JPEG strips, `csrc/gif.cpp`) through
-     `decode_batch` and `load_image`, gray and colour, each plane's SHA-256
-     equal to the manifest's cv2.imread hash (a read cv2.imread fails on
-     must raise); decode frames/s per frame set at 1 and 8 threads;
-     `run_pipeline` at op-2 gray flow (one batch) and `cli.main` on the
-     first pair of every TIFF set and of the 256-gray GIF frames: launches
-     those of a path-A call, every file against `dis_flow_batched` on the
-     same decoded frames, medians within 0.25 px of the motion;
+     tests/torch_fixtures/gif (numpy-, cv2- and PIL-written), the
+     committed TIFF frame sets (the nine frames blurred, thresholded and
+     CCITT Group 4-coded; frames 0-1 as RGBA and CMYK JPEG-in-TIFF) and
+     part 7b's frames re-encoded on the card's host by their numpy writers
+     (TIFF: LZW with predictor 2 gray, Deflate RGB, PackBits RGB in 64x32
+     tiles, 16-bit gray, the JPEG frames' own bitstreams as YCbCr
+     JPEG-in-TIFF, 2x1 YCbCr with LZW; GIF: gray under a 256-level gray
+     palette, plain and interlaced), decoded by the port's own decoders
+     (`csrc/tiff.cpp` with `csrc/jpeg.cpp` for JPEG strips,
+     `csrc/gif.cpp`) through `decode_batch` and `load_image`, gray and
+     colour, each plane's SHA-256 equal to the manifest's cv2.imread hash
+     (a read cv2.imread fails on must raise); decode frames/s per frame
+     set at 1 and 8 threads; `run_pipeline` at op-2 gray flow (one batch;
+     RGB flow too on YCbCr) and `cli.main` on the first pair of every
+     TIFF set, of the RGBA and CMYK pairs and of the 256-gray GIF frames:
+     launches those of a path-A (C) call, every file against
+     `dis_flow_batched` on the same decoded frames, medians within 0.25
+     px of the motion (measured, not held, on the bilevel Group 4
+     frames);
   7f. JPEG 2000 frames (`run_jp2_part`): every committed fixture of
      tests/torch_fixtures/jp2 (nine 1024x436 frames RGB 9/7 at 20:1,
      frames 0-2 gray 5/3 without loss, small Pillow- and cv2-written
@@ -1793,13 +1798,14 @@ FORMATS_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=4,
 
 
 def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion,
-                  mode="run_OF_INT", noc=1):
+                  mode="run_OF_INT", noc=1, medians=True):
     """`run_pipeline` at cfg's op-point, gray flow (or `mode` on `noc`
     channels), on the frames `ps` of one directory (in one batch of
     cfg["batch"] pairs), and `cli.main` on the first pair: launches those
     of the `dis_flow_batched` call on the same decoded frames each (at
     op-2 a path-A call's, C's for RGB), every file against that call,
-    medians against the motion, pairs/s. Prints and returns the result."""
+    medians against the motion (measured and printed only, with
+    `medians` False), pairs/s. Prints and returns the result."""
     params = op_point_params(W_ORG, cfg["op"], nop=2, noc=noc)
     top, bot, left, right = pad_amounts(W_ORG, H_ORG, params.sc_f)
     full_h, full_w = H_ORG + top + bot, W_ORG + left + right
@@ -1833,7 +1839,8 @@ def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion,
     for name, c in launches.items():
         totals[name] = totals.get(name, 0) + c
     err, meds = _pipeline_files(out_dir, names, want, 2)
-    off = _check_medians(label, meds, motion)
+    off = _check_medians(label, meds, motion) if medians else max(
+        abs(m - t) for med in meds for m, t in zip(med, motion))
     if not err <= PIPELINE_TOL:
         raise AssertionError(f"{label} pipeline: files differ by {err} px")
     walls, _ = _timed(lambda: pipeline.run_pipeline(
@@ -1853,7 +1860,8 @@ def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion,
         raise AssertionError(f"{label} cli: differs by {cli_err} px")
     result = {"max_abs_vs_dis_flow_batched": err,
               "cli_max_abs_vs_dis_flow_batched": cli_err,
-              "median_off_motion_px": off, "launches": launches,
+              "median_off_motion_px": off, "medians_checked": medians,
+              "launches": launches,
               "wall_s": walls,
               "pairs_per_s": len(names) / statistics.median(walls)}
     print(json.dumps({"serving": f"pipeline and cli {label} {mode}",
@@ -1873,11 +1881,15 @@ def _fixture_module(directory, name):
 
 def _written_part(label, directory, cfg, write, dev, totals):
     """Parts 7c, 7d (raster) and 7e, one fixture directory each: the
-    frames written on the host by `write` (root -> {set: paths}); every
-    frame's and committed variant's planes against the manifest's cv2
-    hashes, through `decode_batch` and `load_image`; decode frames/s per
-    set at 1 and 8 threads; `run_pipeline` and `cli.main` at op-2 gray
-    flow on the served sets (`_serve_frames`)."""
+    frames written on the host by `write` (root -> {set: paths}), and the
+    committed frame sets of the manifest's "committed" (cfg["committed"]
+    names the served ones); every frame's and committed file's planes
+    against the manifest's cv2 hashes, through `decode_batch` and
+    `load_image`; decode frames/s per set at 1 and 8 threads;
+    `run_pipeline` and `cli.main` at op-2 gray flow on the served sets,
+    RGB flow too on cfg["served_rgb"], medians not held on
+    cfg["no_median"], and each pair of cfg["pairs"] (directory, mode,
+    channels) (`_serve_frames`)."""
     t_part = time.perf_counter()
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
@@ -1893,6 +1905,15 @@ def _written_part(label, directory, cfg, write, dev, totals):
     if len(files) != len(manifest["files"]) + len(manifest["frames"]):
         raise AssertionError(f"{label}: the frames written differ from the "
                              "manifest's")
+    committed = manifest.get("committed", {})
+    files += [(os.path.join(directory, rel), rec)
+              for rel, rec in sorted(committed.items())]
+    for name in cfg.get("committed", ()):
+        paths[name] = pipeline.list_frames(os.path.join(directory, name))
+        if len(paths[name]) != sum(rel.startswith(name + "/")
+                                   for rel in committed):
+            raise AssertionError(f"{label}: {name} differs from the "
+                                 "manifest's")
     checked, bad = _check_planes(files)
     print(json.dumps({label: "decode check", "planes": checked,
                       "files": len(files), "frames_written_s": write_s,
@@ -1908,10 +1929,22 @@ def _written_part(label, directory, cfg, write, dev, totals):
                       "frames_per_s_by_threads": rates,
                       "cpu_count": os.cpu_count(),
                       "card": nvidia_smi_line()}), flush=True)
-    result = {fmt: _serve_frames(f"{label} {fmt}", paths[fmt], cfg,
-                                 os.path.join(root, f"out_{fmt}"), dev,
-                                 totals, manifest["motion_px"])
-              for fmt in cfg["served"]}
+    motion = manifest["motion_px"]
+    result = {}
+    for fmt in cfg["served"]:
+        for mode, noc in (("run_OF_INT", 1), ("run_OF_RGB", 3)):
+            if noc == 3 and fmt not in cfg.get("served_rgb", ()):
+                continue
+            result[f"{fmt} {mode}"] = _serve_frames(
+                f"{label} {fmt}", paths[fmt], cfg,
+                os.path.join(root, f"out_{fmt}_{mode}"), dev, totals, motion,
+                mode, noc, medians=fmt not in cfg.get("no_median", ()))
+    for name, mode, noc in cfg.get("pairs", ()):
+        result[f"{name} {mode}"] = _serve_frames(
+            f"{label} {name}", pipeline.list_frames(
+                os.path.join(directory, "pairs", name)), cfg,
+            os.path.join(root, f"out_{name}_{mode}"), dev, totals, motion,
+            mode, noc)
     print(f"{label} part: {time.perf_counter() - t_part:.1f} s", flush=True)
     return result
 
@@ -2030,15 +2063,27 @@ def run_raster_part(dev, totals, walls_by_path):
 # Part 7e: the TIFF and GIF fixtures (the committed variants, numpy-, cv2-
 # and PIL-written), and part 7b's frames re-encoded on the card's host by
 # the numpy writers of tests/torch_fixtures/tiff and tests/torch_fixtures/
-# gif (the TIFF "jpeg" set wraps the JPEG frames' own bitstreams). Each
-# manifest holds the SHA-256 of cv2.imread's gray and colour planes (null
-# where cv2.imread fails). `served`: the frame sets whose pairs go through
-# `run_pipeline` (one batch) and `cli.main` at op-2 gray flow.
+# gif (the TIFF "jpeg" set wraps the JPEG frames' own bitstreams; the
+# "ycbcr_lzw" set is 2x1-subsampled YCbCr without JPEG); the TIFF
+# committed sets, written by libtiff: "fax_g4", the nine frames blurred,
+# thresholded and CCITT Group 4-coded, and pairs/ (frames 0-1 as PIL's
+# RGBA and CMYK JPEG-in-TIFF). Each manifest holds the SHA-256 of
+# cv2.imread's gray and colour planes (null where cv2.imread fails).
+# `served`: the frame sets whose pairs go through `run_pipeline` (one
+# batch) and `cli.main` at op-2 gray flow (RGB flow too: `served_rgb`);
+# `no_median`: sets whose medians are measured and not held to the
+# motion (bilevel frames: edges that move by whole pixels); `pairs`: the
+# pairs/ directories served, with mode and channels.
 TIFF_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "tiff")
 GIF_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "gif")
 TIFF_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=2,
                  served=("lzw_pred", "deflate_rgb", "packbits_tiled",
-                         "gray16", "jpeg"))
+                         "gray16", "jpeg", "ycbcr_lzw", "fax_g4"),
+                 served_rgb=("ycbcr_lzw",), committed=("fax_g4",),
+                 no_median=("fax_g4",),
+                 pairs=(("rgba_jpeg", "run_OF_RGB", 3),
+                        ("cmyk_jpeg", "run_OF_INT", 1),
+                        ("cmyk_jpeg", "run_OF_RGB", 3)))
 GIF_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=2,
                 served=("gray256",))
 

@@ -160,7 +160,10 @@ __device__ __forceinline__ void error_at(
 }
 
 // One Gauss-Newton step from p = (p0, p1) with projections (r0, r1)
-// (patch.cpp:182-206): the closed-form 2x2 (or 1x1) solve dp, the new
+// (patch.cpp:182-206): the closed-form 2x2 (or 1x1) solve dp (its
+// determinant and numerators each one fmaf, as the JAX package's XLA
+// contracts them and the twin's `_fms` computes them: a Hessian singular
+// in float32, as a bilevel frame's edges give, takes a finite step), the new
 // parameters q and position (qx, qy), the disparity sign clamp, and the
 // outlier / out-of-bounds reset to the start.
 __device__ __forceinline__ void step(const GNArgs& a, bool flow, float h00,
@@ -172,9 +175,9 @@ __device__ __forceinline__ void step(const GNArgs& a, bool flow, float h00,
                                      float& q1, float& qx, float& qy,
                                      bool& reset) {
   if (flow) {
-    const float det = h00 * h11 - h01 * h01;
-    dp0 = (h11 * r0 - h01 * r1) / det;
-    dp1 = (h00 * r1 - h01 * r0) / det;
+    const float det = fmaf(h00, h11, -(h01 * h01));
+    dp0 = fmaf(h11, r0, -(h01 * r1)) / det;
+    dp1 = fmaf(h00, r1, -(h01 * r0)) / det;
     q0 = p0 - dp0;
     q1 = p1 - dp1;
     qx = pr0 + q0;

@@ -221,7 +221,10 @@ __global__ void __launch_bounds__(kThreads, C == 1 ? kMinBlocks : 1)
   if (flow) {
     h01 = seg_sum<S>(lane_total<R, C>(q01, psz, valid_col));
     h11 = seg_sum<S>(lane_total<R, C>(q11, psz, valid_col));
-    const float guard = h00 * h11 - h01 * h01 == 0.0f ? 1e-10f : 0.0f;
+    // the determinant as one fmaf here and in the solve (the twin's
+    // `_det_zero` and `_fms`)
+    const float guard =
+        fmaf(h00, h11, -(h01 * h01)) == 0.0f ? 1e-10f : 0.0f;
     h00 = h00 + guard;
     h11 = h11 + guard;
   } else {
@@ -247,9 +250,9 @@ __global__ void __launch_bounds__(kThreads, C == 1 ? kMinBlocks : 1)
   for (int it = 1; it <= a.max_iter && __any_sync(kFull, active); ++it) {
     float dp0, dp1, q0, q1, qx, qy;
     if (flow) {
-      const float det = h00 * h11 - h01 * h01;
-      dp0 = (h11 * r0 - h01 * r1) / det;
-      dp1 = (h00 * r1 - h01 * r0) / det;
+      const float det = fmaf(h00, h11, -(h01 * h01));
+      dp0 = fmaf(h11, r0, -(h01 * r1)) / det;
+      dp1 = fmaf(h00, r1, -(h01 * r0)) / det;
       q0 = p0 - dp0;
       q1 = p1 - dp1;
       qx = ref_x + q0;

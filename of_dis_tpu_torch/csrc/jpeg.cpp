@@ -1865,8 +1865,9 @@ void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
 // stream; its size, component count and sampling factors as the TIFF's
 // (component 0 `h0` x `v0`, the others 1 x 1); the components upsampled
 // as ever, then, with `ycc`, YCbCr to RGB (JPEGCOLORMODE_RGB), else left
-// as they are (jpeg_color_space JCS_UNKNOWN). Into `out`, (height,
-// width, ncomp) interleaved.
+// as they are (jpeg_color_space JCS_UNKNOWN: no Adobe transform either,
+// which is how libtiff reads a 4-sample RGB + alpha or CMYK strip). Into
+// `out`, (height, width, ncomp) interleaved.
 void decode_tiff_strip(const uint8_t* tables, int64_t tlen, const uint8_t* buf,
                        int64_t len, int ycc, int width, int height, int ncomp,
                        int h0, int v0, uint8_t* out) {
@@ -1883,7 +1884,7 @@ void decode_tiff_strip(const uint8_t* tables, int64_t tlen, const uint8_t* buf,
   if (d.lossless) fail(kTiffLossless);
   if (d.width != width || d.height != height) fail(kSize);
   if (d.ncomp != ncomp || (ycc && ncomp != 3)) fail(kComponents);
-  if (ncomp != 1 && ncomp != 3) fail(kComponents);
+  if (ncomp == 2 || ncomp > 4) fail(kComponents);
   for (int c = 0; c < d.ncomp; ++c)
     if (d.comp[c].h != (c ? 1 : h0) || d.comp[c].v != (c ? 1 : v0))
       fail(kSampling);
@@ -1895,8 +1896,11 @@ void decode_tiff_strip(const uint8_t* tables, int64_t tlen, const uint8_t* buf,
   const ColorTables& t = color_tables();
   for (int y = 0; y < H; ++y) {
     uint8_t* o = out + static_cast<size_t>(y) * W * ncomp;
-    if (ncomp == 1) {
-      std::memcpy(o, ups[0].row(y), static_cast<size_t>(W));
+    if (ncomp != 3) {  // null_convert of 1 or 4 components
+      for (int c = 0; c < ncomp; ++c) {
+        const uint8_t* s = ups[c].row(y);
+        for (int x = 0; x < W; ++x) o[x * ncomp + c] = s[x];
+      }
       continue;
     }
     const uint8_t* c0 = ups[0].row(y);

@@ -7,9 +7,11 @@
 // for TIFF. Plain C entries, no CUDA, no codec library: Python parses the
 // IFD (`utils/io.py::tiff_ifd`), inflates Deflate chunks with zlib (as
 // PNG's image data) and has csrc/jpeg.cpp decode JPEG chunks; this file
-// undoes LZW and PackBits, the fill order and predictor 2, unpacks the
-// samples and converts them. A ctypes call releases the interpreter lock,
-// so a thread pool over frames runs it side by side.
+// undoes LZW, PackBits and CCITT fax (Modified Huffman, Group 3 1-D and
+// 2-D, Group 4, as libtiff 4.7's tif_fax3.c decodes them), the fill order
+// and predictor 2, unpacks the samples and converts them. A ctypes call
+// releases the interpreter lock, so a thread pool over frames runs it
+// side by side.
 //
 // Which rules: cv::imread reads an 8-bit TIFF through libtiff's
 // TIFFReadRGBAStrip / TIFFReadRGBATile (OpenCV 5's grfmt_tiff.cpp, libtiff
@@ -20,13 +22,20 @@
 // below 256, 16-bit colour samples (v + 128) / 257, unassociated alpha
 // premultiplied (v * a + 127) / 255, CMYK as (255 - K) * (255 - C) / 255;
 // planar gray goes through libtiff's planar RGB route (no inversion, 16
-// bits by (v + 128) / 257, alpha premultiplied). The orientation tag
-// flips as libtiff's raster and OpenCV's strip placement do: 2 mirrors
-// each strip or tile in place, 4 flips the image upside down, 3 both.
-// Held to cv2.imread pixel for pixel by tests/test_torch_tiff.py.
+// bits by (v + 128) / 257, alpha premultiplied); YCbCr (not JPEG) by
+// tif_color.c's fixed-point tables over the file's coefficients and
+// reference black and white, each subsampling block's chroma replicated
+// over its luma (tif_getimage.c's putcontig8bitYCbCr*tile). The
+// orientation tag flips as libtiff's raster and OpenCV's strip placement
+// do: 2 mirrors each strip or tile in place, 4 flips the image upside
+// down, 3 both. Held to cv2.imread pixel for pixel by
+// tests/test_torch_tiff.py, test_torch_tiff_fax.py and
+// test_torch_tiff_ycbcr.py.
 
 #include <cstdint>
+#include <algorithm>
 #include <cstring>
+#include <memory>
 #include <new>
 #include <vector>
 
@@ -37,7 +46,7 @@ namespace {
 enum Param {
   kWidth, kHeight, kBits, kSpp, kCompression, kPhotometric, kPlanar,
   kPredictor, kFillOrder, kAlpha, kBigEndian, kTiled, kChunkW, kChunkH,
-  kOrientation
+  kOrientation, kFaxOptions, kSubH, kSubV
 };
 
 enum Code {
@@ -47,6 +56,14 @@ enum Code {
   kLzw = -3,          // corrupt LZW data
   kNoMemory = -4,
   kOldLzw = -5,       // old-style (TIFF 5.0) LZW, LSB-first
+  kFaxCode = -6,      // a bit pattern that is no CCITT code word here
+  kFaxEol = -7,       // an EOL inside a row (libtiff: "Premature EOL")
+  kFaxLength = -8,    // a row of other than its width ("Line length
+                      // mismatch")
+  kFaxEnd = -9,       // the data end inside a row ("Premature EOF")
+  kFaxNoEol = -10,    // a Group 3 row without its leading EOL
+  kFaxUncompressed = -11,  // an uncompressed-mode extension code
+  kFaxRuns = -12,     // more runs in a row than libtiff's run arrays hold
 };
 
 struct Error {
@@ -156,17 +173,503 @@ inline uint8_t reverse_bits(uint8_t v) {
   return static_cast<uint8_t>((v & 0xAA) >> 1 | (v & 0x55) << 1);
 }
 
+// ------------------------------------------------------------ CCITT fax
+//
+// libtiff 4.7's tif_fax3.c decoders (Fax3DecodeRLE, Fax3Decode1D,
+// Fax3Decode2D, Fax4Decode) with its run arrays and its EXPAND1D /
+// EXPAND2D state machines, on a row of `width` pixels: white runs leave
+// bits 0, black runs set them to 1 (_TIFFFax3fillruns); the photometric
+// interpretation maps them afterwards, as for any 1-bit gray strip. Where
+// libtiff only warns and reads on (a bad code, an EOL inside a row, a row
+// of another length, data that end inside a row, a Group 3 row whose EOL
+// is missing, an uncompressed-mode code, runs that overflow its arrays),
+// the decoder fails instead: cv::imread's pixels are then not defined by
+// the data alone.
+
+// ITU-T T.4's code words: {bits, value}, the run lengths 0-63
+// (terminating), 64-1728 (make-up), 1792-2560 (extended make-up, both
+// colours), the end of line, and the 2-D modes (T.4 Table 4).
+struct CodeWord {
+  const char* bits;
+  int value;
+};
+
+constexpr CodeWord kWhiteCodes[] = {
+    {"00110101", 0}, {"000111", 1}, {"0111", 2}, {"1000", 3}, {"1011", 4},
+    {"1100", 5}, {"1110", 6}, {"1111", 7}, {"10011", 8}, {"10100", 9},
+    {"00111", 10}, {"01000", 11}, {"001000", 12}, {"000011", 13},
+    {"110100", 14}, {"110101", 15}, {"101010", 16}, {"101011", 17},
+    {"0100111", 18}, {"0001100", 19}, {"0001000", 20}, {"0010111", 21},
+    {"0000011", 22}, {"0000100", 23}, {"0101000", 24}, {"0101011", 25},
+    {"0010011", 26}, {"0100100", 27}, {"0011000", 28}, {"00000010", 29},
+    {"00000011", 30}, {"00011010", 31}, {"00011011", 32}, {"00010010", 33},
+    {"00010011", 34}, {"00010100", 35}, {"00010101", 36}, {"00010110", 37},
+    {"00010111", 38}, {"00101000", 39}, {"00101001", 40}, {"00101010", 41},
+    {"00101011", 42}, {"00101100", 43}, {"00101101", 44}, {"00000100", 45},
+    {"00000101", 46}, {"00001010", 47}, {"00001011", 48}, {"01010010", 49},
+    {"01010011", 50}, {"01010100", 51}, {"01010101", 52}, {"00100100", 53},
+    {"00100101", 54}, {"01011000", 55}, {"01011001", 56}, {"01011010", 57},
+    {"01011011", 58}, {"01001010", 59}, {"01001011", 60}, {"00110010", 61},
+    {"00110011", 62}, {"00110100", 63},
+    {"11011", 64}, {"10010", 128}, {"010111", 192}, {"0110111", 256},
+    {"00110110", 320}, {"00110111", 384}, {"01100100", 448},
+    {"01100101", 512}, {"01101000", 576}, {"01100111", 640},
+    {"011001100", 704}, {"011001101", 768}, {"011010010", 832},
+    {"011010011", 896}, {"011010100", 960}, {"011010101", 1024},
+    {"011010110", 1088}, {"011010111", 1152}, {"011011000", 1216},
+    {"011011001", 1280}, {"011011010", 1344}, {"011011011", 1408},
+    {"010011000", 1472}, {"010011001", 1536}, {"010011010", 1600},
+    {"011000", 1664}, {"010011011", 1728},
+};
+
+constexpr CodeWord kBlackCodes[] = {
+    {"0000110111", 0}, {"010", 1}, {"11", 2}, {"10", 3}, {"011", 4},
+    {"0011", 5}, {"0010", 6}, {"00011", 7}, {"000101", 8}, {"000100", 9},
+    {"0000100", 10}, {"0000101", 11}, {"0000111", 12}, {"00000100", 13},
+    {"00000111", 14}, {"000011000", 15}, {"0000010111", 16},
+    {"0000011000", 17}, {"0000001000", 18}, {"00001100111", 19},
+    {"00001101000", 20}, {"00001101100", 21}, {"00000110111", 22},
+    {"00000101000", 23}, {"00000010111", 24}, {"00000011000", 25},
+    {"000011001010", 26}, {"000011001011", 27}, {"000011001100", 28},
+    {"000011001101", 29}, {"000001101000", 30}, {"000001101001", 31},
+    {"000001101010", 32}, {"000001101011", 33}, {"000011010010", 34},
+    {"000011010011", 35}, {"000011010100", 36}, {"000011010101", 37},
+    {"000011010110", 38}, {"000011010111", 39}, {"000001101100", 40},
+    {"000001101101", 41}, {"000011011010", 42}, {"000011011011", 43},
+    {"000001010100", 44}, {"000001010101", 45}, {"000001010110", 46},
+    {"000001010111", 47}, {"000001100100", 48}, {"000001100101", 49},
+    {"000001010010", 50}, {"000001010011", 51}, {"000000100100", 52},
+    {"000000110111", 53}, {"000000111000", 54}, {"000000100111", 55},
+    {"000000101000", 56}, {"000001011000", 57}, {"000001011001", 58},
+    {"000000101011", 59}, {"000000101100", 60}, {"000001011010", 61},
+    {"000001100110", 62}, {"000001100111", 63},
+    {"0000001111", 64}, {"000011001000", 128}, {"000011001001", 192},
+    {"000001011011", 256}, {"000000110011", 320}, {"000000110100", 384},
+    {"000000110101", 448}, {"0000001101100", 512}, {"0000001101101", 576},
+    {"0000001001010", 640}, {"0000001001011", 704}, {"0000001001100", 768},
+    {"0000001001101", 832}, {"0000001110010", 896}, {"0000001110011", 960},
+    {"0000001110100", 1024}, {"0000001110101", 1088},
+    {"0000001110110", 1152}, {"0000001110111", 1216},
+    {"0000001010010", 1280}, {"0000001010011", 1344},
+    {"0000001010100", 1408}, {"0000001010101", 1472},
+    {"0000001011010", 1536}, {"0000001011011", 1600},
+    {"0000001100100", 1664}, {"0000001100101", 1728},
+};
+
+constexpr CodeWord kExtendedCodes[] = {
+    {"00000001000", 1792}, {"00000001100", 1856}, {"00000001101", 1920},
+    {"000000010010", 1984}, {"000000010011", 2048}, {"000000010100", 2112},
+    {"000000010101", 2176}, {"000000010110", 2240}, {"000000010111", 2304},
+    {"000000011100", 2368}, {"000000011101", 2432}, {"000000011110", 2496},
+    {"000000011111", 2560},
+};
+
+enum FaxKind : uint8_t {
+  kBad = 0, kTerm, kMakeUp, kEol, kExt, kPass, kHoriz, kVertical
+};
+
+// the vertical modes, a1 - b1 their values; pass and horizontal apart
+constexpr CodeWord kVerticalCodes[] = {
+    {"1", 0}, {"011", 1}, {"000011", 2}, {"0000011", 3}, {"010", -1},
+    {"000010", -2}, {"0000010", -3},
+};
+
+constexpr int kPeek = 13;  // the longest code word
+
+struct FaxEntry {
+  uint8_t len = 0;  // 0: no code word starts with these bits
+  uint8_t kind = kBad;
+  int16_t value = 0;
+};
+
+// Lookup tables indexed by the next 13 bits, the first in bit 0 (as
+// libtiff's bit accumulator holds them): white runs, black runs, and the
+// 2-D modes.
+struct FaxTables {
+  FaxEntry white[1 << kPeek], black[1 << kPeek], mode[1 << kPeek];
+
+  static void put(FaxEntry* t, const char* bits, uint8_t kind, int value) {
+    const int len = static_cast<int>(std::strlen(bits));
+    int code = 0;
+    for (int i = 0; i < len; ++i) code |= (bits[i] - '0') << i;
+    for (int s = 0; s < 1 << (kPeek - len); ++s) {
+      FaxEntry& e = t[code | s << len];
+      e.len = static_cast<uint8_t>(len);
+      e.kind = kind;
+      e.value = static_cast<int16_t>(value);
+    }
+  }
+
+  FaxTables() {
+    for (FaxEntry* t : {white, black}) {
+      for (const CodeWord& c : (t == white ? kWhiteCodes : kBlackCodes))
+        put(t, c.bits, c.value < 64 ? kTerm : kMakeUp, c.value);
+      for (const CodeWord& c : kExtendedCodes)
+        put(t, c.bits, kMakeUp, c.value);
+      put(t, "000000000001", kEol, 0);
+      put(t, "000000001", kExt, 0);  // a 1-D extension (uncompressed mode)
+    }
+    for (const CodeWord& c : kVerticalCodes)
+      put(mode, c.bits, kVertical, c.value);
+    put(mode, "0001", kPass, 0);
+    put(mode, "001", kHoriz, 0);
+    put(mode, "0000001", kExt, 0);  // a 2-D extension (uncompressed mode)
+    put(mode, "000000000001", kEol, 0);
+  }
+};
+
+const FaxTables& fax_tables() {
+  static const FaxTables t;
+  return t;
+}
+
+// One CCITT strip or tile (compression 2, 3 or 4; `two_d`: Group 3 with
+// T4Options bit 0) of rows `width` pixels wide. The bits are read as
+// libtiff's NeedBits8 / NeedBits16 read them, at its lookups' widths (7
+// bits for a mode, 12 for a white run, 13 for a black one): past the last
+// byte they count as zeros, up to the width asked for, and only a reader
+// that has no bit left is at the end. That count sets where a Modified
+// Huffman row's byte alignment lands near the end of the data.
+class FaxDecoder {
+ public:
+  FaxDecoder(const uint8_t* src, int64_t size, int64_t width,
+             int compression, bool two_d)
+      : cp_(src), ep_(src + size), lastx_(width),
+        comp_(compression), ref_line_(compression == 4 || two_d),
+        t_(fax_tables()) {
+    // libtiff's run arrays (Fax3SetupState): the width plus one rounded
+    // up to 32, twice that where a reference line is kept
+    nruns_ = (width + 32) / 32 * 32 * (ref_line_ ? 2 : 1);
+    cur_.assign(static_cast<size_t>(nruns_), 0);
+    ref_.assign(static_cast<size_t>(nruns_), 0);
+    ref_[0] = width;  // the all-white line before the first row
+    nref_ = 2;
+  }
+
+  // `rows` rows into `out`, `rb` bytes a row (zeroed here). A fault in a
+  // row from `shown` on (a tile's rows below the image) ends the decoding
+  // without one: libtiff reads on past it, and nothing it reads there is
+  // shown.
+  void decode(int64_t rows, int64_t shown, int64_t rb, uint8_t* out) {
+    std::memset(out, 0, static_cast<size_t>(rows * rb));
+    for (int64_t r = 0; r < rows; ++r) {
+      try {
+        row(r, rb, out);
+      } catch (const Error&) {
+        if (r < shown) throw;
+        return;
+      }
+    }
+  }
+
+ private:
+  // one row, the r-th, into out + r * rb
+  void row(int64_t r, int64_t rb, uint8_t* out) {
+    bool one_d = comp_ != 4;
+    if (comp_ == 3) {
+      sync_eol();
+      if (ref_line_) {  // the tag bit
+        need8(1);
+        one_d = bits(1) != 0;
+        clear(1);
+      }
+    }
+    a0_ = run_ = 0;
+    pa_ = 0;
+    pb_ = 0;
+    b1_ = ref(pb_++);
+    if (one_d) expand_1d(); else expand_2d();
+    if (run_) set(0);  // CLEANUP_RUNS
+    if (a0_ != lastx_) fail(kFaxLength);
+    fill(out + r * rb);
+    if (comp_ == 2) clear(avail_ & 7);  // rows start on a byte
+    if (!ref_line_) return;
+    // the imaginary change that ends the reference line
+    if (comp_ == 4 || pa_ < nruns_) set(0);
+    cur_.swap(ref_);
+    nref_ = pa_;
+  }
+
+  // NeedBits8 / NeedBits16: at least n bits in the accumulator, the bytes
+  // bit-reversed into it (the first bit in bit 0); past the end, zeros
+  void need8(int n) {
+    if (avail_ >= n) return;
+    if (cp_ >= ep_) {
+      if (avail_ == 0) fail(kFaxEnd);
+      avail_ = n;
+      return;
+    }
+    acc_ |= static_cast<uint32_t>(reverse_bits(*cp_++)) << avail_;
+    avail_ += 8;
+  }
+
+  void need16(int n) {
+    if (avail_ >= n) return;
+    if (cp_ >= ep_) {
+      if (avail_ == 0) fail(kFaxEnd);
+      avail_ = n;
+      return;
+    }
+    acc_ |= static_cast<uint32_t>(reverse_bits(*cp_++)) << avail_;
+    if ((avail_ += 8) >= n) return;
+    if (cp_ >= ep_) {
+      avail_ = n;
+      return;
+    }
+    acc_ |= static_cast<uint32_t>(reverse_bits(*cp_++)) << avail_;
+    avail_ += 8;
+  }
+
+  uint32_t bits(int n) const { return acc_ & ((1u << n) - 1); }
+
+  void clear(int n) {
+    avail_ -= n;
+    acc_ >>= n;
+  }
+
+  // LOOKUP8 (modes, 7 bits) / LOOKUP16 (white 12, black 13): a code word
+  // of the table, else the fault it stands for
+  const FaxEntry& look(const FaxEntry* t) {
+    if (t == t_.mode) need8(7); else need16(t == t_.white ? 12 : 13);
+    const FaxEntry& e = t[bits(kPeek)];
+    switch (e.kind) {
+      case kBad: fail(kFaxCode);
+      case kEol: fail(kFaxEol);
+      case kExt: fail(kFaxUncompressed);
+      default: break;
+    }
+    clear(e.len);
+    return e;
+  }
+
+  // A reference-line entry. Past the line's own entries libtiff reads
+  // what an earlier row left there: such a read fails here.
+  int64_t ref(int64_t i) const {
+    if (i < 0 || i >= nref_) fail(kFaxCode);
+    return ref_[static_cast<size_t>(i)];
+  }
+
+  // SETVALUE
+  void set(int64_t x) {
+    if (pa_ >= nruns_) fail(kFaxRuns);
+    cur_[static_cast<size_t>(pa_++)] = run_ + x;
+    a0_ += x;
+    run_ = 0;
+  }
+
+  // SYNC_EOL, strictly: 11 zeros where the row starts (libtiff would skip
+  // other bits until it finds them), zero bytes and bits (fill), then the
+  // EOL's 1.
+  void sync_eol() {
+    need16(11);
+    if (bits(11) != 0) fail(kFaxNoEol);
+    for (;;) {
+      need8(8);
+      if (bits(8)) break;
+      clear(8);
+    }
+    while (bits(1) == 0) clear(1);
+    clear(1);
+  }
+
+  // one run of the colour of table `t`: make-up codes, then a terminating
+  // code (SETVALUE)
+  void expand_run(const FaxEntry* t) {
+    for (;;) {
+      const FaxEntry& e = look(t);
+      if (e.kind == kTerm) {
+        set(e.value);
+        return;
+      }
+      a0_ += e.value;
+      run_ += e.value;
+    }
+  }
+
+  // EXPAND1D
+  void expand_1d() {
+    for (;;) {
+      expand_run(t_.white);
+      if (a0_ >= lastx_) return;
+      expand_run(t_.black);
+      if (a0_ >= lastx_) return;
+      if (cur_[pa_ - 1] == 0 && cur_[pa_ - 2] == 0) pa_ -= 2;
+    }
+  }
+
+  // CHECK_b1: b1 the first changing element of the reference line right
+  // of a0 (once the row has a run)
+  void check_b1() {
+    if (pa_ == 0) return;
+    while (b1_ <= a0_ && b1_ < lastx_) {
+      if (pb_ + 1 >= nruns_) fail(kFaxRuns);
+      b1_ += ref(pb_) + ref(pb_ + 1);
+      pb_ += 2;
+    }
+  }
+
+  // the next reference entry, read where the row goes on
+  void next_b1() {
+    if (a0_ >= lastx_) return;  // libtiff's read is never used
+    if (pb_ >= nruns_) fail(kFaxRuns);
+    b1_ += ref(pb_++);
+  }
+
+  // EXPAND2D
+  void expand_2d() {
+    while (a0_ < lastx_) {
+      if (pa_ >= nruns_) fail(kFaxRuns);
+      const FaxEntry& e = look(t_.mode);
+      switch (e.kind) {
+        case kPass:
+          check_b1();
+          if (pb_ + 1 >= nruns_) fail(kFaxRuns);
+          b1_ += ref(pb_++);
+          run_ += b1_ - a0_;
+          a0_ = b1_;
+          b1_ += ref(pb_++);
+          break;
+        case kHoriz:
+          if (pa_ & 1) {  // black first
+            expand_run(t_.black);
+            expand_run(t_.white);
+          } else {
+            expand_run(t_.white);
+            expand_run(t_.black);
+          }
+          check_b1();
+          break;
+        case kVertical:
+          check_b1();
+          if (e.value < 0) {
+            if (b1_ < a0_ - e.value) fail(kFaxCode);  // "VL"
+            set(b1_ - a0_ + e.value);
+            b1_ -= ref(--pb_);
+          } else {
+            set(b1_ - a0_ + e.value);
+            next_b1();
+          }
+          break;
+        default: fail(kFaxCode);
+      }
+    }
+    if (run_) {
+      if (run_ + a0_ < lastx_) {  // a final V0
+        need8(1);
+        if (bits(1) == 0) fail(kFaxCode);
+        clear(1);
+      }
+      set(0);
+    }
+  }
+
+  // _TIFFFax3fillruns: the row's black runs as 1 bits
+  void fill(uint8_t* row) const {
+    int64_t x = 0;
+    for (int64_t i = 0; i < pa_; ++i) {
+      const int64_t n = cur_[static_cast<size_t>(i)];
+      if (i & 1)
+        for (int64_t k = x; k < x + n; ++k)
+          row[k >> 3] = static_cast<uint8_t>(row[k >> 3] | 0x80 >> (k & 7));
+      x += n;
+    }
+  }
+
+  const uint8_t* cp_;
+  const uint8_t* ep_;
+  uint32_t acc_ = 0;  // BitAcc
+  int avail_ = 0;     // BitsAvail
+  int64_t lastx_;
+  int comp_;
+  bool ref_line_;
+  const FaxTables& t_;
+  std::vector<int64_t> cur_, ref_;
+  int64_t nruns_, nref_;
+  int64_t a0_ = 0, run_ = 0, b1_ = 0, pa_ = 0, pb_ = 0;
+};
+
+// --------------------------------------------------------------- YCbCr
+
+// tif_color.c's TIFFYCbCrToRGBInit for YCbCrCoefficients `luma` and
+// ReferenceBlackWhite `rbw` (C floats, as libtiff keeps them), and its
+// TIFFYCbCrtoRGB: fixed point in 2^-16, tables over the 8-bit codes.
+class YccToRgb {
+ public:
+  YccToRgb(const float* luma, const float* rbw) {
+    const float f1 = 2 - 2 * luma[0];
+    const float f2 = luma[0] * f1 / luma[1];
+    const float f3 = 2 - 2 * luma[2];
+    const float f4 = luma[2] * f3 / luma[1];
+    const int32_t d1 = fix(clamp(f1)), d2 = -fix(clamp(f2));
+    const int32_t d3 = fix(clamp(f3)), d4 = -fix(clamp(f4));
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      const int32_t cr = clampw(code2v(x, rbw[4] - 128.0F, rbw[5] - 128.0F,
+                                       127));
+      const int32_t cb = clampw(code2v(x, rbw[2] - 128.0F, rbw[3] - 128.0F,
+                                       127));
+      cr_r_[i] = (d1 * cr + kHalf) >> kShift;
+      cb_b_[i] = (d3 * cb + kHalf) >> kShift;
+      cr_g_[i] = d2 * cr;
+      cb_g_[i] = d4 * cb + kHalf;
+      y_[i] = clampw(code2v(x + 128, rbw[0], rbw[1], 255));
+    }
+  }
+
+  void rgb(int y, int cb, int cr, int* r, int* g, int* b) const {
+    *r = clamp8(y_[y] + cr_r_[cr]);
+    *g = clamp8(y_[y] + ((cb_g_[cb] + cr_g_[cr]) >> kShift));
+    *b = clamp8(y_[y] + cb_b_[cb]);
+  }
+
+ private:
+  static constexpr int kShift = 16;
+  static constexpr int32_t kHalf = 1 << (kShift - 1);
+
+  // FIX: the float times 2^16, plus the double 0.5, truncated
+  static int32_t fix(float x) {
+    return static_cast<int32_t>(x * (1L << kShift) + 0.5);
+  }
+  static float clamp(float f) { return f < 0.0F ? 0.0F : f > 2.0F ? 2.0F : f; }
+  // Code2V in C float arithmetic
+  static float code2v(int c, float rb, float rw, int cr) {
+    const float range = rw - rb != 0 ? rw - rb : 1;
+    return (c - static_cast<int32_t>(rb)) * static_cast<float>(cr) / range;
+  }
+  // CLAMPw to +-128 * 32, then the int32 cast
+  static int32_t clampw(float f) {
+    return static_cast<int32_t>(f < -4096.0F ? -4096.0F
+                                : f > 4096.0F ? 4096.0F : f);
+  }
+  static int clamp8(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
+
+  int32_t cr_r_[256], cb_b_[256], cr_g_[256], cb_g_[256], y_[256];
+};
+
+// The byte-offset step of libtiff's putcontig8bitYCbCr<h><v>tile over a
+// clipped tile's skipped blocks: (fromskew / h) times this (its 4x4
+// routine steps by 10 bytes a block, as its 4x2 one does).
+int ycc_skew_bytes(int h, int v) {
+  switch (h * 10 + v) {
+    case 44: case 42: return 10;
+    case 41: case 22: return 6;
+    case 21: case 12: return 4;
+    case 11: return 3;
+    default: fail(kLayout);
+  }
+}
+
 struct Tiff {
   const int64_t* p;
   const uint8_t* pal;  // 256 R, G, B entries (8-bit), for a palette
 
   // One chunk (strip or tile of one plane) decoded: `rows` rows of `rb`
-  // bytes, the fill order undone, 16-bit samples little-endian, the
-  // predictor undone.
-  void chunk(const uint8_t* src, int64_t size, int64_t rows, int64_t rb,
-             int64_t spc, std::vector<uint8_t>* buf) const {
-    const int64_t need = rows * rb;
-    buf->resize(static_cast<size_t>(need));
+  // bytes (`need` bytes in all, in a buffer of `full` bytes, zeros past
+  // `need`: both rows * rb but for subsampled YCbCr), the fill order
+  // undone, 16-bit samples little-endian, the predictor undone.
+  void chunk(const uint8_t* src, int64_t size, int64_t rows, int64_t shown,
+             int64_t rb, int64_t spc, int64_t need, int64_t full,
+             std::vector<uint8_t>* buf) const {
+    buf->assign(static_cast<size_t>(full), 0);
     std::vector<uint8_t> rev;
     if (p[kFillOrder] == 2) {
       rev.resize(static_cast<size_t>(size));
@@ -177,6 +680,11 @@ struct Tiff {
       case 1:
         if (size < need) fail(kShort);
         std::memcpy(buf->data(), src, static_cast<size_t>(need));
+        break;
+      case 2: case 3: case 4:
+        FaxDecoder(src, size, p[kChunkW], static_cast<int>(p[kCompression]),
+                   p[kCompression] == 3 && (p[kFaxOptions] & 1))
+            .decode(rows, shown, rb, buf->data());
         break;
       case 5:
         // libtiff's test for the old, bit-reversed LZW (LZWPreDecode)
@@ -230,15 +738,18 @@ inline int to8(int v) { return (v + 128) / 257; }  // Bitdepth16To8
 inline int premul(int v, int a) { return (v * a + 127) / 255; }  // UaToAa
 
 // The TIFF's pixels from its chunks (`chunks[i]`, `sizes[i]` bytes: as
-// stored for compression 1, 5 and 32773, else already inflated or
-// decoded and given as compression 1), `p` the parameters of enum Param
-// (photometric 0 MINISWHITE, 1 MINISBLACK, 2 RGB, 3 PALETTE, 5 CMYK;
-// alpha 0 none, 1 associated, 2 unassociated; tiled 0 or 1; chunk width
-// and height the tile's, or the width and rows per strip), `pal` 256 R,
-// G, B triples for a palette, into (want, height, width) uint8.
+// stored for compression 1-5 and 32773, else already inflated or decoded
+// and given as compression 1), `p` the parameters of enum Param
+// (photometric 0 MINISWHITE, 1 MINISBLACK, 2 RGB, 3 PALETTE, 5 CMYK, 6
+// YCbCr; alpha 0 none, 1 associated, 2 unassociated; tiled 0 or 1; chunk
+// width and height the tile's, or the width and rows per strip; fax
+// options T4Options or T6Options; YCbCr subsampling h x v), `pal` 256 R,
+// G, B triples for a palette, `ycc` the YCbCrCoefficients and
+// ReferenceBlackWhite of a YCbCr image (9 floats), into (want, height,
+// width) uint8.
 void decode(const uint8_t* const* chunks, const int64_t* sizes,
-            int64_t nchunks, const int64_t* p, const uint8_t* pal, int want,
-            uint8_t* out) {
+            int64_t nchunks, const int64_t* p, const uint8_t* pal,
+            const float* ycc, int want, uint8_t* out) {
   const int64_t W = p[kWidth], H = p[kHeight], bits = p[kBits];
   const int64_t spp = p[kSpp], cw = p[kChunkW], ch = p[kChunkH];
   const int phot = static_cast<int>(p[kPhotometric]);
@@ -264,6 +775,18 @@ void decode(const uint8_t* const* chunks, const int64_t* sizes,
   const bool flip_x = orient == 2 || orient == 3;
   const bool flip_y = orient == 3 || orient == 4;
   const int64_t plane = W * H;
+  // YCbCr: blocks of sub_h x sub_v luma samples, then Cb and Cr
+  const bool ycbcr = phot == 6;
+  const int sub_h = ycbcr ? static_cast<int>(p[kSubH]) : 1;
+  const int sub_v = ycbcr ? static_cast<int>(p[kSubV]) : 1;
+  const int64_t block = sub_h * sub_v + 2;
+  int skew = 0;
+  std::unique_ptr<YccToRgb> to_rgb;
+  if (ycbcr) {
+    if (planar || spp != 3 || bits != 8 || ycc == nullptr) fail(kLayout);
+    skew = ycc_skew_bytes(sub_h, sub_v);
+    to_rgb = std::make_unique<YccToRgb>(ycc, ycc + 3);
+  }
   Tiff t{p, pal};
   std::vector<uint8_t> buf[4];
   for (int64_t gy = 0; gy < down; ++gy) {
@@ -274,28 +797,48 @@ void decode(const uint8_t* const* chunks, const int64_t* sizes,
     for (int64_t gx = 0; gx < across; ++gx) {
       const int64_t x0 = gx * cw;
       const int64_t vw = W - x0 < cw ? W - x0 : cw;
+      // the bytes libtiff decodes, and its buffer's size: for YCbCr,
+      // TIFFVStripSize / TIFFVTileSize, a strip cut to its rows rounded up
+      // to whole blocks times TIFFScanlineSize (a block row over sub_v,
+      // rounded down)
+      int64_t need = rows * rb, full = need, stride = rb;
+      if (ycbcr) {
+        const int64_t block_row = (cw + sub_h - 1) / sub_h * block;
+        const int64_t block_rows = (rows + sub_v - 1) / sub_v;
+        full = block_row * block_rows;
+        need = tiled ? full : std::min(full, block_rows * sub_v
+                                                 * (block_row / sub_v));
+        // the put routine's step from one block row to the next
+        stride = (vw + sub_h - 1) / sub_h * block
+                 + (cw - vw) / sub_h * skew;
+      }
       for (int k = 0; k < nplanes; ++k) {
         const int64_t i = k * per_plane + gy * across + gx;
         if (chunks[i] == nullptr) fail(kLayout);
-        t.chunk(chunks[i], sizes[i], rows, rb, spc, &buf[k]);
+        t.chunk(chunks[i], sizes[i], rows, vh, rb, spc, need, full,
+                &buf[k]);
       }
       // libtiff's putgreytile, put16bitbwtile and put8bitcmaptile step
       // past a clipped tile's right part by its width in pixels, not in
       // bytes: where a pixel is more than one byte, they read each row of
       // a tile the image cuts from there on
-      int64_t stride = rb;
       const int64_t px_bytes = spc * bits / 8;
       if (tiled && !planar && vw < cw && px_bytes > 1
           && (gray || (phot == 3 && bits == 8)))
         stride = vw * px_bytes + (cw - vw);
       for (int64_t r = 0; r < vh; ++r) {
         const uint8_t* row[4];
-        for (int k = 0; k < nplanes; ++k)
+        for (int k = 0; k < nplanes && !ycbcr; ++k)
           row[k] = buf[k].data() + r * stride;
         const int64_t oy = flip_y ? H - 1 - (y0 + r) : y0 + r;
         for (int64_t c = 0; c < vw; ++c) {
           int R, G, B;
-          if (planar) {
+          if (ycbcr) {
+            const uint8_t* b = buf[0].data() + r / sub_v * stride
+                               + c / sub_h * block;
+            to_rgb->rgb(b[r % sub_v * sub_h + c % sub_h], b[block - 2],
+                        b[block - 1], &R, &G, &B);
+          } else if (planar) {
             if (phot == 5) {
               const int K = 255 - row[3][c];
               R = K * (255 - row[0][c]) / 255;
@@ -367,13 +910,14 @@ void decode(const uint8_t* const* chunks, const int64_t* sizes,
 
 // See `decode`. Returns 0, -1 for a chunk that holds fewer bytes than its
 // rows, -2 for parameters it does not take, -3 for corrupt LZW data, -4
-// out of memory, -5 for old-style LZW.
+// out of memory, -5 for old-style LZW, -6 to -12 for corrupt CCITT data
+// (enum Code).
 extern "C" int64_t of_tiff_decode(const uint8_t* const* chunks,
                                   const int64_t* sizes, int64_t nchunks,
                                   const int64_t* params, const uint8_t* pal,
-                                  int want, uint8_t* out) {
+                                  const float* ycc, int want, uint8_t* out) {
   try {
-    decode(chunks, sizes, nchunks, params, pal, want, out);
+    decode(chunks, sizes, nchunks, params, pal, ycc, want, out);
     return 0;
   } catch (const Error& e) {
     return e.code;

@@ -35,7 +35,9 @@ KERNELS = ("gn_fused", "gn_tiled", "bilerp_extract", "tv_of_inner",
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "of_dis_tpu_torch"
 # --fmad=false: no fused multiply-add contraction, so each kernel rounds
-# exactly as its plain PyTorch twin's separate multiplies and adds do.
+# exactly as its plain PyTorch twin's separate multiplies and adds do (the
+# GN solve's explicit fmaf calls excepted: the twin computes those as one
+# rounding too, `patch_solver._fms`).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

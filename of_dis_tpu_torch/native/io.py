@@ -50,13 +50,18 @@ colour IMREAD_COLOR in BGR order), with no OpenCV or PIL:
     factor of 255; the other two reads fail in cv::imread and are refused.
   - TIFF (`utils.io.tiff_ifd`, pixels by `csrc/tiff.cpp`): page 0,
     strips and tiles, chunky and planar, classic and BigTIFF;
-    uncompressed, LZW, PackBits, Deflate (inflated by zlib here) and JPEG
-    (each strip or tile by `csrc/jpeg.cpp` after the JPEGTables stream,
-    YCbCr to RGB as libtiff has libjpeg convert it); predictor 2; gray 1,
-    8, 16 bits, palette 1, 4, 8 bits, RGB 8 and 16 bits with or without
-    alpha, CMYK; orientations 1-4. Every value as libtiff's RGBA reader,
-    through which cv::imread reads any 8-bit TIFF, gives it; gray by the
-    readers' BGR2GRAY in 1/16384ths of that colour.
+    uncompressed, CCITT fax (Modified Huffman, Group 3 1-D and 2-D, Group
+    4, as libtiff's tif_fax3.c decodes them), LZW, PackBits, Deflate
+    (inflated by zlib here) and JPEG (each strip or tile by
+    `csrc/jpeg.cpp` after the JPEGTables stream, YCbCr to RGB as libtiff
+    has libjpeg convert it, 4-sample RGB + alpha and CMYK left as they
+    are); predictor 2; gray 1, 8, 16 bits, palette 1, 4, 8 bits, RGB 8
+    and 16 bits with or without alpha, CMYK, YCbCr (4x4 to 1x1
+    subsampling, libtiff's fixed-point conversion over the file's
+    coefficients and reference black and white); orientations 1-4. Every
+    value as libtiff's RGBA reader, through which cv::imread reads any
+    8-bit TIFF, gives it; gray by the readers' BGR2GRAY in 1/16384ths of
+    that colour.
   - GIF (`utils.io.gif_blocks`, pixels by `csrc/gif.cpp`): GIF87a and
     GIF89a, the first image on its logical screen as OpenCV 5's GIF
     reader draws it (background colour, local and global tables, the
@@ -370,13 +375,25 @@ def _decode_hdr(frame: Frame, channels: int, out: np.ndarray) -> None:
 
 
 _TIFF_ARGS = {
-    "of_tiff_decode": ((_PTR, _PTR, _I64, _PTR, _PTR, ctypes.c_int, _PTR),
-                       _I64),
+    "of_tiff_decode": ((_PTR, _PTR, _I64, _PTR, _PTR, _PTR, ctypes.c_int,
+                        _PTR), _I64),
 }
+# libtiff warns on the corrupt CCITT data of -6 to -12 and reads on, and
+# cv::imread takes what it read; the port refuses it
 _TIFF_ERRORS = {-1: "truncated or corrupt TIFF strip or tile data",
                 -2: "bad TIFF layout", -3: "corrupt TIFF LZW data",
                 -4: "out of memory",
-                -5: "old-style TIFF LZW (TIFF 5.0) is not supported"}
+                -5: "old-style TIFF LZW (TIFF 5.0) is not supported",
+                -6: "corrupt TIFF CCITT data: bad code word",
+                -7: "corrupt TIFF CCITT data: premature EOL",
+                -8: "corrupt TIFF CCITT data: line length mismatch",
+                -9: "corrupt TIFF CCITT data: premature EOF (a strip or "
+                    "tile cut short)",
+                -10: "corrupt TIFF CCITT Group 3 data: a row without its "
+                     "EOL",
+                -11: "TIFF CCITT uncompressed mode is not supported",
+                -12: "corrupt TIFF CCITT data: more runs in a row than "
+                     "libtiff's run arrays hold"}
 
 
 # byte -> the byte with its bits reversed (FillOrder 2)
@@ -385,14 +402,15 @@ _REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 def _tiff_chunks(frame: Frame):
     """(addresses, sizes, buffers to keep alive) of a TIFF's strips or
-    tiles as `of_tiff_decode` takes them: stored bytes for compression 1,
-    5 and 32773; each Deflate chunk inflated to the bytes its rows hold
-    (libtiff's ZIPDecode stops there too); each JPEG chunk decoded by
-    csrc/jpeg.cpp after the JPEGTables stream, to 8-bit samples."""
+    tiles as `of_tiff_decode` takes them: stored bytes for compression 1
+    to 5 and 32773; each Deflate chunk inflated to the bytes libtiff
+    decodes from it (`utils.io.tiff_chunk_bytes`: its ZIPDecode stops
+    there too); each JPEG chunk decoded by csrc/jpeg.cpp after the
+    JPEGTables stream, to 8-bit samples."""
     info = frame.info
     src = np.frombuffer(frame.raw, np.uint8)
     base = src.ctypes.data
-    if info.compression in (1, 5, 32773):
+    if info.compression in (1, 2, 3, 4, 5, 32773):
         return [base + o for o in info.offsets], list(info.counts), None
     spc = 1 if info.planar == 2 and info.spp > 1 else info.spp
     across = -(-info.width // info.chunk_width)
@@ -415,7 +433,7 @@ def _tiff_chunks(frame: Frame):
             data = frame.raw[off:off + cnt]
             if info.fill_order == 2:
                 data = data.translate(_REVERSED_BITS)
-            need = rows * ((info.chunk_width * spc * info.bits + 7) // 8)
+            need = uio.tiff_chunk_bytes(info, rows)
             try:
                 buf = zlib.decompressobj().decompress(data, need)
             except zlib.error as e:
@@ -436,16 +454,18 @@ def _decode_tiff(frame: Frame, channels: int, out: np.ndarray) -> None:
     params = np.array([
         info.width, info.height, 8 if jpeg else info.bits, info.spp,
         1 if decoded else info.compression,
-        2 if info.photometric == 6 else info.photometric, info.planar,
-        info.predictor, 1 if decoded else info.fill_order, info.alpha,
-        int(info.big_endian), int(info.tiled), info.chunk_width,
-        info.chunk_height, info.orientation], np.int64)
+        2 if jpeg and info.photometric == 6 else info.photometric,
+        info.planar, info.predictor, 1 if decoded else info.fill_order,
+        info.alpha, int(info.big_endian), int(info.tiled), info.chunk_width,
+        info.chunk_height, info.orientation, info.fax_options,
+        *info.subsampling], np.int64)
     pal = np.frombuffer(info.palette or bytes(768), np.uint8)
+    ycc = np.asarray(info.ycbcr or (0.0,) * 9, np.float32)
     sizes = np.asarray(sizes, np.int64)     # alive through the call
     _check(_bind("tiff", _TIFF_ARGS)[0](
         (ctypes.c_void_p * len(addrs))(*addrs), sizes.ctypes.data,
-        len(addrs), params.ctypes.data, pal.ctypes.data, channels,
-        out.ctypes.data), _TIFF_ERRORS)
+        len(addrs), params.ctypes.data, pal.ctypes.data, ycc.ctypes.data,
+        channels, out.ctypes.data), _TIFF_ERRORS)
 
 
 _GIF_ARGS = {

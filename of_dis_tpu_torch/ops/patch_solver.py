@@ -23,7 +23,11 @@ Numerics replicated from the reference:
   - template + gradient extraction at integer positions, optional patch
     mean-normalization (patch.cpp:298-343),
   - 2x2 (flow) / 1x1 (depth) Hessian from template gradients with the
-    det==0 (h00==0) -> +1e-10 guard (patch.cpp:69-86),
+    det==0 (h00==0) -> +1e-10 guard (patch.cpp:69-86), the determinant and
+    the solve's numerators as the JAX package's XLA computes a * b - c * d:
+    one fused multiply-add (`_fms`), so that a Hessian singular in float32
+    (bilevel frames: h00 * h11 == h01^2 to rounding) gives JAX's finite
+    step and not 0 / 0,
   - steepest-descent projection + closed-form SPD solve and p -= dp update
     (patch.cpp:170-184), the depth disparity clamped to the camera's sign
     before the reset test (patch.cpp:186-191),
@@ -149,13 +153,42 @@ def extract_templates(spec: LevelSpec, params: DISParams, im: torch.Tensor,
     h00 = sums[..., 0, :]
     if params.nop == 2:
         h01, h11 = sums[..., 1, :], sums[..., 2, :]
-        det = h00 * h11 - h01 * h01
-        guard = (det == 0.0).to(h00.dtype) * 1e-10
+        guard = _det_zero(h00, h01, h11).to(h00.dtype) * 1e-10
         hes = torch.stack([h00 + guard, h01, h11 + guard], dim=-2)
     else:
         guard = (h00 == 0.0).to(h00.dtype) * 1e-10
         hes = (h00 + guard).unsqueeze(-2)
     return PatchTemplates(tmpl, tdx, tdy, hes)
+
+
+def _det_zero(h00: torch.Tensor, h01: torch.Tensor,
+              h11: torch.Tensor) -> torch.Tensor:
+    """Whether fma(h00, h11, -(h01 * h01)), the determinant as the kernels
+    and `_fms` compute it, is 0: h00 * h11 is exact in float64, and so is
+    its comparison with the float32 h01 * h01 (as many launches as the
+    float32 determinant's test; a difference below float32's least
+    subnormal, which no Hessian of image gradients reaches, counts as
+    nonzero here)."""
+    return h00 * h11.double() == h01 * h01
+
+
+def _fms(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+         d: torch.Tensor) -> torch.Tensor:
+    """a * b - c * d of float32 tensors as fma(a, b, -(c * d)) computes it
+    (as XLA:CPU contracts the JAX package's expression, and the kernels'
+    fmaf): c * d rounded to float32, then the exact a * b less it rounded
+    once. a * b is exact in float64; the difference is rounded to float64
+    to odd (its last bit set wherever it is inexact, the error from
+    TwoSum), from which the rounding to float32 is that of the exact
+    difference."""
+    s = a.double() * b
+    p = c * d
+    r = s - p
+    t = r - s
+    err = (s - (r - t)) - (p + t)            # s - p == r + err, exactly
+    toward = torch.nextafter(r, r + torch.sign(err) * r.abs())
+    odd = (r.view(torch.int64) & 1) == 1
+    return torch.where(odd, r, toward).float()
 
 
 def _true_div(t: torch.Tensor, den: float) -> torch.Tensor:
@@ -204,11 +237,13 @@ def _solve_step(hes: torch.Tensor, rhs: torch.Tensor, nop: int
     """Closed-form SPD solve of H dp = rhs (Eigen .llt().solve,
     patch.cpp:182). hes (B, 3, N) or (B, 1, N); rhs (B, nop, N)."""
     if nop == 2:
-        h00, h01, h11 = hes[:, 0], hes[:, 1], hes[:, 2]
-        det = h00 * h11 - h01 * h01
-        dp0 = (h11 * rhs[:, 0] - h01 * rhs[:, 1]) / det
-        dp1 = (h00 * rhs[:, 1] - h01 * rhs[:, 0]) / det
-        return torch.stack([dp0, dp1], dim=1)
+        # the determinant and the two numerators in one `_fms` call: on the
+        # card (`gn_unfused`'s loop) each call costs 18 launches a trip
+        h00, h01, h11 = hes[:, 0:1], hes[:, 1:2], hes[:, 2:3]
+        r0, r1 = rhs[:, 0:1], rhs[:, 1:2]
+        v = _fms(torch.cat([h00, h11, h00], 1), torch.cat([h11, r0, r1], 1),
+                 h01, torch.cat([h01, r1, r0], 1))
+        return v[:, 1:] / v[:, :1]
     return rhs / hes
 
 
@@ -427,8 +462,7 @@ def _tiled_templates(spec: LevelSpec, params: DISParams, src
         tdy = _gather_templates(spec, psz, src[2])
         h01 = _column_sum(tdx * tdy, noc)
         h11 = _column_sum(tdy * tdy, noc)
-        det = h00 * h11 - h01 * h01
-        guard = (det == 0.0).to(h00.dtype) * 1e-10
+        guard = _det_zero(h00, h01, h11).to(h00.dtype) * 1e-10
         hes = torch.stack([h00 + guard, h01, h11 + guard], dim=-2)
     else:
         tdy = torch.zeros_like(tdx)

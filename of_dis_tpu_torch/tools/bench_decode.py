@@ -12,12 +12,17 @@ TIFF, GIF and JPEG 2000 too; chip_smoke.py leaves part 7c-7e's frames
 under `build/of_dis_tpu_torch/smoke/`; committed are part 7b's JPEG
 frames, Huffman-coded in tests/torch_fixtures/jpeg/frames and
 arithmetic-coded in .../frames_arith, its lossless gray and YCCK pairs in
-.../pairs/*, and part 7f's JPEG 2000 frames in
+.../pairs/*, part 7e's Group 4 frames in tests/torch_fixtures/tiff/fax_g4
+(its YCbCr ones part 7e writes to build/of_dis_tpu_torch/smoke/tiff/
+ycbcr_lzw), and part 7f's JPEG 2000 frames in
 tests/torch_fixtures/jp2/frames and .../lossless). One
 worker process a checkout imports that checkout's package and waits; for
 each thread count the turns run ABBA (OLD, NEW, NEW, OLD, ...) `pairs`
 times, each turn one `decode_batch` over every frame on a fresh pool of
-that many threads, its planes checked against the first turn's. A host
+that many threads, its planes checked against the first turn's. A turn
+decodes the directory's frames as many times over as it takes to reach
+MIN_TURN_FRAMES (the record's `repeat`): a turn of nine frames on eight
+threads lasts a few milliseconds and its rate sags. A host
 whose other tenants vary moves both trees' turns alike, so the median of
 each tree's turns and of the per-pair ratios is the number to read. The
 decode runs on the host alone: no device work. Prints one JSON line a
@@ -37,8 +42,12 @@ import sys
 
 from of_dis_tpu_torch.kernels import build
 
-# the worker: argv = checkout, frame dir, channels; reads a thread count a
-# line from stdin, answers with that turn's frames/s
+# the fewest frames a turn decodes
+MIN_TURN_FRAMES = 72
+
+# the worker: argv = checkout, frame dir, channels, frames a turn; answers
+# "ready" and the repeat count, then reads a thread count a line from
+# stdin and answers with that turn's frames/s
 _WORKER = r"""
 import sys, time
 from concurrent.futures import ThreadPoolExecutor
@@ -47,9 +56,11 @@ sys.path.insert(0, sys.argv[1])
 from of_dis_tpu_torch import pipeline
 from of_dis_tpu_torch.native import io as nio
 paths = pipeline.list_frames(sys.argv[2])
+repeat = -(-int(sys.argv[4]) // len(paths))
+paths = paths * repeat
 channels = int(sys.argv[3])
 first = nio.decode_batch(paths, channels)
-print("ready", flush=True)
+print("ready", repeat, flush=True)
 for line in sys.stdin:
     with ThreadPoolExecutor(int(line)) as pool:
         t0 = time.perf_counter()
@@ -80,21 +91,25 @@ def _frames(frame_dir: str | None) -> str:
 
 
 def run(trees, frame_dir, pairs: int, threads, channels: int) -> list:
-    """One record a thread count: each tree's turns (frames/s) and their
-    median, and the median of each later tree's ratio to the first over
-    the pairs."""
+    """One record a thread count: each tree's turns (frames/s; a turn
+    decodes the directory's frames `repeat` times over) and their median,
+    and the median of each later tree's ratio to the first over the
+    pairs."""
     names = [os.path.basename(os.path.abspath(t)) or t for t in trees]
     workers = []
     try:
         for tree in trees:
             w = subprocess.Popen(
                 [sys.executable, "-c", _WORKER, os.path.abspath(tree),
-                 frame_dir, str(channels)], cwd=tree, text=True,
+                 frame_dir, str(channels), str(MIN_TURN_FRAMES)],
+                cwd=tree, text=True,
                 stdin=subprocess.PIPE, stdout=subprocess.PIPE)
             workers.append(w)
         for w in workers:
-            if w.stdout.readline().strip() != "ready":
+            ready, _, repeat = w.stdout.readline().partition(" ")
+            if ready != "ready":
                 raise RuntimeError("a decode worker failed to start")
+            repeat = int(repeat)
 
         def turn(w, k: int) -> float:
             w.stdin.write(f"{k}\n")
@@ -112,6 +127,7 @@ def run(trees, frame_dir, pairs: int, threads, channels: int) -> list:
                 for i in (order if p % 2 == 0 else reversed(order)):
                     turns[i].append(turn(workers[i], k))
             rec = {"bench": "decode_batch", "threads": k, "pairs": pairs,
+                   "repeat": repeat,
                    "frames_per_s": dict(zip(names, turns)),
                    "median": {n: statistics.median(t)
                               for n, t in zip(names, turns)}}

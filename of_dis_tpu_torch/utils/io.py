@@ -34,7 +34,8 @@ PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"  # SOI, then a marker's FF
 FORMATS = ("PNG, PNM (P1-P6), BMP, JPEG (Huffman or arithmetic, sequential, "
            "progressive or lossless; gray, YCbCr, RGB, CMYK or YCCK), WebP, "
-           "Sun raster, PAM, Radiance HDR, PFM, TIFF, GIF and JPEG 2000")
+           "Sun raster, PAM, Radiance HDR, PFM, TIFF (CCITT fax, YCbCr and "
+           "JPEG-in-TIFF among them), GIF and JPEG 2000")
 
 
 def write_flo(path: str, data: np.ndarray) -> None:
@@ -1013,11 +1014,17 @@ _TIFF_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
                       50000: "ZSTD", 50001: "WebP", 32908: "Pixar",
                       32909: "Pixar", 32947: "DCS", 34892: "lossy JPEG"}
 # compressions cv::imread's libtiff reads and the port decodes
-TIFF_COMPRESSIONS = (1, 5, 7, 8, 32773, 32946)
-_TIFF_PHOTOMETRICS = {4: "transparency mask", 6: "YCbCr", 8: "CIELab",
-                      9: "ICCLab", 10: "ITULab", 32844: "LogL",
-                      32845: "LogLuv", 32803: "CFA", 34892: "linear raw"}
+TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32773, 32946)
+_TIFF_PHOTOMETRICS = {4: "transparency mask", 8: "CIELab", 9: "ICCLab",
+                      10: "ITULab", 32844: "LogL", 32845: "LogLuv",
+                      32803: "CFA", 34892: "linear raw"}
 _TIFF_MAX_TILE = 1 << 24    # OpenCV's TILE_MAX_WIDTH / _HEIGHT
+# YCbCrSubSampling (h, v) libtiff's RGBA reader has a put routine for
+_TIFF_YCBCR_SUBSAMPLINGS = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2),
+                            (1, 1))
+# libtiff's defaults: YCbCrCoefficients, and ReferenceBlackWhite for YCbCr
+_TIFF_LUMA = (0.299, 0.587, 0.114)
+_TIFF_YCBCR_REF_BW = (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
 
 
 class Tiff(NamedTuple):
@@ -1028,7 +1035,7 @@ class Tiff(NamedTuple):
     bits: int           # 1, 4, 8 or 16
     spp: int            # samples a pixel, 1-4
     compression: int    # one of TIFF_COMPRESSIONS
-    photometric: int    # 0, 1, 2, 3, 5, or 6 (YCbCr under JPEG)
+    photometric: int    # 0, 1, 2, 3, 5 or 6
     planar: int         # 1 chunky, 2 planar
     predictor: int      # 2 where it applies (LZW and Deflate), else 1
     fill_order: int     # 1, or 2: the bits of each stored byte reversed
@@ -1042,7 +1049,28 @@ class Tiff(NamedTuple):
     offsets: tuple      # of each strip or tile, plane after plane
     counts: tuple
     jpeg_tables: Optional[tuple]  # (offset, bytes) of tag 347
-    subsampling: tuple  # YCbCrSubSampling of a YCbCr JPEG, else (1, 1)
+    subsampling: tuple  # YCbCrSubSampling (h, v) of YCbCr, else (1, 1)
+    fax_options: int    # T4Options (Group 3) or T6Options (Group 4), or 0
+    # YCbCrCoefficients (3) and ReferenceBlackWhite (6) of YCbCr, as the C
+    # floats libtiff keeps (float32 values), else ()
+    ycbcr: tuple
+
+
+def tiff_chunk_bytes(info: Tiff, rows: int) -> int:
+    """The bytes libtiff decodes from a strip of `rows` rows, or (rows the
+    tile's height) a tile: the rows' bytes, or for subsampled YCbCr (not
+    JPEG) TIFFVStripSize / TIFFVTileSize, a strip's cut to its rows
+    rounded up to whole blocks times TIFFScanlineSize (a row of blocks
+    over the vertical subsampling, rounded down)."""
+    spc = 1 if info.planar == 2 and info.spp > 1 else info.spp
+    if info.photometric != 6 or info.compression == 7:
+        return rows * ((info.chunk_width * spc * info.bits + 7) // 8)
+    h, v = info.subsampling
+    block_row = -(-info.chunk_width // h) * (h * v + 2)
+    block_rows = -(-rows // v)
+    if info.tiled:
+        return block_row * block_rows
+    return min(block_row * block_rows, block_rows * v * (block_row // v))
 
 
 def _tiff_refuse(what: str, cv2_fails: bool = False):
@@ -1056,11 +1084,15 @@ def tiff_ifd(raw: bytes) -> Tiff:
     interface (TIFFReadRGBAStrip / TIFFReadRGBATile) gives the pixels of
     every 8-bit read. Reads strips and tiles, chunky and planar, of gray
     (1, 8, 16 bits, MINISBLACK or MINISWHITE), palette (1, 4, 8 bits), RGB
-    (8, 16 bits) with or without alpha, CMYK (8 bits) and YCbCr under
-    JPEG; compressions none, LZW, PackBits, Deflate and JPEG; predictor 2
-    under LZW and Deflate; orientations 1-4. Every offset and count is
-    checked against the file. Raises ValueError naming the cause, and for
-    a variant cv::imread fails on saying so."""
+    (8, 16 bits) with or without alpha, CMYK (8 bits) and chunky 8-bit
+    YCbCr (subsampled 4x4, 4x2, 4x1, 2x2, 2x1, 1x2 or 1x1; its
+    YCbCrCoefficients and ReferenceBlackWhite as RATIONALs); compressions
+    none, CCITT RLE, Group 3 (1-D or 2-D) and Group 4 (1-bit gray or
+    palette), LZW, PackBits, Deflate and JPEG (gray, RGB with or without
+    one extra sample, CMYK, YCbCr); predictor 2 under LZW and Deflate;
+    orientations 1-4. Every offset and count is checked against the file.
+    Raises ValueError naming the cause, and for a variant cv::imread fails
+    on saying so."""
     n = len(raw)
     magic = raw[:4]
     if magic in (b"II*\0", b"MM\0*"):
@@ -1124,6 +1156,26 @@ def tiff_ifd(raw: bytes) -> Tiff:
         v = values(tag, None if default is None else (default,), want=(1,))
         return None if v is None else v[0]
 
+    def floats(tag, count, default):
+        """A tag of `count` RATIONAL (or SRATIONAL) values as the C
+        floats libtiff reads them into ((float)num / (float)den, 0 where
+        den is 0), `default` if absent."""
+        if tag not in tags:
+            return tuple(float(np.float32(v)) for v in default)
+        typ, n_vals, at = tags[tag]
+        if typ not in (5, 10) or n_vals != count:
+            _tiff_refuse(f"TIFF tag {tag} of type {typ} and {n_vals} values")
+        at = struct.unpack(order + ("Q" if big else "I"),
+                           raw[at:at + word])[0] if 8 * count > word else at
+        if at + 8 * count > n:
+            raise ValueError(f"TIFF tag {tag}'s values lie beyond the file")
+        pairs = np.frombuffer(raw, order + ("u4" if typ == 5 else "i4"),
+                              2 * count, at).reshape(count, 2)
+        num, den = pairs.astype(np.float32).T
+        with np.errstate(divide="ignore", invalid="ignore"):
+            vals = np.where(pairs[:, 1] == 0, np.float32(0), num / den)
+        return tuple(float(v) for v in vals.astype(np.float32))
+
     def per_sample(tag, default):
         """A per-sample tag: one value, or at least `spp` equal ones (as
         libtiff's TIFFReadDirEntryPersampleShort takes it)."""
@@ -1164,6 +1216,15 @@ def tiff_ifd(raw: bytes) -> Tiff:
         name = _TIFF_COMPRESSIONS.get(compression, f"{compression}")
         _tiff_refuse(f"TIFF compression {name}",
                      compression in (34925, 50000))
+    fax_options = 0
+    if compression in (2, 3, 4):
+        # libtiff's fax codecs take 1-bit samples alone; T4Options bit 0
+        # chooses 2-D Group 3 (bit 1, uncompressed mode, fails only where
+        # an uncompressed run turns up; bit 2, fill bits, only pads EOLs)
+        if bits != 1:
+            _tiff_refuse(f"{_TIFF_COMPRESSIONS[compression]} TIFF of {bits}"
+                         "-bit samples", True)
+        fax_options = {2: 0, 3: one(292, 0), 4: one(293, 0)}[compression]
     if orientation in (5, 6, 7, 8):
         _tiff_refuse(f"TIFF orientation {orientation} (transposed)", True)
     if orientation not in (1, 2, 3, 4):
@@ -1180,6 +1241,7 @@ def tiff_ifd(raw: bytes) -> Tiff:
     if fill_order not in (1, 2):
         _tiff_refuse(f"TIFF FillOrder {fill_order}")
     subsampling = (1, 1)
+    ycbcr = ()
     palette = None
     if photometric in (0, 1):
         if bits == 4 or (bits == 1 and spp > 1 and not planar_many):
@@ -1224,22 +1286,37 @@ def tiff_ifd(raw: bytes) -> Tiff:
         if planar_many and spp != 4:
             _tiff_refuse("planar CMYK TIFF with extra samples", True)
         alpha = 0
-    elif photometric == 6 and compression == 7 and not planar_many:
-        subsampling = values(530, (2, 2), want=(2,))
+    elif photometric == 6:
+        if planar_many:
+            _tiff_refuse("planar YCbCr TIFF")
         if spp != 3 or bits != 8:
-            _tiff_refuse(f"YCbCr JPEG TIFF of {spp} {bits}-bit samples")
-        alpha = 0                      # libjpeg converts it to RGB
+            _tiff_refuse(f"YCbCr TIFF of {spp} {bits}-bit samples")
+        subsampling = tuple(values(530, (2, 2), want=(2,)))
+        if compression != 7:        # libjpeg converts a JPEG's to RGB
+            if subsampling not in _TIFF_YCBCR_SUBSAMPLINGS:
+                _tiff_refuse(f"TIFF YCbCr subsampling {subsampling[0]}x"
+                             f"{subsampling[1]}", True)
+            luma = floats(529, 3, _TIFF_LUMA)
+            ref_bw = floats(532, 6, _TIFF_YCBCR_REF_BW)
+            # libtiff's initYCbCrConversion
+            if luma[1] == 0 or not all(np.isfinite(luma)):
+                _tiff_refuse(f"TIFF YCbCrCoefficients {luma}", True)
+            if not all(-0x7FFFFF7F < v < 0x7FFFFFFF for v in ref_bw):
+                _tiff_refuse(f"TIFF ReferenceBlackWhite {ref_bw}", True)
+            ycbcr = luma + ref_bw
+        alpha = 0
     else:
         name = _TIFF_PHOTOMETRICS.get(photometric, f"{photometric}")
-        if photometric == 6:
-            name += " without JPEG compression"
         _tiff_refuse(f"TIFF PhotometricInterpretation {name}")
     if compression == 7:
+        # gray, RGB, YCbCr; or 4 samples, RGB + one extra (PIL's RGBA) or
+        # CMYK, which libtiff has libjpeg leave as they are
+        four = spp == 4 and (photometric, colour) in ((2, 3), (5, 4))
         if bits != 8 or planar_many or fill_order != 1 \
-                or photometric not in (0, 1, 2, 6) or spp != colour \
-                or spp not in (1, 3):
-            _tiff_refuse("JPEG TIFF other than chunky 8-bit gray, RGB or "
-                         "YCbCr without extra samples")
+                or photometric not in (0, 1, 2, 5, 6) or not (
+                    four or (spp == colour and spp in (1, 3))):
+            _tiff_refuse("JPEG TIFF other than chunky 8-bit gray, RGB, "
+                         "YCbCr, RGB with one extra sample or CMYK")
     predictor = 1
     if compression in (5, 8, 32946):
         predictor = one(317, 1)
@@ -1247,6 +1324,8 @@ def tiff_ifd(raw: bytes) -> Tiff:
             _tiff_refuse(f"TIFF predictor {predictor}")
         if predictor == 2 and bits not in (8, 16):
             _tiff_refuse(f"TIFF predictor 2 with {bits}-bit samples", True)
+        if predictor == 2 and photometric == 6 and subsampling != (1, 1):
+            _tiff_refuse("TIFF predictor 2 over subsampled YCbCr")
     tiled = 322 in tags or 323 in tags
     # libtiff keeps strip and tile offsets (and counts) in one slot
     other = (273, 279) if tiled else (322, 323, 324, 325)
@@ -1285,9 +1364,12 @@ def tiff_ifd(raw: bytes) -> Tiff:
         if cnt == 0 or off + cnt > n:
             raise ValueError("TIFF strip or tile beyond the end of the "
                              "file")
-    spc = 1 if planar_many else spp
+    info = Tiff(width, height, bits, spp, compression, photometric, planar,
+                predictor, fill_order, alpha, order == ">", tiled, cw, ch,
+                orientation, palette, offsets, counts, None,
+                tuple(subsampling), fax_options, ycbcr)
     if tiled and compression == 1 and any(
-            c != ch * ((cw * spc * bits + 7) // 8) for c in counts):
+            c != tiff_chunk_bytes(info, ch) for c in counts):
         _tiff_refuse("uncompressed TIFF tile of another byte count than "
                      "its size", True)
     # libtiff reads uncompressed strips of unequal byte counts (the last
@@ -1308,10 +1390,7 @@ def tiff_ifd(raw: bytes) -> Tiff:
         if at + count > n:
             raise ValueError("TIFF tag 347's values lie beyond the file")
         tables = (at, count)
-    return Tiff(width, height, bits, spp, compression, photometric, planar,
-                predictor, fill_order, alpha, order == ">", tiled, cw, ch,
-                orientation, palette, offsets, counts, tables,
-                tuple(subsampling))
+    return info._replace(jpeg_tables=tables)
 
 
 # ------------------------------------------------------------------- GIF

@@ -46,8 +46,8 @@ def _level(seed=0, b=2, h=40, w=48, shift=(1.6, -0.7), c=1):
     return np.rint(a).astype(np.uint8), np.rint(bb).astype(np.uint8)
 
 
-def _setup(params, seed=0, camlr=0, shift=(1.6, -0.7)):
-    a, b = _level(seed, shift=shift, c=params.noc)
+def _setup(params, seed=0, camlr=0, shift=(1.6, -0.7), pair=None):
+    a, b = _level(seed, shift=shift, c=params.noc) if pair is None else pair
     spec = jparams.make_level_spec(0, a.shape[3], a.shape[2], params,
                                    camlr=camlr)
     pad = params.p_samp_s
@@ -213,6 +213,113 @@ def test_flat_template_hessian_guard_matches_jax(nop):
     for a, b in zip(carried, ours):
         assert a.shape == b.shape
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _singular_hessians(n=4096, seed=19):
+    """(B=1, 3, n) Hessians, float32-singular (h01^2 == h00 * h11 up to
+    rounding, as a bilevel frame's straight edges give) and near it, and
+    (1, 2, n) projections, some parallel to the Hessian's null space. The
+    last 64 Hessians have h00 * h11 = 3 + 1.5 * 2^-22, halfway between two
+    float32 values, and a tiny h01: one rounding of h00 * h11 - h01^2 goes
+    down, a rounding to float64 and then to float32 would go up."""
+    rng = np.random.default_rng(seed)
+    h00 = (rng.integers(1, 1 << 16, n) / 64.0).astype(np.float32)
+    ratio = rng.choice([1.0, 0.25, 4.0, 1 + 1e-7], n)
+    h11 = (h00 * ratio).astype(np.float32)
+    h01 = (np.sqrt(h00.astype(np.float64) * h11) * rng.choice([-1, 1], n)
+           * rng.choice([1.0, 1 - 1e-6, 1 - 1e-3], n)).astype(np.float32)
+    h00[-64:], h11[-64:], h01[-64:] = 3.0, 1 + 2.0 ** -23, 2.0 ** -30
+    hes = np.stack([h00, h01, h11])[None]
+    r0 = (rng.standard_normal(n) * 1e4).astype(np.float32)
+    r1 = np.where(rng.random(n) < 0.5, r0 * np.sign(h01),
+                  rng.standard_normal(n) * 1e4).astype(np.float32)
+    return hes, np.stack([r0, r1])[None]
+
+
+def _fms_exact(a, b, c, d):
+    """fma(a, b, -(c * d)) of float32 scalars from the exact rational
+    value, rounded to the nearest float32, ties to even."""
+    from fractions import Fraction
+    v = (Fraction(float(a)) * Fraction(float(b))
+         - Fraction(float(np.float32(c) * np.float32(d))))
+    f = np.float32(float(v))
+    near = [np.nextafter(f, np.float32(-np.inf)), f,
+            np.nextafter(f, np.float32(np.inf))]
+    return min(near, key=lambda q: (abs(Fraction(float(q)) - v),
+                                    int(np.array(q).view(np.int32)) & 1))
+
+
+def test_fms_rounds_once():
+    """`_fms` is fma(a, b, -(c * d)), one rounding of the exact value,
+    over random operands of mixed scales and float32 ties that a rounding
+    through float64 would break the other way."""
+    rng = np.random.default_rng(5)
+    n = 4096
+    a = (rng.standard_normal(n) * rng.choice([1, 1e-3, 1e3], n)
+         ).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    c = (rng.standard_normal(n) * rng.choice([1, 1e-10, 1e-20], n)
+         ).astype(np.float32)
+    d = rng.standard_normal(n).astype(np.float32)
+    a[:64], b[:64] = 3.0, 1 + 2.0 ** -23
+    c[:64] = d[:64] = 2.0 ** -30 * rng.choice([-1, 1], 64)
+    got = tps._fms(*map(torch.as_tensor, (a, b, c, d))).numpy()
+    want = np.array([_fms_exact(*x) for x in zip(a, b, c, d)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == np.float32(3 + 2.0 ** -22)
+
+
+def test_singular_hessian_solve_matches_jax():
+    """The 2x2 solve's determinant and numerators are each one fused
+    multiply-add, as XLA computes the JAX package's a * b - c * d: where
+    the Hessian is singular in float32 (a bilevel frame's edges) the step
+    is JAX's, bit for bit, finite where JAX's is, and not 0 / 0."""
+    import jax
+    hes, rhs = _singular_hessians()
+    want = np.asarray(jax.jit(lambda h, r: jps._solve_step(h, r, 2))(
+        jnp.asarray(hes), jnp.asarray(rhs)))
+    got = tps._solve_step(torch.as_tensor(hes), torch.as_tensor(rhs),
+                          2).numpy()
+    np.testing.assert_array_equal(got, want)
+    edge = np.array([[[1016.015625], [-1016.015625], [1016.015625]]],
+                    np.float32)
+    step = tps._solve_step(torch.as_tensor(edge),
+                           torch.zeros((1, 2, 1)), 2)
+    assert torch.equal(step, torch.zeros((1, 2, 1)))   # was 0 / 0
+
+
+def test_bilevel_edge_templates_and_gn_match_jax():
+    """Bilevel frames with straight 45-degree edges (every patch on an
+    edge has h00 == h11 == |h01|) moving one pixel: the Hessians and their
+    guard as JAX's, bit for bit, and a finite Gauss-Newton level (0 / 0
+    before). A float32-singular patch's step is the rounding of its
+    projections over a determinant of rounding: the JAX package's differ
+    from the port's wherever XLA fused its sums (here most agree to 1e-6
+    px, some are pixels apart), so only the patches with a regular Hessian
+    (the flat ones, here) are held to JAX's values. For the singular ones
+    the only comparison with JAX is end to end, the flow of Group 4 frames
+    in `test_torch_tiff_fax.py::test_fax_cli_matches_jax`."""
+    params = jparams.op_point_params(48, 2)
+    yy, xx = np.mgrid[0:40, 0:48]
+    steps = [np.stack([(xx - yy + d) % 48 < 24, (xx + yy + d) % 48 < 24])
+             for d in (0, 1)]
+    a, b = (((x * 255)[:, None]).astype(np.uint8) for x in steps)
+    spec, tparams, ja, jb, ta, tb = _setup(params, pair=(a, b))
+    for k in range(2):
+        ref = jps.extract_templates(spec, params, *(x[k] for x in ja))
+        ours = tps.extract_templates(spec, tparams, *(x[k] for x in ta))
+        np.testing.assert_array_equal(ours.hes.numpy(), np.asarray(ref.hes))
+    p_init = np.zeros((2, spec.nopatches, 2), np.float32)
+    ref = jps.optimize_level_batched(spec, params, jb, None,
+                                     jnp.asarray(p_init), src=tuple(ja))
+    ours = tps.optimize_level_batched(
+        spec, tparams, tb, tps.extract_templates(spec, tparams, *ta),
+        torch.as_tensor(p_init))
+    assert torch.isfinite(ours.p).all() and np.isfinite(ref.p).all()
+    flat = tps.extract_templates(spec, tparams, *ta).hes[:, 1] == 0
+    assert 0 < int(flat.sum()) < flat.numel()
+    np.testing.assert_array_equal(ours.p.numpy()[flat.numpy()],
+                                  np.asarray(ref.p)[flat.numpy()])
 
 
 def _gn_both(params, camlr, seed, init_scale, shift):

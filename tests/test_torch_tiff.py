@@ -339,8 +339,7 @@ REFUSALS = [
     (lambda: mf.tiff(np.stack([GRAY, GRAY], 2), colormap=PAL16,
                      planar=True, extra_samples=[0]), "planar palette",
      True),
-    (lambda: mf.tiff(COLOUR, photometric=8), "CIELab", None),
-    (lambda: mf.tiff(COLOUR, photometric=6), "YCbCr without JPEG", False),
+    (lambda: mf.tiff(COLOUR, photometric=8), "CIELab", False),
     (lambda: mf.tiff(GRAY, compression=5, predictor=3), "predictor 3",
      None),
     (lambda: mf.tiff(GRAY, compression=5, chunks=[b"\0\x01" + bytes(30)]),
@@ -388,8 +387,21 @@ def _rgba_jpeg():
     return buf.getvalue()
 
 
-REFUSALS += [(_ccitt, "CCITT Group 4", False),
-             (_rgba_jpeg, "JPEG TIFF other than", False)]
+# files the port refused until it read CCITT fax, YCbCr without JPEG and
+# 4-sample JPEG-in-TIFF (the refusals' words as their ids)
+ONCE_REFUSED = [(_ccitt, "CCITT Group 4"),
+                (_rgba_jpeg, "JPEG TIFF other than"),
+                (lambda: mf.tiff(COLOUR, photometric=6),
+                 "YCbCr without JPEG")]
+
+
+@pytest.mark.parametrize("make,words", ONCE_REFUSED,
+                         ids=[r[1] for r in ONCE_REFUSED])
+def test_once_refused_variants_read_as_cv2(make, words):
+    """The same files as the refusals they replace: each now equals
+    cv2.imread (the uncompressed YCbCr one takes libtiff's default 2x2
+    subsampling, its bytes read as blocks)."""
+    assert_as_cv2(make())
 
 
 @pytest.mark.parametrize("make,match,cv2_fails", REFUSALS,
@@ -459,6 +471,20 @@ def test_fixture_manifest_matches_cv2_and_the_decoder(rel):
                                           jio.load_image(path, ch))
 
 
+@pytest.mark.parametrize("rel", sorted(MANIFEST["committed"]))
+def test_committed_sets_match_cv2_and_the_decoder(rel):
+    """The committed frame sets (libtiff-written: Group 4 frames, RGBA and
+    CMYK JPEG-in-TIFF pairs), which chip_smoke.py part 7e serves: their
+    hashes are cv2's and the port's, and the JAX package's `load_image`
+    reads them as the port's does."""
+    path = os.path.join(FIXTURES, rel)
+    rec = MANIFEST["committed"][rel]
+    assert os.path.getsize(path) == rec["bytes"]
+    _assert_manifest(path, rec)
+    np.testing.assert_array_equal(uio.load_image(path, 1),
+                                  jio.load_image(path, 1))
+
+
 @pytest.fixture(scope="module")
 def frame_dirs(tmp_path_factory):
     """chip_smoke.py part 7e's frames 0-2, written here from cv2's planes
@@ -490,6 +516,9 @@ def test_fixtures_stay_small_and_regenerate():
     assert max(sizes) < 12_000 and len(sizes) >= 60
     assert MANIFEST["motion_px"] == [1.3, 0.4]
     assert len(MANIFEST["frames"]) == 9 * len(mf.FORMATS)
+    assert sorted(MANIFEST["committed"]) == sorted(
+        f"{d}/frame_{t:04d}.tif" for d, n in mf.COMMITTED.items()
+        for t in range(n))
     for name, raw in mf.variants().items():
         with open(os.path.join(FIXTURES, "variants", name), "rb") as f:
             assert f.read() == raw, name
@@ -506,6 +535,9 @@ _FUZZ_SOURCES = [
             big_endian=True, big=True),
     mf.jpeg_tiff(open(os.path.join(mf.JPEG_DIR, "variants", "tiny_7x9.jpg"),
                       "rb").read(), 9, 7),
+    open(os.path.join(FIXTURES, "variants", "pil_1_group4.tif"), "rb").read(),
+    mf.ycbcr_tiff(mf.rgb_to_ycbcr(COLOUR[:9, :11]), (2, 2), compression=5,
+                  rows_per_strip=4),
 ]
 
 

@@ -6,14 +6,17 @@ chip_smoke.py part 7e, and the fixtures of tests/test_torch_tiff.py.
 writes `variants/` (small files, one a feature the port's decoder must
 read: every compression it reads, predictor 2, strips and tiles, chunky
 and planar, 1-16 bits, gray, MINISWHITE, palette, RGB, CMYK, alpha,
-orientations, JPEG-in-TIFF from cv2 and PIL, and the variants cv2.imread
-fails on) and `manifest.json`: per file the shape and SHA-256 of
-cv2.imread's gray (IMREAD_GRAYSCALE) and colour (IMREAD_COLOR) planes,
-laid out as the port lays them out ((C, H, W) uint8, C-contiguous), null
-for a read cv2.imread fails on; and the same of the frames `write_frames`
-makes, which are not committed (chip_smoke.py writes them on the card's
-host, where there is no cv2, and holds the port's decoder to these
-hashes). Needs cv2 for the manifest and PIL for its PIL-written variants.
+YCbCr at each subsampling, orientations, CCITT fax and JPEG-in-TIFF from
+cv2 and PIL, and the variants cv2.imread fails on), `fax_g4/` and
+`pairs/` (the committed frame sets below) and `manifest.json`: per file
+the shape and SHA-256 of cv2.imread's gray (IMREAD_GRAYSCALE) and colour
+(IMREAD_COLOR) planes, laid out as the port lays them out ((C, H, W)
+uint8, C-contiguous), null for a read cv2.imread fails on; and the same
+of the frames `write_frames` makes, which are not committed
+(chip_smoke.py writes them on the card's host, where there is no cv2, and
+holds the port's decoder to these hashes). Needs cv2 for the manifest
+and PIL for its PIL-written files (libtiff's own CCITT and JPEG
+encoders).
 
 The frames: the nine 1024x436 JPEG frames of ../jpeg (moving 1.3, 0.4 px
 a frame), as cv2.imread decodes them, re-encoded as
@@ -22,7 +25,14 @@ a frame), as cv2.imread decodes them, re-encoded as
   - packbits_tiled: RGB, PackBits, 64x32 tiles;
   - gray16: 16-bit gray, uncompressed, the gray plane in the high byte;
   - jpeg: the JPEG frame's own bitstream in one strip, its tables in the
-    JPEGTables tag, YCbCr 4:2:0 (JPEG-in-TIFF as libtiff writes it).
+    JPEGTables tag, YCbCr 4:2:0 (JPEG-in-TIFF as libtiff writes it);
+  - ycbcr_lzw: YCbCr (JPEG's full-range conversion in integers), 2x1
+    subsampled, LZW, strips of 16 rows, no ReferenceBlackWhite (libtiff's
+    default).
+The committed sets, written by libtiff through PIL (`committed_sets`):
+  - fax_g4/: the nine gray planes blurred and thresholded, Group 4;
+  - pairs/rgba_jpeg/, pairs/cmyk_jpeg/: frames 0-1 as PIL's RGBA (alpha
+    255) and CMYK JPEG-in-TIFF.
 """
 
 from __future__ import annotations
@@ -37,7 +47,10 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 JPEG_DIR = os.path.join(os.path.dirname(HERE), "jpeg")
-FORMATS = ("lzw_pred", "deflate_rgb", "packbits_tiled", "gray16", "jpeg")
+FORMATS = ("lzw_pred", "deflate_rgb", "packbits_tiled", "gray16", "jpeg",
+           "ycbcr_lzw")
+# the committed frame sets: directory -> frames
+COMMITTED = {"fax_g4": 9, "pairs/rgba_jpeg": 2, "pairs/cmyk_jpeg": 2}
 
 _REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 # struct codes of the field types BYTE, ASCII, SHORT, LONG, UNDEFINED,
@@ -164,6 +177,19 @@ def _predict(block: np.ndarray, bits: int) -> np.ndarray:
     return out
 
 
+def chunk_grid(h: int, w: int, rows_per_strip: int = None, tile=None):
+    """The chunks of an h x w image, ((x, y, width, height) a strip or
+    tile, ...), and the chunk size: strips of `rows_per_strip` rows
+    (default all, the last cut to the image) or tiles of `tile` = (width,
+    height), whole."""
+    if tile is None:
+        rps = h if rows_per_strip is None else rows_per_strip
+        return [(0, y, w, min(rps, h - y)) for y in range(0, h, rps)], (w, rps)
+    cw, ch = tile
+    return [(x, y, cw, ch) for y in range(0, h, ch)
+            for x in range(0, w, cw)], (cw, ch)
+
+
 def tiff(pix: np.ndarray, *, bits: int = 8, photometric: int = None,
          compression: int = 1, predictor: int = 1, planar: bool = False,
          rows_per_strip: int = None, tile=None, colormap=None,
@@ -189,14 +215,7 @@ def tiff(pix: np.ndarray, *, bits: int = 8, photometric: int = None,
     if photometric is None:
         photometric = 3 if colormap is not None else (1 if spp < 3 else 2)
     planes = [pix[:, :, k:k + 1] for k in range(spp)] if planar else [pix]
-    if tile is None:
-        rps = h if rows_per_strip is None else rows_per_strip
-        grid = [(0, y, w, min(rps, h - y)) for y in range(0, h, rps)]
-        cw, ch = w, rps
-    else:
-        cw, ch = tile
-        grid = [(x, y, cw, ch) for y in range(0, h, ch)
-                for x in range(0, w, cw)]
+    grid, (cw, ch) = chunk_grid(h, w, rows_per_strip, tile)
     if chunks is None:
         chunks = []
         for plane in planes:
@@ -300,12 +319,12 @@ def jpeg_segments(jpg: bytes):
 
 
 def jpeg_tiff(jpg: bytes, width: int, height: int, ycbcr=(2, 2),
-              **kw) -> bytes:
+              photometric: int = None, **kw) -> bytes:
     """A JPEG's bitstream as a one-strip JPEG-compressed TIFF, the way
     libtiff stores one: its DQT and DHT segments as a tables-only stream
     in JPEGTables, the strip an abbreviated stream without them (nor
     APPn); photometric YCbCr with `ycbcr` subsampling, or (ycbcr None)
-    RGB or gray as the JPEG's components are."""
+    RGB or gray as the JPEG's components are, or `photometric`."""
     segs, rest = jpeg_segments(jpg)
     tables = b"\xff\xd8" + b"".join(
         seg for m, seg in segs if m in (0xC4, 0xDB)) + b"\xff\xd9"
@@ -314,10 +333,131 @@ def jpeg_tiff(jpg: bytes, width: int, height: int, ycbcr=(2, 2),
         if m not in (0xC4, 0xDB) and not 0xE0 <= m <= 0xEF) + rest
     sof = next(seg for m, seg in segs if m in (0xC0, 0xC1, 0xC2))
     spp = sof[9]
+    if photometric is None:
+        photometric = 6 if ycbcr else (2 if spp == 3 else 1)
     return tiff(np.zeros((height, width, spp), np.uint8), compression=7,
-                photometric=6 if ycbcr else (2 if spp == 3 else 1),
+                photometric=photometric,
                 chunks=[stream], jpeg_tables=tables,
                 ycbcr_subsampling=ycbcr, **kw)
+
+
+# ----------------------------------------------------------------- YCbCr
+
+def rgb_to_ycbcr(rgb: np.ndarray) -> np.ndarray:
+    """(h, w, 3) R, G, B -> Y, Cb, Cr by JPEG's full-range conversion, in
+    16-bit fixed point (integers: every machine writes the same bytes)."""
+    r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
+    y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16
+    cb = (-11056 * r - 21712 * g + 32768 * b + (128 << 16) + 32768) >> 16
+    cr = (32768 * r - 27440 * g - 5328 * b + (128 << 16) + 32768) >> 16
+    return np.clip(np.stack([y, cb, cr], 2), 0, 255)
+
+
+def ycbcr_blocks(ycc: np.ndarray, h: int, v: int) -> np.ndarray:
+    """(rows, cols, 3) Y, Cb, Cr -> (rows / v, cols / h, h * v + 2) blocks
+    (rounded up; edge samples repeated): the block's luma row by row,
+    then Cb and Cr, each the block's mean, rounded."""
+    rows, cols, _ = ycc.shape
+    br, bc = -(-rows // v), -(-cols // h)
+    pad = np.pad(ycc.astype(np.int64), ((0, br * v - rows),
+                                         (0, bc * h - cols), (0, 0)),
+                 mode="edge")
+    blk = pad.reshape(br, v, bc, h, 3).transpose(0, 2, 1, 3, 4)
+    luma = blk[..., 0].reshape(br, bc, v * h)
+    chroma = (blk[..., 1:].sum((2, 3)) + h * v // 2) // (h * v)
+    return np.concatenate([luma, chroma], 2)
+
+
+def ycbcr_tiff(ycc: np.ndarray, sub=(2, 2), *, compression: int = 1,
+               rows_per_strip: int = None, tile=None, predictor: int = 1,
+               luma=None, ref_bw=None, omit_subsampling: bool = False,
+               **kw) -> bytes:
+    """A chunky 8-bit YCbCr TIFF of (h, w, 3) Y, Cb, Cr samples with
+    subsampling `sub` = (h, v): each strip or tile's own blocks
+    (`ycbcr_blocks`), a tile's padded to the whole tile. `luma` and
+    `ref_bw`, if given, are YCbCrCoefficients and ReferenceBlackWhite as
+    (numerator, denominator) RATIONALs; `omit_subsampling` leaves tag 530
+    out (libtiff's default is 2x2)."""
+    h, w, _ = ycc.shape
+    sh, sv = sub
+    chunks = []
+    for x, y, gw, gh in chunk_grid(h, w, rows_per_strip, tile)[0]:
+        part = ycc[y:y + gh, x:x + gw]
+        if tile is not None:            # a tile is whole: edge samples
+            part = np.pad(part, ((0, gh - part.shape[0]),
+                                 (0, gw - part.shape[1]), (0, 0)),
+                          mode="edge")
+        data = ycbcr_blocks(part, sh, sv)
+        if predictor == 2:
+            data = _predict(data.reshape(data.shape[0], -1, 3), 8)
+        chunks.append(_compress(data.astype(np.uint8).tobytes(),
+                                compression))
+    extra = list(kw.pop("extra_tags", ()))
+    if luma is not None:
+        extra.append((529, 5, luma))
+    if ref_bw is not None:
+        extra.append((532, 5, ref_bw))
+    return tiff(np.zeros((h, w, 3), np.uint8), photometric=6,
+                compression=compression, predictor=predictor, tile=tile,
+                rows_per_strip=rows_per_strip, chunks=chunks,
+                ycbcr_subsampling=None if omit_subsampling else sub,
+                extra_tags=extra, **kw)
+
+
+# ------------------------------------------------------------ CCITT fax
+
+def pil_fax(pix: np.ndarray, compression: str, options: int = None) -> bytes:
+    """The one strip libtiff's CCITT encoder (through PIL) writes for the
+    (h, w) image `pix` (nonzero white) as a 1-bit MINISBLACK TIFF:
+    `compression` "tiff_ccitt", "group3" or "group4", `options` its
+    T4Options."""
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(np.where(pix, 255, 0).astype(np.uint8)).convert(
+        "1").save(buf, "TIFF", compression=compression,
+                  strip_size=pix.size,          # one strip
+                  **({} if options is None else {"tiffinfo": {292: options}}))
+    raw = buf.getvalue()
+    ifd = struct.unpack("<I", raw[4:8])[0]
+    tags = {}
+    for k in range(struct.unpack("<H", raw[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * k
+        tag, typ, count = struct.unpack("<HHI", raw[at:at + 8])
+        assert tag not in (273, 279) or count == 1, "more than one strip"
+        tags[tag] = struct.unpack("<H" if typ == 3 else "<I",
+                                  raw[at + 8:at + (10 if typ == 3 else 12)])[0]
+    return raw[tags[273]:tags[273] + tags[279]]
+
+
+_FAX_CODES = {"tiff_ccitt": 2, "group3": 3, "group4": 4}
+
+
+def fax_tiff(pix: np.ndarray, compression: str = "group4",
+             options: int = None, *, rows_per_strip: int = None, tile=None,
+             fill_order: int = None, photometric: int = 1,
+             **kw) -> bytes:
+    """A 1-bit CCITT TIFF of (h, w) `pix` (nonzero white, as PIL's
+    MINISBLACK writes it; photometric 0 reads it inverted), each strip or
+    tile (padded with white) encoded by libtiff through PIL (`pil_fax`),
+    with T4Options `options` (Group 3) and FillOrder `fill_order` (2: the
+    stored bits reversed)."""
+    h, w = pix.shape
+    chunks = []
+    for x, y, gw, gh in chunk_grid(h, w, rows_per_strip, tile)[0]:
+        part = np.ones((gh, gw), bool)
+        block = pix[y:y + gh, x:x + gw]
+        part[:block.shape[0], :block.shape[1]] = block
+        raw = pil_fax(part, compression, options)
+        chunks.append(raw.translate(_REVERSED) if fill_order == 2 else raw)
+    code = _FAX_CODES[compression]
+    extra = list(kw.pop("extra_tags", ()))
+    if options is not None:
+        extra.append((292 if code == 3 else 293, 4, [options]))
+    return tiff(np.zeros((h, w), np.uint8), bits=1, compression=code,
+                photometric=photometric, fill_order=fill_order, tile=tile,
+                rows_per_strip=rows_per_strip, chunks=chunks,
+                extra_tags=extra, **kw)
 
 
 # ---------------------------------------------------------------- frames
@@ -340,6 +480,9 @@ def encode_frame(fmt: str, gray: np.ndarray, bgr: np.ndarray,
                     rows_per_strip=32)
     if fmt == "jpeg":
         return jpeg_tiff(jpg, w, h)
+    if fmt == "ycbcr_lzw":
+        return ycbcr_tiff(rgb_to_ycbcr(rgb), (2, 1), compression=5,
+                          rows_per_strip=16)
     raise ValueError(fmt)
 
 
@@ -465,7 +608,29 @@ def variants() -> dict:
             out[f"jpeg_ycbcr_{name}.tif"] = jpeg_tiff(f.read(), 83, 61, sub)
     with open(os.path.join(JPEG_DIR, "variants", "gray.jpg"), "rb") as f:
         out["jpeg_gray_tables.tif"] = jpeg_tiff(f.read(), 83, 61, None)
+    # YCbCr without JPEG: every subsampling at sizes of partial blocks, the
+    # compressions, tiles, coefficients and reference black and white
+    ycc = rgb_to_ycbcr(c)
+    for k, (sub, comp) in enumerate((((4, 4), 1), ((4, 2), 5), ((4, 1), 8),
+                                     ((2, 2), 32773), ((2, 1), 32946),
+                                     ((1, 2), 5), ((1, 1), 1))):
+        out[f"ycbcr_{sub[0]}{sub[1]}.tif"] = ycbcr_tiff(
+            ycc[:27 - k, :39 - k], sub, compression=comp, rows_per_strip=8)
+    out["ycbcr_22_tiled.tif"] = ycbcr_tiff(ycc, (2, 2), compression=5,
+                                           tile=(16, 16))
+    out["ycbcr_44_tiled.tif"] = ycbcr_tiff(ycc, (4, 4), tile=(32, 16))
+    out["ycbcr_11_pred.tif"] = ycbcr_tiff(ycc, (1, 1), compression=8,
+                                          predictor=2)
+    out["ycbcr_default_22.tif"] = ycbcr_tiff(ycc, (2, 2),
+                                             omit_subsampling=True)
+    out["ycbcr_rec709.tif"] = ycbcr_tiff(
+        ycc, (2, 1), compression=5, luma=[(2126, 10000), (7152, 10000),
+                                          (722, 10000)],
+        ref_bw=[(16, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)])
+    out["ycbcr_orient3.tif"] = ycbcr_tiff(ycc, (2, 2), orientation=3,
+                                          rows_per_strip=8)
     # variants cv::imread fails on (null in the manifest)
+    out["fails_ycbcr_14.tif"] = ycbcr_tiff(ycc, (1, 4))
     out["fails_orient6.tif"] = tiff(c, orientation=6)
     out["fails_gray4.tif"] = tiff(g % 16, bits=4)
     out["fails_float32.tif"] = tiff(
@@ -506,6 +671,57 @@ def written_variants() -> dict:
     buf = io.BytesIO()
     im.save(buf, "TIFF", big_tiff=True, compression="tiff_deflate")
     out["pil_bigtiff_deflate.tif"] = buf.getvalue()
+    # YCbCr (1x1, ReferenceBlackWhite as RATIONALs), RGBA and CMYK JPEG
+    rgba = np.concatenate([c[..., ::-1], (np.arange(37 * 45).reshape(
+        37, 45, 1) * 7 % 256)], 2).astype(np.uint8)
+    for mode, comp, img in (("YCbCr", "raw", im), ("YCbCr", "tiff_lzw", im),
+                            ("RGBA", "jpeg", Image.fromarray(rgba)),
+                            ("CMYK", "jpeg", im)):
+        buf = io.BytesIO()
+        img.convert(mode).save(buf, "TIFF", compression=comp)
+        out[f"pil_{mode.lower()}_{comp}.tif"] = buf.getvalue()
+    # CCITT fax, by libtiff's encoder: each codec and Group 3 option, and
+    # chunks of its output re-laid as tiles, strips and fill order 2
+    bilevel = c[..., 1] > 120
+    for comp, opts in (("tiff_ccitt", None), ("group3", None),
+                       ("group3", 1), ("group3", 4), ("group3", 5),
+                       ("group4", None)):
+        buf = io.BytesIO()
+        Image.fromarray(bilevel).save(
+            buf, "TIFF", compression=comp,
+            **({} if opts is None else {"tiffinfo": {292: opts}}))
+        out[f"pil_1_{comp}{'' if opts is None else opts}.tif"] = \
+            buf.getvalue()
+    out["fax_g4_tiled.tif"] = fax_tiff(bilevel, "group4", tile=(16, 16))
+    out["fax_g3_2d_strips_fill2.tif"] = fax_tiff(
+        bilevel, "group3", 1, rows_per_strip=5, fill_order=2)
+    out["fax_rle_miniswhite.tif"] = fax_tiff(bilevel, "tiff_ccitt",
+                                             photometric=0)
+    return out
+
+
+def committed_sets() -> dict:
+    """The committed frame sets (COMMITTED; "dir/frame_000k.tif" ->
+    bytes), from the JPEG frames as cv2.imread decodes them: Group 4 of
+    the gray planes box-blurred and thresholded at 128, and frames 0-1
+    as PIL's RGBA (alpha 255) and CMYK JPEG-in-TIFF (quality 75)."""
+    import io
+    from PIL import Image
+    planes, _ = jpeg_frames()
+    out = {}
+    for t, (gray, _) in enumerate(planes[:COMMITTED["fax_g4"]]):
+        g = gray.astype(np.int64)
+        for _ in range(2):          # a 5x5 box, twice
+            g = sum(np.roll(np.roll(g, i, 0), j, 1) for i in range(-2, 3)
+                    for j in range(-2, 3)) // 25
+        out[f"fax_g4/frame_{t:04d}.tif"] = fax_tiff(g >= 128, "group4")
+    for mode in ("rgba", "cmyk"):
+        for t, (_, bgr) in enumerate(planes[:2]):
+            im = Image.fromarray(np.ascontiguousarray(
+                bgr[::-1].transpose(1, 2, 0))).convert(mode.upper())
+            buf = io.BytesIO()
+            im.save(buf, "TIFF", compression="jpeg")
+            out[f"pairs/{mode}_jpeg/frame_{t:04d}.tif"] = buf.getvalue()
     return out
 
 
@@ -554,6 +770,13 @@ def main(scratch: str) -> dict:
         with open(path, "wb") as f:
             f.write(raw)
         files[f"variants/{name}"] = {"bytes": len(raw), **planes(path)}
+    committed = {}
+    for rel, raw in sorted(committed_sets().items()):
+        path = os.path.join(HERE, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(raw)
+        committed[rel] = {"bytes": len(raw), **planes(path)}
     with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
         motion = json.load(f)["motion_px"]
     frames = {}
@@ -561,7 +784,8 @@ def main(scratch: str) -> dict:
         for p in paths:
             frames[f"{fmt}/{os.path.basename(p)}"] = planes(p)
     manifest = {"cv2": cv2.__version__, "motion_px": motion,
-                "frame_size": [1024, 436], "files": files, "frames": frames}
+                "frame_size": [1024, 436], "files": files, "frames": frames,
+                "committed": committed}
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -574,4 +798,6 @@ if __name__ == "__main__":
         m = main(tmp)
     print(f"{len(m['files'])} variants "
           f"({sum(r['bytes'] for r in m['files'].values())} bytes), "
-          f"{len(m['frames'])} frames")
+          f"{len(m['frames'])} frames, {len(m['committed'])} committed "
+          f"frames ({sum(r['bytes'] for r in m['committed'].values())} "
+          "bytes)")

@@ -135,6 +135,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the first pair of each set: launches those of a path-A call,
      every file against `dis_flow_batched` on the same decoded frames,
      medians within 0.25 px of the motion;
+  7g. damaged JPEG frames (`run_jpeg_damaged_part`): the three frame sets
+     that tests/torch_fixtures/jpeg/manifest.json lists as byte edits
+     (`damage.py`) of committed files, written on the card's host: the
+     nine frames with 3 bytes before an EOI, an EOI missing, a cut inside
+     the last MCU row, a byte flipped in mid-scan and (frame 5, a
+     restart-coded re-encode) a restart marker one ahead of the one due;
+     frames 0-2 written progressive, whole and cut before their last scan
+     (block smoothing); decoded by the port's own decoder through
+     `decode_batch` and `load_image`, gray and colour, each plane's
+     SHA-256 equal to the manifest's cv2.imread hash; decode frames/s per
+     set at 1 and 8 threads; `run_pipeline` (one batch) and `cli.main` at
+     op-2, gray and RGB flow, on every set: launches those of a path-A
+     (C) call, every file against `dis_flow_batched` on the same decoded
+     frames, medians within 0.25 px of the motion on the pairs of frames
+     that differ from their whole files in under 5% of pixels (measured
+     on the others);
   8. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
      the merge for flow and depth, the TV-free pseudo-Huber run), and the
@@ -1798,14 +1814,15 @@ FORMATS_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=4,
 
 
 def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion,
-                  mode="run_OF_INT", noc=1, medians=True):
+                  mode="run_OF_INT", noc=1, medians=True, held=None):
     """`run_pipeline` at cfg's op-point, gray flow (or `mode` on `noc`
     channels), on the frames `ps` of one directory (in one batch of
     cfg["batch"] pairs), and `cli.main` on the first pair: launches those
     of the `dis_flow_batched` call on the same decoded frames each (at
     op-2 a path-A call's, C's for RGB), every file against that call,
-    medians against the motion (measured and printed only, with
-    `medians` False), pairs/s. Prints and returns the result."""
+    medians against the motion (of the pairs `held`, all by default;
+    measured and printed only, with `medians` False), pairs/s. Prints and
+    returns the result."""
     params = op_point_params(W_ORG, cfg["op"], nop=2, noc=noc)
     top, bot, left, right = pad_amounts(W_ORG, H_ORG, params.sc_f)
     full_h, full_w = H_ORG + top + bot, W_ORG + left + right
@@ -1839,8 +1856,11 @@ def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion,
     for name, c in launches.items():
         totals[name] = totals.get(name, 0) + c
     err, meds = _pipeline_files(out_dir, names, want, 2)
-    off = _check_medians(label, meds, motion) if medians else max(
-        abs(m - t) for med in meds for m, t in zip(med, motion))
+    held = list(range(len(meds)) if held is None else held) if medians \
+        else []
+    if held:
+        _check_medians(label, [meds[k] for k in held], motion)
+    off = max(abs(m - t) for med in meds for m, t in zip(med, motion))
     if not err <= PIPELINE_TOL:
         raise AssertionError(f"{label} pipeline: files differ by {err} px")
     walls, _ = _timed(lambda: pipeline.run_pipeline(
@@ -1860,7 +1880,7 @@ def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion,
         raise AssertionError(f"{label} cli: differs by {cli_err} px")
     result = {"max_abs_vs_dis_flow_batched": err,
               "cli_max_abs_vs_dis_flow_batched": cli_err,
-              "median_off_motion_px": off, "medians_checked": medians,
+              "median_off_motion_px": off, "medians_held": held,
               "launches": launches,
               "wall_s": walls,
               "pairs_per_s": len(names) / statistics.median(walls)}
@@ -1870,10 +1890,11 @@ def _serve_frames(label, ps, cfg, out_dir, dev, totals, motion,
     return result
 
 
-def _fixture_module(directory, name):
-    """A fixture directory's make_fixtures.py, loaded by path."""
+def _fixture_module(directory, name, file="make_fixtures.py"):
+    """A fixture directory's make_fixtures.py (or `file`), loaded by
+    path."""
     spec = importlib.util.spec_from_file_location(
-        name, os.path.join(directory, "make_fixtures.py"))
+        name, os.path.join(directory, file))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2165,6 +2186,69 @@ def run_jp2_part(dev, totals, walls_by_path):
                                   totals, manifest["motion_px"])
               for name in cfg["served"]}
     print(f"jp2 part: {time.perf_counter() - t_part:.1f} s", flush=True)
+    return result
+
+
+# Part 7g: damaged JPEG frames, which libjpeg decodes with a warning and
+# cv2.imread returns. The JPEG manifest's "damaged" entry lists three
+# frame sets as byte edits (tests/torch_fixtures/jpeg/damage.py) of
+# committed files, and the SHA-256 of cv2.imread's planes of every frame
+# with the share of its pixels that the damage changed. `held_share`: a
+# pair's median is held to the motion where both frames changed in fewer
+# pixels than that.
+DAMAGED_PART = dict(op=2, batch=8, decode_threads=(1, 8), decode_repeats=2,
+                    held_share=0.05)
+
+
+def run_jpeg_damaged_part(dev, totals, walls_by_path):
+    """Phase 7, part 7g (see DAMAGED_PART): the damaged sets written on the
+    host, every frame's planes against the manifest's cv2 hashes through
+    `decode_batch` and `load_image`; decode frames/s per set at 1 and 8
+    threads; `run_pipeline` and `cli.main` at op-2, gray and RGB flow, on
+    every set, each file against `dis_flow_batched` on the same decoded
+    frames."""
+    cfg = DAMAGED_PART
+    t_part = time.perf_counter()
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    damaged = manifest["damaged"]
+    root = os.path.join(OUT_DIR, "jpeg_damaged")
+    shutil.rmtree(root, ignore_errors=True)
+    sets = _fixture_module(JPEG_DIR, "jpeg_damage", "damage.py").write_sets(
+        root, JPEG_DIR, damaged["sets"])
+    recs = {name: [damaged["planes"][f"{name}/{os.path.basename(p)}"]
+                   for p in ps] for name, ps in sets.items()}
+    checked, bad = _check_planes(
+        (p, rec) for name, ps in sets.items()
+        for p, rec in zip(ps, recs[name]))
+    print(json.dumps({"jpeg_damaged": "decode check", "planes": checked,
+                      "frames": sum(map(len, sets.values())),
+                      "against": f"cv2 {manifest['cv2']} "
+                                 f"({manifest['libjpeg']})",
+                      "mismatches": bad, "card": nvidia_smi_line()}),
+          flush=True)
+    if bad:
+        raise AssertionError(f"damaged JPEG planes differ from cv2's: {bad}")
+    rates = {name: _decode_rates(ps, 1, cfg["decode_repeats"] * 9 // len(ps),
+                                 cfg["decode_threads"])
+             for name, ps in sets.items()}
+    print(json.dumps({"jpeg_damaged": "decode", "size": f"{W_ORG}x{H_ORG}",
+                      "channels": 1, "frames": 9 * cfg["decode_repeats"],
+                      "frames_per_s_by_threads": rates,
+                      "cpu_count": os.cpu_count(),
+                      "card": nvidia_smi_line()}), flush=True)
+    result = {}
+    for name, ps in sets.items():
+        share = [rec["changed"] for rec in recs[name]]
+        held = [k for k in range(len(ps) - 1)
+                if max(share[k], share[k + 1]) < cfg["held_share"]]
+        for mode, noc in (("run_OF_INT", 1), ("run_OF_RGB", 3)):
+            result[f"{name} {mode}"] = _serve_frames(
+                f"jpeg damaged {name}", ps, cfg,
+                os.path.join(root, f"out_{name}_{mode}"), dev, totals,
+                manifest["motion_px"], mode, noc, held=held)
+    print(f"jpeg damaged part: {time.perf_counter() - t_part:.1f} s",
+          flush=True)
     return result
 
 
@@ -2876,6 +2960,8 @@ def main() -> int:
     run_gif_part(dev, totals, walls)
     # 7f. JPEG 2000 frames: the same, on the committed frames
     run_jp2_part(dev, totals, walls)
+    # 7g. damaged JPEG frames, read as cv2.imread reads them: the same
+    run_jpeg_damaged_part(dev, totals, walls)
 
     # 8. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()

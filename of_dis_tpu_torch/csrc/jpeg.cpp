@@ -1,6 +1,6 @@
 // JPEG decoding on the host, pixel for pixel as cv::imread decodes a JPEG:
 // libjpeg-turbo 3.1 with its default settings (the islow IDCT, "fancy"
-// upsampling, no block smoothing needed), output BGR or gray (or CMYK, which
+// upsampling, block smoothing), output BGR or gray (or CMYK, which
 // OpenCV then turns into BGR or gray itself), then the EXIF orientation
 // applied as OpenCV's ApplyExifOrientation does.
 //
@@ -23,24 +23,34 @@
 // frames without DHT (libjpeg-turbo's standard tables), and, for TIFF's
 // compression 7 (`of_jpeg_decode_tiff`), an abbreviated stream after the
 // tables-only stream of the TIFF's JPEGTables tag.
+// Damaged streams are read as libjpeg reads them with only a warning,
+// where cv::imread returns the image: the file's end is followed by fake
+// EOI markers (jdatasrc.c); bytes before a marker are skipped; a scan that
+// runs into a marker reads zero bits, and libjpeg-turbo leaves the rest of
+// its restart interval undecoded (arithmetic-coded data reads on as
+// zeros); a Huffman code that is no code decodes as 0, an AC run past the
+// band writes the zigzag position it lands on (63 past the block), a bad
+// arithmetic code ends the interval's decoding; a wrong restart marker is
+// resynchronised as jpeg_resync_to_restart does; scan parameters libjpeg
+// only warns about are decoded as they stand; an unknown Adobe transform
+// is YCbCr (3 components) or YCCK (4); a one-scan sequential file is
+// decoded from its scan alone, whatever follows it; an unfinished
+// progressive image is block-smoothed (jdcoefct.c
+// decompress_smooth_data), and a component no scan reached reads 128.
+// Blocks whose coefficients leave the C IDCT's range for 8-bit samples are
+// computed as the AVX2 IDCT that cv2's libjpeg-turbo runs computes them
+// (16-bit lanes). A JPEG strip of a TIFF (`of_jpeg_decode_tiff`) is read
+// strictly: anything libjpeg would warn about, and block smoothing, is an
+// error there.
 // What it refuses, each with its own code (`of_jpeg_strerror`): what
 // cv::imread fails on too (hierarchical and lossless arithmetic frames,
 // 12-bit samples, 2 or more than 4 components, a lossless frame read in a
-// colour space libjpeg would have to convert it to), a missing table, and
-// any stream that libjpeg would decode only with a warning (truncated or
-// corrupt entropy data, a bad Huffman or arithmetic code, a bogus
-// progression, an unknown Adobe transform): a frame that cannot be decoded
-// cleanly fails, it is never padded. Arithmetic-coded data that meets a
-// marker early is read on as zeros, as libjpeg reads it without a warning.
-// Two further refusals keep the output equal to libjpeg-turbo's SIMD
-// build, which cv2 uses:
-//   - a coefficient block whose dequantised values or first-pass IDCT
-//     outputs leave +-16383 (no 8-bit image makes one): the SIMD IDCT
-//     works in 16-bit lanes there and wraps where the C IDCT does not;
-//   - a progressive image whose scans leave some of the first nine AC
-//     coefficients unrefined: libjpeg then smooths blocks
-//     (jdcoefct.c::decompress_smooth_data), which is not reproduced.
-// Every read is bounds-checked: corrupt input returns an error code.
+// colour space libjpeg would have to convert it to, a missing table, a
+// marker segment libjpeg rejects, a progressive DC value past 32 bits, an
+// invalid progression), and a lossless frame with a component
+// in no scan (libjpeg leaves its samples undefined).
+// Every read is bounds-checked: corrupt input returns an error code or the
+// pixels libjpeg gives it.
 
 #include <cstddef>
 #include <cstdint>
@@ -71,7 +81,6 @@ enum Code {
   kCorrupt = -14,
   kProgression = -15,
   kSmoothing = -16,
-  kRange = -17,
   kSize = -18,
   kChannels = -19,
   kNoMemory = -20,
@@ -83,6 +92,7 @@ enum Code {
   kLosslessSampling = -26,
   kLosslessRestart = -27,
   kTiffLossless = -28,
+  kLosslessUnscanned = -29,
 };
 
 struct Error {
@@ -97,6 +107,16 @@ constexpr int kNatural[64] = {
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// the same, then 16 entries of 63 (jpeg_natural_order's "extra entries for
+// safety in decoder"): where corrupt data run past coefficient 63, libjpeg
+// writes coefficient 63, and past the band's end the zigzag position there
+constexpr int kNaturalPad[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 constexpr int kMaxDim = 65500;   // JPEG_MAX_DIMENSION
 constexpr int kMaxBlocksInMcu = 10;
@@ -194,9 +214,11 @@ struct Component {
   int stride_b = 0;          // blocks a row of the coefficient array
   int rows_b = 0;            // block rows of the coefficient array
   int16_t q[64] = {};        // latched quantisation table, natural order
+  uint16_t qraw[64] = {};    // the same as DQT gave it (block smoothing)
   bool latched = false;
   bool seen = false;         // in a scan already (sequential)
   int coef_bits[64];         // progressive: -1 not yet seen, else Al
+  int prev_bits[64];         // coef_bits before the component's last scan
   std::vector<int16_t> coef; // (rows_b, stride_b, 64)
   // lossless: the undifferenced samples mod 2^16 and the output samples
   // (dh, dw)
@@ -207,54 +229,86 @@ struct Component {
   }
 };
 
+// The input as libjpeg reads a file through jdatasrc.c's stdio source (how
+// cv::imread reads it): the file's bytes, then, past its end, FF D9 (a fake
+// EOI marker) at every refill, with a warning. `unread` is libjpeg's
+// cinfo->unread_marker: a marker code that the entropy decoder or a
+// restart check has read and the marker reader has not yet handled.
+// `warning` keeps the first thing libjpeg would warn about (a code of its
+// own), which only the strict reading of a TIFF strip turns into an error.
+struct Source {
+  const uint8_t* p = nullptr;
+  const uint8_t* end = nullptr;
+  int64_t past = 0;  // bytes of fake EOI markers read
+  int unread = 0;
+  int warning = 0;
+
+  void reset(const uint8_t* buf, int64_t len) {
+    p = buf;
+    end = buf + len;
+    past = 0;
+    unread = 0;
+  }
+  void warn(int code) {
+    if (!warning) warning = code;
+  }
+  int byte() {
+    if (p < end) return *p++;
+    warn(kTruncated);  // JWRN_JPEG_EOF
+    return past++ & 1 ? 0xD9 : 0xFF;
+  }
+  // the next entropy-coded byte (jdhuff.c jpeg_fill_bit_buffer,
+  // jdarith.c arith_decode): FF 00 is a data FF, FF fill bytes before a
+  // marker code are swallowed, and a marker ends the data: its code goes
+  // to `unread` and 0 is returned, as for every byte after it
+  int data_byte() {
+    if (unread) return 0;
+    int c = byte();
+    if (c != 0xFF) return c;
+    do {
+      c = byte();
+    } while (c == 0xFF);
+    if (c == 0) return 0xFF;
+    unread = c;
+    return 0;
+  }
+};
+
 // The entropy-coded bytes of a scan, read as bits (jdhuff.c
-// jpeg_fill_bit_buffer): FF 00 is a data FF, any run of FF fill bytes
-// before a marker code is skipped, and a marker ends the data. Past the
-// end, zeros are supplied and counted as `fake`; consuming one of them is
-// an error (libjpeg pads them in with a warning).
+// jpeg_fill_bit_buffer). Past a marker, zero bits are supplied and counted
+// as `fake`; consuming one of them sets `insufficient` (JWRN_HIT_MARKER),
+// after which libjpeg leaves the rest of the restart interval's MCUs
+// undecoded.
 struct BitReader {
-  const uint8_t* p;
-  const uint8_t* end;
+  Source& s;
   uint64_t buf = 0;
   int n = 0;      // bits in buf (the low n bits)
   int fake = 0;   // the last `fake` of them are padding
-  int marker = -1;  // marker code that ended the data, 256 = end of file
+  bool insufficient = false;
 
-  BitReader(const uint8_t* p_, const uint8_t* end_) : p(p_), end(end_) {}
+  explicit BitReader(Source& src) : s(src) {}
 
   void fill() {
+    const uint8_t* p = s.p;
     while (n <= 56) {
-      uint32_t c = 0;
-      if (marker < 0 && p < end && *p != 0xFF) {
+      uint32_t c;
+      if (!s.unread && p < s.end && *p != 0xFF) {
         c = *p++;
-      } else if (marker >= 0) {
-        fake += 8;
-      } else if (p >= end) {
-        marker = 256;
-        fake += 8;
       } else {
-        const uint8_t* q = p + 1;
-        while (q < end && *q == 0xFF) ++q;
-        if (q >= end) {
-          marker = 256;
-          fake += 8;
-        } else if (*q == 0) {
-          c = 0xFF;
-          p = q + 1;
-        } else {
-          marker = *q;
-          p = q - 1;  // at the FF before the marker code
-          fake += 8;
-        }
+        s.p = p;
+        c = static_cast<uint32_t>(s.data_byte());
+        p = s.p;
+        if (s.unread) fake += 8;  // no data past a marker
       }
       buf = (buf << 8) | c;
       n += 8;
     }
+    s.p = p;
   }
 
   void consume(int k) {
     n -= k;
-    if (n < fake) fail(marker == 256 ? kTruncated : kCorrupt);
+    if (n < fake) insufficient = true;
   }
 
   int bits(int k) {  // k in 1..16
@@ -271,8 +325,10 @@ struct BitReader {
                             ((1u << kLookBits) - 1));
   }
 
+  // jdhuff.c jpeg_huff_decode: a code that is no code of the table takes
+  // 17 bits and decodes as symbol 0 (JWRN_HUFF_BAD_CODE)
   int decode(const Huffman& t) {
-    if (n < 16) fill();
+    if (n < 17) fill();
     int look = peek();
     int e = t.look[look];
     if (e) {
@@ -287,30 +343,18 @@ struct BitReader {
         return t.vals[(c + t.valoffset[l]) & 0xFF];
       }
     }
-    fail(kBadCode);
+    s.warn(kBadCode);
+    consume(17);
+    return 0;
   }
 
-  // After a scan's (or a restart interval's) last MCU: the bits left over
-  // must be less than a byte, and a marker must follow. Returns its code,
-  // with `p` at the FF before it.
-  int finish() {
-    if (n - fake >= 8) fail(kExtraneous);
-    if (marker < 0) {
-      if (p >= end) fail(kTruncated);
-      if (*p != 0xFF) fail(kExtraneous);
-      const uint8_t* q = p + 1;
-      while (q < end && *q == 0xFF) ++q;
-      if (q >= end) fail(kTruncated);
-      if (*q == 0) fail(kExtraneous);
-      marker = *q;
-      p = q - 1;
-    }
-    if (marker == 256) fail(kTruncated);
-    int m = marker;
+  // The bits left at the end of a scan or a restart interval are dropped
+  // (jdhuff.c process_restart); a whole byte of them is data libjpeg
+  // skips with a warning.
+  void discard() {
+    if (n - fake >= 8) s.warn(kExtraneous);
     buf = 0;
     n = fake = 0;
-    marker = -1;
-    return m;
   }
 };
 
@@ -360,46 +404,27 @@ constexpr uint32_t kAriTab[114] = {
 #undef QM
 
 // The arithmetic-coded bytes of a scan, read by the QM decoder as
-// jdarith.c::arith_decode reads them: FF 00 is a data FF, FF fill bytes
-// before a marker code are skipped, and a marker ends the data, after which
+// jdarith.c::arith_decode reads them: a marker ends the data, after which
 // zeros are supplied with no warning (the way every arithmetic-coded
-// segment ends). Reading past the end of the file is an error (libjpeg
-// inserts a fake EOI there with a warning).
+// segment ends, and how data cut short, ended by the fake EOI, reads on).
 struct ArithReader {
-  const uint8_t* p;
-  const uint8_t* end;
+  Source& s;
   int64_t c = 0;    // C register: base of the interval and the bit buffer
   int64_t a = 0;    // A register: the interval's normalised size
   int ct = -16;     // bits left in the buffer part of C; -16: none read yet
-  int marker = -1;  // marker code that ended the data, `p` past it
 
-  ArithReader(const uint8_t* p_, const uint8_t* end_) : p(p_), end(end_) {}
+  explicit ArithReader(Source& src) : s(src) {}
 
-  int byte() {
-    if (p >= end) fail(kTruncated);
-    return *p++;
+  void reset() {  // jdarith.c process_restart
+    c = a = 0;
+    ct = -16;
   }
 
   // one binary decision in the context `st` (T.81 D.2.4-D.2.6)
   int decode(uint8_t* st) {
     while (a < 0x8000) {
       if (--ct < 0) {
-        int data = 0;
-        if (marker < 0) {
-          data = byte();
-          if (data == 0xFF) {
-            do {
-              data = byte();
-            } while (data == 0xFF);
-            if (data == 0) {
-              data = 0xFF;
-            } else {
-              marker = data;
-              data = 0;
-            }
-          }
-        }
-        c = (c << 8) | data;
+        c = (c << 8) | s.data_byte();
         if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the first 2 bytes in
       }
       a <<= 1;
@@ -432,29 +457,6 @@ struct ArithReader {
       }
     }
     return sv >> 7;
-  }
-
-  // After a scan's (or a restart interval's) last MCU: the marker that
-  // follows, with `p` at the FF before its code; any byte before it would
-  // be discarded with a warning (jdmarker.c next_marker). The registers
-  // start afresh for the next interval.
-  int finish() {
-    int m = marker;
-    if (m < 0) {
-      if (p >= end) fail(kTruncated);
-      if (*p != 0xFF) fail(kExtraneous);
-      const uint8_t* q = p + 1;
-      while (q < end && *q == 0xFF) ++q;
-      if (q >= end) fail(kTruncated);
-      if (*q == 0) fail(kExtraneous);
-      m = *q;
-      p = q + 1;
-    }
-    p -= 2;
-    c = a = 0;
-    ct = -16;
-    marker = -1;
-    return m;
   }
 };
 
@@ -503,9 +505,8 @@ const uint8_t* const kStdVals[4] = {kStdValsDcL, kStdValsAcL, kStdValsDcC,
                                     kStdValsAcC};
 
 struct Decoder {
-  const uint8_t* data;
-  const uint8_t* end;
-  const uint8_t* p;
+  Source s;
+  std::vector<uint8_t> seg;  // the payload of the marker segment last read
 
   int width = 0, height = 0, ncomp = 0, precision = 8;
   bool progressive = false, arithmetic = false, lossless = false;
@@ -515,9 +516,11 @@ struct Decoder {
   int orientation = 1;
   bool saw_exif = false;
   int restart_interval = 0;
+  int next_restart = 0;     // jdmarker.c next_restart_num
   int max_h = 1, max_v = 1;
   int mcus_x = 0, mcus_y = 0;
-  int scans = 0;
+  int scans = 0;            // SOS markers read (input_scan_number)
+  int last_good = 0;        // jdmaster.c last_good_iMCU_row
 
   Component comp[4];
   Huffman dc_tab[4], ac_tab[4];
@@ -526,55 +529,85 @@ struct Decoder {
   // arithmetic conditioning per table (DAC; get_soi's defaults)
   uint8_t dc_L[16], dc_U[16], ac_K[16];
 
-  Decoder(const uint8_t* buf, int64_t len)
-      : data(buf), end(buf + len), p(buf) {
+  Decoder(const uint8_t* buf, int64_t len) {
+    s.reset(buf, len);
     std::memset(dc_L, 0, sizeof(dc_L));
     std::memset(dc_U, 1, sizeof(dc_U));
     std::memset(ac_K, 5, sizeof(ac_K));
   }
 
-  int byte() {
-    if (p >= end) fail(kTruncated);
-    return *p++;
-  }
+  int byte() { return s.byte(); }
   int u16() {
     int hi = byte();
     return (hi << 8) | byte();
   }
 
-  // the next marker code: FF, any FF fill, then the code (jdmarker.c
-  // next_marker; the garbage it skips with a warning is an error here)
+  // jdmarker.c first_marker: the stream starts FF D8
+  void first_marker() {
+    if (s.end - s.p < 2 || s.p[0] != 0xFF || s.p[1] != 0xD8) fail(kNotJpeg);
+    s.p += 2;
+  }
+
+  // jdmarker.c next_marker: the next marker code; bytes before its FF,
+  // and FF 00 pairs, are skipped (JWRN_EXTRANEOUS_DATA), FF fill bytes
+  // swallowed
   int next_marker() {
-    if (byte() != 0xFF) fail(kExtraneous);
-    int c;
-    do {
-      c = byte();
-    } while (c == 0xFF);
-    if (c == 0) fail(kExtraneous);
-    return c;
+    for (;;) {
+      int c = byte();
+      while (c != 0xFF) {
+        s.warn(kExtraneous);
+        c = byte();
+      }
+      do {
+        c = byte();
+      } while (c == 0xFF);
+      if (c != 0) return c;
+      s.warn(kExtraneous);
+    }
   }
 
-  // a marker segment's payload: [begin, begin + length - 2)
-  const uint8_t* segment(int* len) {
-    int length = u16();
-    if (length < 2) fail(kBadMarker);
-    if (end - p < length - 2) fail(kTruncated);
-    const uint8_t* s = p;
-    p += length - 2;
-    *len = length - 2;
-    return s;
+  // the marker to handle next: the one the entropy decoder stopped at, or
+  // the next in the stream (jdmarker.c read_markers)
+  int take_marker() {
+    const int code = s.unread ? s.unread : next_marker();
+    s.unread = 0;
+    return code;
   }
 
-  void read_dqt(const uint8_t* s, int len) {  // jdmarker.c get_dqt
+  // a marker segment's payload into `seg`, `length - 2` bytes; `lax`: a
+  // length below 2 is no error and skips nothing (skip_variable,
+  // get_interesting_appn, save_marker), else JERR_BAD_LENGTH
+  void segment(bool lax = false) {
+    const int length = u16();
+    seg.clear();
+    if (length < 2) {
+      if (!lax) fail(kBadMarker);
+      return;
+    }
+    seg.resize(static_cast<size_t>(length - 2));
+    const int64_t have = s.end - s.p;
+    if (have >= length - 2) {
+      std::memcpy(seg.data(), s.p, seg.size());
+      s.p += length - 2;
+    } else {
+      for (uint8_t& b : seg) b = static_cast<uint8_t>(byte());
+    }
+  }
+
+  // jdmarker.c get_dqt: any nonzero precision nibble reads 16-bit values
+  void read_dqt() {
+    segment();
+    const uint8_t* s8 = seg.data();
+    const int len = static_cast<int>(seg.size());
     int i = 0;
     while (i < len) {
-      int pq = s[i] >> 4, tq = s[i] & 15;
+      int pq = s8[i] >> 4, tq = s8[i] & 15;
       ++i;
-      if (tq >= 4 || pq > 1) fail(kBadMarker);
-      int need = 64 * (pq + 1);
+      if (tq >= 4) fail(kBadMarker);
+      int need = pq ? 128 : 64;
       if (len - i < need) fail(kBadMarker);
       for (int k = 0; k < 64; ++k) {
-        int v = pq ? (s[i + 2 * k] << 8) | s[i + 2 * k + 1] : s[i + k];
+        int v = pq ? (s8[i + 2 * k] << 8) | s8[i + 2 * k + 1] : s8[i + k];
         qt[tq][kNatural[k]] = static_cast<uint16_t>(v);
       }
       qt_defined[tq] = true;
@@ -584,10 +617,12 @@ struct Decoder {
 
   // jdmarker.c get_dac: per arithmetic table, DC conditioning L <= U
   // (0-15 each) and the AC threshold Kx
-  void read_dac(const uint8_t* s, int len) {
+  void read_dac() {
+    segment();
+    const int len = static_cast<int>(seg.size());
     if (len % 2) fail(kBadMarker);
     for (int i = 0; i < len; i += 2) {
-      const int index = s[i], val = s[i + 1];
+      const int index = seg[i], val = seg[i + 1];
       if (index >= 32) fail(kBadMarker);
       if (index >= 16) {
         ac_K[index - 16] = static_cast<uint8_t>(val);
@@ -599,15 +634,18 @@ struct Decoder {
     }
   }
 
-  void read_dht(const uint8_t* s, int len) {  // jdmarker.c get_dht
+  void read_dht() {  // jdmarker.c get_dht
+    segment();
+    const uint8_t* s8 = seg.data();
+    const int len = static_cast<int>(seg.size());
     int i = 0;
     while (i < len) {
       if (len - i < 17) fail(kBadMarker);
-      int index = s[i];
+      int index = s8[i];
       int count = 0;
       uint8_t bits[17] = {};
       for (int l = 1; l <= 16; ++l) {
-        bits[l] = s[i + l];
+        bits[l] = s8[i + l];
         count += bits[l];
       }
       i += 17;
@@ -623,7 +661,7 @@ struct Decoder {
       }
       *t = Huffman();
       std::memcpy(t->bits, bits, sizeof(bits));
-      std::memcpy(t->vals, s + i, static_cast<size_t>(count));
+      std::memcpy(t->vals, s8 + i, static_cast<size_t>(count));
       t->defined = true;
       i += count;
     }
@@ -694,7 +732,10 @@ struct Decoder {
     }
   }
 
-  void read_app(int code, const uint8_t* s, int len) {
+  void read_app(int code) {
+    segment(true);
+    const uint8_t* s = seg.data();
+    const int len = static_cast<int>(seg.size());
     if (code == 0xE0 && len >= 14 && std::memcmp(s, "JFIF\0", 5) == 0)
       jfif = true;
     if (code == 0xEE && len >= 12 && std::memcmp(s, "Adobe", 5) == 0) {
@@ -712,8 +753,11 @@ struct Decoder {
   // (hierarchical frames, lossless arithmetic, precisions that cv::imread's
   // 8-bit reads do not take) or what no colour space of libjpeg's takes
   // (2 or more than 4 components)
-  void read_sof(int code, const uint8_t* s, int len) {
+  void read_sof(int code) {
     if (have_sof) fail(kBadMarker);
+    segment();
+    const uint8_t* s = seg.data();
+    const int len = static_cast<int>(seg.size());
     if (len < 6) fail(kBadMarker);
     precision = s[0];
     height = (s[1] << 8) | s[2];
@@ -737,7 +781,6 @@ struct Decoder {
       k.v = s[7 + 3 * c] & 15;
       k.tq = s[8 + 3 * c];
       if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4) fail(kSampling);
-      if (k.tq >= 4 && !lossless) fail(kNoQuantTable);
       max_h = k.h > max_h ? k.h : max_h;
       max_v = k.v > max_v ? k.v : max_v;
     }
@@ -766,22 +809,24 @@ struct Decoder {
       k.rows_b = mcus_y * k.v;
       k.coef.assign(static_cast<size_t>(k.stride_b) * k.rows_b * 64, 0);
       for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
+      for (int i = 0; i < 64; ++i) k.prev_bits[i] = -1;
     }
   }
 
   // The header: markers up to the first SOS (jdmarker.c read_markers, as
-  // jpeg_read_header runs them). Returns with `p` after the SOS code, the
-  // standard Huffman tables installed in DC and AC slots 0 and 1 that no
-  // DHT has defined (jstdhuff.c std_huff_tables, which libjpeg-turbo's
-  // Huffman decoders run as they start: Motion-JPEG frames carry none).
+  // jpeg_read_header runs them). Returns with the stream after the SOS
+  // code, in a sequential Huffman-coded frame the standard Huffman tables
+  // installed in DC and AC slots 0 and 1 that no DHT has defined
+  // (jstdhuff.c std_huff_tables, which jdhuff.c runs as it starts, and
+  // the progressive and lossless decoders do not: Motion-JPEG frames carry
+  // none).
   void read_header() {
-    if (end - p < 2 || p[0] != 0xFF || p[1] != 0xD8) fail(kNotJpeg);
-    p += 2;
+    first_marker();
     for (;;) {
       int code = next_marker();
       if (code == 0xDA) {
         if (!have_sof) fail(kBadMarker);
-        for (int i = 0; i < 2; ++i) {
+        for (int i = 0; i < 2 && !progressive && !lossless; ++i) {
           std_table(&dc_tab[i], kStdBits[2 * i], kStdVals[2 * i]);
           std_table(&ac_tab[i], kStdBits[2 * i + 1], kStdVals[2 * i + 1]);
         }
@@ -796,8 +841,7 @@ struct Decoder {
   // DQT, DHT, DRI, APPn and COM segments to EOI, as jpeg_read_header
   // takes it before an abbreviated image stream (TIFF's JPEGTables).
   void read_tables() {
-    if (end - p < 2 || p[0] != 0xFF || p[1] != 0xD8) fail(kNotJpeg);
-    p += 2;
+    first_marker();
     for (;;) {
       int code = next_marker();
       if (code == 0xD9) return;
@@ -818,30 +862,29 @@ struct Decoder {
     t->defined = true;
   }
 
-  // every marker but SOI, SOS and EOI
+  // every marker but SOI, SOS and EOI (jdmarker.c read_markers)
   void handle_marker(int code) {
     if ((code >= 0xD0 && code <= 0xD7) || code == 0x01) return;  // no payload
     if (code == 0xD8 || code == 0xD9) fail(kBadMarker);
-    int len;
-    const uint8_t* s = segment(&len);
     if (code >= 0xC0 && code <= 0xCF && code != 0xC4 && code != 0xC8 &&
         code != 0xCC) {
-      read_sof(code, s, len);
+      read_sof(code);
     } else if (code == 0xCC) {
-      read_dac(s, len);
+      read_dac();
     } else if (code == 0xC4) {
-      read_dht(s, len);
+      read_dht();
     } else if (code == 0xDB) {
-      read_dqt(s, len);
+      read_dqt();
     } else if (code == 0xDD) {
-      if (len != 2) fail(kBadMarker);
-      restart_interval = (s[0] << 8) | s[1];
+      segment();
+      if (seg.size() != 2) fail(kBadMarker);
+      restart_interval = (seg[0] << 8) | seg[1];
     } else if (code >= 0xE0 && code <= 0xEF) {
-      read_app(code, s, len);
-    } else if (code == 0xFE) {
-      // COM
+      read_app(code);
+    } else if (code == 0xFE || code == 0xDC) {
+      segment(true);  // COM, DNL: skip_variable
     } else {
-      fail(kBadMarker);  // DNL, DHP, EXP, JPGn, reserved
+      fail(kBadMarker);  // DHP, EXP, JPGn, reserved
     }
   }
 
@@ -854,29 +897,33 @@ struct Decoder {
     int ss = 0, se = 63, ah = 0, al = 0;
   };
 
-  Scan read_sos() {  // get_sos
-    int len;
-    const uint8_t* s = segment(&len);
+  // get_sos. Scan slot i takes the first component of the id at index i
+  // or later (libjpeg-turbo's check against a component listed twice
+  // looks at cur_comp_info[ci], the slots by component index).
+  Scan read_sos() {
+    segment();
+    const uint8_t* s8 = seg.data();
+    const int len = static_cast<int>(seg.size());
     Scan sc;
     if (len < 1) fail(kBadMarker);
-    sc.n = s[0];
+    sc.n = s8[0];
     if (sc.n < 1 || sc.n > 4 || len != 2 * sc.n + 4) fail(kBadMarker);
     for (int i = 0; i < sc.n; ++i) {
-      int cid = s[1 + 2 * i], t = s[2 + 2 * i];
+      int cid = s8[1 + 2 * i], t = s8[2 + 2 * i];
       int found = -1;
-      for (int c = 0; c < ncomp; ++c)
+      for (int c = i; c < ncomp && found < 0; ++c)
         if (comp[c].id == cid) found = c;
       if (found < 0) fail(kBadMarker);
-      for (int j = 0; j < i; ++j)
-        if (sc.ci[j] == found) fail(kBadMarker);
       sc.ci[i] = found;
       sc.td[i] = t >> 4;
       sc.ta[i] = t & 15;
     }
-    sc.ss = s[1 + 2 * sc.n];
-    sc.se = s[2 + 2 * sc.n];
-    sc.ah = s[3 + 2 * sc.n] >> 4;
-    sc.al = s[3 + 2 * sc.n] & 15;
+    sc.ss = s8[1 + 2 * sc.n];
+    sc.se = s8[2 + 2 * sc.n];
+    sc.ah = s8[3 + 2 * sc.n] >> 4;
+    sc.al = s8[3 + 2 * sc.n] & 15;
+    next_restart = 0;
+    ++scans;
     return sc;
   }
 
@@ -888,24 +935,27 @@ struct Decoder {
 
   void latch(Component& k) {  // jdinput.c latch_quant_tables
     if (k.latched) return;
-    if (!qt_defined[k.tq]) fail(kNoQuantTable);
-    for (int i = 0; i < 64; ++i) k.q[i] = static_cast<int16_t>(qt[k.tq][i]);
+    if (k.tq >= 4 || !qt_defined[k.tq]) fail(kNoQuantTable);
+    for (int i = 0; i < 64; ++i) {
+      k.qraw[i] = qt[k.tq][i];
+      k.q[i] = static_cast<int16_t>(qt[k.tq][i]);  // ISLOW_MULT_TYPE
+    }
     k.latched = true;
   }
 
+  // jdhuff.c / jdphuff.c / jdarith.c start_pass: what libjpeg refuses
+  // (`bad`) and what it only warns about, which is decoded as it stands
   void check_scan(const Scan& sc) {
-    if (!progressive) {
-      // jdhuff.c start_pass_huff_decoder (a warning in libjpeg)
+    if (!progressive) {  // JWRN_NOT_SEQUENTIAL; decoded as sequential
       if (sc.ss != 0 || sc.se != 63 || sc.ah != 0 || sc.al != 0)
-        fail(kProgression);
+        s.warn(kProgression);
       for (int i = 0; i < sc.n; ++i) {
         Component& k = comp[sc.ci[i]];
-        if (k.seen) fail(kProgression);
+        if (k.seen) s.warn(kProgression);
         k.seen = true;
       }
       return;
     }
-    // jdphuff.c start_pass_phuff_decoder
     const bool dc = sc.ss == 0;
     bool bad = false;
     if (dc) {
@@ -917,13 +967,16 @@ struct Decoder {
     if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
     if (sc.al > 13) bad = true;
     if (bad) fail(kProgression);
-    for (int i = 0; i < sc.n; ++i) {
-      int* cb = comp[sc.ci[i]].coef_bits;
-      if (!dc && cb[0] < 0) fail(kProgression);
-      for (int k = sc.ss; k <= sc.se; ++k) {
-        int expected = cb[k] < 0 ? 0 : cb[k];
-        if (sc.ah != expected) fail(kProgression);
-        cb[k] = sc.al;
+    for (int i = 0; i < sc.n; ++i) {  // JWRN_BOGUS_PROGRESSION
+      Component& k = comp[sc.ci[i]];
+      int* cb = k.coef_bits;
+      if (!dc && cb[0] < 0) s.warn(kProgression);
+      const int lo = sc.ss < 1 ? sc.ss : 1, hi = sc.se > 9 ? sc.se : 9;
+      for (int c = lo; c <= hi; ++c) k.prev_bits[c] = scans > 1 ? cb[c] : 0;
+      for (int c = sc.ss; c <= sc.se; ++c) {
+        int expected = cb[c] < 0 ? 0 : cb[c];
+        if (sc.ah != expected) s.warn(kProgression);
+        cb[c] = sc.al;
       }
     }
   }
@@ -938,34 +991,40 @@ struct Decoder {
     int last_dc[4] = {0, 0, 0, 0};
     int eobrun = 0;
 
+    // decode_mcu: an MCU after the one that ran out of data is left as it
+    // stands (DC refinement reads zero bits there, which change nothing)
+    bool out_of_data() const { return br.insufficient; }
+    bool skip() const { return br.insufficient; }
     void block(int i, int16_t* blk) {
       d.decode_block(br, sc, i, blk, dct[i], act[i], last_dc, eobrun);
     }
-    int finish() { return br.finish(); }
-    void restart() {  // jdhuff.c process_restart, past the RSTn marker
-      br.p += 2;
+    void restart() {  // jdhuff.c / jdphuff.c process_restart
+      br.discard();
+      d.read_restart_marker();
       last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
       eobrun = 0;
+      // out of data again at once if the restart left a marker unread
+      if (!d.s.unread) br.insufficient = false;
     }
-    const uint8_t* pos() const { return br.p; }
+    void end() { br.discard(); }
   };
 
   // The arithmetic decoding of a scan's blocks (jdarith.c): statistics
   // areas per table, reset with the DC predictions at the scan's start and
-  // at each restart.
+  // at each restart. A bad code (JWRN_ARITH_BAD_CODE) ends the MCU where it
+  // is, and the MCUs up to the next restart are left as they stand.
   struct ArithScan {
-    const Decoder& d;
+    Decoder& d;
     const Scan& sc;
     ArithReader ar;
+    bool dead = false;  // jdarith.c's ct == -1
     uint8_t dc_stats[16][64];
     uint8_t ac_stats[16][256];
     uint8_t fixed_bin[4] = {113, 0, 0, 0};  // probability 0.5, never moves
     int last_dc[4] = {0, 0, 0, 0};
     int dc_context[4] = {0, 0, 0, 0};
 
-    ArithScan(const Decoder& d_, const Scan& sc_, const uint8_t* p,
-              const uint8_t* end)
-        : d(d_), sc(sc_), ar(p, end) {
+    ArithScan(Decoder& d_, const Scan& sc_) : d(d_), sc(sc_), ar(d_.s) {
       reset();
     }
 
@@ -979,21 +1038,29 @@ struct Decoder {
           std::memset(ac_stats[sc.ta[i]], 0, sizeof(ac_stats[0]));
       }
     }
-    int finish() { return ar.finish(); }
-    void restart() {  // jdarith.c process_restart, past the RSTn marker
-      ar.p += 2;
+    bool out_of_data() const { return false; }  // read on as zeros
+    bool skip() const { return dead; }
+    void restart() {  // jdarith.c process_restart
+      d.read_restart_marker();
       reset();
+      ar.reset();
+      dead = false;
     }
-    const uint8_t* pos() const { return ar.p; }
+    void end() {}
+    void bad_code() {
+      d.s.warn(kArithCode);
+      dead = true;
+    }
 
-    // F.2.4.1: a DC difference, and its conditioning category for the
-    // next (the magnitude overflow is JWRN_ARITH_BAD_CODE)
-    int dc_diff(int i) {
+    // F.2.4.1: a DC difference into *out, and its conditioning category
+    // for the next; false on a magnitude overflow (a bad code)
+    bool dc_diff(int i, int* out) {
       const int tbl = sc.td[i];
       uint8_t* st = dc_stats[tbl] + dc_context[i];
       if (!ar.decode(st)) {
         dc_context[i] = 0;
-        return 0;
+        *out = 0;
+        return true;
       }
       const int sign = ar.decode(st + 1);
       st += 2 + sign;
@@ -1001,7 +1068,7 @@ struct Decoder {
       if (m) {
         st = dc_stats[tbl] + 20;
         while (ar.decode(st)) {
-          if ((m <<= 1) == 0x8000) fail(kArithCode);
+          if ((m <<= 1) == 0x8000) return false;
           ++st;
         }
       }
@@ -1016,17 +1083,19 @@ struct Decoder {
       while (m >>= 1)
         if (ar.decode(st)) v |= m;
       v += 1;
-      return sign ? -v : v;
+      *out = sign ? -v : v;
+      return true;
     }
 
-    // F.2.4.2: the AC coefficients ss..se of a block, scaled by 2^al
-    void ac_first(int tbl, int ss, int se, int al, int16_t* blk) {
+    // F.2.4.2: the AC coefficients ss..se of a block, scaled by 2^al;
+    // false on a run past se or a magnitude overflow (a bad code)
+    bool ac_first(int tbl, int ss, int se, int al, int16_t* blk) {
       for (int k = ss; k <= se; ++k) {
         uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
         if (ar.decode(st)) break;  // end of block
         while (!ar.decode(st + 1)) {
           st += 3;
-          if (++k > se) fail(kArithCode);
+          if (++k > se) return false;
         }
         const int sign = ar.decode(fixed_bin);
         st += 2;
@@ -1035,7 +1104,7 @@ struct Decoder {
           m <<= 1;
           st = ac_stats[tbl] + (k <= d.ac_K[tbl] ? 189 : 217);
           while (ar.decode(st)) {
-            if ((m <<= 1) == 0x8000) fail(kArithCode);
+            if ((m <<= 1) == 0x8000) return false;
             ++st;
           }
         }
@@ -1048,10 +1117,12 @@ struct Decoder {
         blk[kNatural[k]] =
             static_cast<int16_t>(static_cast<uint32_t>(v) << al);
       }
+      return true;
     }
 
-    // decode_mcu_AC_refine: a bit more of each coefficient of ss..se
-    void ac_refine(int16_t* blk) {
+    // decode_mcu_AC_refine: a bit more of each coefficient of ss..se;
+    // false on a run past se (a bad code)
+    bool ac_refine(int16_t* blk) {
       const int tbl = sc.ta[0];
       const int p1 = 1 << sc.al, m1 = -(1 << sc.al);
       int kex = sc.se;  // the previous stage's end of block
@@ -1072,57 +1143,111 @@ struct Decoder {
             break;
           }
           st += 3;
-          if (++k > sc.se) fail(kArithCode);
+          if (++k > sc.se) return false;
         }
       }
+      return true;
     }
 
+    // one block of the MCU; after a bad code the MCU's other blocks are
+    // left as they stand
     void block(int i, int16_t* blk) {
+      if (dead) return;
+      int diff;
+      bool ok = true;
       if (!d.progressive) {  // decode_mcu
-        last_dc[i] = (last_dc[i] + dc_diff(i)) & 0xFFFF;
-        blk[0] = static_cast<int16_t>(last_dc[i]);
-        ac_first(sc.ta[i], 1, 63, 0, blk);
+        ok = dc_diff(i, &diff);
+        if (ok) {
+          last_dc[i] = (last_dc[i] + diff) & 0xFFFF;
+          blk[0] = static_cast<int16_t>(last_dc[i]);
+          ok = ac_first(sc.ta[i], 1, 63, 0, blk);
+        }
       } else if (sc.ss == 0 && sc.ah == 0) {  // decode_mcu_DC_first
-        last_dc[i] = (last_dc[i] + dc_diff(i)) & 0xFFFF;
-        blk[0] = static_cast<int16_t>(
-            static_cast<uint32_t>(last_dc[i]) << sc.al);
+        ok = dc_diff(i, &diff);
+        if (ok) {
+          last_dc[i] = (last_dc[i] + diff) & 0xFFFF;
+          blk[0] = static_cast<int16_t>(
+              static_cast<uint32_t>(last_dc[i]) << sc.al);
+        }
       } else if (sc.ss == 0) {  // decode_mcu_DC_refine
         if (ar.decode(fixed_bin))
           blk[0] = static_cast<int16_t>(blk[0] | (1 << sc.al));
       } else if (sc.ah == 0) {  // decode_mcu_AC_first
-        ac_first(sc.ta[0], sc.ss, sc.se, sc.al, blk);
+        ok = ac_first(sc.ta[0], sc.ss, sc.se, sc.al, blk);
       } else {
-        ac_refine(blk);
+        ok = ac_refine(blk);
       }
+      if (!ok) bad_code();
     }
   };
 
-  // The blocks of a scan in MCU order, restart markers between intervals;
-  // returns the marker after the scan, with `p` at the FF before it.
+  // jdmarker.c read_restart_marker: the RSTn due next, else
+  // jpeg_resync_to_restart's choice by the marker found (JWRN_MUST_RESYNC):
+  // any other RST but the next two or the last two, or the one due found
+  // after skipping, is swallowed and decoding goes on (1); a marker below
+  // SOF0 or one of the last two RSTs is skipped to the next marker, and the
+  // choice made again (2); any other marker, or one of the next two RSTs,
+  // is left unread, so the interval reads as out of data (3).
+  void read_restart_marker() {
+    if (!s.unread) s.unread = next_marker();
+    const int want = next_restart;
+    if (s.unread == 0xD0 + want) {
+      s.unread = 0;
+    } else {
+      s.warn(kRestart);
+      for (;;) {
+        const int m = s.unread;
+        int action = 1;
+        if (m < 0xC0) {
+          action = 2;
+        } else if (m < 0xD0 || m > 0xD7) {
+          action = 3;
+        } else if (m == 0xD0 + ((want + 1) & 7) ||
+                   m == 0xD0 + ((want + 2) & 7)) {
+          action = 3;
+        } else if (m == 0xD0 + ((want - 1) & 7) ||
+                   m == 0xD0 + ((want - 2) & 7)) {
+          action = 2;
+        }
+        if (action == 1) {
+          s.unread = 0;
+          break;
+        }
+        if (action == 3) break;
+        s.unread = next_marker();
+      }
+    }
+    next_restart = (next_restart + 1) & 7;
+  }
+
+  // The blocks of a scan in MCU order, restart markers between intervals
+  // (jdcoefct.c consume_data: `last_good` is the iMCU row of the last MCU
+  // begun with data left, before its restart is processed).
   template <class Entropy>
-  int run_scan(const Scan& sc, Entropy& e) {
-    int nx, ny;
+  void run_scan(const Scan& sc, Entropy& e) {
+    int nx, ny, vrows;
     if (sc.n == 1) {
       nx = comp[sc.ci[0]].wb;
       ny = comp[sc.ci[0]].hb;
+      vrows = comp[sc.ci[0]].v;
     } else {
       nx = mcus_x;
       ny = mcus_y;
+      vrows = 1;
     }
-    int next_rst = 0;
     int to_go = restart_interval;
     const int total = nx * ny;
     for (int m = 0; m < total; ++m) {
+      const int mx = m % nx, my = m / nx;
+      if (!e.out_of_data()) last_good = my / vrows;
       if (restart_interval) {
         if (to_go == 0) {
-          if (e.finish() != 0xD0 + next_rst) fail(kRestart);
           e.restart();
-          next_rst = (next_rst + 1) & 7;
           to_go = restart_interval;
         }
         --to_go;
       }
-      const int mx = m % nx, my = m / nx;
+      if (e.skip()) continue;
       if (sc.n == 1) {
         e.block(0, comp[sc.ci[0]].block(my, mx));
       } else {
@@ -1134,13 +1259,12 @@ struct Decoder {
         }
       }
     }
-    const int mk = e.finish();
-    p = e.pos();
-    return mk;
+    e.end();
   }
 
-  // one scan's entropy-coded data, from `p` to the marker after it
-  int decode_scan(const Scan& sc) {
+  // one scan's entropy-coded data, up to the marker after it (left in
+  // `s.unread` where the decoder stopped at it)
+  void decode_scan(const Scan& sc) {
     if (lossless) return decode_lossless_scan(sc);
     check_scan(sc);
     Huffman* dct[4] = {};
@@ -1162,15 +1286,15 @@ struct Decoder {
     }
     if (blocks > kMaxBlocksInMcu) fail(kSampling);
     if (arithmetic) {
-      ArithScan e(*this, sc, p, end);
+      ArithScan e(*this, sc);
       return run_scan(sc, e);
     }
-    HuffScan e{*this, sc, BitReader(p, end), {}, {}};
+    HuffScan e{*this, sc, BitReader(s), {}, {}};
     for (int i = 0; i < sc.n; ++i) {
       e.dct[i] = dct[i];
       e.act[i] = act[i];
     }
-    return run_scan(sc, e);
+    run_scan(sc, e);
   }
 
   // A lossless scan (jdlhuff.c, jddiffct.c, jdlossls.c): Huffman-coded
@@ -1180,7 +1304,9 @@ struct Decoder {
   // each restart interval predicts from the left only, starting at
   // 2^(P - Pt - 1); the first column from above. Samples are kept mod 2^16
   // and returned as (uint8)(sample << Pt).
-  int decode_lossless_scan(const Scan& sc) {
+  // Where the data run out (jdlhuff.c decode_mcus), the rows after the
+  // one that ran out read zero differences predicted as a first row.
+  void decode_lossless_scan(const Scan& sc) {
     if (sc.ss < 1 || sc.ss > 7 || sc.se != 0 || sc.ah != 0 ||
         sc.al >= precision)
       fail(kProgression);
@@ -1188,7 +1314,7 @@ struct Decoder {
     int blocks = 0;
     for (int i = 0; i < sc.n; ++i) {
       Component& k = comp[sc.ci[i]];
-      if (k.seen) fail(kProgression);
+      if (k.seen) s.warn(kProgression);
       k.seen = true;
       dct[i] = &table(dc_tab, sc.td[i], true);
       blocks += sc.n == 1 ? 1 : k.h * k.v;
@@ -1197,7 +1323,7 @@ struct Decoder {
     const bool inter = sc.n > 1;
     const int nx = inter ? mcus_x : comp[sc.ci[0]].dw;
     const int ny = inter ? mcus_y : comp[sc.ci[0]].dh;
-    // jdlossls.c start_pass_lossless (an error, not a warning)
+    // jddiffct.c start_input_pass (an error, not a warning)
     if (restart_interval % nx) fail(kLosslessRestart);
     // one iMCU row of differences a component: v rows
     std::vector<int32_t> diff[4];
@@ -1210,20 +1336,22 @@ struct Decoder {
       first[i] = true;
     }
     const int init = 1 << (precision - sc.al - 1);
-    BitReader br(p, end);
-    int next_rst = 0;
+    BitReader br(s);
     int rows_to_go = restart_interval / nx;
     for (int my = 0; my < ny; ++my) {
       if (restart_interval) {
-        if (rows_to_go == 0) {  // jddiffct.c process_restart
-          if (br.finish() != 0xD0 + next_rst) fail(kRestart);
-          br.p += 2;
-          next_rst = (next_rst + 1) & 7;
+        if (rows_to_go == 0) {  // jddiffct.c / jdlhuff.c process_restart
+          br.discard();
+          read_restart_marker();
+          if (!s.unread) br.insufficient = false;
           for (int i = 0; i < sc.n; ++i) first[i] = true;
           rows_to_go = restart_interval / nx;
         }
         --rows_to_go;
       }
+      const bool empty = br.insufficient;
+      if (empty)
+        for (int i = 0; i < sc.n; ++i) first[i] = true;
       for (int mx = 0; mx < nx; ++mx) {
         for (int i = 0; i < sc.n; ++i) {
           const Component& k = comp[sc.ci[i]];
@@ -1233,8 +1361,12 @@ struct Decoder {
                            static_cast<size_t>(inter ? yo : my % k.v) *
                                dstride[i] + mx * hh;
             for (int xo = 0; xo < hh; ++xo) {
-              const int s = br.decode(*dct[i]);
-              row[xo] = s == 16 ? 32768 : (s ? extend(br.bits(s), s) : 0);
+              if (empty) {
+                row[xo] = 0;
+                continue;
+              }
+              const int t = br.decode(*dct[i]);
+              row[xo] = t == 16 ? 32768 : (t ? extend(br.bits(t), t) : 0);
             }
           }
         }
@@ -1260,9 +1392,7 @@ struct Decoder {
         }
       }
     }
-    const int mk = br.finish();
-    p = br.p;
-    return mk;
+    br.discard();
   }
 
   // jdlossls.c: row r of component k from its differences `d`
@@ -1320,8 +1450,7 @@ struct Decoder {
         if (f.len) {
           br.consume(f.len);
           k += f.run;
-          if (k > 63) fail(kCorrupt);
-          blk[kNatural[k]] = f.value;
+          blk[kNaturalPad[k]] = f.value;
           continue;
         }
         int rs = br.decode(*act);
@@ -1329,8 +1458,7 @@ struct Decoder {
         s = rs & 15;
         if (s) {
           k += r;
-          if (k > 63) fail(kCorrupt);
-          blk[kNatural[k]] = static_cast<int16_t>(extend(br.bits(s), s));
+          blk[kNaturalPad[k]] = static_cast<int16_t>(extend(br.bits(s), s));
         } else {
           if (r != 15) break;
           k += 15;
@@ -1363,8 +1491,7 @@ struct Decoder {
         if (f.len) {
           br.consume(f.len);
           k += f.run;
-          if (k > sc.se) fail(kCorrupt);
-          blk[kNatural[k]] = static_cast<int16_t>(
+          blk[kNaturalPad[k]] = static_cast<int16_t>(
               static_cast<uint32_t>(f.value) << sc.al);
           continue;
         }
@@ -1372,9 +1499,8 @@ struct Decoder {
         int r = rs >> 4, s = rs & 15;
         if (s) {
           k += r;
-          if (k > sc.se) fail(kCorrupt);
           int v = extend(br.bits(s), s);
-          blk[kNatural[k]] =
+          blk[kNaturalPad[k]] =
               static_cast<int16_t>(static_cast<uint32_t>(v) << sc.al);
         } else if (r == 15) {
           k += 15;
@@ -1400,7 +1526,7 @@ struct Decoder {
         int rs = br.decode(*act);
         int r = rs >> 4, s = rs & 15;
         if (s) {
-          if (s != 1) fail(kCorrupt);
+          if (s != 1) br.s.warn(kBadCode);  // read as 1 all the same
           s = br.bit() ? p1 : m1;
         } else if (r != 15) {
           eobrun = 1 << r;
@@ -1416,10 +1542,7 @@ struct Decoder {
           }
           ++k;
         } while (k <= sc.se);
-        if (s) {
-          if (k > sc.se) fail(kCorrupt);
-          blk[kNatural[k]] = static_cast<int16_t>(s);
-        }
+        if (s) blk[kNaturalPad[k]] = static_cast<int16_t>(s);
       }
     }
     if (eobrun > 0) {
@@ -1431,38 +1554,45 @@ struct Decoder {
     }
   }
 
-  // All scans to EOI. Returns with every component's coefficients whole.
-  void decode_all() {
+  // The scans as jpeg_start_decompress and jpeg_read_scanlines take them:
+  // a file whose first scan holds every component of a sequential frame
+  // is decoded from that scan alone (what follows it, read only by
+  // jpeg_finish_decompress, whose errors cv::imread ignores, changes no
+  // pixel); any other is read scan by scan up to EOI, the fake one at the
+  // end of the file included. `strict`: every scan to EOI (a TIFF strip).
+  void decode_all(bool strict) {
     setup_components();
-    int code = 0xDA;
-    for (;;) {
-      if (code == 0xDA) {
-        Scan sc = read_sos();
-        ++scans;
-        code = decode_scan(sc);
-        p += 2;  // past FF and the marker code
-        continue;
+    bool multi = true;
+    for (bool first = true;; first = false) {
+      const Scan sc = read_sos();
+      if (first) multi = strict || progressive || sc.n < ncomp;
+      decode_scan(sc);
+      if (!multi) return;
+      int code;
+      while ((code = take_marker()) != 0xDA) {
+        if (code == 0xD9) return;
+        handle_marker(code);
       }
-      if (code == 0xD9) return;
-      handle_marker(code);
-      code = next_marker();
     }
   }
 
-  // jdcoefct.c smoothing_ok: would libjpeg smooth this component's blocks?
-  bool smoothing_changes(int c) {
+  // jdcoefct.c smoothing_ok: does libjpeg smooth the blocks of a
+  // progressive image (some of the first nine AC coefficients of some
+  // component not yet known to full precision)?
+  bool smoothing() const {
     if (!progressive) return false;
+    bool useful = false;
     for (int i = 0; i < ncomp; ++i) {
       const Component& k = comp[i];
       if (!k.latched) return false;
       static constexpr int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
       for (int j : kPos)
-        if (k.q[j] == 0) return false;
+        if (k.qraw[j] == 0) return false;
       if (k.coef_bits[0] < 0) return false;
+      for (int j = 1; j <= 9; ++j)
+        if (k.coef_bits[j] != 0) useful = true;
     }
-    for (int j = 1; j <= 9; ++j)
-      if (comp[c].coef_bits[j] != 0) return true;
-    return false;
+    return useful;
   }
 };
 
@@ -1562,13 +1692,87 @@ void idct_pass2(const int32_t* ws, uint8_t* out, int stride) {
   }
 }
 
+// libjpeg-turbo's AVX2 islow IDCT (jidctint-avx2.asm, which cv2's build
+// runs) where its 16-bit lanes wrap or saturate: dequantisation keeps the
+// low 16 bits of each product; a block whose rows 1-7 are all zero takes
+// each column's DC << 2 in 16 bits; in both passes in0 +- in4, in7 + in3
+// and in5 + in1 are 16-bit sums, the products are exact 32-bit pairs
+// (pmaddwd), their sums wrap at 32 bits, each pass ends in a saturating
+// pack to 16 bits, and the output in one to 8 bits (then + 128).
+inline int16_t wrap16(int64_t v) {
+  return static_cast<int16_t>(static_cast<uint16_t>(v & 0xFFFF));
+}
+inline int16_t sat16(int64_t v) {
+  return static_cast<int16_t>(v < -32768 ? -32768 : (v > 32767 ? 32767 : v));
+}
+inline int32_t wrap32(int64_t v) {
+  return static_cast<int32_t>(static_cast<uint32_t>(v & 0xFFFFFFFF));
+}
+
+void idct_1d_simd(const int16_t* x, int64_t* o) {
+  const int64_t in0 = x[0], in1 = x[1], in2 = x[2], in3 = x[3];
+  const int64_t in4 = x[4], in5 = x[5], in6 = x[6], in7 = x[7];
+  const int64_t tmp3 = in2 * (4433 + 6270) + in6 * 4433;
+  const int64_t tmp2 = in2 * 4433 + in6 * (4433 - 15137);
+  const int64_t tmp0 = int64_t{wrap16(in0 + in4)} * (1 << kConstBits);
+  const int64_t tmp1 = int64_t{wrap16(in0 - in4)} * (1 << kConstBits);
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int64_t z3 = wrap16(in7 + in3), z4 = wrap16(in5 + in1);
+  const int64_t z3m = z3 * (9633 - 16069) + z4 * 9633;
+  const int64_t z4m = z3 * 9633 + z4 * (9633 - 3196);
+  const int64_t t0 = in7 * (2446 - 7373) + in1 * -7373 + z3m;
+  const int64_t t3 = in7 * -7373 + in1 * (12299 - 7373) + z4m;
+  const int64_t t1 = in5 * (16819 - 20995) + in3 * -20995 + z4m;
+  const int64_t t2 = in5 * -20995 + in3 * (25172 - 20995) + z3m;
+  o[0] = tmp10 + t3;
+  o[7] = tmp10 - t3;
+  o[1] = tmp11 + t2;
+  o[6] = tmp11 - t2;
+  o[2] = tmp12 + t1;
+  o[5] = tmp12 - t1;
+  o[3] = tmp13 + t0;
+  o[4] = tmp13 - t0;
+}
+
+void idct_islow_simd(const int16_t* in, const int16_t* q, uint8_t* out,
+                     int stride) {
+  int16_t ws[64], x[8];
+  int64_t o[8];
+  bool ac = false;
+  for (int i = 8; i < 64; ++i) ac = ac || in[i];
+  for (int c = 0; c < 8; ++c) {
+    if (!ac) {
+      const int16_t v = wrap16(int64_t{wrap16(int32_t{in[c]} * q[c])} * 4);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
+      continue;
+    }
+    for (int r = 0; r < 8; ++r)
+      x[r] = wrap16(int32_t{in[8 * r + c]} * q[8 * r + c]);
+    idct_1d_simd(x, o);
+    const int sh = kConstBits - kPass1Bits;
+    for (int r = 0; r < 8; ++r)
+      ws[8 * r + c] = sat16(wrap32(o[r] + (1 << (sh - 1))) >> sh);
+  }
+  const int sh = kConstBits + kPass1Bits + 3;
+  for (int r = 0; r < 8; ++r) {
+    idct_1d_simd(ws + 8 * r, o);
+    uint8_t* op = out + static_cast<ptrdiff_t>(r) * stride;
+    for (int c = 0; c < 8; ++c) {
+      const int v = sat16(wrap32(o[c] + (1 << (sh - 1))) >> sh);
+      op[c] = static_cast<uint8_t>(
+          (v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
+    }
+  }
+}
+
 // jidctint.c jpeg_idct_islow on one block into `out` (row stride
 // `stride`). The output is clamped to 0..255 as the SIMD build's saturating
-// packs do (the C build's range-limit table agrees inside +-384). Returns
-// false where the two builds part: a dequantised value or a first-pass
-// output beyond +-16383, past what the SIMD build's 16-bit lanes hold
-// (pairs of them are summed in 16 bits).
-bool idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
+// packs do (the C build's range-limit table agrees inside +-384). Where a
+// dequantised value or a first-pass output leaves +-16383 the SIMD build's
+// 16-bit lanes part from the C code, and the block is computed as they
+// compute it.
+void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
                 int stride) {
   int32_t d[64], ws[64];
   int32_t lo = 0, hi = 0;
@@ -1577,7 +1781,7 @@ bool idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
     lo = d[i] < lo ? d[i] : lo;
     hi = d[i] > hi ? d[i] : hi;
   }
-  if (lo < -16383 || hi > 16383) return false;
+  if (lo < -16383 || hi > 16383) return idct_islow_simd(in, q, out, stride);
   if (lo >= -8191 && hi <= 8191)
     idct_pass1<int32_t>(d, ws);
   else
@@ -1587,12 +1791,11 @@ bool idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
     lo = ws[i] < lo ? ws[i] : lo;
     hi = ws[i] > hi ? ws[i] : hi;
   }
-  if (lo < -16383 || hi > 16383) return false;
+  if (lo < -16383 || hi > 16383) return idct_islow_simd(in, q, out, stride);
   if (lo >= -8191 && hi <= 8191)
     idct_pass2<int32_t>(ws, out, stride);
   else
     idct_pass2<int64_t>(ws, out, stride);
-  return true;
 }
 
 // A component's samples: (hb * 8, wb * 8), stride wb * 8.
@@ -1604,19 +1807,125 @@ struct Plane {
   }
 };
 
-Plane inverse_dct(Component& k) {
+// Block smoothing (jdcoefct.c decompress_smooth_data, libjpeg-turbo 2.1
+// and later): in a progressive image whose scans leave some of the first
+// nine AC coefficients unrefined, each block's coefficients 1-9 (zigzag)
+// that are still 0 and not known to full precision are estimated from the
+// DC values of the 5x5 blocks around it; where no AC coefficient of the
+// first nine has any data, the DC value is re-estimated too and four more
+// AC coefficients with it. The weights, rows -2..2 by columns -2..2:
+// [0] where DC is kept, [1] where it is re-estimated, for zigzag
+// coefficients 1-9 (natural positions kSmoothPos), then the DC's.
+constexpr int kSmoothPos[9] = {1, 8, 16, 9, 2, 3, 10, 17, 24};
+constexpr int16_t kSmoothAc[2][9][25] = {
+    {{0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7,
+      0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0,
+      0, 0, -50, 0, 0, 0, 0, 7, 0, 0},
+     {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0,
+      0, 0, 13, 0, 0, 0, 0, -1, 0, 0},
+     {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0,
+      1, -10, 0, 10, -1, 0, 1, 0, -1, 0},
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1,
+      0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {}, {}, {}, {}},
+    {{-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3,
+      -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+     {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0,
+      1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+     {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0,
+      0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+     {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0,
+      0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+     {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1,
+      0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0,
+      0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0,
+      0, -1, 3, -1, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0,
+      0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0,
+      0, -1, -2, -1, 0, 0, 0, 0, 0, 0}}};
+constexpr int16_t kSmoothDc[25] = {
+    -2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8,
+    -6, 6, 42, 6, -6, -2, -6, -8, -6, -2};
+
+// the estimate Q00 * sum / Q, rounded, its magnitude held below 2^al where
+// al > 0 (the bits a refinement scan would still add)
+inline int16_t smooth_estimate(int64_t num, int64_t q, int al) {
+  int pred = static_cast<int>(((q << 7) + (num < 0 ? -num : num)) / (q << 8));
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return static_cast<int16_t>(num < 0 ? -pred : pred);
+}
+
+// What smoothing needs of the image: its iMCU rows, the last one decoded
+// with data left (rows after it use the coefficient states from before
+// the last scan), and a component's coef_bits 0-9 now and before its
+// last scan (-1 for a one-scan file).
+struct Smooth {
+  int imcu_rows, last_good;
+  const int* bits;
+  int prev[10];
+};
+
+// A component's samples after the IDCT, smoothed where `sm` is given.
+Plane inverse_dct(Component& k, const Smooth* sm) {
   Plane pl;
   pl.stride = k.wb * 8;
   pl.w = k.dw;
   pl.h = k.dh;
   pl.px.resize(static_cast<size_t>(k.hb) * 8 * pl.stride);
-  for (int by = 0; by < k.hb; ++by)
-    for (int bx = 0; bx < k.wb; ++bx)
-      if (!idct_islow(k.block(by, bx), k.q,
-                      pl.px.data() + static_cast<size_t>(by) * 8 * pl.stride +
-                          bx * 8,
-                      pl.stride))
-        fail(kRange);
+  int16_t ws[64];
+  for (int by = 0; by < k.hb; ++by) {
+    uint8_t* out = pl.px.data() + static_cast<size_t>(by) * 8 * pl.stride;
+    if (!sm) {
+      for (int bx = 0; bx < k.wb; ++bx)
+        idct_islow(k.block(by, bx), k.q, out + bx * 8, pl.stride);
+      continue;
+    }
+    // the rows around, an edge row repeated, where "edge" is judged by
+    // libjpeg-turbo's image_block_row(s): the iMCU row times the block
+    // rows of this iMCU row, which in the last one can be fewer than v (and
+    // so a row past the image's last can be read, or a real one repeated)
+    const int last = sm->imcu_rows - 1, r = by / k.v, b = by % k.v;
+    const int brows = r < last ? k.v : (k.hb % k.v ? k.hb % k.v : k.v);
+    const int at = r * brows + b, rows = brows * sm->imcu_rows;
+    int row[5];
+    row[2] = by;
+    row[1] = at > 0 ? by - 1 : by;
+    row[0] = at > 1 ? by - 2 : row[1];
+    row[3] = at < rows - 1 ? by + 1 : by;
+    row[4] = at < rows - 2 ? by + 2 : row[3];
+    const int* bits = r > sm->last_good ? sm->prev : sm->bits;
+    bool change_dc = true;
+    for (int j = 1; j <= 9; ++j) change_dc = change_dc && bits[j] == -1;
+    const int64_t q00 = k.qraw[0];
+    for (int bx = 0; bx < k.wb; ++bx) {
+      int dc[25];
+      for (int i = 0; i < 5; ++i)
+        for (int j = 0; j < 5; ++j) {
+          int x = bx + j - 2;
+          x = x < 0 ? 0 : (x > k.wb - 1 ? k.wb - 1 : x);
+          dc[5 * i + j] = k.block(row[i], x)[0];
+        }
+      std::memcpy(ws, k.block(by, bx), sizeof(ws));
+      for (int j = 1; j <= (change_dc ? 9 : 5); ++j) {
+        const int pos = kSmoothPos[j - 1];
+        if (bits[j] == 0 || ws[pos] != 0) continue;
+        const int16_t* w = kSmoothAc[change_dc][j - 1];
+        int64_t sum = 0;
+        for (int t = 0; t < 25; ++t) sum += w[t] * dc[t];
+        ws[pos] = smooth_estimate(q00 * sum, k.qraw[pos], bits[j]);
+      }
+      if (change_dc) {
+        int64_t sum = 0;
+        for (int t = 0; t < 25; ++t) sum += kSmoothDc[t] * dc[t];
+        ws[0] = smooth_estimate(q00 * sum, q00, 0);
+      }
+      idct_islow(ws, k.q, out + bx * 8, pl.stride);
+    }
+  }
   return pl;
 }
 
@@ -1717,22 +2026,29 @@ const ColorTables& color_tables() {
 // `planes` is reserved first: each upsampler holds a reference to its plane.
 void upsampled(Decoder& d, int n, std::vector<Plane>* planes,
                std::vector<Upsampler>* ups) {
+  const bool smooth = d.smoothing();
   planes->reserve(n);
   ups->reserve(n);
   for (int c = 0; c < n; ++c) {
     Component& k = d.comp[c];
     if (d.max_h % k.h || d.max_v % k.v) fail(kSampling);
     if (d.lossless) {
-      if (!k.seen) fail(kCorrupt);  // never in a scan
+      if (!k.seen) fail(kLosslessUnscanned);
       Plane pl;
       pl.px.swap(k.px);
       pl.w = pl.stride = k.dw;
       pl.h = k.dh;
       planes->push_back(std::move(pl));
+    } else if (smooth) {
+      Smooth sm{d.mcus_y, d.last_good, k.coef_bits, {}};
+      for (int j = 0; j < 10; ++j)
+        sm.prev[j] = d.scans > 1 ? k.prev_bits[j] : -1;
+      planes->push_back(inverse_dct(k, &sm));
     } else {
-      if (d.smoothing_changes(c)) fail(kSmoothing);
-      if (!k.latched) fail(kNoQuantTable);  // never in a scan
-      planes->push_back(inverse_dct(k));
+      // a component in no scan has no quantisation table: its
+      // coefficients count as 0 (jddctmgr.c), its samples 128
+      if (!k.latched) d.s.warn(kNoQuantTable);
+      planes->push_back(inverse_dct(k, nullptr));
     }
     ups->emplace_back(planes->back(), d.max_h / k.h, d.max_v / k.v,
                       d.width);
@@ -1748,28 +2064,36 @@ void oriented_size(const Decoder& d, int* w, int* h) {
 enum Space { kGray, kYcc, kRgb, kCmyk, kYcck };
 
 // jdapimin.c default_decompress_parms: the colour space of the components
-// (an Adobe transform it does not know is a warning)
-Space color_space(const Decoder& d) {
+// (an Adobe transform it does not know is a warning: YCbCr is assumed for
+// three components, YCCK for four)
+Space color_space(Decoder& d) {
   if (d.ncomp == 1) return kGray;
   if (d.ncomp == 4) {
     if (!d.adobe) return kCmyk;
     if (d.adobe_transform == 0) return kCmyk;
-    if (d.adobe_transform == 2) return kYcck;
-    fail(kAdobeTransform);
+    if (d.adobe_transform != 2) d.s.warn(kAdobeTransform);
+    return kYcck;
   }
   if (d.jfif) return kYcc;
   if (d.adobe) {
     if (d.adobe_transform == 0) return kRgb;
-    if (d.adobe_transform == 1) return kYcc;
-    fail(kAdobeTransform);
+    if (d.adobe_transform != 1) d.s.warn(kAdobeTransform);
+    return kYcc;
   }
   if (d.comp[0].id == 'R' && d.comp[1].id == 'G' && d.comp[2].id == 'B')
     return kRgb;
   return d.lossless ? kRgb : kYcc;  // lossless: "assume RGB w/out marker"
 }
 
+// cv::imread's JPEG signature, FF D8 FF (libjpeg itself needs FF D8 only)
+void check_signature(const uint8_t* buf, int64_t len) {
+  if (len < 3 || buf[0] != 0xFF || buf[1] != 0xD8 || buf[2] != 0xFF)
+    fail(kNotJpeg);
+}
+
 void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
   if (channels != 1 && channels != 3) fail(kChannels);
+  check_signature(buf, len);
   Decoder d(buf, len);
   d.read_header();
   const Space cs = color_space(d);
@@ -1783,7 +2107,7 @@ void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
   if (d.lossless)
     for (int c = 0; c < d.ncomp; ++c)
       if (d.comp[c].h != 1 || d.comp[c].v != 1) fail(kLosslessSampling);
-  d.decode_all();
+  d.decode_all(false);
 
   // components the output needs (jdcolor.c: YCbCr to gray reads Y only)
   const int need = cs == kGray || (cs == kYcc && channels == 1) ? 1
@@ -1873,11 +2197,9 @@ void decode_tiff_strip(const uint8_t* tables, int64_t tlen, const uint8_t* buf,
                        int h0, int v0, uint8_t* out) {
   Decoder d(buf, len);
   if (tlen > 0) {
-    d.p = tables;
-    d.end = tables + tlen;
+    d.s.reset(tables, tlen);
     d.read_tables();
-    d.data = d.p = buf;
-    d.end = buf + len;
+    d.s.reset(buf, len);
     d.restart_interval = 0;  // get_soi resets it; the tables persist
   }
   d.read_header();
@@ -1888,11 +2210,15 @@ void decode_tiff_strip(const uint8_t* tables, int64_t tlen, const uint8_t* buf,
   for (int c = 0; c < d.ncomp; ++c)
     if (d.comp[c].h != (c ? 1 : h0) || d.comp[c].v != (c ? 1 : v0))
       fail(kSampling);
-  d.decode_all();
+  d.decode_all(true);
+  // a damaged strip is refused, whatever libjpeg would make of it
+  if (d.smoothing()) d.s.warn(kSmoothing);
+  if (d.s.warning) fail(d.s.warning);
   const int W = d.width, H = d.height;
   std::vector<Plane> planes;
   std::vector<Upsampler> ups;
   upsampled(d, ncomp, &planes, &ups);
+  if (d.s.warning) fail(d.s.warning);
   const ColorTables& t = color_tables();
   for (int y = 0; y < H; ++y) {
     uint8_t* o = out + static_cast<size_t>(y) * W * ncomp;
@@ -1944,6 +2270,7 @@ int of_jpeg_decode_tiff(const uint8_t* tables, int64_t tlen,
 int of_jpeg_info(const uint8_t* buf, int64_t len, int* width, int* height,
                  int* ncomp) {
   try {
+    check_signature(buf, len);
     Decoder d(buf, len);
     d.read_header();
     oriented_size(d, width, height);
@@ -1975,7 +2302,7 @@ int of_jpeg_decode(const uint8_t* buf, int64_t len, int channels,
 const char* of_jpeg_strerror(int code) {
   switch (code) {
     case kOk: return "no error";
-    case kNotJpeg: return "not a JPEG (no SOI marker)";
+    case kNotJpeg: return "not a JPEG (no SOI marker and marker after it)";
     case kTruncated: return "truncated JPEG data";
     case kBadMarker: return "corrupt or unsupported JPEG marker segment";
     case kLosslessArith: return "lossless arithmetic-coded JPEG (SOF11): "
@@ -2001,11 +2328,9 @@ const char* of_jpeg_strerror(int code) {
     case kCorrupt: return "corrupt JPEG data";
     case kProgression: return "corrupt JPEG data: invalid scan or "
                               "progression parameters";
-    case kSmoothing: return "progressive JPEG whose scans leave low-frequency "
-                            "coefficients unrefined (block smoothing) is not "
-                            "supported";
-    case kRange: return "corrupt JPEG data: coefficient out of range for "
-                        "8-bit samples";
+    case kSmoothing: return "progressive JPEG strip whose scans leave "
+                            "low-frequency coefficients unrefined (block "
+                            "smoothing) is not supported in a TIFF";
     case kSize: return "JPEG image size is empty or too large";
     case kChannels: return "channels must be 1 or 3";
     case kNoMemory: return "out of memory decoding JPEG";
@@ -2023,6 +2348,9 @@ const char* of_jpeg_strerror(int code) {
                                   "cv::imread fails on it too";
     case kTiffLossless: return "lossless JPEG inside a TIFF is not "
                                "supported";
+    case kLosslessUnscanned: return "lossless JPEG with a component in no "
+                                    "scan (libjpeg leaves its samples "
+                                    "undefined)";
     default: return "unknown JPEG error";
   }
 }

@@ -24,10 +24,12 @@ colour IMREAD_COLOR in BGR order), with no OpenCV or PIL:
     transform, precision 2-8, samples unscaled as libjpeg returns them);
     gray is a YCbCr image's Y plane, colour BGR; a CMYK or YCCK image goes
     through OpenCV's CMYK to BGR and to gray rules; the EXIF orientation
-    applied. What cv::imread fails on (12-bit, hierarchical, lossless
-    arithmetic, 2 components, a lossless frame read in a colour space
-    libjpeg would have to convert) is refused with "cv::imread fails on it
-    too".
+    applied. What libjpeg decodes with a warning (a file cut short, bytes
+    before a marker, bad codes, wrong restart markers, unfinished
+    progressive scans) reads as cv::imread reads the file. What cv::imread
+    fails on (12-bit, hierarchical, lossless arithmetic, 2 components, a
+    lossless frame read in a colour space libjpeg would have to convert)
+    is refused with "cv::imread fails on it too".
   - WebP (`utils.io.webp_chunks`, the bitstream by `csrc/webp.cpp`): lossy
     VP8 and lossless VP8L, simple and extended (VP8X) files, alpha dropped
     (a lossy image's ALPH chunk decoded only to fail where libwebp fails),

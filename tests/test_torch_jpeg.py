@@ -8,14 +8,16 @@ holds the decoder's gray and colour planes equal to cv2.imread's
 orientation applied), and the port's `load_image` equal to the JAX
 package's (cv2 under it). Tolerance 0: libjpeg-turbo's integer decode is
 deterministic. The pipeline and CLI runs are held at the port-vs-JAX
-budget of tests/test_torch_pipeline.py (EPE ratio 1e-3). Corrupt input
-either raises ValueError naming the cause or decodes exactly as cv2 does.
+budget of tests/test_torch_pipeline.py (EPE ratio 1e-3). Damaged input
+decodes exactly as cv2.imread decodes the file, or raises ValueError naming
+the cause where cv2 fails on it.
 """
 
 import hashlib
 import json
 import os
 import struct
+import tempfile
 
 import numpy as np
 import pytest
@@ -448,11 +450,8 @@ def _unrefined(raw):
     (_two_components, "2 or more than 4 components.*fails on it too"),
     (_no_dht_slot2, "Huffman table that is not defined"),
     (_without({0xDB}), "quantization table that is not defined"),
-    (_unrefined, "block smoothing"),
-    (lambda raw: raw[:len(raw) // 2], "truncated"),
-    (lambda raw: raw[:2] + b"\0" + raw[2:], "JPEG"),
 ], ids=["arithmetic", "lossless", "hierarchical", "12bit", "cmyk",
-        "no_dht", "no_dqt", "smoothing", "truncated", "garbage"])
+        "no_dht", "no_dqt"])
 def test_unsupported_or_corrupt_raises_naming_the_cause(tmp_path, make,
                                                         match):
     raw = _patched(make)
@@ -464,6 +463,29 @@ def test_unsupported_or_corrupt_raises_naming_the_cause(tmp_path, make,
             nio.decode_batch([path], ch)
         with pytest.raises(ValueError, match=match):
             uio.load_image(path, ch)
+
+
+# What libjpeg decodes with a warning reads as cv2.imread reads the file:
+# an unfinished progressive image (block smoothing), a file cut in the
+# middle of its scan (read on past a fake EOI), a stray byte between two
+# marker segments (skipped).
+@pytest.mark.parametrize("make", [
+    _unrefined,
+    lambda raw: raw[:(raw.index(b"\xff\xda") + len(raw)) // 2],
+    lambda raw: after_app0(raw, b"\0"),
+], ids=["smoothing", "truncated", "garbage"])
+def test_damaged_input_reads_as_cv2(tmp_path, make):
+    raw = _patched(make)
+    path = str(tmp_path / "damaged.jpg")
+    with open(path, "wb") as f:
+        f.write(raw)
+    for ch in (1, 3):
+        want = cv2_planes(path, ch)
+        assert want is not None
+        np.testing.assert_array_equal(nio.decode_jpeg(raw, ch), want)
+        np.testing.assert_array_equal(nio.decode_batch([path], ch)[0], want)
+        np.testing.assert_array_equal(uio.load_image(path, ch),
+                                      jio.load_image(path, ch))
 
 
 def test_mixed_size_jpeg_batch_raises(tmp_path):
@@ -496,23 +518,30 @@ _FUZZ_SOURCES = [encode(content(23, 37, "blur", 20), quality=50,
                       max_size=3))
 def test_corrupt_input_raises_or_equals_cv2(src, cut, flips):
     """Truncated and byte-flipped files (Huffman, arithmetic-coded and
-    lossless): the decoder raises ValueError or gives exactly cv2's planes,
-    never anything else and never a crash."""
+    lossless) against cv2.imread of the file: exactly its planes, or, where
+    cv2 fails (or on a lossless component no scan holds, whose samples
+    libjpeg leaves undefined), ValueError; never anything else and never a
+    crash."""
     raw = bytearray(_FUZZ_SOURCES[src])
     for where, mask in flips:
         raw[min(int(where * len(raw)), len(raw) - 1)] ^= mask
     if cut is not None:
         raw = raw[:int(cut * len(raw))]
     raw = bytes(raw)
-    for ch in (1, 3):
-        try:
-            got = nio.decode_jpeg(raw, ch)
-        except ValueError:
-            continue
-        want = cv2_planes(raw, ch)
-        assert want is not None
-        assert got.shape == want.shape
-        np.testing.assert_array_equal(got, want)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fuzz.jpg")
+        with open(path, "wb") as f:
+            f.write(raw)
+        for ch in (1, 3):
+            want = cv2_planes(path, ch)
+            try:
+                got = nio.decode_jpeg(raw, ch)
+            except ValueError as e:
+                assert want is None or "in no scan" in str(e), str(e)
+                continue
+            assert want is not None
+            assert got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
 
 
 def test_a_jpeg_library_that_does_not_build_raises(monkeypatch, tmp_path):

@@ -18,6 +18,7 @@ tests/test_torch_pipeline.py (EPE ratio 1e-3).
 import importlib.util
 import os
 import struct
+import tempfile
 
 import numpy as np
 import pytest
@@ -351,15 +352,6 @@ def _refusal(writer, case):
         # the colour read fails on the colour space first
         return _dri(raw, 7), (1, 3), \
             "(restart interval|colour space).*" + FAILS_TOO
-    if case.startswith("cut_"):
-        raw = mf.write(writer, img, arith=1, prog=int("prog" in case))
-        return raw[:len(raw) * 2 // 3], (), "truncated"
-    if case == "cmyk_adobe_transform_1":
-        return _adobe(mf.write(writer, c4, space="cmyk"), 1), (), \
-            "unknown Adobe colour transform"
-    if case == "ycbcr_adobe_transform_2":
-        raw = mf.write(writer, img, space="ycc", jfif=0, adobe=1)
-        return _adobe(raw, 2), (), "unknown Adobe colour transform"
     raise AssertionError(case)
 
 
@@ -368,16 +360,13 @@ REFUSALS = ["dct_12bit", "arith_12bit", "lossless_12bit",
             "two_components_huffman", "two_components_arith",
             "two_components_lossless",
             "lossless_ycbcr_adobe1", "lossless_ycck_adobe2",
-            "lossless_restart_not_a_row", "cut_arith", "cut_arith_prog",
-            "cmyk_adobe_transform_1", "ycbcr_adobe_transform_2"]
+            "lossless_restart_not_a_row"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)
 def test_refusals_name_the_cause(tmp_path, writer, case):
     """What cv2 fails on the port refuses with "cv::imread fails on it
-    too"; what libjpeg reads only with a warning (arithmetic data cut
-    short: "Premature end of JPEG file"; an unknown Adobe transform) the
-    port refuses by name, never returning other pixels."""
+    too", never returning other pixels."""
     raw, fails, match = _refusal(writer, case)
     path = str(tmp_path / "bad.jpg")
     with open(path, "wb") as f:
@@ -389,6 +378,29 @@ def test_refusals_name_the_cause(tmp_path, writer, case):
                    lambda: uio.load_image(path, ch)):
             with pytest.raises(ValueError, match=match):
                 fn()
+
+
+def _warned(writer, case):
+    """A file libjpeg decodes with a warning, where cv2.imread returns the
+    image: arithmetic-coded data cut short ("Premature end of JPEG file",
+    read on as zeros past the fake EOI), an unknown Adobe transform (YCCK
+    assumed for four components, YCbCr for three)."""
+    img, c4 = rgb(24, 40, 1), cmyk(24, 40, 1)
+    if case.startswith("cut_"):
+        raw = mf.write(writer, img, arith=1, prog=int("prog" in case))
+        return raw[:len(raw) * 2 // 3]
+    if case == "cmyk_adobe_transform_1":
+        return _adobe(mf.write(writer, c4, space="cmyk"), 1)
+    if case == "ycbcr_adobe_transform_2":
+        return _adobe(mf.write(writer, img, space="ycc", jfif=0, adobe=1), 2)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["cut_arith", "cut_arith_prog",
+                                  "cmyk_adobe_transform_1",
+                                  "ycbcr_adobe_transform_2"])
+def test_warned_reads_equal_cv2(tmp_path, writer, case):
+    held_to_cv2(tmp_path, _warned(writer, case))
 
 
 def _fuzz_sources():
@@ -414,24 +426,29 @@ _FUZZ = _fuzz_sources()
                       max_size=3))
 def test_corrupt_arithmetic_lossless_and_cmyk_raise_or_equal_cv2(src, cut,
                                                                  flips):
-    """Cut and byte-flipped arithmetic, lossless and 4-component files:
-    ValueError or exactly cv2's planes, never anything else."""
+    """Cut and byte-flipped arithmetic, lossless and 4-component files
+    against cv2.imread of the file: exactly its planes, or, where cv2 fails
+    (or on a lossless component no scan holds, whose samples libjpeg
+    leaves undefined), ValueError; never anything else."""
     raw = bytearray(_FUZZ[src])
     for where, mask in flips:
         raw[min(int(where * len(raw)), len(raw) - 1)] ^= mask
     if cut is not None:
         raw = raw[:max(1, int(cut * len(raw)))]
     raw = bytes(raw)
-    for ch in (1, 3):
-        try:
-            got = nio.decode_jpeg(raw, ch)
-        except ValueError:
-            continue
-        flag = cv2.IMREAD_GRAYSCALE if ch == 1 else cv2.IMREAD_COLOR
-        want = cv2.imdecode(np.frombuffer(raw, np.uint8), flag)
-        assert want is not None
-        want = want[None] if want.ndim == 2 else want.transpose(2, 0, 1)
-        np.testing.assert_array_equal(got, want)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fuzz.jpg")
+        with open(path, "wb") as f:
+            f.write(raw)
+        for ch in (1, 3):
+            want = cv2_planes(path, ch)
+            try:
+                got = nio.decode_jpeg(raw, ch)
+            except ValueError as e:
+                assert want is None or "in no scan" in str(e), str(e)
+                continue
+            assert want is not None
+            np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------- pipeline and CLI vs JAX

@@ -18,6 +18,9 @@ CPU for the frames' content:
   - pairs/lossless_gray/, pairs/ycck/: frames 0 and 1 as lossless gray
     (SOF3, predictor 1) and as YCCK (Adobe transform 2), for the serving
     pipeline and the CLI;
+  - progressive/frame_0000.jpg ... frame_0002.jpg: frames 0-2 written
+    progressive by cv2 (the same coefficients, so the same planes);
+  - restart/frame_0005.jpg: frame 5 with a restart interval of 4 MCUs;
   - variants/*.jpg: small files, one a feature the decoder must read
     (sampling factors, progressive, restart markers, EXIF orientation 6,
     gray, saturated colour blocks, Adobe RGB, a 7x9 frame, Motion-JPEG
@@ -31,7 +34,15 @@ CPU for the frames' content:
     for a read that cv2 fails on (the gray read of a lossless RGB file, the
     colour read of a lossless gray one), with the cv2 and libjpeg-turbo
     versions that made them, the writer's libjpeg-turbo and the frames'
-    motion.
+    motion; and, under "damaged", chip_smoke.py part 7g's frame sets, each
+    frame a committed file and the byte edits (`damage.py`) that damage
+    it: "damaged" the nine frames, frame 1 with 3 bytes before its EOI,
+    frame 2 without its EOI, frame 3 cut inside its last MCU row, frame
+    4 with a byte flipped in mid-scan, frame 5 (the restart file) with a
+    restart marker one ahead of the one due; "progressive" and
+    "progressive_cut" the three progressive frames, whole and cut before
+    their last scan; per damaged frame cv2.imread's planes as above and
+    the share of pixels where they differ from the whole file's.
 tests/test_torch_jpeg.py holds the manifest to live cv2 and to the port's
 decoder; chip_smoke.py holds the card machine's build of the decoder to
 it, where there is no cv2.
@@ -57,6 +68,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
 sys.path.insert(0, ROOT)
 
 from of_dis_tpu_torch.tools import bench_pipeline  # noqa: E402
+
+sys.path.insert(0, HERE)
+from damage import damage  # noqa: E402
 
 MOTION = (1.3, 0.4)
 CHROMA = 0.5
@@ -309,6 +323,96 @@ def planes(path: str) -> dict:
     return rec
 
 
+def _markers(raw: bytes, codes) -> list:
+    """Offsets of the FF of every marker with a code in `codes` after the
+    first SOS."""
+    at = raw.index(b"\xff\xda")
+    return [i for i in range(at, len(raw) - 1)
+            if raw[i] == 0xFF and raw[i + 1] in codes]
+
+
+def _gray(raw: bytes):
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.jpg")
+        with open(path, "wb") as f:
+            f.write(raw)
+        return cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+
+
+def last_row_cut(raw: bytes) -> int:
+    """A length that cuts `raw` inside its last MCU row: halfway between
+    the shortest cut whose gray read differs from the whole file's only in
+    that row's lines (16 at 4:2:0) and the file's end (cv2.imread reads
+    past the cut as libjpeg does)."""
+    whole = _gray(raw)
+    first_row = (whole.shape[0] - 1) // 16 * 16
+    lo, hi = raw.index(b"\xff\xda"), len(raw) - 2
+    while hi - lo > 1:                # the first differing line >= first_row
+        mid = (lo + hi) // 2
+        rows = np.nonzero((_gray(raw[:mid]) != whole).any(axis=1))[0]
+        if rows.size and rows[0] < first_row:
+            lo = mid
+        else:
+            hi = mid
+    return (hi + len(raw) - 2) // 2
+
+
+def damaged_sets(files: dict) -> dict:
+    """Part 7g's frame sets (see the module's docstring): name -> frames,
+    each {"name", "source", "edits"}."""
+    frames = []
+    for t in range(N_FRAMES):
+        source = f"frames/frame_{t:04d}.jpg" if t != 5 else \
+            "restart/frame_0005.jpg"
+        raw, edits = files[source], []
+        if t == 1:                    # extraneous bytes before EOI
+            edits = [["insert", len(raw) - 2, "5aa53c"]]
+        elif t == 2:                  # no EOI
+            edits = [["cut", len(raw) - 2]]
+        elif t == 3:                  # cut inside the last MCU row
+            edits = [["cut", last_row_cut(raw)]]
+        elif t == 4:                  # a byte flipped in mid-scan
+            at = raw.index(b"\xff\xda")
+            edits = [["xor", (at + len(raw)) // 2, 0x10]]
+        elif t == 5:                  # RSTn one ahead of the one due
+            rst = _markers(raw, range(0xD0, 0xD8))
+            k = len(rst) // 2
+            edits = [["xor", rst[k] + 1, (raw[rst[k] + 1] - 0xD0) ^
+                      ((raw[rst[k] + 1] - 0xD0 + 1) & 7)]]
+        frames.append({"name": f"frame_{t:04d}.jpg", "source": source,
+                       "edits": edits})
+    prog = [f"progressive/frame_{t:04d}.jpg" for t in range(3)]
+    return {
+        "damaged": frames,
+        "progressive": [{"name": os.path.basename(p), "source": p,
+                         "edits": []} for p in prog],
+        "progressive_cut": [{"name": os.path.basename(p), "source": p,
+                             "edits": [["cut", files[p].rindex(
+                                 b"\xff\xda")]]} for p in prog]}
+
+
+def damaged_planes(files: dict, sets: dict) -> dict:
+    """"set/frame" -> cv2.imread's planes of the damaged frame, and the
+    share of pixels where they differ from the whole source file's."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, frs in sets.items():
+            for fr in frs:
+                raw = files[fr["source"]]
+                path = os.path.join(tmp, "damaged.jpg")
+                with open(path, "wb") as f:
+                    f.write(damage(raw, fr["edits"]))
+                rec = planes(path)
+                whole = os.path.join(tmp, "whole.jpg")
+                with open(whole, "wb") as f:
+                    f.write(raw)
+                a = cv2.imread(path, cv2.IMREAD_COLOR)
+                b = cv2.imread(whole, cv2.IMREAD_COLOR)
+                rec["changed"] = float((a != b).any(axis=2).mean())
+                out[f"{name}/{fr['name']}"] = rec
+    return out
+
+
 def libjpeg_version() -> str:
     m = re.search(r"JPEG:\s+(.*)", cv2.getBuildInformation())
     return m.group(1).strip() if m else "unknown"
@@ -317,11 +421,15 @@ def libjpeg_version() -> str:
 def main() -> dict:
     files = {}
     for d in ("frames", "frames_arith", "pairs/lossless_gray", "pairs/ycck",
-              "variants"):
+              "progressive", "restart", "variants"):
         os.makedirs(os.path.join(HERE, d), exist_ok=True)
     imgs = frames()
     for t, img in enumerate(imgs):
         files[f"frames/frame_{t:04d}.jpg"] = encode(img)
+    for t in range(3):
+        files[f"progressive/frame_{t:04d}.jpg"] = encode(imgs[t],
+                                                         progressive=True)
+    files["restart/frame_0005.jpg"] = encode(imgs[5], restart=4)
     for name, raw in variants().items():
         files[f"variants/{name}"] = raw
     with tempfile.TemporaryDirectory() as tmp:
@@ -341,6 +449,9 @@ def main() -> dict:
         with open(path, "wb") as f:
             f.write(raw)
         manifest["files"][rel] = {"bytes": len(raw), **planes(path)}
+    sets = damaged_sets(files)
+    manifest["damaged"] = {"sets": sets,
+                           "planes": damaged_planes(files, sets)}
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")

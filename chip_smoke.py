@@ -151,6 +151,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      frames, medians within 0.25 px of the motion on the pairs of frames
      that differ from their whole files in under 5% of pixels (measured
      on the others);
+  7h. damaged TIFF frames (`run_tiff_damaged_part`): the four frame sets
+     that tests/torch_fixtures/tiff/manifest.json lists as byte edits
+     (`damage.py`) of source frames (lzw_pred, packbits_tiled and jpeg
+     written on the card's host by part 7e's writers, fax_g4 the
+     committed files; each source's SHA-256 checked first): frames 0, 3,
+     6 whole, 1, 4, 7 with a byte flipped in one strip or tile, 2, 5, 8
+     with a strip's or tile's byte count cut short; decoded through
+     `decode_batch` and `load_image`, gray and colour, each plane's
+     SHA-256 equal to the manifest's cv2.imread hash; decode frames/s per
+     set at 1 and 8 threads (a sanity figure of one run); `run_pipeline`
+     (one batch) and `cli.main` at op-2, gray and RGB flow, on every set,
+     checked as in 7g (fax_g4's medians measured, not held);
   8. the compiled-reference goldens through the port's `cli.main` on the
      card (all fifteen: six modes at op-2, op-1, op-3 in five modes, op-4,
      the merge for flow and depth, the TV-free pseudo-Huber run), and the
@@ -2252,6 +2264,100 @@ def run_jpeg_damaged_part(dev, totals, walls_by_path):
     return result
 
 
+# Part 7h: damaged TIFF frames, which libtiff's RGBA reader returns with
+# what each codec decoded before its fault (cv2.imread with it). The TIFF
+# manifest's "damaged" entry lists four frame sets as byte edits
+# (tests/torch_fixtures/jpeg/damage.py) of source frames: lzw_pred,
+# packbits_tiled and jpeg as part 7e's writers make them on the host,
+# fax_g4 the committed files; the SHA-256 of every source, which must
+# match before the edits apply, and of cv2.imread's planes of every
+# damaged frame, with the share of its pixels the damage changed.
+# Deflate is not among them: zlib's output differs between builds.
+# `held_share` as in part 7g; `no_median`: bilevel frames, measured only.
+TIFF_DAMAGED_PART = dict(op=2, batch=8, decode_threads=(1, 8),
+                         decode_repeats=2, held_share=0.05,
+                         no_median=("fax_g4",))
+
+
+def run_tiff_damaged_part(dev, totals, walls_by_path):
+    """Phase 7, part 7h (see TIFF_DAMAGED_PART): the sources written on the
+    host and checked against their SHA-256, the damaged sets made from
+    them, every frame's planes against the manifest's cv2 hashes through
+    `decode_batch` and `load_image`; decode frames/s per set at 1 and 8
+    threads (a sanity figure of one run); `run_pipeline` and `cli.main`
+    at op-2, gray and RGB flow, on every set, each file against
+    `dis_flow_batched` on the same decoded frames."""
+    cfg = TIFF_DAMAGED_PART
+    t_part = time.perf_counter()
+    with open(os.path.join(TIFF_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    damaged = manifest["damaged"]
+    fixtures = _fixture_module(TIFF_DIR, "tiff_fixtures")
+    damage = _fixture_module(JPEG_DIR, "jpeg_damage", "damage.py").damage
+    root = os.path.join(OUT_DIR, "tiff_damaged")
+    shutil.rmtree(root, ignore_errors=True)
+    generated = [n for n in damaged["sets"] if n not in fixtures.COMMITTED]
+    planes, raws = _jpeg_frames()
+    with ThreadPoolExecutor(8) as pool:
+        fixtures.write_frames(os.path.join(root, "sources"), planes, raws,
+                              formats=generated, pool=pool)
+    sets, wrong = {}, []
+    for name, frames in damaged["sets"].items():
+        base = TIFF_DIR if name in fixtures.COMMITTED \
+            else os.path.join(root, "sources")
+        os.makedirs(os.path.join(root, name))
+        sets[name] = []
+        for fr in frames:
+            with open(os.path.join(base, fr["source"]), "rb") as f:
+                src = f.read()
+            if hashlib.sha256(src).hexdigest() != \
+                    damaged["sources"][fr["source"]]:
+                wrong.append(fr["source"])
+            path = os.path.join(root, name, fr["name"])
+            with open(path, "wb") as f:
+                f.write(damage(src, fr["edits"]))
+            sets[name].append(path)
+    if wrong:
+        raise AssertionError(f"TIFF sources differ from the manifest's: "
+                             f"{wrong}")
+    recs = {name: [damaged["planes"][f"{name}/{os.path.basename(p)}"]
+                   for p in ps] for name, ps in sets.items()}
+    checked, bad = _check_planes(
+        (p, rec) for name, ps in sets.items()
+        for p, rec in zip(ps, recs[name]))
+    print(json.dumps({"tiff_damaged": "decode check", "planes": checked,
+                      "frames": sum(map(len, sets.values())),
+                      "sources_checked": len(damaged["sources"]),
+                      "against": f"cv2 {manifest['cv2']}",
+                      "mismatches": bad, "card": nvidia_smi_line()}),
+          flush=True)
+    if bad:
+        raise AssertionError(f"damaged TIFF planes differ from cv2's: {bad}")
+    rates = {name: _decode_rates(ps, 1, cfg["decode_repeats"] * 9 // len(ps),
+                                 cfg["decode_threads"])
+             for name, ps in sets.items()}
+    print(json.dumps({"tiff_damaged": "decode (sanity, one run)",
+                      "size": f"{W_ORG}x{H_ORG}", "channels": 1,
+                      "frames": 9 * cfg["decode_repeats"],
+                      "frames_per_s_by_threads": rates,
+                      "cpu_count": os.cpu_count(),
+                      "card": nvidia_smi_line()}), flush=True)
+    result = {}
+    for name, ps in sets.items():
+        share = [rec["changed"] for rec in recs[name]]
+        held = [k for k in range(len(ps) - 1)
+                if max(share[k], share[k + 1]) < cfg["held_share"]]
+        for mode, noc in (("run_OF_INT", 1), ("run_OF_RGB", 3)):
+            result[f"{name} {mode}"] = _serve_frames(
+                f"tiff damaged {name}", ps, cfg,
+                os.path.join(root, f"out_{name}_{mode}"), dev, totals,
+                manifest["motion_px"], mode, noc,
+                medians=name not in cfg["no_median"], held=held)
+    print(f"tiff damaged part: {time.perf_counter() - t_part:.1f} s",
+          flush=True)
+    return result
+
+
 # The explicit 20-parameter forms of the merge and TV-free goldens
 # (tests/test_golden_parity.py): levels 3..1, 12 trips, patch size 8,
 # overlap 0.4, then usefbcon, patnorm, costfct, usetvref.
@@ -2962,6 +3068,8 @@ def main() -> int:
     run_jp2_part(dev, totals, walls)
     # 7g. damaged JPEG frames, read as cv2.imread reads them: the same
     run_jpeg_damaged_part(dev, totals, walls)
+    # 7h. damaged TIFF frames, read as cv2.imread reads them: the same
+    run_tiff_damaged_part(dev, totals, walls)
 
     # 8. goldens through the CLI on the card, quiet and at verbosity 2
     run_goldens()

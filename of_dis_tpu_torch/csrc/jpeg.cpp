@@ -40,8 +40,7 @@
 // Blocks whose coefficients leave the C IDCT's range for 8-bit samples are
 // computed as the AVX2 IDCT that cv2's libjpeg-turbo runs computes them
 // (16-bit lanes). A JPEG strip of a TIFF (`of_jpeg_decode_tiff`) is read
-// strictly: anything libjpeg would warn about, and block smoothing, is an
-// error there.
+// the same way, as libtiff's tif_jpeg.c has libjpeg read it.
 // What it refuses, each with its own code (`of_jpeg_strerror`): what
 // cv::imread fails on too (hierarchical and lossless arithmetic frames,
 // 12-bit samples, 2 or more than 4 components, a lossless frame read in a
@@ -52,6 +51,7 @@
 // Every read is bounds-checked: corrupt input returns an error code or the
 // pixels libjpeg gives it.
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -66,7 +66,6 @@ namespace {
 enum Code {
   kOk = 0,
   kNotJpeg = -1,
-  kTruncated = -2,
   kBadMarker = -3,
   kLosslessArith = -4,
   kLosslessColor = -5,
@@ -77,22 +76,18 @@ enum Code {
   kNoHuffTable = -10,
   kNoQuantTable = -11,
   kBadHuffTable = -12,
-  kBadCode = -13,
   kCorrupt = -14,
   kProgression = -15,
-  kSmoothing = -16,
   kSize = -18,
   kChannels = -19,
   kNoMemory = -20,
   kNoImage = -21,
-  kRestart = -22,
-  kExtraneous = -23,
-  kArithCode = -24,
-  kAdobeTransform = -25,
   kLosslessSampling = -26,
   kLosslessRestart = -27,
   kTiffLossless = -28,
   kLosslessUnscanned = -29,
+  kTiffSize = -30,
+  kTiffScans = -31,
 };
 
 struct Error {
@@ -234,14 +229,11 @@ struct Component {
 // EOI marker) at every refill, with a warning. `unread` is libjpeg's
 // cinfo->unread_marker: a marker code that the entropy decoder or a
 // restart check has read and the marker reader has not yet handled.
-// `warning` keeps the first thing libjpeg would warn about (a code of its
-// own), which only the strict reading of a TIFF strip turns into an error.
 struct Source {
   const uint8_t* p = nullptr;
   const uint8_t* end = nullptr;
   int64_t past = 0;  // bytes of fake EOI markers read
   int unread = 0;
-  int warning = 0;
 
   void reset(const uint8_t* buf, int64_t len) {
     p = buf;
@@ -249,13 +241,9 @@ struct Source {
     past = 0;
     unread = 0;
   }
-  void warn(int code) {
-    if (!warning) warning = code;
-  }
   int byte() {
     if (p < end) return *p++;
-    warn(kTruncated);  // JWRN_JPEG_EOF
-    return past++ & 1 ? 0xD9 : 0xFF;
+    return past++ & 1 ? 0xD9 : 0xFF;  // JWRN_JPEG_EOF
   }
   // the next entropy-coded byte (jdhuff.c jpeg_fill_bit_buffer,
   // jdarith.c arith_decode): FF 00 is a data FF, FF fill bytes before a
@@ -343,8 +331,7 @@ struct BitReader {
         return t.vals[(c + t.valoffset[l]) & 0xFF];
       }
     }
-    s.warn(kBadCode);
-    consume(17);
+    consume(17);  // JWRN_HUFF_BAD_CODE
     return 0;
   }
 
@@ -352,7 +339,6 @@ struct BitReader {
   // (jdhuff.c process_restart); a whole byte of them is data libjpeg
   // skips with a warning.
   void discard() {
-    if (n - fake >= 8) s.warn(kExtraneous);
     buf = 0;
     n = fake = 0;
   }
@@ -554,15 +540,11 @@ struct Decoder {
   int next_marker() {
     for (;;) {
       int c = byte();
-      while (c != 0xFF) {
-        s.warn(kExtraneous);
-        c = byte();
-      }
+      while (c != 0xFF) c = byte();  // JWRN_EXTRANEOUS_DATA
       do {
         c = byte();
       } while (c == 0xFF);
       if (c != 0) return c;
-      s.warn(kExtraneous);
     }
   }
 
@@ -947,13 +929,7 @@ struct Decoder {
   // (`bad`) and what it only warns about, which is decoded as it stands
   void check_scan(const Scan& sc) {
     if (!progressive) {  // JWRN_NOT_SEQUENTIAL; decoded as sequential
-      if (sc.ss != 0 || sc.se != 63 || sc.ah != 0 || sc.al != 0)
-        s.warn(kProgression);
-      for (int i = 0; i < sc.n; ++i) {
-        Component& k = comp[sc.ci[i]];
-        if (k.seen) s.warn(kProgression);
-        k.seen = true;
-      }
+      for (int i = 0; i < sc.n; ++i) comp[sc.ci[i]].seen = true;
       return;
     }
     const bool dc = sc.ss == 0;
@@ -970,14 +946,9 @@ struct Decoder {
     for (int i = 0; i < sc.n; ++i) {  // JWRN_BOGUS_PROGRESSION
       Component& k = comp[sc.ci[i]];
       int* cb = k.coef_bits;
-      if (!dc && cb[0] < 0) s.warn(kProgression);
       const int lo = sc.ss < 1 ? sc.ss : 1, hi = sc.se > 9 ? sc.se : 9;
       for (int c = lo; c <= hi; ++c) k.prev_bits[c] = scans > 1 ? cb[c] : 0;
-      for (int c = sc.ss; c <= sc.se; ++c) {
-        int expected = cb[c] < 0 ? 0 : cb[c];
-        if (sc.ah != expected) s.warn(kProgression);
-        cb[c] = sc.al;
-      }
+      for (int c = sc.ss; c <= sc.se; ++c) cb[c] = sc.al;
     }
   }
 
@@ -1047,10 +1018,7 @@ struct Decoder {
       dead = false;
     }
     void end() {}
-    void bad_code() {
-      d.s.warn(kArithCode);
-      dead = true;
-    }
+    void bad_code() { dead = true; }  // JWRN_ARITH_BAD_CODE
 
     // F.2.4.1: a DC difference into *out, and its conditioning category
     // for the next; false on a magnitude overflow (a bad code)
@@ -1193,8 +1161,7 @@ struct Decoder {
     const int want = next_restart;
     if (s.unread == 0xD0 + want) {
       s.unread = 0;
-    } else {
-      s.warn(kRestart);
+    } else {  // JWRN_MUST_RESYNC
       for (;;) {
         const int m = s.unread;
         int action = 1;
@@ -1314,7 +1281,6 @@ struct Decoder {
     int blocks = 0;
     for (int i = 0; i < sc.n; ++i) {
       Component& k = comp[sc.ci[i]];
-      if (k.seen) s.warn(kProgression);
       k.seen = true;
       dct[i] = &table(dc_tab, sc.td[i], true);
       blocks += sc.n == 1 ? 1 : k.h * k.v;
@@ -1526,8 +1492,7 @@ struct Decoder {
         int rs = br.decode(*act);
         int r = rs >> 4, s = rs & 15;
         if (s) {
-          if (s != 1) br.s.warn(kBadCode);  // read as 1 all the same
-          s = br.bit() ? p1 : m1;
+          s = br.bit() ? p1 : m1;  // a size other than 1 read as 1
         } else if (r != 15) {
           eobrun = 1 << r;
           if (r) eobrun += br.bits(r);
@@ -1559,13 +1524,13 @@ struct Decoder {
   // is decoded from that scan alone (what follows it, read only by
   // jpeg_finish_decompress, whose errors cv::imread ignores, changes no
   // pixel); any other is read scan by scan up to EOI, the fake one at the
-  // end of the file included. `strict`: every scan to EOI (a TIFF strip).
-  void decode_all(bool strict) {
+  // end of the file included.
+  void decode_all() {
     setup_components();
     bool multi = true;
     for (bool first = true;; first = false) {
       const Scan sc = read_sos();
-      if (first) multi = strict || progressive || sc.n < ncomp;
+      if (first) multi = progressive || sc.n < ncomp;
       decode_scan(sc);
       if (!multi) return;
       int code;
@@ -2047,7 +2012,6 @@ void upsampled(Decoder& d, int n, std::vector<Plane>* planes,
     } else {
       // a component in no scan has no quantisation table: its
       // coefficients count as 0 (jddctmgr.c), its samples 128
-      if (!k.latched) d.s.warn(kNoQuantTable);
       planes->push_back(inverse_dct(k, nullptr));
     }
     ups->emplace_back(planes->back(), d.max_h / k.h, d.max_v / k.v,
@@ -2071,13 +2035,11 @@ Space color_space(Decoder& d) {
   if (d.ncomp == 4) {
     if (!d.adobe) return kCmyk;
     if (d.adobe_transform == 0) return kCmyk;
-    if (d.adobe_transform != 2) d.s.warn(kAdobeTransform);
     return kYcck;
   }
   if (d.jfif) return kYcc;
   if (d.adobe) {
     if (d.adobe_transform == 0) return kRgb;
-    if (d.adobe_transform != 1) d.s.warn(kAdobeTransform);
     return kYcc;
   }
   if (d.comp[0].id == 'R' && d.comp[1].id == 'G' && d.comp[2].id == 'B')
@@ -2107,7 +2069,7 @@ void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
   if (d.lossless)
     for (int c = 0; c < d.ncomp; ++c)
       if (d.comp[c].h != 1 || d.comp[c].v != 1) fail(kLosslessSampling);
-  d.decode_all(false);
+  d.decode_all();
 
   // components the output needs (jdcolor.c: YCbCr to gray reads Y only)
   const int need = cs == kGray || (cs == kYcc && channels == 1) ? 1
@@ -2186,15 +2148,25 @@ void decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out) {
 // One strip or tile of a JPEG-compressed TIFF, as libtiff's JPEG codec
 // (tif_jpeg.c) has libjpeg decode it for TIFFReadRGBA*: the tables of the
 // JPEGTables stream first (`tables`, may be empty), then the strip's own
-// stream; its size, component count and sampling factors as the TIFF's
-// (component 0 `h0` x `v0`, the others 1 x 1); the components upsampled
-// as ever, then, with `ycc`, YCbCr to RGB (JPEGCOLORMODE_RGB), else left
-// as they are (jpeg_color_space JCS_UNKNOWN: no Adobe transform either,
-// which is how libtiff reads a 4-sample RGB + alpha or CMYK strip). Into
-// `out`, (height, width, ncomp) interleaved.
+// stream, read as cv::imread reads a JPEG file (tif_jpeg.c's source
+// manager also ends the data with fake EOI markers, and its warning
+// handler only warns; block smoothing stays on), so that what libjpeg
+// decodes with a warning reads as in `decode`. Its component count and
+// sampling factors as the TIFF's (component 0 `h0` x `v0`, the others
+// 1 x 1), else JPEGPreDecode fails; a JPEG wider or taller than the
+// chunk's `width` x `height` fails too, but for the last strip of the
+// image (`taller_ok`) of the chunk's width and more rows, of which the
+// chunk's are read; a smaller one fills its own rows and columns of the
+// chunk, the rest left 0 ("Improper JPEG strip/tile size", a warning);
+// a stream of 100 scans or more fails (libtiff's progress monitor).
+// The components upsampled as ever, then, with `ycc`, YCbCr to RGB
+// (JPEGCOLORMODE_RGB), else left as they are (jpeg_color_space
+// JCS_UNKNOWN: no Adobe transform either, which is how libtiff reads a
+// 4-sample RGB + alpha or CMYK strip). Into `out`, (height, width,
+// ncomp) interleaved.
 void decode_tiff_strip(const uint8_t* tables, int64_t tlen, const uint8_t* buf,
                        int64_t len, int ycc, int width, int height, int ncomp,
-                       int h0, int v0, uint8_t* out) {
+                       int h0, int v0, int taller_ok, uint8_t* out) {
   Decoder d(buf, len);
   if (tlen > 0) {
     d.s.reset(tables, tlen);
@@ -2204,24 +2176,25 @@ void decode_tiff_strip(const uint8_t* tables, int64_t tlen, const uint8_t* buf,
   }
   d.read_header();
   if (d.lossless) fail(kTiffLossless);
-  if (d.width != width || d.height != height) fail(kSize);
+  if ((d.width > width || d.height > height)
+      && !(taller_ok && d.width == width))
+    fail(kTiffSize);
   if (d.ncomp != ncomp || (ycc && ncomp != 3)) fail(kComponents);
   if (ncomp == 2 || ncomp > 4) fail(kComponents);
   for (int c = 0; c < d.ncomp; ++c)
     if (d.comp[c].h != (c ? 1 : h0) || d.comp[c].v != (c ? 1 : v0))
       fail(kSampling);
-  d.decode_all(true);
-  // a damaged strip is refused, whatever libjpeg would make of it
-  if (d.smoothing()) d.s.warn(kSmoothing);
-  if (d.s.warning) fail(d.s.warning);
-  const int W = d.width, H = d.height;
+  d.decode_all();
+  // TIFFjpeg_progress_monitor: libtiff fails a stream from its 100th scan
+  if (d.scans >= 100) fail(kTiffScans);
+  const int W = d.width, H = std::min(d.height, height);
   std::vector<Plane> planes;
   std::vector<Upsampler> ups;
   upsampled(d, ncomp, &planes, &ups);
-  if (d.s.warning) fail(d.s.warning);
   const ColorTables& t = color_tables();
+  std::memset(out, 0, static_cast<size_t>(width) * height * ncomp);
   for (int y = 0; y < H; ++y) {
-    uint8_t* o = out + static_cast<size_t>(y) * W * ncomp;
+    uint8_t* o = out + static_cast<size_t>(y) * width * ncomp;
     if (ncomp != 3) {  // null_convert of 1 or 4 components
       for (int c = 0; c < ncomp; ++c) {
         const uint8_t* s = ups[c].row(y);
@@ -2254,10 +2227,11 @@ extern "C" {
 // decode_tiff_strip: 0, or a negative code (of_jpeg_strerror).
 int of_jpeg_decode_tiff(const uint8_t* tables, int64_t tlen,
                         const uint8_t* buf, int64_t len, int ycc, int width,
-                        int height, int ncomp, int h0, int v0, uint8_t* out) {
+                        int height, int ncomp, int h0, int v0, int taller_ok,
+                        uint8_t* out) {
   try {
     decode_tiff_strip(tables, tlen, buf, len, ycc, width, height, ncomp, h0,
-                      v0, out);
+                      v0, taller_ok, out);
     return 0;
   } catch (const Error& e) {
     return e.code;
@@ -2303,7 +2277,6 @@ const char* of_jpeg_strerror(int code) {
   switch (code) {
     case kOk: return "no error";
     case kNotJpeg: return "not a JPEG (no SOI marker and marker after it)";
-    case kTruncated: return "truncated JPEG data";
     case kBadMarker: return "corrupt or unsupported JPEG marker segment";
     case kLosslessArith: return "lossless arithmetic-coded JPEG (SOF11): "
                                 "cv::imread fails on it too";
@@ -2324,23 +2297,13 @@ const char* of_jpeg_strerror(int code) {
     case kNoQuantTable: return "JPEG component uses a quantization table "
                                "that is not defined";
     case kBadHuffTable: return "corrupt JPEG Huffman table";
-    case kBadCode: return "corrupt JPEG data: bad Huffman code";
     case kCorrupt: return "corrupt JPEG data";
     case kProgression: return "corrupt JPEG data: invalid scan or "
                               "progression parameters";
-    case kSmoothing: return "progressive JPEG strip whose scans leave "
-                            "low-frequency coefficients unrefined (block "
-                            "smoothing) is not supported in a TIFF";
     case kSize: return "JPEG image size is empty or too large";
     case kChannels: return "channels must be 1 or 3";
     case kNoMemory: return "out of memory decoding JPEG";
     case kNoImage: return "JPEG has no image (no scan)";
-    case kRestart: return "corrupt JPEG data: wrong restart marker";
-    case kExtraneous: return "corrupt JPEG data: extraneous bytes before "
-                             "marker";
-    case kArithCode: return "corrupt JPEG data: bad arithmetic code";
-    case kAdobeTransform: return "JPEG with an unknown Adobe colour transform "
-                                 "(libjpeg decodes it only with a warning)";
     case kLosslessSampling: return "lossless JPEG with subsampled components "
                                    "is not supported";
     case kLosslessRestart: return "lossless JPEG whose restart interval is "
@@ -2348,6 +2311,12 @@ const char* of_jpeg_strerror(int code) {
                                   "cv::imread fails on it too";
     case kTiffLossless: return "lossless JPEG inside a TIFF is not "
                                "supported";
+    case kTiffSize: return "JPEG strip or tile larger than the TIFF's "
+                           "(libtiff's JPEGPreDecode fails): cv::imread "
+                           "fails on it too";
+    case kTiffScans: return "JPEG strip or tile of 100 scans or more "
+                            "(libtiff's scan limit): cv::imread fails on "
+                            "it too";
     case kLosslessUnscanned: return "lossless JPEG with a component in no "
                                     "scan (libjpeg leaves its samples "
                                     "undefined)";

@@ -28,9 +28,15 @@
 // over its luma (tif_getimage.c's putcontig8bitYCbCr*tile). The
 // orientation tag flips as libtiff's raster and OpenCV's strip placement
 // do: 2 mirrors each strip or tile in place, 4 flips the image upside
-// down, 3 both. Held to cv2.imread pixel for pixel by
-// tests/test_torch_tiff.py, test_torch_tiff_fax.py and
-// test_torch_tiff_ycbcr.py.
+// down, 3 both. Damaged data: the RGBA reader ignores a codec's error and
+// shows the chunk's buffer as the codec left it (zeroed before the call,
+// so what was decoded and zeros after it), neither swabbed nor with its
+// predictor undone; each codec here stops where libtiff's does (LZW at an
+// undefined code, a full table or the data's end; PackBits and
+// uncompressed data short; CCITT rows as tif_fax3.c recovers them). Held
+// to cv2.imread pixel for pixel by tests/test_torch_tiff.py,
+// test_torch_tiff_fax.py, test_torch_tiff_ycbcr.py and
+// test_torch_tiff_damaged.py.
 
 #include <cstdint>
 #include <algorithm>
@@ -51,19 +57,11 @@ enum Param {
 
 enum Code {
   kOk = 0,
-  kShort = -1,        // a chunk decodes to fewer bytes than it holds
   kLayout = -2,       // parameters the decoder does not take
-  kLzw = -3,          // corrupt LZW data
   kNoMemory = -4,
   kOldLzw = -5,       // old-style (TIFF 5.0) LZW, LSB-first
-  kFaxCode = -6,      // a bit pattern that is no CCITT code word here
-  kFaxEol = -7,       // an EOL inside a row (libtiff: "Premature EOL")
-  kFaxLength = -8,    // a row of other than its width ("Line length
-                      // mismatch")
-  kFaxEnd = -9,       // the data end inside a row ("Premature EOF")
-  kFaxNoEol = -10,    // a Group 3 row without its leading EOL
-  kFaxUncompressed = -11,  // an uncompressed-mode extension code
-  kFaxRuns = -12,     // more runs in a row than libtiff's run arrays hold
+  kFaxMemory = -6,    // CCITT data that make libtiff read before its run
+                      // arrays, memory that is not its own
 };
 
 struct Error {
@@ -75,10 +73,13 @@ struct Error {
 // TIFF LZW (tif_lzw.c LZWDecode, new style): codes MSB-first from 9 bits,
 // one bit more once the next free entry reaches 2^n - 1 (early change),
 // up to 12; Clear (256) first, End (257) or the end of the data last.
-// Fills `out` with `need` bytes, the last string cut where it overruns;
-// data that ends first, an undefined code or a full table fail, as
-// libtiff fails.
-void lzw_decode(const uint8_t* in, int64_t n, uint8_t* out, int64_t need) {
+// Fills `out` with `need` bytes, the last string cut where it overruns.
+// As libtiff: an undefined code, a regular code while the table is full
+// (5119 entries, libtiff's CSIZE, and before the first Clear: LZWPreDecode
+// starts with the table full) and data that end before `need` bytes (at
+// End or at a code the bits do not complete) stop the decoding, the rest
+// of `out` left zero. Returns whether all `need` bytes came.
+bool lzw_decode(const uint8_t* in, int64_t n, uint8_t* out, int64_t need) {
   constexpr int kClear = 256, kEnd = 257, kFirst = 258;
   constexpr int kSize = 4095 + 1024;   // libtiff's CSIZE
   std::vector<int32_t> prev(kSize), len(kSize);
@@ -91,8 +92,8 @@ void lzw_decode(const uint8_t* in, int64_t n, uint8_t* out, int64_t need) {
   int64_t pos = 0, bitpos = 0;
   const int64_t nbits_total = n * 8;
   int nbits = 9;
-  int free_ent = kFirst;
-  int old = -1;  // none: the first code must be Clear
+  int free_ent = kSize;  // full until the first Clear
+  int old = 0;
   auto next = [&]() -> int {
     if (bitpos + nbits > nbits_total) return kEnd;  // out of data: End
     int64_t v = 0;
@@ -113,36 +114,34 @@ void lzw_decode(const uint8_t* in, int64_t n, uint8_t* out, int64_t need) {
       do {
         free_ent = kFirst;
         nbits = 9;
-        for (int i = kFirst; i < kSize; ++i) len[i] = 0;
         code = next();
       } while (code == kClear);
-      if (code == kEnd) break;
-      if (code > kClear) fail(kLzw);
+      if (code == kEnd || code > kClear) break;
       out[pos++] = static_cast<uint8_t>(code);
       old = code;
       continue;
     }
     if (code == kEnd) break;
-    if (old < 0 || free_ent >= kSize) fail(kLzw);
     // the new entry: the previous string and the first byte of this one
     // (of the new entry itself where the code is the one being defined)
     const bool known = code < free_ent;
-    if (!known && code != free_ent) fail(kLzw);
+    if (free_ent >= kSize || (!known && code != free_ent)) break;
     prev[free_ent] = old;
     len[free_ent] = len[old] + 1;
     first[free_ent] = first[old];
     last[free_ent] = known ? first[code] : first[old];
     if (++free_ent > (1 << nbits) - 2 && nbits < 12) ++nbits;
-    if (len[code] == 0) fail(kLzw);
     emit(code);
     old = code;
   }
-  if (pos < need) fail(kShort);
+  return pos >= need;
 }
 
 // PackBits (tif_packbits.c PackBitsDecode): a run or a literal that
-// overruns `need` is cut; data that ends before `need` bytes fails.
-void packbits_decode(const uint8_t* in, int64_t n, uint8_t* out,
+// overruns `need` is cut; a literal the data do not hold, or a run
+// without its byte, ends the decoding. Returns whether `need` bytes came
+// (the rest of `out` left zero).
+bool packbits_decode(const uint8_t* in, int64_t n, uint8_t* out,
                      int64_t need) {
   int64_t i = 0, o = 0;
   while (i < n && o < need) {
@@ -164,7 +163,7 @@ void packbits_decode(const uint8_t* in, int64_t n, uint8_t* out,
       i += lit;
     }
   }
-  if (o < need) fail(kShort);
+  return o >= need;
 }
 
 inline uint8_t reverse_bits(uint8_t v) {
@@ -179,12 +178,18 @@ inline uint8_t reverse_bits(uint8_t v) {
 // Fax3Decode2D, Fax4Decode) with its run arrays and its EXPAND1D /
 // EXPAND2D state machines, on a row of `width` pixels: white runs leave
 // bits 0, black runs set them to 1 (_TIFFFax3fillruns); the photometric
-// interpretation maps them afterwards, as for any 1-bit gray strip. Where
-// libtiff only warns and reads on (a bad code, an EOL inside a row, a row
-// of another length, data that end inside a row, a Group 3 row whose EOL
-// is missing, an uncompressed-mode code, runs that overflow its arrays),
-// the decoder fails instead: cv::imread's pixels are then not defined by
-// the data alone.
+// interpretation maps them afterwards, as for any 1-bit gray strip.
+// Corrupt data decode as libtiff decodes them, for it only warns and
+// reads on: a bad code word or an EOL inside a row ends the row, which
+// CLEANUP_RUNS makes its width (the rest white, or in 2-D after an EOL
+// the colour the row was in); a Group 3 row then looks for the next EOL
+// bit by bit, a Modified Huffman row starts on the next byte, a Group 4
+// strip stops at an EOL; data that end inside a row end the chunk after
+// that row, the rows below left 0; a run that would overflow the run
+// arrays ends the chunk before its row is filled. The run arrays outlive
+// a chunk (libtiff sets them up once per image), so a 2-D row that reads
+// its reference line past the line's own runs reads what an earlier row
+// or chunk left there, as here.
 
 // ITU-T T.4's code words: {bits, value}, the run lengths 0-63
 // (terminating), 64-1728 (make-up), 1792-2560 (extended make-up, both
@@ -264,27 +269,30 @@ constexpr CodeWord kExtendedCodes[] = {
     {"000000011111", 2560},
 };
 
-enum FaxKind : uint8_t {
-  kBad = 0, kTerm, kMakeUp, kEol, kExt, kPass, kHoriz, kVertical
+enum FaxKind : uint8_t {  // tif_fax3.h's states
+  kNull = 0, kTerm, kMakeUp, kEol, kPass, kHoriz, kV0, kVR, kVL, kExt
 };
 
-// the vertical modes, a1 - b1 their values; pass and horizontal apart
-constexpr CodeWord kVerticalCodes[] = {
-    {"1", 0}, {"011", 1}, {"000011", 2}, {"0000011", 3}, {"010", -1},
-    {"000010", -2}, {"0000010", -3},
+constexpr CodeWord kVerticalCodes[] = {  // the vertical modes, |a1 - b1|
+    {"1", 0}, {"011", 1}, {"000011", 2}, {"0000011", 3},
+};
+constexpr CodeWord kVerticalLeftCodes[] = {
+    {"010", 1}, {"000010", 2}, {"0000010", 3},
 };
 
-constexpr int kPeek = 13;  // the longest code word
+constexpr int kPeek = 13;  // the longest lookup (black runs)
 
 struct FaxEntry {
-  uint8_t len = 0;  // 0: no code word starts with these bits
-  uint8_t kind = kBad;
+  uint8_t len = 0;  // bits the lookup takes (0 for kNull, as libtiff)
+  uint8_t kind = kNull;
   int16_t value = 0;
 };
 
-// Lookup tables indexed by the next 13 bits, the first in bit 0 (as
-// libtiff's bit accumulator holds them): white runs, black runs, and the
-// 2-D modes.
+// mkg3states.c's tables, indexed by the next 13 bits, the first in bit 0
+// (as libtiff's bit accumulator holds them): white runs (12-bit lookups),
+// black runs (13) and the 2-D modes (7). libtiff's EOL entries are 11
+// zeros in the run tables and 7 in the mode table, its one extension the
+// 2-D "0000001"; any other pattern that no code word starts is kNull.
 struct FaxTables {
   FaxEntry white[1 << kPeek], black[1 << kPeek], mode[1 << kPeek];
 
@@ -306,15 +314,16 @@ struct FaxTables {
         put(t, c.bits, c.value < 64 ? kTerm : kMakeUp, c.value);
       for (const CodeWord& c : kExtendedCodes)
         put(t, c.bits, kMakeUp, c.value);
-      put(t, "000000000001", kEol, 0);
-      put(t, "000000001", kExt, 0);  // a 1-D extension (uncompressed mode)
+      put(t, "00000000000", kEol, 0);
     }
     for (const CodeWord& c : kVerticalCodes)
-      put(mode, c.bits, kVertical, c.value);
+      put(mode, c.bits, c.value == 0 ? kV0 : kVR, c.value);
+    for (const CodeWord& c : kVerticalLeftCodes)
+      put(mode, c.bits, kVL, c.value);
     put(mode, "0001", kPass, 0);
     put(mode, "001", kHoriz, 0);
-    put(mode, "0000001", kExt, 0);  // a 2-D extension (uncompressed mode)
-    put(mode, "000000000001", kEol, 0);
+    put(mode, "0000001", kExt, 0);
+    put(mode, "0000000", kEol, 0);
   }
 };
 
@@ -323,101 +332,163 @@ const FaxTables& fax_tables() {
   return t;
 }
 
-// One CCITT strip or tile (compression 2, 3 or 4; `two_d`: Group 3 with
-// T4Options bit 0) of rows `width` pixels wide. The bits are read as
-// libtiff's NeedBits8 / NeedBits16 read them, at its lookups' widths (7
-// bits for a mode, 12 for a white run, 13 for a black one): past the last
-// byte they count as zeros, up to the width asked for, and only a reader
-// that has no bit left is at the end. That count sets where a Modified
-// Huffman row's byte alignment lands near the end of the data.
+// libtiff's int arithmetic, wrapping where a corrupt row overflows it
+inline int32_t wrap(int64_t v) {
+  return static_cast<int32_t>(static_cast<uint32_t>(v));
+}
+
+// The CCITT decoder of one image (compression 2, 3 or 4; `two_d`: Group
+// 3 with T4Options bit 0), rows `width` pixels wide, its chunks decoded
+// in the order cv::imread reads them. The bits are read as libtiff's
+// NeedBits8 / NeedBits16 read them, at its lookups' widths (7 bits for a
+// mode, 12 for a white run, 13 for a black one): past the last byte they
+// count as zeros, up to the width asked for, and only a reader that has
+// no bit left is at the end. That count sets where a Modified Huffman
+// row's byte alignment lands near the end of the data.
 class FaxDecoder {
  public:
-  FaxDecoder(const uint8_t* src, int64_t size, int64_t width,
-             int compression, bool two_d)
-      : cp_(src), ep_(src + size), lastx_(width),
-        comp_(compression), ref_line_(compression == 4 || two_d),
-        t_(fax_tables()) {
-    // libtiff's run arrays (Fax3SetupState): the width plus one rounded
-    // up to 32, twice that where a reference line is kept
+  FaxDecoder(int64_t width, int compression, bool two_d)
+      : lastx_(static_cast<int32_t>(width)), comp_(compression),
+        ref_line_(compression == 4 || two_d), t_(fax_tables()) {
+    // Fax3SetupState: nruns the width plus one rounded up to 32, twice
+    // that where a reference line is kept; two arrays of nruns, zeroed
     nruns_ = (width + 32) / 32 * 32 * (ref_line_ ? 2 : 1);
-    cur_.assign(static_cast<size_t>(nruns_), 0);
-    ref_.assign(static_cast<size_t>(nruns_), 0);
-    ref_[0] = width;  // the all-white line before the first row
-    nref_ = 2;
+    runs_.assign(static_cast<size_t>(2 * nruns_), 0);
   }
 
-  // `rows` rows into `out`, `rb` bytes a row (zeroed here). A fault in a
-  // row from `shown` on (a tile's rows below the image) ends the decoding
-  // without one: libtiff reads on past it, and nothing it reads there is
-  // shown.
-  void decode(int64_t rows, int64_t shown, int64_t rb, uint8_t* out) {
-    std::memset(out, 0, static_cast<size_t>(rows * rb));
-    for (int64_t r = 0; r < rows; ++r) {
-      try {
-        row(r, rb, out);
-      } catch (const Error&) {
-        if (r < shown) throw;
-        return;
+  // One chunk of `size` bytes: `rows` rows into `out`, `rb` bytes a row
+  // (zeros on entry).
+  void decode(const uint8_t* src, int64_t size, int64_t rows, int64_t rb,
+              uint8_t* out) {
+    // Fax3PreDecode
+    cur_ = 0;
+    if (ref_line_) {
+      ref_ = nruns_;
+      runs_[ref_] = static_cast<uint32_t>(lastx_);
+      runs_[ref_ + 1] = 0;
+    }
+    start(src, size);
+    try {
+      for (int64_t r = 0; r < rows;) {
+        const Row next = row(out + r * rb);
+        if (next == kStop) return;
+        if (next == kRetry) {
+          // RETRY_WITHOUT_EOL: CACHE_STATE takes the chunk's state as the
+          // call began, so the data are read again from their start, into
+          // this row and the ones below, without EOLs from now on
+          start(src, size);
+          continue;
+        }
+        ++r;
       }
+    } catch (const Overflow&) {
+      // "Buffer overflow": the decoder returns before it fills the row
     }
   }
 
  private:
-  // one row, the r-th, into out + r * rb
-  void row(int64_t r, int64_t rb, uint8_t* out) {
-    bool one_d = comp_ != 4;
-    if (comp_ == 3) {
-      sync_eol();
-      if (ref_line_) {  // the tag bit
-        need8(1);
-        one_d = bits(1) != 0;
-        clear(1);
+  struct Overflow {};
+  enum End { kDone, kEof };
+  enum Row { kNext, kStop, kRetry };
+
+  void start(const uint8_t* src, int64_t size) {
+    cp_ = src;
+    ep_ = src + size;
+    acc_ = 0;
+    avail_ = 0;
+    eolcnt_ = 0;
+  }
+
+  // One row into `row`.
+  Row row(uint8_t* row) {
+    a0_ = 0;
+    run_ = 0;
+    pa_ = 0;
+    if (comp_ == 2) {  // Fax3DecodeRLE
+      const End e = expand_1d();
+      fill(row);
+      if (e == kEof) return kStop;
+      clear(avail_ & 7);  // rows start on a byte
+      return kNext;
+    }
+    if (comp_ == 4) {  // Fax4Decode
+      pb_ = 0;
+      b1_ = wrap(ref(pb_++));
+      const End e = expand_2d();
+      if (e == kEof || eolcnt_) {  // EOFG4: the strip ends here
+        fill(row);
+        return kStop;
+      }
+      fill(row);
+      set(0);  // the imaginary change that ends the reference line
+      std::swap(cur_, ref_);
+      return kNext;
+    }
+    // Fax3Decode1D / Fax3Decode2D
+    if (!noeol_) {
+      const int sync = sync_eol();
+      if (sync == 2) {  // noEOLFound: FAXMODE_NOEOL, for good
+        noeol_ = true;
+        return kRetry;
+      }
+      if (sync == 0) {  // EOF1D / EOF2D
+        cleanup();
+        fill(row);
+        return kStop;
       }
     }
-    a0_ = run_ = 0;
-    pa_ = 0;
-    pb_ = 0;
-    b1_ = ref(pb_++);
-    if (one_d) expand_1d(); else expand_2d();
-    if (run_) set(0);  // CLEANUP_RUNS
-    if (a0_ != lastx_) fail(kFaxLength);
-    fill(out + r * rb);
-    if (comp_ == 2) clear(avail_ & 7);  // rows start on a byte
-    if (!ref_line_) return;
-    // the imaginary change that ends the reference line
-    if (comp_ == 4 || pa_ < nruns_) set(0);
-    cur_.swap(ref_);
-    nref_ = pa_;
+    bool one_d = true;
+    if (ref_line_) {  // the tag bit
+      if (!need8(1)) {
+        cleanup();
+        fill(row);
+        return kStop;
+      }
+      one_d = bits(1) != 0;
+      clear(1);
+      pb_ = 0;
+      b1_ = wrap(ref(pb_++));
+    }
+    const End e = one_d ? expand_1d() : expand_2d();
+    fill(row);
+    if (e == kEof) return kStop;
+    if (!ref_line_) return kNext;
+    if (pa_ < nruns_) set(0);
+    std::swap(cur_, ref_);
+    return kNext;
   }
 
   // NeedBits8 / NeedBits16: at least n bits in the accumulator, the bytes
-  // bit-reversed into it (the first bit in bit 0); past the end, zeros
-  void need8(int n) {
-    if (avail_ >= n) return;
+  // bit-reversed into it (the first bit in bit 0); past the end, zeros.
+  // False at the end of the data.
+  bool need8(int n) {
+    if (avail_ >= n) return true;
     if (cp_ >= ep_) {
-      if (avail_ == 0) fail(kFaxEnd);
+      if (avail_ == 0) return false;
       avail_ = n;
-      return;
+      return true;
     }
     acc_ |= static_cast<uint32_t>(reverse_bits(*cp_++)) << avail_;
     avail_ += 8;
+    return true;
   }
 
-  void need16(int n) {
-    if (avail_ >= n) return;
+  bool need16(int n) {
+    if (avail_ >= n) return true;
     if (cp_ >= ep_) {
-      if (avail_ == 0) fail(kFaxEnd);
+      if (avail_ == 0) return false;
       avail_ = n;
-      return;
+      return true;
     }
     acc_ |= static_cast<uint32_t>(reverse_bits(*cp_++)) << avail_;
-    if ((avail_ += 8) >= n) return;
+    if ((avail_ += 8) >= n) return true;
     if (cp_ >= ep_) {
       avail_ = n;
-      return;
+      return true;
     }
     acc_ |= static_cast<uint32_t>(reverse_bits(*cp_++)) << avail_;
     avail_ += 8;
+    return true;
   }
 
   uint32_t bits(int n) const { return acc_ & ((1u << n) - 1); }
@@ -427,74 +498,115 @@ class FaxDecoder {
     acc_ >>= n;
   }
 
-  // LOOKUP8 (modes, 7 bits) / LOOKUP16 (white 12, black 13): a code word
-  // of the table, else the fault it stands for
-  const FaxEntry& look(const FaxEntry* t) {
-    if (t == t_.mode) need8(7); else need16(t == t_.white ? 12 : 13);
+  // LOOKUP8 (modes, 7 bits) / LOOKUP16 (white 12, black 13): the entry,
+  // its bits taken; null at the end of the data
+  const FaxEntry* look(const FaxEntry* t) {
+    if (!(t == t_.mode ? need8(7) : need16(t == t_.white ? 12 : 13)))
+      return nullptr;
     const FaxEntry& e = t[bits(kPeek)];
-    switch (e.kind) {
-      case kBad: fail(kFaxCode);
-      case kEol: fail(kFaxEol);
-      case kExt: fail(kFaxUncompressed);
-      default: break;
-    }
     clear(e.len);
-    return e;
+    return &e;
   }
 
-  // A reference-line entry. Past the line's own entries libtiff reads
-  // what an earlier row left there: such a read fails here.
-  int64_t ref(int64_t i) const {
-    if (i < 0 || i >= nref_) fail(kFaxCode);
-    return ref_[static_cast<size_t>(i)];
+  // A reference-line entry, wherever in the two arrays it lies (a row
+  // that walks its reference line back past the start reads the other
+  // array); before them, libtiff reads memory that is not its own
+  uint32_t ref(int64_t i) const {
+    const int64_t at = ref_ + i;
+    if (at < 0) throw Error{kFaxMemory};
+    return runs_[static_cast<size_t>(at)];
   }
 
   // SETVALUE
-  void set(int64_t x) {
-    if (pa_ >= nruns_) fail(kFaxRuns);
-    cur_[static_cast<size_t>(pa_++)] = run_ + x;
-    a0_ += x;
+  void set(int32_t x) {
+    if (pa_ >= nruns_) throw Overflow{};
+    runs_[static_cast<size_t>(cur_ + pa_++)] =
+        static_cast<uint32_t>(wrap(static_cast<int64_t>(run_) + x));
+    a0_ = wrap(static_cast<int64_t>(a0_) + x);
     run_ = 0;
   }
 
-  // SYNC_EOL, strictly: 11 zeros where the row starts (libtiff would skip
-  // other bits until it finds them), zero bytes and bits (fill), then the
-  // EOL's 1.
-  void sync_eol() {
-    need16(11);
-    if (bits(11) != 0) fail(kFaxNoEol);
+  uint32_t& at(int64_t i) { return runs_[static_cast<size_t>(cur_ + i)]; }
+
+  // CLEANUP_RUNS: the row made `lastx` wide
+  void cleanup() {
+    if (run_) set(0);
+    if (a0_ == lastx_) return;
+    while (a0_ > lastx_ && pa_ > 0)
+      a0_ = wrap(static_cast<int64_t>(a0_) - at(--pa_));
+    if (a0_ < lastx_) {
+      if (a0_ < 0) a0_ = 0;
+      if (pa_ & 1) set(0);
+      set(wrap(static_cast<int64_t>(lastx_) - a0_));
+    } else if (a0_ > lastx_) {
+      set(lastx_);
+      set(0);
+    }
+  }
+
+  // SYNC_EOL: where no EOL was just read, skip bits up to 11 zeros; then
+  // zero bytes (fill) and zero bits up to the EOL's 1. 1 found, 0 the data
+  // end in the search for the zeros, 2 they end before the 1 (libtiff's
+  // noEOLFound).
+  int sync_eol() {
+    if (eolcnt_ == 0) {
+      for (;;) {
+        if (!need16(11)) return 0;
+        if (bits(11) == 0) break;
+        clear(1);
+      }
+    }
     for (;;) {
-      need8(8);
+      if (!need8(8)) return 2;
       if (bits(8)) break;
       clear(8);
     }
     while (bits(1) == 0) clear(1);
     clear(1);
+    eolcnt_ = 0;
+    return 1;
   }
 
-  // one run of the colour of table `t`: make-up codes, then a terminating
-  // code (SETVALUE)
-  void expand_run(const FaxEntry* t) {
+  // one run of the colour of table `t`, make-up codes then a terminating
+  // code (SETVALUE): 1 done, 0 a bad code or an EOL (in `eol`), -1 the
+  // end of the data
+  int expand_run(const FaxEntry* t, bool* eol) {
     for (;;) {
-      const FaxEntry& e = look(t);
-      if (e.kind == kTerm) {
-        set(e.value);
-        return;
+      const FaxEntry* e = look(t);
+      if (e == nullptr) return -1;
+      switch (e->kind) {
+        case kTerm:
+          set(e->value);
+          return 1;
+        case kMakeUp:
+          a0_ = wrap(static_cast<int64_t>(a0_) + e->value);
+          run_ = wrap(static_cast<int64_t>(run_) + e->value);
+          break;
+        case kEol:
+          *eol = true;
+          return 0;
+        default:  // "unexpected"
+          return 0;
       }
-      a0_ += e.value;
-      run_ += e.value;
     }
   }
 
   // EXPAND1D
-  void expand_1d() {
+  End expand_1d() {
     for (;;) {
-      expand_run(t_.white);
-      if (a0_ >= lastx_) return;
-      expand_run(t_.black);
-      if (a0_ >= lastx_) return;
-      if (cur_[pa_ - 1] == 0 && cur_[pa_ - 2] == 0) pa_ -= 2;
+      bool eol = false;
+      int k = expand_run(t_.white, &eol);
+      if (k == 1 && a0_ < lastx_) k = expand_run(t_.black, &eol);
+      if (eol) eolcnt_ = 1;
+      if (k < 0) {
+        cleanup();
+        return kEof;
+      }
+      if (k == 0 || a0_ >= lastx_) break;
+      if (at(pa_ - 1) == 0 && at(pa_ - 2) == 0) pa_ -= 2;
     }
+    cleanup();
+    return kDone;
   }
 
   // CHECK_b1: b1 the first changing element of the reference line right
@@ -502,90 +614,142 @@ class FaxDecoder {
   void check_b1() {
     if (pa_ == 0) return;
     while (b1_ <= a0_ && b1_ < lastx_) {
-      if (pb_ + 1 >= nruns_) fail(kFaxRuns);
-      b1_ += ref(pb_) + ref(pb_ + 1);
+      if (pb_ + 1 >= nruns_) throw Overflow{};
+      b1_ = wrap(static_cast<int64_t>(b1_)
+                 + static_cast<uint32_t>(ref(pb_) + ref(pb_ + 1)));
       pb_ += 2;
     }
   }
 
-  // the next reference entry, read where the row goes on
-  void next_b1() {
-    if (a0_ >= lastx_) return;  // libtiff's read is never used
-    if (pb_ >= nruns_) fail(kFaxRuns);
-    b1_ += ref(pb_++);
-  }
-
   // EXPAND2D
-  void expand_2d() {
+  End expand_2d() {
     while (a0_ < lastx_) {
-      if (pa_ >= nruns_) fail(kFaxRuns);
-      const FaxEntry& e = look(t_.mode);
-      switch (e.kind) {
+      if (pa_ >= nruns_) throw Overflow{};
+      const FaxEntry* e = look(t_.mode);
+      if (e == nullptr) {
+        cleanup();
+        return kEof;
+      }
+      switch (e->kind) {
         case kPass:
           check_b1();
-          if (pb_ + 1 >= nruns_) fail(kFaxRuns);
-          b1_ += ref(pb_++);
-          run_ += b1_ - a0_;
+          if (pb_ + 1 >= nruns_) throw Overflow{};
+          b1_ = wrap(static_cast<int64_t>(b1_) + ref(pb_++));
+          run_ = wrap(static_cast<int64_t>(run_) + b1_ - a0_);
           a0_ = b1_;
-          b1_ += ref(pb_++);
+          b1_ = wrap(static_cast<int64_t>(b1_) + ref(pb_++));
           break;
-        case kHoriz:
-          if (pa_ & 1) {  // black first
-            expand_run(t_.black);
-            expand_run(t_.white);
-          } else {
-            expand_run(t_.white);
-            expand_run(t_.black);
+        case kHoriz: {
+          bool eol = false;
+          const FaxEntry* first = pa_ & 1 ? t_.black : t_.white;
+          const FaxEntry* second = pa_ & 1 ? t_.white : t_.black;
+          int k = expand_run(first, &eol);
+          if (k == 1) k = expand_run(second, &eol);
+          if (k < 0) {
+            cleanup();
+            return kEof;
+          }
+          if (k == 0) {  // badBlack2d / badWhite2d, an EOL among them
+            cleanup();
+            return kDone;
           }
           check_b1();
           break;
-        case kVertical:
+        }
+        case kV0:
+        case kVR:
           check_b1();
-          if (e.value < 0) {
-            if (b1_ < a0_ - e.value) fail(kFaxCode);  // "VL"
-            set(b1_ - a0_ + e.value);
-            b1_ -= ref(--pb_);
-          } else {
-            set(b1_ - a0_ + e.value);
-            next_b1();
-          }
+          set(wrap(static_cast<int64_t>(b1_) - a0_ + e->value));
+          if (pb_ >= nruns_) throw Overflow{};
+          b1_ = wrap(static_cast<int64_t>(b1_) + ref(pb_++));
           break;
-        default: fail(kFaxCode);
+        case kVL:
+          check_b1();
+          if (b1_ < wrap(static_cast<int64_t>(a0_) + e->value)) {
+            cleanup();  // "unexpected"
+            return kDone;
+          }
+          set(wrap(static_cast<int64_t>(b1_) - a0_ - e->value));
+          --pb_;
+          b1_ = wrap(static_cast<int64_t>(b1_) - ref(pb_));
+          break;
+        case kExt:  // uncompressed mode: not supported, the row ends
+          at(pa_++) = static_cast<uint32_t>(wrap(
+              static_cast<int64_t>(lastx_) - a0_));
+          cleanup();
+          return kDone;
+        default:  // kEol: 11 zeros in all
+          at(pa_++) = static_cast<uint32_t>(wrap(
+              static_cast<int64_t>(lastx_) - a0_));
+          if (!need8(4)) {
+            cleanup();
+            return kEof;
+          }
+          clear(4);
+          eolcnt_ = 1;
+          cleanup();
+          return kDone;
       }
     }
     if (run_) {
-      if (run_ + a0_ < lastx_) {  // a final V0
-        need8(1);
-        if (bits(1) == 0) fail(kFaxCode);
+      if (static_cast<int64_t>(run_) + a0_ < lastx_) {  // a final V0
+        if (!need8(1)) {
+          cleanup();
+          return kEof;
+        }
+        if (bits(1) == 0) {  // badMain2d
+          cleanup();
+          return kDone;
+        }
         clear(1);
       }
       set(0);
     }
+    cleanup();
+    return kDone;
   }
 
-  // _TIFFFax3fillruns: the row's black runs as 1 bits
-  void fill(uint8_t* row) const {
-    int64_t x = 0;
-    for (int64_t i = 0; i < pa_; ++i) {
-      const int64_t n = cur_[static_cast<size_t>(i)];
-      if (i & 1)
-        for (int64_t k = x; k < x + n; ++k)
-          row[k >> 3] = static_cast<uint8_t>(row[k >> 3] | 0x80 >> (k & 7));
-      x += n;
+  // _TIFFFax3fillruns: the row's runs, white as 0 bits and black as 1,
+  // each cut to the row (in the array too, as libtiff cuts them there).
+  // A row is filled once, on zeros, so only its black runs are written.
+  void fill(uint8_t* row) {
+    int64_t end = pa_;
+    if (end & 1) at(end++) = 0;
+    const uint32_t lastx = static_cast<uint32_t>(lastx_);
+    uint32_t x = 0;
+    for (int64_t i = 0; i < end; ++i) {
+      uint32_t& r = at(i);
+      if (x + r > lastx || r > lastx) r = lastx - x;
+      if (i & 1) black(row, x, x + r);
+      x += r;
     }
   }
 
-  const uint8_t* cp_;
-  const uint8_t* ep_;
+  // bits [from, to) of `row` set
+  static void black(uint8_t* row, uint32_t from, uint32_t to) {
+    auto one = [row](uint32_t k) {
+      row[k >> 3] = static_cast<uint8_t>(row[k >> 3] | 0x80 >> (k & 7));
+    };
+    for (; from < to && (from & 7); ++from) one(from);
+    for (; from + 8 <= to; from += 8) row[from >> 3] = 0xFF;
+    for (; from < to; ++from) one(from);
+  }
+
+  const uint8_t* cp_ = nullptr;
+  const uint8_t* ep_ = nullptr;
   uint32_t acc_ = 0;  // BitAcc
   int avail_ = 0;     // BitsAvail
-  int64_t lastx_;
+  int eolcnt_ = 0;    // EOLcnt
+  bool noeol_ = false;  // FAXMODE_NOEOL: set once, kept for the image
+  int32_t lastx_;
   int comp_;
   bool ref_line_;
   const FaxTables& t_;
-  std::vector<int64_t> cur_, ref_;
-  int64_t nruns_, nref_;
-  int64_t a0_ = 0, run_ = 0, b1_ = 0, pa_ = 0, pb_ = 0;
+  std::vector<uint32_t> runs_;  // the two run arrays, back to back
+  int64_t nruns_;
+  int64_t cur_ = 0, ref_ = 0;   // where thisrun and refruns start
+  int32_t a0_ = 0, run_ = 0, b1_ = 0;
+  int64_t pa_ = 0, pb_ = 0;
 };
 
 // --------------------------------------------------------------- YCbCr
@@ -665,35 +829,47 @@ struct Tiff {
   // One chunk (strip or tile of one plane) decoded: `rows` rows of `rb`
   // bytes (`need` bytes in all, in a buffer of `full` bytes, zeros past
   // `need`: both rows * rb but for subsampled YCbCr), the fill order
-  // undone, 16-bit samples little-endian, the predictor undone.
-  void chunk(const uint8_t* src, int64_t size, int64_t rows, int64_t shown,
+  // undone, 16-bit samples little-endian, the predictor undone. `state`
+  // 0 decodes the stored bytes; 1 takes them as a codec's output that
+  // stopped short (a Deflate or JPEG chunk decoded before the call, or
+  // none for a chunk libtiff could not read). A codec that stops short
+  // leaves what it decoded and zeros after it, and libtiff then neither
+  // swabs the chunk nor undoes its predictor (TIFFReadEncodedStrip /
+  // TIFFReadEncodedTile skip tif_postdecode, PredictorDecodeTile its
+  // accumulation), as here.
+  void chunk(const uint8_t* src, int64_t size, int state, int64_t rows,
              int64_t rb, int64_t spc, int64_t need, int64_t full,
-             std::vector<uint8_t>* buf) const {
+             FaxDecoder* fax, std::vector<uint8_t>* buf) const {
     buf->assign(static_cast<size_t>(full), 0);
+    if (state != 0) {
+      std::memcpy(buf->data(), src,
+                  static_cast<size_t>(std::min(size, need)));
+      return;
+    }
     std::vector<uint8_t> rev;
     if (p[kFillOrder] == 2) {
       rev.resize(static_cast<size_t>(size));
       for (int64_t i = 0; i < size; ++i) rev[i] = reverse_bits(src[i]);
       src = rev.data();
     }
+    bool ok = true;
     switch (p[kCompression]) {
-      case 1:
-        if (size < need) fail(kShort);
-        std::memcpy(buf->data(), src, static_cast<size_t>(need));
+      case 1:  // DumpModeDecode copies nothing from a short chunk
+        ok = size >= need;
+        if (ok) std::memcpy(buf->data(), src, static_cast<size_t>(need));
         break;
       case 2: case 3: case 4:
-        FaxDecoder(src, size, p[kChunkW], static_cast<int>(p[kCompression]),
-                   p[kCompression] == 3 && (p[kFaxOptions] & 1))
-            .decode(rows, shown, rb, buf->data());
+        fax->decode(src, size, rows, rb, buf->data());
         break;
       case 5:
         // libtiff's test for the old, bit-reversed LZW (LZWPreDecode)
         if (size >= 2 && src[0] == 0 && (src[1] & 1)) fail(kOldLzw);
-        lzw_decode(src, size, buf->data(), need);
+        ok = lzw_decode(src, size, buf->data(), need);
         break;
-      case 32773: packbits_decode(src, size, buf->data(), need); break;
+      case 32773: ok = packbits_decode(src, size, buf->data(), need); break;
       default: fail(kLayout);
     }
+    if (!ok) return;
     uint8_t* d = buf->data();
     const bool wide = p[kBits] == 16;
     if (wide && p[kBigEndian]) {  // libtiff swabs 16-bit data to native
@@ -748,8 +924,8 @@ inline int premul(int v, int a) { return (v * a + 127) / 255; }  // UaToAa
 // ReferenceBlackWhite of a YCbCr image (9 floats), into (want, height,
 // width) uint8.
 void decode(const uint8_t* const* chunks, const int64_t* sizes,
-            int64_t nchunks, const int64_t* p, const uint8_t* pal,
-            const float* ycc, int want, uint8_t* out) {
+            const uint8_t* states, int64_t nchunks, const int64_t* p,
+            const uint8_t* pal, const float* ycc, int want, uint8_t* out) {
   const int64_t W = p[kWidth], H = p[kHeight], bits = p[kBits];
   const int64_t spp = p[kSpp], cw = p[kChunkW], ch = p[kChunkH];
   const int phot = static_cast<int>(p[kPhotometric]);
@@ -789,6 +965,11 @@ void decode(const uint8_t* const* chunks, const int64_t* sizes,
   }
   Tiff t{p, pal};
   std::vector<uint8_t> buf[4];
+  std::unique_ptr<FaxDecoder> fax;
+  if (p[kCompression] >= 2 && p[kCompression] <= 4)
+    fax = std::make_unique<FaxDecoder>(
+        cw, static_cast<int>(p[kCompression]),
+        p[kCompression] == 3 && (p[kFaxOptions] & 1));
   for (int64_t gy = 0; gy < down; ++gy) {
     const int64_t y0 = gy * ch;
     const int64_t vh = H - y0 < ch ? H - y0 : ch;
@@ -815,8 +996,8 @@ void decode(const uint8_t* const* chunks, const int64_t* sizes,
       for (int k = 0; k < nplanes; ++k) {
         const int64_t i = k * per_plane + gy * across + gx;
         if (chunks[i] == nullptr) fail(kLayout);
-        t.chunk(chunks[i], sizes[i], rows, vh, rb, spc, need, full,
-                &buf[k]);
+        t.chunk(chunks[i], sizes[i], states == nullptr ? 0 : states[i],
+                rows, rb, spc, need, full, fax.get(), &buf[k]);
       }
       // libtiff's putgreytile, put16bitbwtile and put8bitcmaptile step
       // past a clipped tile's right part by its width in pixels, not in
@@ -908,16 +1089,17 @@ void decode(const uint8_t* const* chunks, const int64_t* sizes,
 
 }  // namespace
 
-// See `decode`. Returns 0, -1 for a chunk that holds fewer bytes than its
-// rows, -2 for parameters it does not take, -3 for corrupt LZW data, -4
-// out of memory, -5 for old-style LZW, -6 to -12 for corrupt CCITT data
-// (enum Code).
+// See `decode`; `states[i]` (null: all 0) how chunk i is taken (Tiff::
+// chunk). Returns 0, -2 for parameters it does not take, -4 out of
+// memory, -5 for old-style LZW, -6 for CCITT data on which libtiff reads
+// memory that is not its own (enum Code).
 extern "C" int64_t of_tiff_decode(const uint8_t* const* chunks,
-                                  const int64_t* sizes, int64_t nchunks,
+                                  const int64_t* sizes,
+                                  const uint8_t* states, int64_t nchunks,
                                   const int64_t* params, const uint8_t* pal,
                                   const float* ycc, int want, uint8_t* out) {
   try {
-    decode(chunks, sizes, nchunks, params, pal, ycc, want, out);
+    decode(chunks, sizes, states, nchunks, params, pal, ycc, want, out);
     return 0;
   } catch (const Error& e) {
     return e.code;

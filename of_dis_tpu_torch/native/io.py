@@ -63,7 +63,11 @@ colour IMREAD_COLOR in BGR order), with no OpenCV or PIL:
     coefficients and reference black and white); orientations 1-4. Every
     value as libtiff's RGBA reader, through which cv::imread reads any
     8-bit TIFF, gives it; gray by the readers' BGR2GRAY in 1/16384ths of
-    that colour.
+    that colour. Damaged strips and tiles (corrupt or short LZW,
+    Deflate, PackBits and CCITT data, damaged JPEG strips, byte counts
+    past the file's end) read as that reader leaves them: what each codec
+    decoded before its fault, zeros after it, no predictor or byte swap
+    where the codec failed.
   - GIF (`utils.io.gif_blocks`, pixels by `csrc/gif.cpp`): GIF87a and
     GIF89a, the first image on its logical screen as OpenCV 5's GIF
     reader draws it (background colour, local and global tables, the
@@ -87,6 +91,7 @@ naming the cause, and a library that cannot be built raises RuntimeError.
 from __future__ import annotations
 
 import ctypes
+import functools
 import zlib
 from concurrent.futures import Executor
 from typing import NamedTuple, Optional, Sequence
@@ -153,7 +158,7 @@ _JPEG_ARGS = {
     "of_jpeg_decode": ((ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_void_p), ctypes.c_int),
     "of_jpeg_strerror": ((ctypes.c_int,), ctypes.c_char_p),
-    "of_jpeg_decode_tiff": ((_PTR, _I64, _PTR, _I64) + (ctypes.c_int,) * 6
+    "of_jpeg_decode_tiff": ((_PTR, _I64, _PTR, _I64) + (ctypes.c_int,) * 7
                             + (_PTR,), ctypes.c_int),
 }
 
@@ -377,43 +382,212 @@ def _decode_hdr(frame: Frame, channels: int, out: np.ndarray) -> None:
 
 
 _TIFF_ARGS = {
-    "of_tiff_decode": ((_PTR, _PTR, _I64, _PTR, _PTR, _PTR, ctypes.c_int,
-                        _PTR), _I64),
+    "of_tiff_decode": ((_PTR, _PTR, _PTR, _I64, _PTR, _PTR, _PTR,
+                        ctypes.c_int, _PTR), _I64),
 }
-# libtiff warns on the corrupt CCITT data of -6 to -12 and reads on, and
-# cv::imread takes what it read; the port refuses it
-_TIFF_ERRORS = {-1: "truncated or corrupt TIFF strip or tile data",
-                -2: "bad TIFF layout", -3: "corrupt TIFF LZW data",
-                -4: "out of memory",
+_TIFF_ERRORS = {-2: "bad TIFF layout", -4: "out of memory",
                 -5: "old-style TIFF LZW (TIFF 5.0) is not supported",
-                -6: "corrupt TIFF CCITT data: bad code word",
-                -7: "corrupt TIFF CCITT data: premature EOL",
-                -8: "corrupt TIFF CCITT data: line length mismatch",
-                -9: "corrupt TIFF CCITT data: premature EOF (a strip or "
-                    "tile cut short)",
-                -10: "corrupt TIFF CCITT Group 3 data: a row without its "
-                     "EOL",
-                -11: "TIFF CCITT uncompressed mode is not supported",
-                -12: "corrupt TIFF CCITT data: more runs in a row than "
-                     "libtiff's run arrays hold"}
+                -6: "corrupt TIFF CCITT data on which libtiff reads memory "
+                    "outside its run arrays"}
 
 
 # byte -> the byte with its bits reversed (FillOrder 2)
 _REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
+# RFC 1951's length and distance bases and extra bits
+_LEN_BASE = (3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35,
+             43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258)
+_LEN_EXTRA = (0,) * 8 + tuple(k for k in range(1, 6) for _ in range(4)) + (0,)
+_DIST_BASE = (1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193,
+              257, 385, 513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193,
+              12289, 16385, 24577)
+_DIST_EXTRA = (0,) * 4 + tuple(k for k in range(1, 14) for _ in range(2))
+_CL_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1,
+             15)
+
+
+class _Stop(Exception):
+    """zlib's inflate stops: corrupt data, or the data end."""
+
+
+def _huffman(lengths, kind):
+    """{(length, code): symbol} of canonical code `lengths`, or _Stop
+    where zlib's inflate_table fails: an over-subscribed set, or an
+    incomplete one but for a literal / length or distance set of one
+    code of one bit (all lengths 0 builds a set that matches nothing)."""
+    count = [0] * 16
+    for n in lengths:
+        count[n] += 1
+    count[0] = 0
+    left, top = 1, max(lengths, default=0)
+    for n in range(1, 16):
+        left = 2 * left - count[n]
+        if left < 0:
+            raise _Stop
+    if top and left > 0 and (kind == "codes" or top != 1):
+        raise _Stop
+    code, nxt, table = 0, [0] * 16, {}
+    for n in range(1, 16):
+        code = (code + count[n - 1]) << 1
+        nxt[n] = code
+    for sym, n in enumerate(lengths):
+        if n:
+            table[(n, nxt[n])] = sym
+            nxt[n] += 1
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _fixed_codes():
+    """RFC 1951's fixed literal / length and distance codes."""
+    return (_huffman([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8, "lens"),
+            _huffman([5] * 32, "dists"))
+
+
+def _inflate_prefix(data: bytes, need: int) -> bytes:
+    """The bytes zlib's inflate writes from the zlib stream `data` into a
+    buffer of `need` before it stops on corrupt data or at the data's end
+    (libtiff's ZIPDecode then returns what it wrote): every symbol
+    decoded before the faulty one, the last match cut at `need`. Used
+    where `zlib` raises, whose error keeps no partial output."""
+    out = bytearray()
+    pos = 0
+    hold = nbits = 0
+
+    def bits(n):
+        nonlocal pos, hold, nbits
+        while nbits < n:
+            if pos >= len(data):
+                raise _Stop
+            hold |= data[pos] << nbits
+            pos += 1
+            nbits += 8
+        v = hold & ((1 << n) - 1)
+        hold >>= n
+        nbits -= n
+        return v
+
+    def symbol(table):
+        code = 0
+        for n in range(1, 16):
+            code = code << 1 | bits(1)
+            sym = table.get((n, code))
+            if sym is not None:
+                return sym
+        raise _Stop
+
+    try:
+        cmf, flg = bits(8), bits(8)
+        if (cmf << 8 | flg) % 31 or cmf & 15 != 8 or cmf >> 4 > 7 \
+                or flg & 0x20:
+            raise _Stop
+        last = 0
+        while not last and len(out) < need:
+            last, kind = bits(1), bits(2)
+            if kind == 0:
+                bits(nbits & 7)
+                n, inv = bits(16), bits(16)
+                if n != inv ^ 0xFFFF:
+                    raise _Stop
+                for _ in range(n):
+                    if len(out) >= need:
+                        return bytes(out)
+                    out.append(bits(8))
+                continue
+            if kind == 1:
+                lit, dist = _fixed_codes()
+            elif kind == 2:
+                nlen, ndist, ncode = bits(5) + 257, bits(5) + 1, bits(4) + 4
+                if nlen > 286 or ndist > 30:
+                    raise _Stop
+                cl = [0] * 19
+                for k in range(ncode):
+                    cl[_CL_ORDER[k]] = bits(3)
+                codes = _huffman(cl, "codes")
+                lens = []
+                while len(lens) < nlen + ndist:
+                    sym = symbol(codes)
+                    if sym < 16:
+                        lens.append(sym)
+                        continue
+                    if sym == 16:
+                        if not lens:
+                            raise _Stop
+                        rep, val = 3 + bits(2), lens[-1]
+                    elif sym == 17:
+                        rep, val = 3 + bits(3), 0
+                    else:
+                        rep, val = 11 + bits(7), 0
+                    if len(lens) + rep > nlen + ndist:
+                        raise _Stop
+                    lens += [val] * rep
+                if lens[256] == 0:
+                    raise _Stop
+                lit = _huffman(lens[:nlen], "lens")
+                dist = _huffman(lens[nlen:], "dists")
+            else:
+                raise _Stop
+            while True:
+                if len(out) >= need:
+                    return bytes(out)
+                sym = symbol(lit)
+                if sym < 256:
+                    out.append(sym)
+                    continue
+                if sym == 256:
+                    break
+                if sym > 285:
+                    raise _Stop
+                k = sym - 257
+                length = _LEN_BASE[k] + bits(_LEN_EXTRA[k])
+                d = symbol(dist)
+                if d > 29:
+                    raise _Stop
+                d = _DIST_BASE[d] + bits(_DIST_EXTRA[d])
+                if d > len(out):
+                    raise _Stop
+                for _ in range(min(length, need - len(out))):
+                    out.append(out[-d])
+    except _Stop:
+        pass
+    return bytes(out[:need])
+
+
+def _inflate_chunk(data: bytes, need: int):
+    """(`need` bytes, whether ZIPDecode succeeds) of a Deflate chunk:
+    zlib's output, or where zlib fails (corrupt data, a bad check
+    after the last byte, data that end early) what it wrote before it
+    stopped, zeros after it."""
+    try:
+        buf = zlib.decompressobj().decompress(data, need)
+        if len(buf) == need:
+            return buf, True
+    except zlib.error:
+        pass
+    buf = _inflate_prefix(data, need)
+    return buf + bytes(need - len(buf)), False
+
 
 def _tiff_chunks(frame: Frame):
-    """(addresses, sizes, buffers to keep alive) of a TIFF's strips or
-    tiles as `of_tiff_decode` takes them: stored bytes for compression 1
-    to 5 and 32773; each Deflate chunk inflated to the bytes libtiff
-    decodes from it (`utils.io.tiff_chunk_bytes`: its ZIPDecode stops
-    there too); each JPEG chunk decoded by csrc/jpeg.cpp after the
-    JPEGTables stream, to 8-bit samples."""
+    """(addresses, sizes, states, buffers to keep alive) of a TIFF's
+    strips or tiles as `of_tiff_decode` takes them: stored bytes for
+    compression 1 to 5 and 32773; each Deflate chunk inflated to the bytes
+    libtiff decodes from it (`utils.io.tiff_chunk_bytes`: its ZIPDecode
+    stops there too), state 1 where ZIPDecode fails (what it wrote, zeros
+    after it: libtiff then undoes no predictor); each JPEG chunk decoded
+    by csrc/jpeg.cpp after the JPEGTables stream, to 8-bit samples, as
+    libtiff's tif_jpeg.c has libjpeg decode it. A chunk libtiff cannot read
+    (`utils.io.Tiff.unread`: a byte count of 0 or past the file's end in a
+    plane after the first) is given as state 1 and no bytes: zeros."""
     info = frame.info
     src = np.frombuffer(frame.raw, np.uint8)
     base = src.ctypes.data
+    states = np.asarray([int(i in info.unread)
+                         for i in range(len(info.offsets))], np.uint8)
     if info.compression in (1, 2, 3, 4, 5, 32773):
-        return [base + o for o in info.offsets], list(info.counts), None
+        return ([base + o for o in info.offsets],
+                [0 if u else c for u, c in zip(states, info.counts)], states,
+                None)
     spc = 1 if info.planar == 2 and info.spp > 1 else info.spp
     across = -(-info.width // info.chunk_width)
     per_plane = across * -(-info.height // info.chunk_height)
@@ -422,35 +596,33 @@ def _tiff_chunks(frame: Frame):
         y0 = (i % per_plane) // across * info.chunk_height
         rows = info.chunk_height if info.tiled else min(
             info.chunk_height, info.height - y0)
-        if info.compression == 7:
+        if states[i]:
+            buf = np.zeros(0, np.uint8)
+        elif info.compression == 7:
             buf = np.empty((rows, info.chunk_width, spc), np.uint8)
             tables = info.jpeg_tables or (0, 0)
+            last = not info.tiled and y0 + rows == info.height
             err = _jpeg_entries()[3](
                 base + tables[0], tables[1], base + off, cnt,
                 int(info.photometric == 6), info.chunk_width, rows, spc,
-                *info.subsampling, buf.ctypes.data)
+                *info.subsampling, int(last), buf.ctypes.data)
             if err:
                 raise _jpeg_error(err)
         else:
             data = frame.raw[off:off + cnt]
             if info.fill_order == 2:
                 data = data.translate(_REVERSED_BITS)
-            need = uio.tiff_chunk_bytes(info, rows)
-            try:
-                buf = zlib.decompressobj().decompress(data, need)
-            except zlib.error as e:
-                raise ValueError(f"TIFF Deflate data: {e}") from None
-            if len(buf) < need:
-                raise ValueError("truncated TIFF Deflate data")
+            buf, ok = _inflate_chunk(data, uio.tiff_chunk_bytes(info, rows))
             buf = np.frombuffer(buf, np.uint8)
+            states[i] = not ok
         keep.append(buf)
         addrs.append(buf.ctypes.data)
-    return addrs, [b.nbytes for b in keep], keep
+    return addrs, [b.nbytes for b in keep], states, keep
 
 
 def _decode_tiff(frame: Frame, channels: int, out: np.ndarray) -> None:
     info = frame.info
-    addrs, sizes, keep = _tiff_chunks(frame)
+    addrs, sizes, states, keep = _tiff_chunks(frame)
     decoded = keep is not None      # inflated or JPEG-decoded: as stored
     jpeg = info.compression == 7
     params = np.array([
@@ -466,8 +638,9 @@ def _decode_tiff(frame: Frame, channels: int, out: np.ndarray) -> None:
     sizes = np.asarray(sizes, np.int64)     # alive through the call
     _check(_bind("tiff", _TIFF_ARGS)[0](
         (ctypes.c_void_p * len(addrs))(*addrs), sizes.ctypes.data,
-        len(addrs), params.ctypes.data, pal.ctypes.data, ycc.ctypes.data,
-        channels, out.ctypes.data), _TIFF_ERRORS)
+        states.ctypes.data, len(addrs), params.ctypes.data,
+        pal.ctypes.data, ycc.ctypes.data, channels, out.ctypes.data),
+        _TIFF_ERRORS)
 
 
 _GIF_ARGS = {

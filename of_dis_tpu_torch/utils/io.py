@@ -1007,6 +1007,9 @@ def pfm_header(raw: bytes) -> Pfm:
 # the unsigned integer field types (BYTE, SHORT, LONG, LONG8) a numeric
 # tag is read from; libtiff fails or skips a tag of another type
 _TIFF_TYPES = {1: "B", 3: "H", 4: "I", 16: "Q"}
+# libtiff's TIFFDataWidth of each field type
+_TIFF_TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4,
+                    10: 8, 11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
 _TIFF_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
                       6: "old-style JPEG", 32771: "CCITT RLE (word)",
                       32809: "ThunderScan", 34661: "JBIG", 34676: "SGI Log",
@@ -1015,6 +1018,12 @@ _TIFF_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
                       32909: "Pixar", 32947: "DCS", 34892: "lossy JPEG"}
 # compressions cv::imread's libtiff reads and the port decodes
 TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32773, 32946)
+# libtiff 4.7's built-in codecs (tif_codec.c), and those of them on whose
+# files cv::imread fails (not configured in its build, or failing there)
+_TIFF_LIBTIFF_CODECS = frozenset(TIFF_COMPRESSIONS + (
+    6, 32766, 32771, 32809, 32909, 34661, 34676, 34677, 34887, 34925, 50000,
+    50001))
+_TIFF_CV_FAILS = (32766, 32771, 32809, 34661, 34887, 34925, 50000, 50001)
 _TIFF_PHOTOMETRICS = {4: "transparency mask", 8: "CIELab", 9: "ICCLab",
                       10: "ITULab", 32844: "LogL", 32845: "LogLuv",
                       32803: "CFA", 34892: "linear raw"}
@@ -1054,6 +1063,10 @@ class Tiff(NamedTuple):
     # YCbCrCoefficients (3) and ReferenceBlackWhite (6) of YCbCr, as the C
     # floats libtiff keeps (float32 values), else ()
     ycbcr: tuple
+    # the chunks that read as zeros: those libtiff cannot read (a byte
+    # count of 0 or past the end of the file), all in planes after the
+    # first, or every chunk of a compression libtiff has no codec for
+    unread: tuple = ()
 
 
 def tiff_chunk_bytes(info: Tiff, rows: int) -> int:
@@ -1090,9 +1103,19 @@ def tiff_ifd(raw: bytes) -> Tiff:
     none, CCITT RLE, Group 3 (1-D or 2-D) and Group 4 (1-bit gray or
     palette), LZW, PackBits, Deflate and JPEG (gray, RGB with or without
     one extra sample, CMYK, YCbCr); predictor 2 under LZW and Deflate;
-    orientations 1-4. Every offset and count is checked against the file.
-    Raises ValueError naming the cause, and for a variant cv::imread fails
-    on saying so."""
+    orientations 1-4. Byte counts as libtiff takes them: its estimates
+    where TIFFReadDirectory finds them bad (one strip's of 0; one
+    uncompressed strip's past the file or short of its rows;
+    uncompressed chunky strips whose first two differ), a count above
+    1 MiB cut to ten chunks' bytes; a chunk of 0 or past the file's end
+    fails cv::imread in the first plane (refused, saying so) and reads as
+    zeros in a later one (`Tiff.unread`), as does every chunk of a
+    compression libtiff has no codec for. What is damaged inside a
+    chunk's data is left to the decoders. Raises ValueError naming the
+    cause (a fault of the IFD itself: tags out of order or repeated, tag
+    values beyond the file, a wrong count of offsets, a tag of a type or
+    count libtiff reads otherwise), and for a variant cv::imread fails on
+    saying so."""
     n = len(raw)
     magic = raw[:4]
     if magic in (b"II*\0", b"MM\0*"):
@@ -1212,10 +1235,13 @@ def tiff_ifd(raw: bytes) -> Tiff:
         _tiff_refuse(f"TIFF of {bits}-bit samples", True)
     if planar not in (1, 2):
         _tiff_refuse(f"TIFF PlanarConfiguration {planar}")
-    if compression not in TIFF_COMPRESSIONS:
+    # a compression libtiff has no codec for: its chunks fail to decode
+    # and read as zeros
+    no_codec = compression not in _TIFF_LIBTIFF_CODECS
+    if compression not in TIFF_COMPRESSIONS and not no_codec:
         name = _TIFF_COMPRESSIONS.get(compression, f"{compression}")
         _tiff_refuse(f"TIFF compression {name}",
-                     compression in (34925, 50000))
+                     compression in _TIFF_CV_FAILS)
     fax_options = 0
     if compression in (2, 3, 4):
         # libtiff's fax codecs take 1-bit samples alone; T4Options bit 0
@@ -1360,10 +1386,6 @@ def tiff_ifd(raw: bytes) -> Tiff:
     if len(offsets) != nchunks or len(counts) != nchunks:
         raise ValueError(f"corrupt TIFF: {len(offsets)} offsets and "
                          f"{len(counts)} byte counts for {nchunks} chunks")
-    for off, cnt in zip(offsets, counts):
-        if cnt == 0 or off + cnt > n:
-            raise ValueError("TIFF strip or tile beyond the end of the "
-                             "file")
     info = Tiff(width, height, bits, spp, compression, photometric, planar,
                 predictor, fill_order, alpha, order == ">", tiled, cw, ch,
                 orientation, palette, offsets, counts, None,
@@ -1372,13 +1394,57 @@ def tiff_ifd(raw: bytes) -> Tiff:
             c != tiff_chunk_bytes(info, ch) for c in counts):
         _tiff_refuse("uncompressed TIFF tile of another byte count than "
                      "its size", True)
-    # libtiff reads uncompressed strips of unequal byte counts (the last
-    # of a plane apart) by other sizes than theirs
-    per_plane = len(counts) // (spp if planar_many else 1)
-    if not tiled and compression == 1 and len({
-            c for k, c in enumerate(counts)
-            if k % per_plane != per_plane - 1}) > 1:
-        _tiff_refuse("uncompressed TIFF strips of unequal byte counts")
+    # libtiff's TIFFReadDirectory replaces byte counts it finds bad by its
+    # EstimateStripByteCounts: one strip's of 0 (compressed: the file's
+    # bytes but for the header, the IFD and its values, up to the file's
+    # end), or one uncompressed strip's past the end or short of its rows
+    # (its rows' bytes); uncompressed chunky strips of which the first two
+    # differ (each strip the rows of height / strips, rounded down)
+    row_bytes = tiff_chunk_bytes(info, 1) if photometric != 6 \
+        or compression == 7 else -(-cw // subsampling[0]) * (
+            subsampling[0] * subsampling[1] + 2) // subsampling[1]
+    counts = list(counts)
+    if not tiled and nchunks == 1 and offsets[0] and (counts[0] == 0 or (
+            compression == 1 and (counts[0] > n - offsets[0]
+                                  or counts[0] < row_bytes * height))):
+        if compression == 1:
+            counts = [row_bytes * height]
+        else:
+            space = (16 + 8 + 20 * entries + 8) if big else (
+                8 + 2 + 12 * entries + 4)
+            for k in range(entries):
+                at = ifd + csize + k * entry
+                typ = struct.unpack(order + "H", raw[at + 2:at + 4])[0]
+                count = struct.unpack(order + ("Q" if big else "I"),
+                                      raw[at + 4:at + 4 + word])[0]
+                size = _TIFF_TYPE_SIZES.get(typ, 0)
+                if size == 0:
+                    _tiff_refuse(f"TIFF IFD entry of type {typ} beside a "
+                                 "byte count of 0", True)
+                if size * count > word:
+                    space += size * count
+            counts = [min(max(n - space, 0), max(n - offsets[0], 0))]
+    elif not tiled and not planar_many and nchunks > 2 \
+            and compression == 1 and counts[0] != counts[1] \
+            and counts[0] and counts[1]:
+        counts = [row_bytes * (height // nchunks)] * nchunks
+    # TIFFFillStrip / TIFFFillTile: a count above 1 MiB and ten chunks'
+    # bytes is cut to that; a count of 0 or past the end of the file (the
+    # file mapped) fails the read, which makes cv::imread fail in the
+    # first plane and leaves a later plane's chunk zeros
+    full = tiff_chunk_bytes(info, ch)
+    per_plane = nchunks // (spp if planar_many else 1)
+    unread = []
+    for i, (off, cnt) in enumerate(zip(offsets, counts)):
+        if cnt > 1 << 20 and full and (cnt - 4096) // 10 > full:
+            cnt = counts[i] = full * 10 + 4096
+        if cnt == 0 or cnt > n or off > n - cnt:
+            if i < per_plane:
+                _tiff_refuse("TIFF strip or tile with a byte count of 0 or "
+                             "beyond the end of the file", True)
+            unread.append(i)
+    if no_codec:
+        unread = range(nchunks)
     tables = None
     if compression == 7 and 347 in tags:
         typ, count, at = tags[347]
@@ -1390,7 +1456,8 @@ def tiff_ifd(raw: bytes) -> Tiff:
         if at + count > n:
             raise ValueError("TIFF tag 347's values lie beyond the file")
         tables = (at, count)
-    return info._replace(jpeg_tables=tables)
+    return info._replace(jpeg_tables=tables, counts=tuple(counts),
+                         unread=tuple(unread))
 
 
 # ------------------------------------------------------------------- GIF

@@ -344,11 +344,7 @@ REFUSALS = [
      None),
     (lambda: mf.tiff(GRAY, compression=5, chunks=[b"\0\x01" + bytes(30)]),
      "old-style TIFF LZW", None),
-    (lambda: mf.tiff(GRAY, compression=5, chunks=[b"\x40" + bytes(30)]),
-     "corrupt TIFF LZW", None),                     # no Clear first
     (lambda: mf.tiff(GRAY)[:-300], "IFD offset out of the file", True),
-    (lambda: _patch_tag(mf.tiff(GRAY), 279, 1 << 20),
-     "beyond the end of the file", False),
     (lambda: b"II*\0" + struct.pack("<I", 1 << 20), "IFD offset", True),
     # IFDs libtiff reads otherwise than the parser would, or fails on
     (lambda: _retag(mf.tiff(GRAY), 284, 259), "tag 259 twice", None),
@@ -387,12 +383,21 @@ def _rgba_jpeg():
     return buf.getvalue()
 
 
-# files the port refused until it read CCITT fax, YCbCr without JPEG and
-# 4-sample JPEG-in-TIFF (the refusals' words as their ids)
+# files the port refused until it read CCITT fax, YCbCr without JPEG,
+# 4-sample JPEG-in-TIFF, and damaged strips: LZW data that do not start
+# with Clear (libtiff decodes nothing of them: zeros), and one uncompressed
+# strip whose byte count runs past the end of the file (libtiff's
+# EstimateStripByteCounts takes its rows' bytes instead). The refusals'
+# words are their ids.
 ONCE_REFUSED = [(_ccitt, "CCITT Group 4"),
                 (_rgba_jpeg, "JPEG TIFF other than"),
                 (lambda: mf.tiff(COLOUR, photometric=6),
-                 "YCbCr without JPEG")]
+                 "YCbCr without JPEG"),
+                (lambda: mf.tiff(GRAY, compression=5,
+                                 chunks=[b"\x40" + bytes(30)]),
+                 "corrupt TIFF LZW"),                   # no Clear first
+                (lambda: _patch_tag(mf.tiff(GRAY), 279, 1 << 20),
+                 "beyond the end of the file")]
 
 
 @pytest.mark.parametrize("make,words", ONCE_REFUSED,
@@ -400,7 +405,8 @@ ONCE_REFUSED = [(_ccitt, "CCITT Group 4"),
 def test_once_refused_variants_read_as_cv2(make, words):
     """The same files as the refusals they replace: each now equals
     cv2.imread (the uncompressed YCbCr one takes libtiff's default 2x2
-    subsampling, its bytes read as blocks)."""
+    subsampling, its bytes read as blocks; the LZW strip without Clear
+    reads as zeros)."""
     assert_as_cv2(make())
 
 

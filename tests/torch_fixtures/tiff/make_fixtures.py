@@ -33,6 +33,16 @@ The committed sets, written by libtiff through PIL (`committed_sets`):
   - fax_g4/: the nine gray planes blurred and thresholded, Group 4;
   - pairs/rgba_jpeg/, pairs/cmyk_jpeg/: frames 0-1 as PIL's RGBA (alpha
     255) and CMYK JPEG-in-TIFF.
+The damaged sets (`damaged_sets`, the manifest's "damaged" entry; part
+7h of chip_smoke.py): the frames of DAMAGED (sets whose bytes are the
+same on any machine: not Deflate, whose output differs between zlib
+builds), each as byte edits in ../jpeg/damage.py's format of its source
+frame, whose SHA-256 the entry records: frames 0, 3 and 6 intact, 1, 4
+and 7 with a byte flipped in one strip or tile (near the end of the data
+of the one-strip sets, so that the damage stays under 5% of the pixels),
+2, 5 and 8 with a strip's or tile's byte count cut short; and the
+SHA-256 of cv2.imread's planes of each, with the share of the gray
+plane's pixels the damage changed.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import hashlib
 import json
 import os
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -51,6 +62,12 @@ FORMATS = ("lzw_pred", "deflate_rgb", "packbits_tiled", "gray16", "jpeg",
            "ycbcr_lzw")
 # the committed frame sets: directory -> frames
 COMMITTED = {"fax_g4": 9, "pairs/rgba_jpeg": 2, "pairs/cmyk_jpeg": 2}
+# the damaged sets -> (first chunk damaged, step a frame, where in the
+# chunk's data the flipped byte lies, the share of its bytes a cut count
+# keeps); in a PackBits chunk the byte flipped is the control byte at or
+# after that point
+DAMAGED = {"lzw_pred": (5, 3, 0.5, 0.6), "packbits_tiled": (20, 17, 0.5, 0.6),
+           "jpeg": (0, 0, 0.985, 0.985), "fax_g4": (0, 0, 0.985, 0.985)}
 
 _REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 # struct codes of the field types BYTE, ASCII, SHORT, LONG, UNDEFINED,
@@ -725,6 +742,115 @@ def committed_sets() -> dict:
     return out
 
 
+def chunk_table(raw: bytes):
+    """((offset, byte count, where the count is stored, its size), ...) of
+    the chunks of a classic TIFF, little- or big-endian."""
+    order = "<" if raw[:2] == b"II" else ">"
+    ifd = struct.unpack(order + "I", raw[4:8])[0]
+    tags = {}
+    for k in range(struct.unpack(order + "H", raw[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * k
+        tag, typ, count = struct.unpack(order + "HHI", raw[at:at + 8])
+        tags[tag] = (typ, count, at + 8)
+
+    def array(tag):
+        typ, count, at = tags[tag]
+        size = 2 if typ == 3 else 4
+        if size * count > 4:
+            at = struct.unpack(order + "I", raw[at:at + 4])[0]
+        code = order + ("H" if size == 2 else "I")
+        return [(struct.unpack(code, raw[at + size * i:at + size * (i + 1)])
+                 [0], at + size * i, size) for i in range(count)]
+
+    offs = array(273 if 273 in tags else 324)
+    counts = array(279 if 279 in tags else 325)
+    return [(o, c, at, size) for (o, _, _), (c, at, size) in zip(offs, counts)]
+
+
+def _tag(raw: bytes, tag: int) -> int:
+    """The first value of a SHORT or LONG tag of a little-endian classic
+    TIFF."""
+    ifd = struct.unpack("<I", raw[4:8])[0]
+    for k in range(struct.unpack("<H", raw[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * k
+        t, typ = struct.unpack("<HH", raw[at:at + 4])
+        if t == tag:
+            return struct.unpack("<H" if typ == 3 else "<I",
+                                 raw[at + 8:at + (10 if typ == 3 else 12)])[0]
+    raise KeyError(tag)
+
+
+def damage_edits(raw: bytes, t: int, first: int, step: int, where: float,
+                 keep: float) -> list:
+    """Frame t's edits of a DAMAGED set (see the module's docstring)."""
+    table = chunk_table(raw)
+    off, count, at, size = table[(first + step * t) % len(table)]
+    if t % 3 == 1:
+        flip = off + int(count * where)
+        if _tag(raw, 259) == 32773:     # the next control byte
+            k = off
+            while k < flip:
+                c = raw[k]
+                k += 2 if c > 128 else 1 if c == 128 else c + 2
+            flip = k
+        return [["xor", flip, 0x5A]]
+    if t % 3 == 2:
+        new = int(count * keep)
+        return [["xor", at + k, ((count ^ new) >> (8 * k)) & 0xFF]
+                for k in range(size) if ((count ^ new) >> (8 * k)) & 0xFF]
+    return []
+
+
+def damaged_sets(sources: dict) -> dict:
+    """{set: [{"name", "source", "edits"}]} of DAMAGED, from `sources`
+    ({"set/frame_000k.tif": bytes}, the sets' intact frames)."""
+    out = {}
+    for name, args in DAMAGED.items():
+        out[name] = [{"name": f"frame_{t:04d}.tif",
+                      "source": f"{name}/frame_{t:04d}.tif",
+                      "edits": damage_edits(
+                          sources[f"{name}/frame_{t:04d}.tif"], t, *args)}
+                     for t in range(9)]
+    return out
+
+
+def damaged_entry(frame_root: str, scratch: str) -> dict:
+    """The manifest's "damaged" entry: the sets, the SHA-256 of each
+    source frame (the generated sets under `frame_root`, fax_g4 the
+    committed files), and cv2.imread's planes of each damaged frame
+    (written under `scratch`) with the share of gray pixels changed."""
+    import cv2
+    sys.path.insert(0, JPEG_DIR)
+    from damage import damage
+    sys.path.pop(0)
+    sources = {}
+    for name in DAMAGED:
+        base = HERE if name in COMMITTED else frame_root
+        for t in range(9):
+            with open(os.path.join(base, name, f"frame_{t:04d}.tif"),
+                      "rb") as f:
+                sources[f"{name}/frame_{t:04d}.tif"] = f.read()
+    sets = damaged_sets(sources)
+    recs = {}
+    for name, frames in sets.items():
+        for fr in frames:
+            src = sources[fr["source"]]
+            path = os.path.join(scratch, "damaged", name, fr["name"])
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(damage(src, fr["edits"]))
+            intact = os.path.join(scratch, "intact.tif")
+            with open(intact, "wb") as f:
+                f.write(src)
+            a = cv2.imread(intact, cv2.IMREAD_GRAYSCALE)
+            b = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+            recs[f"{name}/{fr['name']}"] = {
+                "changed": float((a != b).mean()), **planes(path)}
+    return {"sets": sets, "planes": recs,
+            "sources": {rel: hashlib.sha256(raw).hexdigest()
+                        for rel, raw in sorted(sources.items())}}
+
+
 def planes(path: str) -> dict:
     """cv2.imread's gray and colour planes of `path`, (C, H, W) layout:
     shape and SHA-256, None where cv2.imread fails."""
@@ -785,7 +911,8 @@ def main(scratch: str) -> dict:
             frames[f"{fmt}/{os.path.basename(p)}"] = planes(p)
     manifest = {"cv2": cv2.__version__, "motion_px": motion,
                 "frame_size": [1024, 436], "files": files, "frames": frames,
-                "committed": committed}
+                "committed": committed,
+                "damaged": damaged_entry(scratch, scratch)}
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -238,7 +238,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from of_dis_tpu_torch import cli, pipeline
+from of_dis_tpu_torch import cli, pipeline, trace
 from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
                                       gn_stages, gn_tiled, i8_dot,
                                       tv_de_inner, tv_of_inner, upscale,
@@ -326,76 +326,78 @@ PATHS = [
 ]
 # the single-pair depth entry on pair 0 of path B's finest level (56x128)
 SINGLE_DE_ROUTES = {3: ("cluster", 16)}
-# name -> where the main path looks the wrapper up (`entry`), the module
-# and attribute of its launch count, its source and the TPU kernel(s) it
-# replaces.
+# name -> where the main path looks the wrapper up (`entry`), the kernel
+# library and C entry its launches are counted under (`trace.launches`),
+# its source and the TPU kernel(s) it replaces.
 KERNELS = {
-    "gn_fused": dict(module=gn_fused, entry=(gn_fused, "gn_fused"),
-                     counter="launches",
+    "gn_fused": dict(library="gn_fused", entry=(gn_fused, "gn_fused"),
+                     symbol="of_gn_fused",
                      source="of_dis_tpu_torch/csrc/gn_fused.cu",
                      replaces="of_dis_tpu/ops/patch_solver.py:584",
                      tpu_kernels=["of_dis_tpu/ops/patch_solver.py:584 "
                                   "_gn_fused_pallas"]),
-    "gn_tiled": dict(module=gn_tiled, entry=(gn_tiled, "gn_tiled"),
-                     counter="launches",
+    "gn_tiled": dict(library="gn_tiled", entry=(gn_tiled, "gn_tiled"),
+                     symbol="of_gn_tiled",
                      source="of_dis_tpu_torch/csrc/gn_tiled.cu",
                      replaces="of_dis_tpu/ops/patch_solver.py:1228",
                      tpu_kernels=["of_dis_tpu/ops/patch_solver.py:1228 "
                                   "_gn_tiled_pallas"]),
-    "bilerp_extract": dict(module=bilerp_extract,
+    "bilerp_extract": dict(library="bilerp_extract",
                            entry=(bilerp_extract, "bilerp_extract"),
-                           counter="launches",
+                           symbol="of_bilerp_extract",
                            source="of_dis_tpu_torch/csrc/bilerp_extract.cu",
                            replaces="of_dis_tpu/ops/patch_solver.py:312",
                            tpu_kernels=["of_dis_tpu/ops/patch_solver.py:312 "
                                         "_bilerp_select_pallas"]),
-    "tv_of_inner": dict(module=tv_of_inner,
-                        entry=(tv_of_inner, "of_inner"), counter="launches",
+    "tv_of_inner": dict(library="tv_of_inner",
+                        entry=(tv_of_inner, "of_inner"),
+                        symbol="of_tv_of_inner",
                         source="of_dis_tpu_torch/csrc/tv_of_inner.cu",
                         replaces="of_dis_tpu/ops/tv.py:1153",
                         tpu_kernels=["of_dis_tpu/ops/tv.py:1153 "
                                      "_of_inner_pallas_batched"]),
-    "tv_of_inner_single": dict(module=tv_of_inner,
+    "tv_of_inner_single": dict(library="tv_of_inner",
                                entry=(tv_of_inner, "of_inner_single"),
-                               counter="launches_single",
+                               symbol="of_tv_of_inner_single",
                                source="of_dis_tpu_torch/csrc/tv_of_inner.cu",
                                replaces="of_dis_tpu/ops/tv.py:1092",
                                tpu_kernels=["of_dis_tpu/ops/tv.py:1092 "
                                             "_of_inner_pallas"]),
-    "tv_de_inner": dict(module=tv_de_inner,
-                        entry=(tv_de_inner, "de_inner"), counter="launches",
+    "tv_de_inner": dict(library="tv_de_inner",
+                        entry=(tv_de_inner, "de_inner"),
+                        symbol="of_tv_de_inner",
                         source="of_dis_tpu_torch/csrc/tv_de_inner.cu",
                         replaces="of_dis_tpu/ops/tv.py:1224",
                         tpu_kernels=["of_dis_tpu/ops/tv.py:1224 "
                                      "_de_inner_pallas_batched"]),
-    "tv_de_inner_single": dict(module=tv_de_inner,
+    "tv_de_inner_single": dict(library="tv_de_inner",
                                entry=(tv_de_inner, "de_inner_single"),
-                               counter="launches_single",
+                               symbol="of_tv_de_inner_single",
                                source="of_dis_tpu_torch/csrc/tv_de_inner.cu",
                                replaces="of_dis_tpu/ops/tv.py:1332",
                                tpu_kernels=["of_dis_tpu/ops/tv.py:1332 "
                                             "_de_inner_pallas"]),
-    "warp": dict(module=warp, entry=(tv, "warp_image_batched"),
-                 counter="launches",
+    "warp": dict(library="warp", entry=(tv, "warp_image_batched"),
+                 symbol="of_warp",
                  source="of_dis_tpu_torch/csrc/warp.cu",
                  replaces="of_dis_tpu/ops/tv.py:271",
                  tpu_kernels=["of_dis_tpu/ops/tv.py:271 "
                               "warp_image_banded_pallas",
                               "of_dis_tpu/ops/tv.py:106 _warp_coeffs_pallas"]),
-    "upscale": dict(module=upscale, entry=(upscale, "upscale_batched"),
-                    counter="launches",
+    "upscale": dict(library="upscale", entry=(upscale, "upscale_batched"),
+                    symbol="of_upscale",
                     source="of_dis_tpu_torch/csrc/upscale.cu",
                     replaces="of_dis_tpu/models/dis.py:206",
                     tpu_kernels=["of_dis_tpu/models/dis.py:206 "
                                  "_upscale_cf_pallas"]),
     # the measurement tools' kernels (phases 9 and 10)
-    "i8_dot": dict(module=i8_dot, entry=(i8_dot, "dot_sum"),
-                   counter="launches",
+    "i8_dot": dict(library="i8_dot", entry=(i8_dot, "dot_sum"),
+                   symbol="of_i8_dot",
                    source="of_dis_tpu_torch/csrc/i8_dot.cu",
                    replaces="tools/bench_i8_dot.py:36",
                    tpu_kernels=["tools/bench_i8_dot.py:36 main.make"]),
-    "gn_stages": dict(module=gn_stages, entry=(gn_stages, "gn_stages"),
-                      counter="launches",
+    "gn_stages": dict(library="gn_stages", entry=(gn_stages, "gn_stages"),
+                      symbol="of_gn_stages",
                       source="of_dis_tpu_torch/csrc/gn_stages.cu",
                       replaces="tools/bench_gn_stages.py:103",
                       tpu_kernels=["tools/bench_gn_stages.py:103 "
@@ -582,16 +584,25 @@ PLAIN = {
 }
 
 
+_launch_base = {}
+
+
+def _launch_counts():
+    return {name: trace.launches(k["library"], k["symbol"])
+            for name, k in KERNELS.items()}
+
+
 def reset_launches():
-    for k in KERNELS.values():
-        setattr(k["module"], k["counter"], 0)
+    """Count launches from here on."""
+    _launch_base.clear()
+    _launch_base.update(_launch_counts())
 
 
 def read_launches():
     """Launch counts since the last reset, kernels never launched left
     out."""
-    counts = {name: getattr(k["module"], k["counter"])
-              for name, k in KERNELS.items()}
+    counts = {name: n - _launch_base.get(name, 0)
+              for name, n in _launch_counts().items()}
     return {name: n for name, n in counts.items() if n}
 
 

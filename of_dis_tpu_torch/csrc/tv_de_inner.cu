@@ -740,6 +740,20 @@ extern "C" int of_tv_de_inner(const float* wx, const float* mask,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The single-pair entry (K5'): of_tv_de_inner at B = 1, a C entry of its
+// own so that its launches are counted apart from the batched ones.
+extern "C" int of_tv_de_inner_single(
+    const float* wx, const float* mask, const float* deriv, float* uu,
+    float* scratch, int B, int C, int H, int W, int n_inner, int n_solver,
+    int row_parity, int use_color, int camlr, float quarter_alpha,
+    float hd3, float hg3, float omega, float one_minus_omega, int K,
+    void* stream) {
+  return of_tv_de_inner(wx, mask, deriv, uu, scratch, B, C, H, W, n_inner,
+                        n_solver, row_parity, use_color, camlr,
+                        quarter_alpha, hd3, hg3, omega, one_minus_omega, K,
+                        stream);
+}
+
 // Clusters of K blocks (K 1..16) of the C-channel instance that the
 // current device holds at once for an H x W level
 // (cudaOccupancyMaxActiveClusters); 0 where none can be resident, minus the

@@ -480,3 +480,17 @@ extern "C" int of_tv_of_inner(const float* wx, const float* wy,
                     cooperative != 0, a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The single-pair entry (K2'): of_tv_of_inner at B = 1, a C entry of its
+// own so that its launches are counted apart from the batched ones.
+extern "C" int of_tv_of_inner_single(
+    const float* wx, const float* wy, const float* mask, const float* deriv,
+    float* uu, float* vv, float* scratch, int B, int C, int H, int W,
+    int n_inner, int n_solver, int row_parity, int use_color,
+    float quarter_alpha, float hd3, float hg3, float omega,
+    float one_minus_omega, int cooperative, void* stream) {
+  return of_tv_of_inner(wx, wy, mask, deriv, uu, vv, scratch, B, C, H, W,
+                        n_inner, n_solver, row_parity, use_color,
+                        quarter_alpha, hd3, hg3, omega, one_minus_omega,
+                        cooperative, stream);
+}

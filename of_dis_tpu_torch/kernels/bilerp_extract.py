@@ -15,7 +15,6 @@ import torch
 from of_dis_tpu_torch.kernels import build
 
 NAME = "bilerp_extract"
-launches = 0
 
 _i, _p = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 3 + [_i] * 7 + [_p]
@@ -28,7 +27,6 @@ def bilerp_extract(im: torch.Tensor, pts: torch.Tensor, psz: int,
     anchor ceil(pt + 1e-5), residual against floor(pt), float32. Returns
     (B, psz^2 C, N), patch pixels in (row, column, channel) order; any
     batch and patch size, one launch. CPU tensors run the plain twin."""
-    global launches
     if im.device.type == "cpu":
         from of_dis_tpu_torch.ops.patch_solver import extract_bilinear
         return extract_bilinear(im, pts, psz, pad)
@@ -47,5 +45,4 @@ def bilerp_extract(im: torch.Tensor, pts: torch.Tensor, psz: int,
     p = build.ptr
     build.launch(im.device, NAME, "of_bilerp_extract", _ARGTYPES, p(im),
                  p(pts), p(out), b, c, hp, wp, n, psz, pad)
-    launches += 1
     return out

@@ -30,6 +30,8 @@ from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 import torch
 
+from of_dis_tpu_torch import trace
+
 KERNELS = ("gn_fused", "gn_tiled", "bilerp_extract", "tv_of_inner",
            "tv_de_inner", "warp", "upscale", "i8_dot", "gn_stages")
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -217,11 +219,13 @@ def launch(device, name: str, symbol: str, argtypes: Sequence, *args
            ) -> None:
     """Launch kernel `name` through its C entry `symbol` on `device`:
     `device` made current around the call, that device's current stream
-    passed after `args`, and the returned cudaError_t checked."""
+    passed after `args`, the returned cudaError_t checked, and the launch
+    counted (`trace.count_launch`): every hand kernel launches here."""
     fn = entry(name, symbol, argtypes)
     with torch.cuda.device(device):
         err = fn(*args, stream_handle(device))
     check(err, name)
+    trace.count_launch(name, symbol)
 
 
 def query(device, name: str, symbol: str, argtypes: Sequence = (),

@@ -13,7 +13,6 @@ import torch
 from of_dis_tpu_torch.kernels import build
 
 NAME = "gn_fused"
-launches = 0
 
 _f, _i, _p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 10 + [_i] * 13 + [_f] * 8 + [_p]
@@ -29,7 +28,6 @@ def gn_fused(spec, params, im_b: torch.Tensor, tpl, p_init_t: torch.Tensor,
     (1, 2, N). Returns (p (B, nop, N), pweight (B, psz^2, N) summed over
     channels of weights clamped at MINERRVAL, iters () int32). CPU tensors
     run the plain twin."""
-    global launches
     if im_b.device.type == "cpu":
         from of_dis_tpu_torch.ops.patch_solver import _gn_plain
         p, pw, iters, _ = _gn_plain(spec, params, im_b, tpl, p_init_t,
@@ -62,5 +60,4 @@ def gn_fused(spec, params, im_b: torch.Tensor, tpl, p_init_t: torch.Tensor,
                  spec.tmp_lb, spec.tmp_ubw, spec.tmp_ubh,
                  params.outlierthresh, params.res_thresh,
                  params.dp_thresh_sq, params.dr_thresh, float(params.novals))
-    launches += 1
     return p_out, pw_out, iters.reshape(())

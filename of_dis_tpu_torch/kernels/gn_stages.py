@@ -18,7 +18,6 @@ import torch
 from of_dis_tpu_torch.kernels import build
 
 NAME = "gn_stages"
-launches = 0
 
 STAGES = ("W", "A3", "A4")
 # variants of A4 in the C entry's numbering (bit 0: the shared-memory
@@ -209,7 +208,6 @@ def gn_stages(planes: torch.Tensor, tmpl: torch.Tensor, tdx: torch.Tensor,
     (B, N, psz^2) float32; sx0, sy0 (B, N) int32, the window's top-left
     corner at trip 0. Returns (B, N) float32. CPU tensors run the plain
     twin."""
-    global launches
     if stage not in STAGES or variant not in VARIANTS or \
             (variant and stage != "A4"):
         raise ValueError(f"{NAME}: unknown stage {stage!r} / variant "
@@ -238,6 +236,5 @@ def gn_stages(planes: torch.Tensor, tmpl: torch.Tensor, tdx: torch.Tensor,
                  p(tmpl), p(tdx), p(tdy), p(sx0), p(sy0), p(out), b, n, hp,
                  wp, psz, max_iter, scale, STAGES.index(stage),
                  VARIANTS.index(variant), layout)
-    launches += 1
     return out
 

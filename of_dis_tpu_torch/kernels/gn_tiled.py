@@ -15,7 +15,6 @@ import torch
 from of_dis_tpu_torch.kernels import build
 
 NAME = "gn_tiled"
-launches = 0
 
 _f, _i, _p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 9 + [_i] * 13 + [_f] * 8 + [_p]
@@ -31,7 +30,6 @@ def gn_tiled(spec, params, im_b: torch.Tensor, src, p_init_t: torch.Tensor,
     pweight (B, psz^2, N) from one extraction at the final position, summed
     over channels of weights clamped at MINERRVAL, iters () int32). CPU
     tensors run the plain twin."""
-    global launches
     if im_b.device.type == "cpu":
         from of_dis_tpu_torch.ops.patch_solver import _gn_tiled_plain
         p, pw, iters, _ = _gn_tiled_plain(spec, params, im_b, src, p_init_t,
@@ -66,5 +64,4 @@ def gn_tiled(spec, params, im_b: torch.Tensor, src, p_init_t: torch.Tensor,
                  params.patnorm, nop, spec.camlr, spec.tmp_lb, spec.tmp_ubw,
                  spec.tmp_ubh, params.outlierthresh, params.res_thresh,
                  params.dp_thresh_sq, params.dr_thresh, float(params.novals))
-    launches += 1
     return p_out, pw_out, iters.reshape(())

@@ -14,7 +14,6 @@ import torch
 from of_dis_tpu_torch.kernels import build
 
 NAME = "i8_dot"
-launches = 0
 
 _i, _p = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 3 + [_i] * 6 + [_p]
@@ -42,7 +41,6 @@ def dot_sum(a: torch.Tensor, bt: torch.Tensor, n: int, grid: int
     (reps n, k) — the right-hand side B (k, reps n) transposed — both int8
     (out int32) or both bf16 (out float32). Returns (grid, m, n). CPU
     tensors run the plain twin."""
-    global launches
     if a.dtype not in ACC or bt.dtype != a.dtype:
         raise ValueError(f"{NAME}: operands must both be int8 or both "
                          f"bfloat16, got {a.dtype} and {bt.dtype}")
@@ -63,5 +61,4 @@ def dot_sum(a: torch.Tensor, bt: torch.Tensor, n: int, grid: int
     build.launch(a.device, NAME, "of_i8_dot", _ARGTYPES, build.ptr(a),
                  build.ptr(bt), build.ptr(out), m, k, n, bt.shape[0] // n,
                  grid, int(a.dtype == torch.bfloat16))
-    launches += 1
     return out

@@ -4,8 +4,9 @@ route a pair's rows are split over a cluster of K blocks that keep the
 loop's fields in shared memory; pairs that no 16-block cluster holds take
 the cooperative route. `route` is the rule. `de_inner` replaces
 `_de_inner_pallas_batched` of the JAX package; `de_inner_single` launches
-the same kernel for one unbatched pair and replaces `_de_inner_pallas`.
-Each entry keeps its own launch count.
+the same kernel for one unbatched pair, through its own C entry
+(`of_tv_de_inner_single`, so its launches count apart), and replaces
+`_de_inner_pallas`.
 
 Plain twin: `ops.tv._de_inner_loop`."""
 
@@ -31,8 +32,6 @@ MAX_CLUSTER = 16
 # smaller bands spread over the card.
 BLOCK_PIXELS = 2048
 FILL_BLOCKS = 64
-launches = 0            # batched launches (K5)
-launches_single = 0     # single-pair launches (K5')
 last_route = None       # (name, K) of the last launch, for chip_smoke.py
 
 _f, _i, _p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
@@ -91,7 +90,7 @@ def max_clusters(device, noc: int, k: int, h: int, w: int) -> int:
 
 
 def _launch(wx, mask, deriv, *, camlr, quarter_alpha, hd3, hg3, n_inner,
-            n_solver, omega, row_parity=0):
+            n_solver, omega, row_parity=0, symbol="of_tv_de_inner"):
     global last_route
     b, h, w = wx.shape
     noc = deriv.shape[2] if deriv.ndim == 5 else 0
@@ -109,7 +108,7 @@ def _launch(wx, mask, deriv, *, camlr, quarter_alpha, hd3, hg3, n_inner,
                            device=wx.device) if name == "cooperative"
                else uu)
     p = build.ptr
-    build.launch(wx.device, NAME, "of_tv_de_inner", _ARGTYPES, p(wx),
+    build.launch(wx.device, NAME, symbol, _ARGTYPES, p(wx),
                  p(mask), p(deriv), p(uu), p(scratch), b, noc, h, w, n_inner,
                  n_solver, row_parity % 2, int(bool(hd3)), camlr,
                  quarter_alpha, hd3, hg3, omega, 1.0 - omega, k)
@@ -126,26 +125,21 @@ def de_inner(wx: torch.Tensor, mask: torch.Tensor, deriv: torch.Tensor, *,
     wx, mask (B, H, W); deriv (B, 8, C, H, W) as for `tv_of_inner`; camlr 0
     clamps uu <= 0 (left camera), 1 clamps uu >= 0. CPU tensors run the
     plain twin."""
-    global launches
     kw = dict(camlr=camlr, quarter_alpha=quarter_alpha, hd3=hd3, hg3=hg3,
               n_inner=n_inner, n_solver=n_solver, omega=omega,
               row_parity=row_parity)
     if wx.device.type == "cpu":
         return _plain(wx, mask, deriv, **kw)
-    out = _launch(wx, mask, deriv, **kw)
-    launches += 1
-    return out
+    return _launch(wx, mask, deriv, **kw)
 
 
 def de_inner_single(wx: torch.Tensor, mask: torch.Tensor,
                     deriv: torch.Tensor, **kw):
     """`de_inner` for one unbatched pair: wx, mask (H, W); deriv
     (8, C, H, W). Returns uu (H, W). The K5 kernel at B = 1."""
-    global launches_single
     args = (wx[None], mask[None], deriv[None])
     if wx.device.type == "cpu":
         uu = _plain(*args, **kw)
     else:
-        uu = _launch(*args, **kw)
-        launches_single += 1
+        uu = _launch(*args, symbol="of_tv_de_inner_single", **kw)
     return uu[0]

@@ -3,8 +3,9 @@ one launch a level (csrc/tv_of_inner.cu): a cooperative launch that
 spreads the pixels of every pair over the whole card, or, for pairs of at
 most `BLOCK_MAX_PIXELS` pixels, one block a pair. `of_inner` replaces
 `_of_inner_pallas_batched` of the JAX package; `of_inner_single` launches
-the same kernel for one unbatched pair and replaces `_of_inner_pallas`.
-Each entry keeps its own launch count.
+the same kernel for one unbatched pair, through its own C entry
+(`of_tv_of_inner_single`, so its launches count apart), and replaces
+`_of_inner_pallas`.
 
 Plain twin: `ops.tv._of_inner_loop`."""
 
@@ -23,8 +24,6 @@ N_SCRATCH = 9           # scratch fields (N_SCRATCH, B, H, W), see the .cu
 # barriers): a rule of the level's shape, from the crossover measured on an
 # H100 (PERF.md).
 BLOCK_MAX_PIXELS = 1024
-launches = 0            # batched launches (K2)
-launches_single = 0     # single-pair launches (K2')
 
 _f, _i, _p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_p] * 7 + [_i] * 8 + [_f] * 5 + [_i, _p]
@@ -44,7 +43,7 @@ def cooperative(h: int, w: int) -> bool:
 
 
 def _launch(wx, wy, mask, deriv, *, quarter_alpha, hd3, hg3, n_inner,
-            n_solver, omega, row_parity=0):
+            n_solver, omega, row_parity=0, symbol="of_tv_of_inner"):
     b, h, w = wx.shape
     noc = deriv.shape[2] if deriv.ndim == 5 else 0
     if noc not in (1, 3):
@@ -58,7 +57,7 @@ def _launch(wx, wy, mask, deriv, *, quarter_alpha, hd3, hg3, n_inner,
     scratch = torch.empty((N_SCRATCH, b, h, w), dtype=torch.float32,
                           device=wx.device)
     p = build.ptr
-    build.launch(wx.device, NAME, "of_tv_of_inner", _ARGTYPES, p(wx), p(wy),
+    build.launch(wx.device, NAME, symbol, _ARGTYPES, p(wx), p(wy),
                  p(mask), p(deriv), p(uu), p(vv), p(scratch), b, noc, h, w,
                  n_inner, n_solver, row_parity % 2, int(bool(hd3)),
                  quarter_alpha, hd3, hg3, omega, 1.0 - omega,
@@ -75,25 +74,20 @@ def of_inner(wx: torch.Tensor, wy: torch.Tensor, mask: torch.Tensor,
     wx, wy, mask (B, H, W); deriv (B, 8, C, H, W) holds the derivatives
     (ix, iy, iz, ixx, ixy, iyy, ixz, iyz) of C = 1 (gray) or 3 (RGB)
     channels. CPU tensors run the plain twin."""
-    global launches
     kw = dict(quarter_alpha=quarter_alpha, hd3=hd3, hg3=hg3, n_inner=n_inner,
               n_solver=n_solver, omega=omega, row_parity=row_parity)
     if wx.device.type == "cpu":
         return _plain(wx, wy, mask, deriv, **kw)
-    out = _launch(wx, wy, mask, deriv, **kw)
-    launches += 1
-    return out
+    return _launch(wx, wy, mask, deriv, **kw)
 
 
 def of_inner_single(wx: torch.Tensor, wy: torch.Tensor, mask: torch.Tensor,
                     deriv: torch.Tensor, **kw):
     """`of_inner` for one unbatched pair: wx, wy, mask (H, W); deriv
     (8, C, H, W). Returns uu, vv (H, W). The K2 kernel at B = 1."""
-    global launches_single
     args = (wx[None], wy[None], mask[None], deriv[None])
     if wx.device.type == "cpu":
         uu, vv = _plain(*args, **kw)
     else:
-        uu, vv = _launch(*args, **kw)
-        launches_single += 1
+        uu, vv = _launch(*args, symbol="of_tv_of_inner_single", **kw)
     return uu[0], vv[0]

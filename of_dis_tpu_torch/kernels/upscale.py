@@ -12,11 +12,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.kernels import build
 from of_dis_tpu_torch.ops.pyramid import _lerp_matrix
 
 NAME = "upscale"
-launches = 0
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_p] * 10 + [_i] * 7 + [_p]
@@ -51,7 +51,7 @@ def tile_window(i0: np.ndarray, i1: np.ndarray, tile: int) -> int:
 
 @lru_cache(maxsize=16)
 def _device_tables(n_out: int, n_in: int, scale: float, device: str):
-    return tuple(torch.as_tensor(t, device=device)
+    return tuple(trace.upload(t, device)
                  for t in tap_tables(n_out, n_in, scale))
 
 
@@ -66,7 +66,6 @@ def upscale_batched(flow: torch.Tensor, sc_l: int, out_h: int,
     """(B, h, w, nop) flow at the finest computed level, nop 1 or 2 ->
     (B, out_h, out_w, nop) full-resolution flow, values times 2^sc_l. CPU
     tensors run the plain twin."""
-    global launches
     if flow.device.type == "cpu":
         from of_dis_tpu_torch.models.dis import upscale_output
         return upscale_output(flow, sc_l, out_h, out_w)
@@ -85,5 +84,4 @@ def upscale_batched(flow: torch.Tensor, sc_l: int, out_h: int,
     build.launch(flow.device, NAME, "of_upscale", _ARGTYPES, p(flow),
                  *(p(t) for t in ty), *(p(t) for t in tx), p(out), b, h, w,
                  out_h, out_w, nop, _window(out_w, w, tile))
-    launches += 1
     return out

@@ -15,7 +15,6 @@ import torch
 from of_dis_tpu_torch.kernels import build
 
 NAME = "warp"
-launches = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
@@ -25,7 +24,6 @@ def warp_image_batched(src: torch.Tensor, wx: torch.Tensor,
     """src (B, C, Hs, W) warped by (wx, wy) (B, H, W), whose row y lies at
     global row row0 + y of src (0 <= row0 <= Hs - H): returns (out
     (B, C, H, W), mask (B, H, W)). CPU tensors run the plain twin."""
-    global launches
     b, c, hs, w = src.shape
     h = wx.shape[-2]
     if not 0 <= row0 <= hs - h:
@@ -42,7 +40,6 @@ def warp_image_batched(src: torch.Tensor, wx: torch.Tensor,
     p = build.ptr
     build.launch(src.device, NAME, "of_warp", _ARGTYPES, p(src), p(wx),
                  p(wy), p(out), p(mask), b, c, h, w, row0, hs)
-    launches += 1
     return out, mask
 
 

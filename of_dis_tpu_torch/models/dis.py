@@ -29,11 +29,13 @@ large level's refinement split by rows over a list of devices,
 
 from __future__ import annotations
 
-import time
+from functools import lru_cache
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.kernels import upscale as upscale_kernel
 from of_dis_tpu_torch.ops import densify, patch_solver, pyramid, tv
 from of_dis_tpu_torch.params import DISParams, make_level_spec
@@ -132,58 +134,37 @@ def _p_init(spec, params: DISParams, flow_prev, batch: int, device,
     return patch_solver.init_from_coarser(spec, params, flow_prev)
 
 
-class _NoClock:
-    """The stage clock of a quiet run: nothing waits, nothing prints."""
-
-    def lap(self) -> float:
-        return 0.0
-
-    def report(self, fmt: str, *args) -> None:
-        pass
+STAGES = ("pconst", "pinit", "poptim", "cflow", "tvopt")
 
 
-class _StageClock(_NoClock):
-    """The verbosity-2 clock: a lap waits for the device to finish what
-    was queued (torch.cuda.synchronize; nothing to wait for on the CPU)
-    and returns the host seconds since the previous lap."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.last = time.perf_counter()
-
-    def lap(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        dt, self.last = now - self.last, now
-        return dt
-
-    def report(self, fmt: str, *args) -> None:
-        print(fmt % args)
+@lru_cache(maxsize=None)
+def _span_keys(sl: int) -> Tuple[str, ...]:
+    """The span keys of scale sl: `L<sl>`, then its stages' (`STAGES`)."""
+    key = f"L{sl}"
+    return (key,) + tuple(f"{key}.{stage}" for stage in STAGES)
 
 
 def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
-                   full_w: int, full_h: int, init_flow=None,
-                   clock: _NoClock = _NoClock()) -> torch.Tensor:
+                   full_w: int, full_h: int, init_flow=None) -> torch.Tensor:
     """Batched coarse-to-fine pipeline: im_a/im_b (B, C, H, W) on one
     device; `init_flow` (B, H/2^(sc_f+1), W/2^(sc_f+1), nop) float32 on the
     same device, if given, warm-starts the forward grid's coarsest level
     (the backward grid of the merge starts from zero, as in the JAX
-    package). Returns (B, H/2^sc_l, W/2^sc_l, nop). A `_StageClock` times
-    the pyramid, the grid set-up and per scale the stages pconst
-    (templates of the levels whose GN kernel reads them), pinit, poptim,
-    cflow and tvopt, and prints the reference's lines (run_dense.cpp:
-    347-353, oflow.cpp:297)."""
+    package). Returns (B, H/2^sc_l, W/2^sc_l, nop). Spans (`trace`): the
+    pyramid, the grid set-up, and per scale `L<sl>` its stages (`STAGES`):
+    pconst (templates of the levels whose GN kernel reads them), pinit,
+    poptim, cflow and tvopt."""
     _check_supported(params)
     pad = params.p_samp_s
     fb = params.usefbcon
-    clock.lap()
+    t = trace.begin("pyramid")
     ims_a, dxs_a, dys_a = pyramid.build_pyramid(im_a, params.sc_f, pad,
                                                 lv_l=params.sc_l)
     # the second image's gradients serve the backward grid only
     ims_b, dxs_b, dys_b = pyramid.build_pyramid(im_b, params.sc_f, pad,
                                                 getgrad=fb, lv_l=params.sc_l)
-    clock.report("TIME (Pyramide+Gradients) (ms): %3g", clock.lap() * 1e3)
+    trace.end("pyramid", t)
+    t = trace.begin("grid")
     if init_flow is not None:
         k = 2 ** (params.sc_f + 1)
         want = (im_a.shape[0], full_h // k, full_w // k, params.nop)
@@ -196,7 +177,7 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
     specs = {sl: (make_level_spec(sl, full_w, full_h, params, camlr=0),
                   make_level_spec(sl, full_w, full_h, params, camlr=1)
                   if fb else None) for sl in levels}
-    clock.report("TIME (Grid Memo. Alloc. ) (ms): %3g", clock.lap() * 1e3)
+    trace.end("grid", t)
     batch, dev = im_a.shape[0], im_a.device
 
     def templates(spec, src):
@@ -212,20 +193,26 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
         # with the merge, the backward grid swaps the images' roles
         src = (ia, dxs_a[sl], dys_a[sl])
         src_bw = (ib, dxs_b[sl], dys_b[sl]) if fb else None
+        key, k_const, k_init, k_optim, k_flow, k_tv = _span_keys(sl)
+        t_level = trace.begin(key, sl)
+        t = trace.begin(k_const, sl)
         tpl = templates(spec, src)
         tpl_bw = templates(spec_bw, src_bw) if fb else None
-        laps = [clock.lap()]
+        trace.end(k_const, t)
+        t = trace.begin(k_init, sl)
         p_init = _p_init(spec, params, flow, batch, dev, init_flow)
         p_init_bw = _p_init(spec_bw, params, flow_bw, batch, dev) if fb \
             else None
-        laps.append(clock.lap())
+        trace.end(k_init, t)
+        t = trace.begin(k_optim, sl)
         res = patch_solver.optimize_level_batched(spec, params, ib, tpl,
                                                   p_init, src=src)
         res_bw = None
         if fb:
             res_bw = patch_solver.optimize_level_batched(
                 spec_bw, params, ia, tpl_bw, p_init_bw, src=src_bw)
-        laps.append(clock.lap())
+        trace.end(k_optim, t)
+        t = trace.begin(k_flow, sl)
         flow = densify.aggregate_flow_dense(spec, params, res, res_bw)
         # no backward flow at the last scale: nothing reads it
         # (oflow.cpp:266)
@@ -233,21 +220,36 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
         if bw_next:
             flow_bw = densify.aggregate_flow_dense(spec_bw, params, res_bw,
                                                    res)
-        laps.append(clock.lap())
+        trace.end(k_flow, t)
+        t = trace.begin(k_tv, sl)
         if params.usetvref:
             flow = _tv_refine(flow, ia, ib, spec, params)
             if bw_next:
                 flow_bw = _tv_refine(flow_bw, ib, ia, spec_bw, params)
-        laps.append(clock.lap())
-        clock.report("TIME (Sc: %i, #p:%6i, pconst, pinit, poptim, cflow, "
-                     "tvopt, total): %8.2f %8.2f %8.2f %8.2f %8.2f -> %8.2f "
-                     "ms.", sl, spec.nopatches, *(t * 1e3 for t in laps),
-                     sum(laps) * 1e3)
+        trace.end(k_tv, t)
+        trace.end(key, t_level)
+    return flow
+
+
+def _upscale(flow: torch.Tensor, params: DISParams, full_h: int,
+             full_w: int) -> torch.Tensor:
+    """A batch's finest-scale flow (B, h, w, nop) at the padded full
+    resolution (B, full_h, full_w, nop): kernel K4 on CUDA."""
+    if params.sc_l == 0:
+        return flow
+    t = trace.begin("upscale")
+    flow = upscale_kernel.upscale_batched(flow.contiguous(), params.sc_l,
+                                          full_h, full_w)
+    trace.end("upscale", t)
     return flow
 
 
 def _as_batch(x, device: torch.device) -> torch.Tensor:
-    t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+    """`x` as a contiguous tensor on `device`; host data (a NumPy array or
+    a CPU tensor) bound for the card goes through `trace.upload`."""
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    if t.device.type == "cpu" and device.type != "cpu":
+        return trace.upload(t, device).contiguous()
     return t.to(device).contiguous()
 
 
@@ -259,6 +261,7 @@ def _as_init(init_flow, device: torch.device):
     return _as_batch(init_flow, device).to(torch.float32)[None]
 
 
+@trace.entry
 def dis_flow(im_a, im_b, params: DISParams, full_w: int, full_h: int,
              init_flow=None, device="cuda") -> torch.Tensor:
     """Full coarse-to-fine DIS on one frame pair (C, H, W), already
@@ -289,12 +292,10 @@ def upscale_full(flow: torch.Tensor, params: DISParams, full_h: int,
                  full_w: int) -> torch.Tensor:
     """The finest scale's flow of one pair (h, w, nop) at the padded full
     resolution (full_h, full_w, nop): kernel K4 on CUDA."""
-    if params.sc_l == 0:
-        return flow
-    return upscale_kernel.upscale_batched(flow[None].contiguous(),
-                                          params.sc_l, full_h, full_w)[0]
+    return _upscale(flow[None], params, full_h, full_w)[0]
 
 
+@trace.entry
 def dis_flow_full(im_a, im_b, params: DISParams, full_w: int, full_h: int,
                   init_flow=None, device="cuda") -> torch.Tensor:
     """dis_flow + the final upscale to the padded full resolution:
@@ -312,18 +313,29 @@ def dis_flow_timed(im_a, im_b, params: DISParams, full_w: int, full_h: int,
 
       TIME (Sc: i, #p: n, pconst, pinit, poptim, cflow, tvopt, total): ...
 
-    Spans are host perf_counter times around stages that end in
-    `torch.cuda.synchronize`. The computation is `dis_flow`'s, warm start
-    included, so the flow equals its flow bit for bit: (H/2^sc_l, W/2^sc_l,
-    nop)."""
+    The lines are the host times of the call's spans (`trace`), each
+    stage ending in a `torch.cuda.synchronize` on the card. The computation
+    is `dis_flow`'s, warm start included, so the flow equals its flow bit
+    for bit: (H/2^sc_l, W/2^sc_l, nop)."""
     dev = resolve_device(device)
-    a = _as_batch(im_a, dev)[None]
-    b = _as_batch(im_b, dev)[None]
-    return _dis_flow_core(a, b, params, full_w, full_h,
-                          _as_init(init_flow, dev),
-                          clock=_StageClock(dev))[0]
+    with trace.call(settle=dev) as c:
+        a = _as_batch(im_a, dev)[None]
+        b = _as_batch(im_b, dev)[None]
+        flow = _dis_flow_core(a, b, params, full_w, full_h,
+                              _as_init(init_flow, dev))[0]
+    ms = {s.name: (s.end_ns - s.start_ns) / 1e6 for s in trace.spans(c.id)}
+    print("TIME (Pyramide+Gradients) (ms): %3g" % ms["pyramid"])
+    print("TIME (Grid Memo. Alloc. ) (ms): %3g" % ms["grid"])
+    for sl in range(params.sc_f, params.sc_l - 1, -1):
+        laps = [ms[f"L{sl}.{stage}"] for stage in STAGES]
+        print("TIME (Sc: %i, #p:%6i, pconst, pinit, poptim, cflow, tvopt, "
+              "total): %8.2f %8.2f %8.2f %8.2f %8.2f -> %8.2f ms."
+              % (sl, make_level_spec(sl, full_w, full_h, params).nopatches,
+                 *laps, sum(laps)))
+    return flow
 
 
+@trace.entry
 def dis_flow_batched(im_a, im_b, params: DISParams, full_w: int, full_h: int,
                      channels_last: bool = True,
                      device="cuda") -> torch.Tensor:
@@ -335,10 +347,8 @@ def dis_flow_batched(im_a, im_b, params: DISParams, full_w: int, full_h: int,
     dev = resolve_device(device)
     a = _as_batch(im_a, dev)
     b = _as_batch(im_b, dev)
-    flow = _dis_flow_core(a, b, params, full_w, full_h)
-    if params.sc_l != 0:
-        flow = upscale_kernel.upscale_batched(flow.contiguous(), params.sc_l,
-                                              full_h, full_w)
+    flow = _upscale(_dis_flow_core(a, b, params, full_w, full_h), params,
+                    full_h, full_w)
     if channels_last:
         return flow
     return flow.movedim(3, 1)
@@ -354,12 +364,16 @@ def warm_start_from_full(flow_full: torch.Tensor, sc_f: int) -> torch.Tensor:
     sum's order follows the tensor's shape on CUDA)."""
     k = 2 ** (sc_f + 1)
     h, w, c = flow_full.shape[-3:]
+    t = trace.begin("carry")
     f = flow_full[..., : (h // k) * k, : (w // k) * k, :] * (1.0 / k)
     f = f.reshape(*flow_full.shape[:-3], h // k, k, w // k, k, c)
-    return (f.sum(dim=(-4, -2), dtype=torch.float64) / (k * k)).to(
+    carry = (f.sum(dim=(-4, -2), dtype=torch.float64) / (k * k)).to(
         torch.float32)
+    trace.end("carry", t)
+    return carry
 
 
+@trace.entry
 def dis_sequence(frames, params: DISParams, full_w: int, full_h: int,
                  device="cuda") -> torch.Tensor:
     """Sequence mode: flow for the consecutive pairs of one video, each
@@ -387,11 +401,8 @@ def _warm_step(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
     and each stream's carry -> ((S, H, W, nop) full-resolution flow, the
     next carry). The upscale is kernel K4 on CUDA, as in
     `dis_flow_batched`."""
-    flow = _dis_flow_core(im_a, im_b, params, full_w, full_h,
-                          init_flow=carry)
-    if params.sc_l != 0:
-        flow = upscale_kernel.upscale_batched(flow.contiguous(), params.sc_l,
-                                              full_h, full_w)
+    flow = _upscale(_dis_flow_core(im_a, im_b, params, full_w, full_h,
+                                   init_flow=carry), params, full_h, full_w)
     return flow, warm_start_from_full(flow, params.sc_f)
 
 
@@ -405,6 +416,7 @@ def warm_carry_init(s: int, params: DISParams, full_w: int, full_h: int,
                        dtype=torch.float32, device=resolve_device(device))
 
 
+@trace.entry
 def dis_step_warm(im_a, im_b, params: DISParams, full_w: int, full_h: int,
                   carry, device="cuda"):
     """One step of the S-stream warm-start loop, for serving loops that
@@ -416,6 +428,7 @@ def dis_step_warm(im_a, im_b, params: DISParams, full_w: int, full_h: int,
                       full_w, full_h, _as_batch(carry, dev))
 
 
+@trace.entry
 def dis_sequence_batched(frames, params: DISParams, full_w: int, full_h: int,
                          device="cuda") -> torch.Tensor:
     """Batched sequence mode: S video streams advance in lockstep, each

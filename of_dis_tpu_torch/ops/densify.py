@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.ops.patch_solver import PatchResult
 from of_dis_tpu_torch.params import DISParams, LevelSpec
 
@@ -75,10 +76,9 @@ def _cover_pair(spec: LevelSpec, psz: int, device: str):
     horizontal one."""
     u = _cover_matrix(spec.height, spec.noph, spec.offseth, spec.steps, psz)
     v = _cover_matrix(spec.width, spec.nopw, spec.offsetw, spec.steps, psz)
-    u4 = torch.as_tensor(u.reshape(spec.height, psz, spec.noph),
-                         dtype=torch.float64, device=device)
-    return u4, torch.as_tensor(np.ascontiguousarray(v.T), dtype=torch.float64,
-                               device=device)
+    u4 = trace.upload(u.reshape(spec.height, psz, spec.noph), device,
+                      torch.float64)
+    return u4, trace.upload(np.ascontiguousarray(v.T), device, torch.float64)
 
 
 # Bytes a pair of the backward merge's soft one-hot operands held at once;

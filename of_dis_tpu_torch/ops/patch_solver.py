@@ -50,6 +50,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.kernels import bilerp_extract, gn_fused, gn_tiled
 from of_dis_tpu_torch.params import (COST_HUBER, COST_L1, COST_L2, DISParams,
                                      LevelSpec, MINERRVAL, NORMOUTLIER,
@@ -86,10 +87,9 @@ def _grid_tables(spec: LevelSpec, device: str):
     the (N, 2) float32 reference positions and the (N,) row / column
     indices of each patch's pixel in the next coarser level's flow."""
     xs, ys = (np.asarray(v) for v in grid_points(spec))
-    ref = torch.as_tensor(np.stack([xs, ys], axis=1), dtype=torch.float32,
-                          device=device)
-    return (ref, torch.as_tensor(ys // 2, device=device),
-            torch.as_tensor(xs // 2, device=device))
+    ref = trace.upload(np.stack([xs, ys], axis=1), device, torch.float32)
+    return (ref, trace.upload(ys // 2, device),
+            trace.upload(xs // 2, device))
 
 
 def grid_ref_points(spec: LevelSpec, device="cpu") -> torch.Tensor:
@@ -107,8 +107,8 @@ def _template_indices(spec: LevelSpec, psz: int, device):
     j = np.arange(psz)[:, None]
     rows = ybase + np.arange(spec.noph)[None, :] * spec.steps + j
     cols = xbase + np.arange(spec.nopw)[None, :] * spec.steps + j
-    return (torch.as_tensor(rows.reshape(-1), device=device),
-            torch.as_tensor(cols.reshape(-1), device=device))
+    return (trace.upload(rows.reshape(-1), device),
+            trace.upload(cols.reshape(-1), device))
 
 
 def _gather_templates(spec: LevelSpec, psz: int,
@@ -440,7 +440,7 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
     if not carry_pweight:
         pt_fin = torch.where(m, pt_ref_t, _to_pt(pt_ref_t, p))
         pweight = torch.where(m, tmpl_pw, dense(compute_err(pt_fin)[1]))
-    iters = torch.tensor(it, dtype=torch.int32, device=im_b.device)
+    iters = trace.upload(it, im_b.device, torch.int32)
     return p, pweight, iters, trips
 
 

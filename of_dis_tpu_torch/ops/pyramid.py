@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from of_dis_tpu_torch import trace
+
 
 def _lerp_matrix(n_out: int, n_in: int) -> np.ndarray:
     """(n_out, n_in) bilinear interpolation matrix, cv::INTER_LINEAR
@@ -60,8 +62,8 @@ def _resize_mm(img: torch.Tensor, out_h: int, out_w: int,
         mh, mw = _box_matrix(h, box), _box_matrix(w, box)
     else:
         mh, mw = _lerp_matrix(out_h, h), _lerp_matrix(out_w, w)
-    mh = torch.as_tensor(mh, device=img.device)
-    mw = torch.as_tensor(mw, device=img.device)
+    mh = trace.upload(mh, img.device)
+    mw = trace.upload(mw, img.device)
     t = torch.matmul(img.to(torch.float32), mw.T)         # (..., H, out_w)
     return torch.matmul(mh, t)                            # (..., out_h, out_w)
 

@@ -64,8 +64,10 @@ def shard_bounds(mesh: Mesh, n: int) -> List[slice]:
 
 
 def _chunks(mesh: Mesh, x, dim: int) -> List[torch.Tensor]:
+    """x cut on axis `dim`, chunk d on device d; a chunk of host data
+    bound for a card is an upload (`dis._as_batch`)."""
     t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
-    return [t[(slice(None),) * dim + (s,)].to(dev).contiguous()
+    return [dis._as_batch(t[(slice(None),) * dim + (s,)], dev)
             for s, dev in zip(shard_bounds(mesh, t.shape[dim]),
                               mesh.devices)]
 

@@ -57,9 +57,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from of_dis_tpu_torch import pipeline
-from of_dis_tpu_torch.kernels import (bilerp_extract, gn_fused, gn_tiled,
-                                      tv_de_inner, tv_of_inner, upscale, warp)
+from of_dis_tpu_torch import pipeline, trace
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import patch_solver, pyramid
 from of_dis_tpu_torch.params import (make_level_spec, op_point_params,
@@ -71,10 +69,11 @@ PRIMARY = "sintel_1024x436_op2_pairs_per_sec"
 H, W = 436, 1024
 HD = (1080, 1920)
 SEED = 0
-# the kernel modules of the main path and their launch counters
-KERNELS = {"gn_fused": gn_fused, "gn_tiled": gn_tiled,
-           "bilerp_extract": bilerp_extract, "tv_of_inner": tv_of_inner,
-           "tv_de_inner": tv_de_inner, "warp": warp, "upscale": upscale}
+# the kernel libraries of the main path, each counted at its batched C
+# entry `of_<library>`
+KERNELS = ("gn_fused", "gn_tiled", "bilerp_extract", "tv_of_inner",
+           "tv_de_inner", "warp", "upscale")
+_launch_base: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,16 +115,22 @@ SECONDARY = (
 SERVING_STEP = 0.7
 
 
+def _launch_counts() -> dict:
+    return {name: trace.launches(name, f"of_{name}") for name in KERNELS}
+
+
 def reset_launches() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    """Count launches from here on."""
+    _launch_base.clear()
+    _launch_base.update(_launch_counts())
 
 
 def read_launches() -> dict:
     """Launch counts since the last reset, kernels never launched left
     out."""
-    return {name: mod.launches for name, mod in KERNELS.items()
-            if mod.launches}
+    counts = {name: n - _launch_base.get(name, 0)
+              for name, n in _launch_counts().items()}
+    return {name: n for name, n in counts.items() if n}
 
 
 def expected_kernels(params, full_w: int, full_h: int) -> set:

@@ -13,7 +13,9 @@ a warm-up call, under the profiler, and prints
   - the biggest single kernels;
   - per stream, busy over span (first start to last end), and the busy
     share of the call's unprofiled wall;
-  - the largest gaps between kernels on the busiest stream;
+  - the largest gaps between kernels on the busiest stream, each with
+    the innermost program span open over it (`trace`: the markers the
+    program stamps on the profiler's clock, e.g. `L3.pconst`, `upload`);
   - the wall of one more unprofiled call, after the profile, beside the
     one before it (whether a profiler session slows what follows).
 
@@ -43,6 +45,7 @@ from typing import Dict, List, NamedTuple
 
 import torch
 
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.kernels import build
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.ops import pyramid
@@ -116,6 +119,43 @@ def events(prof, device_type: str) -> List[Event]:
     return sorted(out, key=lambda ev: ev.start_us)
 
 
+class ProgramSpan(NamedTuple):
+    key: str
+    start_us: float
+    end_us: float
+    depth: int          # 0 for the call
+
+
+def program_spans(prof) -> List[ProgramSpan]:
+    """The program's spans in a finished profile, paired from the markers
+    `trace` stamps at each span's start and end (`of_dis:<key>:b`,
+    `of_dis:<key>:e`)."""
+    marks = sorted((e.time_range.start, e.name) for e in prof.events()
+                   if e.name.startswith(trace.MARK))
+    out, stack = [], []
+    for t, name in marks:
+        key, edge = name[len(trace.MARK):].rsplit(":", 1)
+        if edge == "b":
+            stack.append((key, t))
+        elif stack and stack[-1][0] == key:
+            _, t0 = stack.pop()
+            out.append(ProgramSpan(key, t0, t, len(stack)))
+    return out
+
+
+def span_over(spans: List[ProgramSpan], start_us: float,
+              end_us: float) -> str:
+    """The key of the innermost program span open at the middle of
+    [start_us, end_us], or "-"."""
+    mid = (start_us + end_us) / 2
+    best = None
+    for sp in spans:
+        if sp.start_us <= mid <= sp.end_us and (best is None
+                                                or sp.depth > best.depth):
+            best = sp
+    return best.key if best is not None else "-"
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -169,9 +209,10 @@ def profile_call(label, fn, wall_s: float, top: int = 12) -> None:
 
 
 def report(evs: List[Event], pairs: int, where: str, wall_s=None,
-           top: int = 15) -> dict:
+           top: int = 15, spans: List[ProgramSpan] = ()) -> dict:
     """Print the profile's sections (see the module docstring) and return
-    their numbers: total, by category and by stream, in ms."""
+    their numbers: total, by category and by stream, in ms. `spans`
+    (`program_spans`) name the program span over each gap."""
     hand = hand_kernels()
     cats = [category(e.name, hand) for e in evs]
     total = sum(e.dur_us for e in evs)
@@ -226,18 +267,21 @@ def report(evs: List[Event], pairs: int, where: str, wall_s=None,
         main = max(tracks, key=lambda t: sum(e.dur_us for e in tracks[t]))
         es = tracks[main]
         for a, b in zip(es, es[1:]):
-            g = b.start_us - (a.start_us + a.dur_us)
+            end = a.start_us + a.dur_us
+            g = b.start_us - end
             if g > 0:
-                gaps.append((g, a.name, b.name))
+                gaps.append((g, a.name, b.name,
+                             span_over(spans, end, b.start_us)))
         gaps.sort(reverse=True)
         print(f"\ngaps on {main}: {len(gaps)} totaling "
-              f"{sum(g for g, _, _ in gaps) / 1e3:.3f} ms; top {top}:")
-        for g, na, nb in gaps[:top]:
-            print(f"{g / 1e3:8.3f} ms  after {na[:50]:50s} before {nb[:50]}")
+              f"{sum(gap[0] for gap in gaps) / 1e3:.3f} ms; top {top}:")
+        for g, na, nb, sp in gaps[:top]:
+            print(f"{g / 1e3:8.3f} ms  in {sp:12s} after {na[:40]:40s} "
+                  f"before {nb[:40]}")
     return dict(total_ms=total / 1e3,
                 by_category_ms={c: us / 1e3 for c, us in by_cat.items()},
                 streams=streams,
-                gaps_ms=sum(g for g, _, _ in gaps) / 1e3)
+                gaps_ms=sum(gap[0] for gap in gaps) / 1e3)
 
 
 def workload(batch: int, op: int, variant: str, device, h: int = H,
@@ -284,7 +328,8 @@ def main(argv=None, h: int = H, w: int = W) -> dict:
           f"{w}x{h} on {dev}: wall {wall * 1e3:.3f} ms unprofiled")
     prof = profile(fn, dev)
     res = report(events(prof, dev.type), pairs,
-                 "device" if dev.type == "cuda" else "host", wall)
+                 "device" if dev.type == "cuda" else "host", wall,
+                 spans=program_spans(prof))
     t0 = time.perf_counter()
     fn()
     sync(dev)

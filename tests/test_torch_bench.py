@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.params import make_level_spec, op_point_params
 from of_dis_tpu_torch.tools import bench, synth
@@ -223,10 +224,11 @@ def test_a_row_that_raises_ends_the_bench(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
 
 
-def test_launch_counters_read_and_reset(monkeypatch):
-    for name, mod in bench.KERNELS.items():
-        monkeypatch.setattr(mod, "launches", 0)
-    bench.KERNELS["warp"].launches = 3
+def test_launch_counters_read_and_reset():
+    bench.reset_launches()
+    for _ in range(3):
+        trace.count_launch("warp", "of_warp")
+    trace.count_launch("tv_of_inner", "of_tv_of_inner_single")  # not K2
     assert bench.read_launches() == {"warp": 3}
     bench.reset_launches()
     assert bench.read_launches() == {}

@@ -18,7 +18,7 @@ import torch
 from of_dis_tpu.models import dis as jdis
 from of_dis_tpu.params import op_point_params as j_op_point_params
 from of_dis_tpu.utils import io as jio
-from of_dis_tpu_torch import cli, convert
+from of_dis_tpu_torch import cli, convert, trace
 from of_dis_tpu_torch.models import dis as tdis
 
 G = os.path.join(os.path.dirname(__file__), "goldens")
@@ -105,7 +105,6 @@ def test_dis_flow_batched_patch_size_16_matches_jax(nop):
     """The 20-parameter form at patch size 16 (levels 2..1, 16 trips,
     overlap 0.75, TV on): every level takes the unfused GN route, and the
     result follows the JAX package's to an EPE ratio of 1e-3."""
-    from of_dis_tpu_torch.kernels import bilerp_extract
     from of_dis_tpu_torch.ops import patch_solver
     rest = "2 1 16 16 0.05 0.95 0 16 0.75 0 1 0 1 10 10 5 1 3 1.6 0".split()
     tp = cli.build_params(192, nop, 1, rest)
@@ -121,9 +120,9 @@ def test_dis_flow_batched_patch_size_16_matches_jax(nop):
     a, b = f1[None], f2[None]
     ref = np.asarray(jdis.dis_flow_batched(jnp.asarray(a), jnp.asarray(b),
                                            jp, 192, 160))
-    before = bilerp_extract.launches
+    before = trace.launches("bilerp_extract")
     ours = tdis.dis_flow_batched(a, b, tp, 192, 160, device="cpu").numpy()
-    assert bilerp_extract.launches == before           # CPU: no launch
+    assert trace.launches("bilerp_extract") == before     # CPU: no launch
     assert ours.shape == ref.shape == (1, 160, 192, nop)
     assert _epe_ratio(ours[0], ref[0]) <= 1e-3
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.kernels import build, gn_stages
 from of_dis_tpu_torch.tools import bench_gn_stages as bgs
 from tests.test_torch_i8_dot import run_jax_tool
@@ -153,9 +154,9 @@ def test_tool_variants_equal_a4_bit_for_bit(geom, capsys):
     """On the CPU the tool runs the twin; the u16 planes (value * 4^lv)
     convert back to the float planes exactly, so every variant's
     checksums equal A4's."""
-    before = gn_stages.launches
+    before = trace.launches("gn_stages")
     rows = bgs.run(geom, 2, 1, torch.device("cpu"))
-    assert gn_stages.launches == before and not build._libs
+    assert trace.launches("gn_stages") == before and not build._libs
     assert [r["label"] for r in rows] == [r[0] for r in bgs.RUNS]
     assert all(r["equal_a4"] for r in rows if r["variant"])
     assert capsys.readouterr().out.count("== A4 (bit)") == 3

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import of_dis_tpu_torch
-from of_dis_tpu_torch import cli
+from of_dis_tpu_torch import cli, trace
 from of_dis_tpu_torch.kernels import build
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.params import op_point_params
@@ -194,7 +194,9 @@ def test_cuda_device_without_cuda_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_each_kernel_has_source_entry_and_counter(name):
     mod = importlib.import_module(f"of_dis_tpu_torch.kernels.{name}")
-    assert isinstance(mod.launches, int)
+    # launches are counted per library and C entry in `trace` alone
+    assert not hasattr(mod, "launches")
+    assert isinstance(trace.launches(name, f"of_{name}"), int)
     assert callable(getattr(mod, WRAPPERS[name]))
     src = build.source(name)
     assert src.is_file()
@@ -211,8 +213,14 @@ def test_single_pair_entries_have_their_own_counter(name, entry):
     """The single-pair TV entries count apart from the batched ones, and a
     CPU tensor moves neither count."""
     mod = importlib.import_module(f"of_dis_tpu_torch.kernels.{name}")
-    assert isinstance(mod.launches_single, int)
-    before = (mod.launches, mod.launches_single)
+    assert f'extern "C" int of_{name}_single(' in \
+        build.source(name).read_text()
+
+    def counts():
+        return (trace.launches(name, f"of_{name}"),
+                trace.launches(name, f"of_{name}_single"))
+
+    before = counts()
     f = torch.zeros((4, 5))
     args = (f, f, f) if name == "tv_of_inner" else (f, f)
     kw = dict(quarter_alpha=2.5, hd3=0.8, hg3=1.6, n_inner=1, n_solver=1,
@@ -222,7 +230,7 @@ def test_single_pair_entries_have_their_own_counter(name, entry):
     out = getattr(mod, entry)(*args, torch.zeros((8, 1, 4, 5)), **kw)
     out = out if torch.is_tensor(out) else out[0]
     assert out.shape == (4, 5)
-    assert (mod.launches, mod.launches_single) == before
+    assert counts() == before
 
 
 @pytest.mark.parametrize("mode,channels,suffix", [
@@ -241,11 +249,11 @@ def test_kernel_wrappers_reject_cpu_kernel_launch_paths():
     """A CPU tensor takes the plain twin and leaves the count alone; the
     wrapper never tries to build or launch there."""
     from of_dis_tpu_torch.kernels import warp
-    before = warp.launches
+    before = trace.launches("warp")
     src = torch.zeros((1, 1, 4, 5))
     f = torch.zeros((1, 4, 5))
     out, mask = warp.warp_image_batched(src, f, f)
-    assert warp.launches == before and out.shape == src.shape
+    assert trace.launches("warp") == before and out.shape == src.shape
     assert not build._libs
 
 
@@ -310,11 +318,10 @@ def _cpu_call(name):
 def test_every_wrapper_takes_the_twin_on_cpu_and_binds_nothing(name):
     """A CPU tensor runs the plain twin: the launch count stays, no library
     is loaded and no C entry is bound."""
-    mod = importlib.import_module(f"of_dis_tpu_torch.kernels.{name}")
-    before = mod.launches
+    before = trace.launches(name)
     out, shape = _cpu_call(name)
     assert tuple(out.shape) == shape and out.device.type == "cpu"
-    assert mod.launches == before
+    assert trace.launches(name) == before
     assert not build._libs and not build._entries
 
 
@@ -467,10 +474,10 @@ def test_gn_tiled_cpu_tensors_take_the_twin_and_count_nothing():
     planes = [torch.as_tensor(rng.random((1, 1, 32 + 24, 64 + 24)) * 255,
                               dtype=torch.float32) for _ in range(4)]
     pt_ref = patch_solver.grid_ref_points(spec).T[None].contiguous()
-    before = gn_tiled.launches
+    before = trace.launches("gn_tiled")
     out = gn_tiled.gn_tiled(spec, p, planes[0], planes[1:],
                             torch.zeros((1, 2, spec.nopatches)), pt_ref)
-    assert gn_tiled.launches == before and not build._libs
+    assert trace.launches("gn_tiled") == before and not build._libs
     assert out[0].shape == (1, 2, spec.nopatches)
     assert out[1].shape == (1, 144, spec.nopatches)
     assert 0 < int(out[2]) <= p.max_iter

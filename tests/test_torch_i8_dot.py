@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.kernels import build, i8_dot
 from of_dis_tpu_torch.tools import bench_i8_dot
 
@@ -97,9 +98,9 @@ def test_twin_equals_the_int64_product():
 
 
 def test_tool_on_the_cpu_runs_the_twin_and_counts_nothing(capsys):
-    before = i8_dot.launches
+    before = trace.launches("i8_dot")
     res = bench_i8_dot.main(ARGV + ["--device", "cpu"])
-    assert i8_dot.launches == before and not build._libs
+    assert trace.launches("i8_dot") == before and not build._libs
     a = res["int8 -> int32"]["out"]
     np.testing.assert_array_equal(a.numpy(),
                                   res["bf16 -> f32"]["out"].numpy())

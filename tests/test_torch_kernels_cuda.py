@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
                                       gn_stages,
                                       gn_tiled, i8_dot, tv_de_inner,
@@ -46,6 +47,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def _tv_counts(lib):
+    """Launches of a TV library's batched and single-pair C entries."""
+    return (trace.launches(lib, f"of_{lib}"),
+            trace.launches(lib, f"of_{lib}_single"))
 
 
 def _frames(b, h, w, seed, c=1, half=False):
@@ -79,9 +86,9 @@ def test_gn_kernel_matches_plain(cuda, costfct, min_iter, nop, noc, camlr):
     p0 = torch.as_tensor(rng.standard_normal((3, nop, spec.nopatches)) * 3,
                          dtype=torch.float32, device=cuda)
     pt_ref = patch_solver.grid_ref_points(spec, cuda).T[None].contiguous()
-    before = gn_fused.launches
+    before = trace.launches("gn_fused")
     p_k, pw_k, it_k = gn_fused.gn_fused(spec, params, imb[0], tpl, p0, pt_ref)
-    assert gn_fused.launches == before + 1
+    assert trace.launches("gn_fused") == before + 1
     p_p, pw_p, it_p, _ = patch_solver._gn_plain(spec, params, imb[0], tpl, p0,
                                                 pt_ref)
     assert p_k.shape == (3, nop, spec.nopatches)
@@ -119,9 +126,9 @@ def test_gn_tiled_kernel_matches_plain(cuda, psz, costfct, patnorm, min_iter,
     p0 = torch.as_tensor(rng.standard_normal((3, nop, spec.nopatches)) * 4,
                          dtype=torch.float32, device=cuda)
     pt_ref = patch_solver.grid_ref_points(spec, cuda).T[None].contiguous()
-    before = gn_tiled.launches
+    before = trace.launches("gn_tiled")
     p_k, pw_k, it_k = gn_tiled.gn_tiled(spec, params, imb[0], src, p0, pt_ref)
-    assert gn_tiled.launches == before + 1
+    assert trace.launches("gn_tiled") == before + 1
     p_p, pw_p, it_p, _ = patch_solver._gn_tiled_plain(spec, params, imb[0],
                                                       src, p0, pt_ref)
     assert p_k.shape == (3, nop, spec.nopatches)
@@ -166,9 +173,9 @@ def test_bilerp_extract_kernel_matches_plain(cuda, psz, noc, n):
     pts[2, 0] = (-500.0, 1e4)
     pts[:, n // 2:n // 2 + 5] = np.rint(pts[:, n // 2:n // 2 + 5])
     pts = torch.as_tensor(pts, dtype=torch.float32, device=cuda)
-    before = bilerp_extract.launches
+    before = trace.launches("bilerp_extract")
     o_k = bilerp_extract.bilerp_extract(im, pts, psz, psz)
-    assert bilerp_extract.launches == before + 1
+    assert trace.launches("bilerp_extract") == before + 1
     o_p = patch_solver.extract_bilinear(im, pts, psz, psz)
     assert o_k.shape == o_p.shape == (3, psz * psz * noc, n)
     assert float((o_k - o_p).abs().max()) <= 1e-4
@@ -189,10 +196,12 @@ def test_unfused_route_on_the_card_matches_cpu_path(cuda, nop, noc):
     params = dataclasses.replace(op_point_params(256, 3, nop=nop, noc=noc),
                                  p_samp_s=16, sc_f=3, sc_l=1)
     assert patch_solver.uses_unfused(params)
-    counts = (gn_fused.launches, gn_tiled.launches, bilerp_extract.launches)
+    counts = (trace.launches("gn_fused"), trace.launches("gn_tiled"),
+              trace.launches("bilerp_extract"))
     ours = dis.dis_flow_batched(a, b, params, 256, 96, device="cuda")
-    grown = (gn_fused.launches - counts[0], gn_tiled.launches - counts[1],
-             bilerp_extract.launches - counts[2])
+    grown = (trace.launches("gn_fused") - counts[0],
+             trace.launches("gn_tiled") - counts[1],
+             trace.launches("bilerp_extract") - counts[2])
     assert grown[:2] == (0, 0)
     assert 3 * 2 <= grown[2] <= 3 * (1 + params.max_iter)
     ref = dis.dis_flow_batched(a, b, params, 256, 96, device="cpu")
@@ -208,10 +217,11 @@ def test_kernel_path_matches_cpu_path_op3_fbcon(cuda):
     one ulp of the CPU's and the card's matrix products decides the cell."""
     a, b = _frames(2, 96, 256, 7, half=True)
     params = dataclasses.replace(op_point_params(256, 3), usefbcon=True)
-    counts = (gn_fused.launches, gn_tiled.launches)
+    counts = (trace.launches("gn_fused"), trace.launches("gn_tiled"))
     ours = dis.dis_flow_batched(a, b, params, 256, 96, device="cuda")
     n_lv = params.sc_f - params.sc_l + 1
-    grown = (gn_fused.launches - counts[0], gn_tiled.launches - counts[1])
+    grown = (trace.launches("gn_fused") - counts[0],
+             trace.launches("gn_tiled") - counts[1])
     assert sum(grown) == 2 * n_lv and grown[1] >= 2
     assert torch.equal(ours, dis.dis_flow_batched(a, b, params, 256, 96,
                                                   device="cuda"))
@@ -247,9 +257,9 @@ def test_tv_kernel_matches_plain(cuda, h, w, delta, parity, noc):
     qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, delta)
     kw = dict(quarter_alpha=qa, hd3=hd3, hg3=hg3, n_inner=3, n_solver=3,
               omega=1.6, row_parity=parity)
-    before = tv_of_inner.launches
+    before = trace.launches("tv_of_inner", "of_tv_of_inner")
     uu_k, vv_k = tv_of_inner.of_inner(wx, wy, mask, deriv, **kw)
-    assert tv_of_inner.launches == before + 1
+    assert trace.launches("tv_of_inner", "of_tv_of_inner") == before + 1
     uu_p, vv_p = tv._of_inner_loop(wx, wy, mask, _i_list(deriv), noc=noc,
                                    **kw)
     assert float((uu_k - uu_p).abs().max()) <= 1e-4
@@ -266,9 +276,9 @@ def test_tv_de_kernel_matches_plain(cuda, h, w, delta, parity, camlr, noc):
     qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, delta)
     kw = dict(camlr=camlr, quarter_alpha=qa, hd3=hd3, hg3=hg3, n_inner=3,
               n_solver=3, omega=1.6, row_parity=parity)
-    before = tv_de_inner.launches
+    before = trace.launches("tv_de_inner", "of_tv_de_inner")
     uu_k = tv_de_inner.de_inner(wx, mask, deriv, **kw)
-    assert tv_de_inner.launches == before + 1
+    assert trace.launches("tv_de_inner", "of_tv_de_inner") == before + 1
     uu_p = tv._de_inner_loop(wx, mask, _i_list(deriv), noc=noc, **kw)
     assert float((uu_k - uu_p).abs().max()) <= 1e-4
     assert bool((uu_k <= 0).all() if camlr == 0 else (uu_k >= 0).all())
@@ -281,12 +291,10 @@ def test_single_pair_tv_entries_match_plain_and_batched_row(cuda, noc):
     im1, im2, wx, wy, _, _ = _tv_inputs(cuda, 2, noc, 37, 61, 5)
     kw = dict(alpha=10.0, gamma=10.0, delta=5.0, n_inner=2, n_solver=3,
               omega=1.6)
-    counts = (tv_of_inner.launches, tv_of_inner.launches_single,
-              tv_de_inner.launches, tv_de_inner.launches_single)
+    counts = _tv_counts("tv_of_inner") + _tv_counts("tv_de_inner")
     uu, vv = tv.ref_level_of(wx[0], wy[0], im1[0], im2[0], **kw)
     dd = tv.ref_level_de(-wx[0].abs(), im1[0], im2[0], camlr=0, **kw)
-    assert (tv_of_inner.launches, tv_of_inner.launches_single,
-            tv_de_inner.launches, tv_de_inner.launches_single) == (
+    assert _tv_counts("tv_of_inner") + _tv_counts("tv_de_inner") == (
         counts[0], counts[1] + 1, counts[2], counts[3] + 1)
     assert uu.shape == vv.shape == dd.shape == (37, 61)
     bu, bv = tv.ref_level_of_batched(wx, wy, im1, im2, **kw)
@@ -436,9 +444,9 @@ def test_upscale_kernel_ragged_widths(cuda, nop, sc_l, h, w, out_h, out_w):
     and span several tiles: within 1e-4 px of the twin."""
     flow = torch.as_tensor(np.random.default_rng(h * w).standard_normal(
         (3, h, w, nop)), dtype=torch.float32, device=cuda)
-    before = upscale.launches
+    before = trace.launches("upscale")
     o_k = upscale.upscale_batched(flow, sc_l, out_h, out_w)
-    assert upscale.launches == before + 1
+    assert trace.launches("upscale") == before + 1
     o_p = dis.upscale_output(flow, sc_l, out_h, out_w)
     assert o_k.shape == (3, out_h, out_w, nop)
     assert float((o_k - o_p).abs().max()) <= 1e-4
@@ -473,9 +481,10 @@ def test_kernel_path_matches_cpu_path(cuda, nop, noc):
     assert params.sc_l > 0                # the upscale runs
     tv_mod = tv_of_inner if nop == 2 else tv_de_inner
     mods = (gn_fused, tv_mod, warp, upscale)
-    counts = [m.launches for m in mods]
+    counts = [trace.launches(m.NAME, f"of_{m.NAME}") for m in mods]
     ours = dis.dis_flow_batched(a, b, params, 256, 96, device="cuda").cpu()
-    grown = [m.launches - c for m, c in zip(mods, counts)]
+    grown = [trace.launches(m.NAME, f"of_{m.NAME}") - c
+             for m, c in zip(mods, counts)]
     n_lv = params.sc_f - params.sc_l + 1
     assert grown == [n_lv, n_lv, n_lv, 1]
     ref = dis.dis_flow_batched(a, b, params, 256, 96, device="cpu")
@@ -496,9 +505,9 @@ def test_i8_dot_kernel_matches_plain(cuda, dtype, m, k, n, reps, grid):
     a = torch.as_tensor(rng.integers(-127, 127, (m, k), np.int8))
     bt = torch.as_tensor(rng.integers(-3, 4, (reps * n, k), np.int8))
     a, bt = a.to(cuda, dtype), bt.to(cuda, dtype)
-    before = i8_dot.launches
+    before = trace.launches("i8_dot")
     out = i8_dot.dot_sum(a, bt, n, grid)
-    assert i8_dot.launches == before + 1
+    assert trace.launches("i8_dot") == before + 1
     assert out.shape == (grid, m, n) and out.dtype == i8_dot.ACC[dtype]
     assert torch.equal(out, i8_dot._plain(a, bt, n, grid))
 
@@ -592,9 +601,9 @@ def test_tv_kernel_routes_equal_plain(cuda, monkeypatch, b, h, w, parity,
     qa, hd3, hg3 = tv.tv_coefficients(10.0, 10.0, 5.0)
     kw = dict(quarter_alpha=qa, hd3=hd3, hg3=hg3, n_inner=n_inner,
               n_solver=3, omega=1.6, row_parity=parity)
-    before = tv_of_inner.launches
+    before = trace.launches("tv_of_inner", "of_tv_of_inner")
     uu_k, vv_k = tv_of_inner.of_inner(wx, wy, mask, deriv, **kw)
-    assert tv_of_inner.launches == before + 1
+    assert trace.launches("tv_of_inner", "of_tv_of_inner") == before + 1
     uu_p, vv_p = tv._of_inner_loop(wx, wy, mask, _i_list(deriv), noc=noc,
                                    **kw)
     for k, p in ((uu_k, uu_p), (vv_k, vv_p)):
@@ -677,9 +686,9 @@ def test_tv_de_kernel_routes_equal_plain(cuda, monkeypatch, b, h, w, route,
     _, _, wx, _, mask, deriv = _tv_inputs(cuda, b, noc, h, w, h * w + b + k,
                                           depth=True)
     kw = _de_kw(parity, camlr, delta=5.0 if (i + k) % 2 else 0.0)
-    before = tv_de_inner.launches
+    before = trace.launches("tv_de_inner", "of_tv_de_inner")
     uu_k = tv_de_inner.de_inner(wx, mask, deriv, **kw)
-    assert tv_de_inner.launches == before + 1
+    assert trace.launches("tv_de_inner", "of_tv_de_inner") == before + 1
     assert tv_de_inner.last_route == (route, k)
     uu_p = tv._de_inner_loop(wx, mask, _i_list(deriv), noc=noc, **kw)
     torch.testing.assert_close(uu_k, uu_p, rtol=0, atol=0, equal_nan=True)
@@ -729,12 +738,12 @@ def test_tv_de_kernel_raises_where_no_cluster_can_be_resident(cuda,
     assert tv_de_inner.max_clusters(cuda, 1, 2, 56, 128) > 0
     _, _, wx, _, mask, deriv = _tv_inputs(cuda, 1, 1, h, w, 1, depth=True)
     kw = _de_kw(0, 0, n_inner=1)
-    before = tv_de_inner.launches
+    before = trace.launches("tv_de_inner", "of_tv_de_inner")
     for k in (16, 32):
         _force_de_route(monkeypatch, ("cluster", k))
         with pytest.raises(RuntimeError, match="cudaError_t"):
             tv_de_inner.de_inner(wx, mask, deriv, **kw)
-    assert tv_de_inner.launches == before
+    assert trace.launches("tv_de_inner", "of_tv_de_inner") == before
 
 
 # ------------------------------ the large-level GN kernel (K6), every instance
@@ -773,9 +782,9 @@ def test_gn_tiled_kernel_every_segment_width(cuda, psz, nop, noc, camlr):
     p0 = torch.as_tensor(rng.standard_normal((3, nop, spec.nopatches)) * 6,
                          dtype=torch.float32, device=cuda)
     pt_ref = patch_solver.grid_ref_points(spec, cuda).T[None].contiguous()
-    before = gn_tiled.launches
+    before = trace.launches("gn_tiled")
     p_k, pw_k, it_k = gn_tiled.gn_tiled(spec, params, imb[0], src, p0, pt_ref)
-    assert gn_tiled.launches == before + 1
+    assert trace.launches("gn_tiled") == before + 1
     p_p, pw_p, it_p, _ = patch_solver._gn_tiled_plain(
         spec, params, imb[0], src, p0, pt_ref)
     assert int(it_k) == int(it_p)
@@ -840,9 +849,9 @@ def test_gn_fused_kernel_every_instance(cuda, psz, stops, nop, noc, camlr):
     hp, wp = imb[0].shape[-2:]
     inside = (sx >= 0) & (sy >= 0) & (sx + psz < wp) & (sy + psz < hp)
     assert bool(inside.any()) and bool((~inside).any())
-    before = gn_fused.launches
+    before = trace.launches("gn_fused")
     p_k, pw_k, it_k = gn_fused.gn_fused(spec, params, imb[0], tpl, p0, pt_ref)
-    assert gn_fused.launches == before + 1
+    assert trace.launches("gn_fused") == before + 1
     p_p, pw_p, it_p, trips = patch_solver._gn_plain(spec, params, imb[0],
                                                     tpl, p0, pt_ref)
     if stops == "first trip":
@@ -882,9 +891,9 @@ def test_bilerp_extract_kernel_every_window_tile(cuda, psz, n, noc):
     patch, one more than a block's 32, and 1000 (ragged). The twin's
     float32 lerps term by term: equal."""
     im, pts = _extract_inputs(cuda, 3, noc, n, psz, psz + noc + n)
-    before = bilerp_extract.launches
+    before = trace.launches("bilerp_extract")
     o_k = bilerp_extract.bilerp_extract(im, pts, psz, psz)
-    assert bilerp_extract.launches == before + 1
+    assert trace.launches("bilerp_extract") == before + 1
     o_p = patch_solver.extract_bilinear(im, pts, psz, psz)
     assert o_k.shape == o_p.shape == (3, psz * psz * noc, n)
     assert torch.equal(o_k, o_p)
@@ -929,12 +938,12 @@ def test_warp_and_upscale_take_more_than_65535_pairs(cuda):
     wx, wy = (torch.as_tensor(rng.standard_normal((b, 4, 8)) * 2,
                               dtype=torch.float32, device=cuda)
               for _ in range(2))
-    counts = (warp.launches, upscale.launches)
+    counts = (trace.launches("warp"), trace.launches("upscale"))
     o_k, m_k = warp.warp_image_batched(src, wx, wy)
     flow = torch.stack([wx, wy], -1)
     up = upscale.upscale_batched(flow, 1, 8, 16)
-    assert (warp.launches, upscale.launches) == (counts[0] + 1,
-                                                 counts[1] + 1)
+    assert (trace.launches("warp"), trace.launches("upscale")) == (
+        counts[0] + 1, counts[1] + 1)
     o_p, m_p = tv.warp_image(src, wx, wy)
     assert torch.equal(o_k, o_p) and torch.equal(m_k, m_p)
     up_p = dis.upscale_output(flow, 1, 8, 16)
@@ -946,9 +955,9 @@ def test_bilerp_extract_takes_more_than_65535_pairs(cuda):
     """A batch of 65,537 pairs (more than a grid's y or z axis holds) of
     three patches on a tiny level: one launch, equal to its twin."""
     im, pts = _extract_inputs(cuda, 65537, 1, 3, 5, 0, h=4, w=8)
-    before = bilerp_extract.launches
+    before = trace.launches("bilerp_extract")
     o_k = bilerp_extract.bilerp_extract(im, pts, 5, 5)
-    assert bilerp_extract.launches == before + 1
+    assert trace.launches("bilerp_extract") == before + 1
     o_p = patch_solver.extract_bilinear(im, pts, 5, 5)
     assert o_k.shape == (65537, 25, 3)
     assert torch.equal(o_k, o_p)

@@ -21,7 +21,7 @@ import torch
 from of_dis_tpu import params as jparams
 from of_dis_tpu.ops import patch_solver as jps
 from of_dis_tpu.ops import pyramid as jpyr
-from of_dis_tpu_torch import convert
+from of_dis_tpu_torch import convert, trace
 from of_dis_tpu_torch.ops import patch_solver as tps
 
 
@@ -766,10 +766,10 @@ def test_bilerp_extract_matches_jax(monkeypatch, psz, noc, pallas):
             assert jps._bilerp_block(2, psz + 1, noc, hp, pts.shape[1])
         ref = jps.extract_bilinear_mxu_batched(planes, jnp.asarray(pts), psz,
                                                psz, noc, hp, wp, pallas)
-    before = bilerp_extract.launches
+    before = trace.launches("bilerp_extract")
     ours = bilerp_extract.bilerp_extract(torch.as_tensor(im),
                                          torch.as_tensor(pts), psz, psz)
-    assert bilerp_extract.launches == before       # CPU: the twin, no count
+    assert trace.launches("bilerp_extract") == before  # CPU: the twin
     assert ours.shape == (2, psz * psz * noc, pts.shape[1])
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4,
                                rtol=0)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from of_dis_tpu.ops import tv as jtv
+from of_dis_tpu_torch import trace
 from of_dis_tpu_torch.kernels import tv_de_inner, tv_of_inner
 from of_dis_tpu_torch.ops import tv as ttv
 
@@ -29,6 +30,12 @@ def _data(b=2, h=20, w=24, seed=0):
     wx = (rng.standard_normal((b, h, w)) * 1.5).astype(np.float32)
     wy = (rng.standard_normal((b, h, w)) * 1.5).astype(np.float32)
     return im1, im2, wx, wy
+
+
+def _tv_counts(lib):
+    """Launches of a TV library's batched and single-pair C entries."""
+    return (trace.launches(lib, f"of_{lib}"),
+            trace.launches(lib, f"of_{lib}_single"))
 
 
 def _close(ours, ref, rel=1e-5):
@@ -113,9 +120,9 @@ def test_ref_level_of_batched_matches_jax(n_inner, delta):
               n_solver=3, omega=1.6)
     ru, rv = jtv.ref_level_of_batched(*map(jnp.asarray, (wx, wy, im1, im2)),
                                       **kw)
-    launches = tv_of_inner.launches
+    launches = _tv_counts("tv_of_inner")
     ou, ov = ttv.ref_level_of_batched(*_t(wx, wy, im1, im2), **kw)
-    assert tv_of_inner.launches == launches     # CPU: plain twin, no kernel
+    assert _tv_counts("tv_of_inner") == launches  # CPU: plain twin, no kernel
     np.testing.assert_allclose(ou.numpy(), np.asarray(ru), atol=1e-4, rtol=0)
     np.testing.assert_allclose(ov.numpy(), np.asarray(rv), atol=1e-4, rtol=0)
 
@@ -228,9 +235,9 @@ def test_ref_level_de_batched_matches_jax(camlr, noc):
     im1, im2, wx, _ = _data_c(noc, seed=30 + camlr + noc)   # both signs
     ref = jtv.ref_level_de_batched(*map(jnp.asarray, (wx, im1, im2)),
                                    camlr=camlr, **KW)
-    before = tv_de_inner.launches
+    before = _tv_counts("tv_de_inner")
     ours = ttv.ref_level_de_batched(*_t(wx, im1, im2), camlr=camlr, **KW)
-    assert tv_de_inner.launches == before       # CPU: plain twin, no kernel
+    assert _tv_counts("tv_de_inner") == before    # CPU: plain twin, no kernel
     assert ours.shape == (2, 14, 32)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4,
                                rtol=0)
@@ -260,9 +267,9 @@ def test_ref_level_of_single_pair_matches_jax_kernel(monkeypatch, noc):
     _interp_pallas(monkeypatch)
     ru, rv = jtv.ref_level_of(*map(jnp.asarray,
                                    (wx[0], wy[0], im1[0], im2[0])), **KW)
-    counts = (tv_of_inner.launches, tv_of_inner.launches_single)
+    counts = _tv_counts("tv_of_inner")
     ou, ov = ttv.ref_level_of(*_t(wx[0], wy[0], im1[0], im2[0]), **KW)
-    assert (tv_of_inner.launches, tv_of_inner.launches_single) == counts
+    assert _tv_counts("tv_of_inner") == counts
     assert ou.shape == ov.shape == (24, 32)
     np.testing.assert_allclose(ou.numpy(), np.asarray(ru), atol=1e-4, rtol=0)
     np.testing.assert_allclose(ov.numpy(), np.asarray(rv), atol=1e-4, rtol=0)
@@ -281,9 +288,9 @@ def test_ref_level_de_single_pair_matches_jax_kernel(monkeypatch, camlr, noc):
     _interp_pallas(monkeypatch)
     ref = jtv.ref_level_de(*map(jnp.asarray, (wx[0], im1[0], im2[0])),
                            camlr=camlr, **KW)
-    counts = (tv_de_inner.launches, tv_de_inner.launches_single)
+    counts = _tv_counts("tv_de_inner")
     ours = ttv.ref_level_de(*_t(wx[0], im1[0], im2[0]), camlr=camlr, **KW)
-    assert (tv_de_inner.launches, tv_de_inner.launches_single) == counts
+    assert _tv_counts("tv_de_inner") == counts
     assert ours.shape == (24, 32)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4,
                                rtol=0)

@@ -98,9 +98,11 @@ def grid_ref_points(spec: LevelSpec, device="cpu") -> torch.Tensor:
     return _grid_tables(spec, str(device))[0]
 
 
-def _template_indices(spec: LevelSpec, psz: int, device):
+@lru_cache(maxsize=128)
+def _template_indices(spec: LevelSpec, psz: int, device: str):
     """Rows (psz*noph,) j-major and columns (psz*nopw,) i-major of every
-    template pixel in the padded level image."""
+    template pixel in the padded level image, on `device`: built once per
+    level and device, shared by every call, read only."""
     lb = -psz // 2
     ybase = spec.offseth + lb + spec.pad
     xbase = spec.offsetw + lb + spec.pad
@@ -115,7 +117,7 @@ def _gather_templates(spec: LevelSpec, psz: int,
                       field: torch.Tensor) -> torch.Tensor:
     """(..., C, Hp, Wp) -> (..., D, N) template windows, D = (j, i, c) and
     N = (x, y) column-major, by two index gathers."""
-    rows, cols = _template_indices(spec, psz, field.device)
+    rows, cols = _template_indices(spec, psz, str(field.device))
     lead = field.shape[:-3]
     c = field.shape[-3]
     g = field.index_select(-2, rows).index_select(-1, cols)
@@ -440,7 +442,7 @@ def _gn_plain(spec: LevelSpec, params: DISParams, im_b: torch.Tensor,
     if not carry_pweight:
         pt_fin = torch.where(m, pt_ref_t, _to_pt(pt_ref_t, p))
         pweight = torch.where(m, tmpl_pw, dense(compute_err(pt_fin)[1]))
-    iters = trace.upload(it, im_b.device, torch.int32)
+    iters = torch.full((), it, dtype=torch.int32, device=im_b.device)
     return p, pweight, iters, trips
 
 

@@ -17,6 +17,7 @@ TPU device and is not ported: for u8-sourced levels both are exact).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -52,23 +53,35 @@ def _box_matrix(n_in: int, k: int) -> np.ndarray:
     return m
 
 
+# The tables below are built once per shape and device and shared by every
+# call: read only. 128 entries hold a call's tables at two input shapes on
+# four devices (op-4: ten resize matrices and twelve edge indices a shape).
+@lru_cache(maxsize=128)
+def _resize_matrix(n_out: int, n_in: int, box: int,
+                   device: str) -> torch.Tensor:
+    """One axis's (n_out, n_in) float32 resize matrix on `device`: the
+    k-tap box mean for box=k, else the bilinear cv::INTER_LINEAR one."""
+    m = _box_matrix(n_in, box) if box else _lerp_matrix(n_out, n_in)
+    return trace.upload(m, device)
+
+
 def _resize_mm(img: torch.Tensor, out_h: int, out_w: int,
                box: int = 0) -> torch.Tensor:
     """Resize (..., C, H, W) as two constant-matrix float32 products,
     horizontal first (cv::resize's evaluation order). box=k uses the k-tap
     box-mean matrices; box=0 the bilinear cv::INTER_LINEAR matrices."""
     h, w = img.shape[-2], img.shape[-1]
-    if box:
-        mh, mw = _box_matrix(h, box), _box_matrix(w, box)
-    else:
-        mh, mw = _lerp_matrix(out_h, h), _lerp_matrix(out_w, w)
-    mh = trace.upload(mh, img.device)
-    mw = trace.upload(mw, img.device)
+    dev = str(img.device)
+    mh = _resize_matrix(out_h, h, box, dev)
+    mw = _resize_matrix(out_w, w, box, dev)
     t = torch.matmul(img.to(torch.float32), mw.T)         # (..., H, out_w)
     return torch.matmul(mh, t)                            # (..., out_h, out_w)
 
 
-def _edge_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
+@lru_cache(maxsize=128)
+def _edge_index(n: int, lo: int, hi: int, device: str) -> torch.Tensor:
+    """Indices of an axis of n replicate-padded by lo before and hi after
+    (read only)."""
     return torch.arange(-lo, n + hi, device=device).clamp_(0, n - 1)
 
 
@@ -77,8 +90,9 @@ def _edge_pad(img: torch.Tensor, top: int, bottom: int, left: int,
     """Replicate-pad the last two axes by index gathers (works for any
     dtype, u8 included)."""
     h, w = img.shape[-2], img.shape[-1]
-    rows = _edge_index(h, top, bottom, img.device)
-    cols = _edge_index(w, left, right, img.device)
+    dev = str(img.device)
+    rows = _edge_index(h, top, bottom, dev)
+    cols = _edge_index(w, left, right, dev)
     return img.index_select(-2, rows).index_select(-1, cols)
 
 

@@ -494,6 +494,31 @@ def test_kernel_path_matches_cpu_path(cuda, nop, noc):
     assert float(torch.linalg.vector_norm(ref, dim=-1).mean()) > 0.5
 
 
+@pytest.mark.parametrize("op", [2, 4])
+def test_warm_call_never_waits_for_the_card(cuda, op):
+    """A warm dis_flow_batched call, op-2 (K1-K4, the box-mean first level)
+    and op-4 (K1 at L2-L1, K6 at L0), of three 75x199 pairs padded on the
+    card, runs under
+    `torch.cuda.set_sync_debug_mode("error")`: it makes no upload and no
+    other call that synchronizes with the host, so nothing in it stops a
+    CUDA graph from capturing it. Its flow equals the first call's."""
+    a8, b8 = _frames(3, 75, 199, 5)
+    params = op_point_params(199, op)
+    a, b = (pyramid.pad_to_divisible(torch.as_tensor(x, device=cuda),
+                                     params.sc_f) for x in (a8, b8))
+    h, w = a.shape[-2:]
+    first = dis.dis_flow_batched(a, b, params, w, h, device=cuda)
+    torch.cuda.synchronize()
+    n = trace.counters()["spans"].get("upload", (0, 0))[0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        warm = dis.dis_flow_batched(a, b, params, w, h, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert trace.counters()["spans"].get("upload", (0, 0))[0] == n
+    assert torch.equal(warm, first)
+
+
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n,reps,grid", [(40, 48, 24, 3, 2),
                                              (130, 160, 72, 2, 3),

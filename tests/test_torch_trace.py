@@ -6,8 +6,9 @@ the profiler's clock without parenting any operator, so the benchmark's
 profile readers (`dis_bench.trace`) read what they read without the
 markers; with no profiler active nothing is recorded and the counters
 still count. Every hand-kernel launch is counted in `build.launch`, every
-copy from host memory to the device is an `upload`, and the benchmark's
-four counter readers divide what they should."""
+copy from host memory to the device is an `upload`, made once per shape
+and device by the table caches (a warm call makes none), and the
+benchmark's four counter readers divide what they should."""
 
 import ast
 import importlib.util
@@ -44,23 +45,45 @@ def pair():
     return a, torch.roll(a, (1, 2), (-2, -1))
 
 
+# Every cache of tables the program uploads or builds once per shape and
+# device: cleared, the next call is the first of its shape.
+TABLES = (pyramid._resize_matrix, pyramid._edge_index,
+          patch_solver._template_indices, patch_solver._grid_tables,
+          densify._cover_pair, upscale_kernel._device_tables)
+
+
+def _clear_tables():
+    for cache in TABLES:
+        cache.cache_clear()
+
+
+def _uploads():
+    return trace.counters()["spans"].get("upload", (0, 0))[0]
+
+
 def _call(pair):
     return dis.dis_flow_batched(*pair, PARAMS, W, H, device="cpu")
 
 
-def _profiled(pair):
-    """A profile of one op-2 call, the call's id and its recorded spans."""
-    _call(pair)                       # the cached tables made beforehand
+def _profiled(pair, fresh=False):
+    """A profile of one op-2 call, the call's id and its recorded spans:
+    the first call of its shape with `fresh`, else a warm one."""
+    if fresh:
+        _clear_tables()
+    else:
+        _call(pair)                   # the cached tables made beforehand
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _call(pair)
     last = trace.spans()[-1].call
     return prof, last, trace.spans(last)
 
 
-def test_profiled_call_records_the_span_tree(pair):
+@pytest.mark.parametrize("fresh", [True, False], ids=["first", "warm"])
+def test_profiled_call_records_the_span_tree(pair, fresh):
     """(a) Every child inside its parent, one call id, three scales with
-    the five stages each in order, uploads as leaves."""
-    _, call_id, spans = _profiled(pair)
+    the five stages each in order; a shape's first call uploads its
+    tables, as leaves, and a warm call uploads nothing."""
+    _, call_id, spans = _profiled(pair, fresh)
     by_id = {s.id: s for s in spans}
     root = spans[0]
     assert root.name == "call" and root.parent is None
@@ -79,7 +102,7 @@ def test_profiled_call_records_the_span_tree(pair):
         assert [s.name for s in kids] == [f"L{sl}.{st}" for st in dis.STAGES]
         assert lv.level == sl and all(s.level == sl for s in kids)
     uploads = [s for s in spans if s.name == "upload"]
-    assert uploads
+    assert bool(uploads) == fresh
     assert not any(by_id[s.parent].name == "upload"
                    for s in spans if s.parent is not None)
     # every span closed once in the counters too
@@ -110,21 +133,69 @@ def test_markers_leave_the_benchmark_readers_as_they_were(pair,
 
 def test_no_profiler_no_records_and_the_counters_count(pair):
     """(c) Outside a profiler session nothing is recorded, the counters
-    count the call, its spans and its uploads, and an entry reached from
-    another entry is part of the outer call."""
+    count the call and its spans, the uploads of a shape's first call
+    alone, and an entry reached from another entry is part of the outer
+    call."""
+    _clear_tables()
+    n_up = _uploads()
     _call(pair)
+    assert _uploads() > n_up
     before, n_records = trace.counters(), len(trace.spans())
     _call(pair)
     dis.dis_flow_full(pair[0][0], pair[1][0], PARAMS, W, H, device="cpu")
     after = trace.counters()
     assert len(trace.spans()) == n_records
     assert after["call"] == before["call"] + 2
-    for key in ("pyramid", "grid", "upscale", "L3.poptim", "upload"):
+    for key in ("pyramid", "grid", "upscale", "L3.poptim"):
         n0, ns0 = before["spans"].get(key, (0, 0))
         n1, ns1 = after["spans"][key]
         assert n1 >= n0 + 2 and ns1 > ns0
+    assert after["spans"]["upload"] == before["spans"]["upload"]
     first = trace.counters(after_first=True)
     assert first["call"] == after["call"] - 1
+
+
+# op-2 at the goldens' size (K1 at every level, the box-mean first level,
+# the upscale) and op-4 at 128x96 (K1 at L2-L1, K6 at L0, levels to L0);
+# each with a second, smaller shape.
+WARM_CASES = [(2, (160, 192), (128, 160)), (4, (96, 128), (64, 96))]
+
+
+def _pair_of(h, w, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.as_tensor((rng.random((1, 1, h, w)) * 255).astype(np.uint8))
+    return a, torch.roll(a, (1, 2), (-2, -1))
+
+
+@pytest.mark.parametrize("op,shape_a,shape_b", WARM_CASES,
+                         ids=["op2", "op4"])
+def test_warm_calls_upload_nothing(op, shape_a, shape_b):
+    """A shape's first call uploads its tables; every later call of the
+    shape, alternating with another shape, uploads none; and a warm call's
+    flow equals, bit for bit, the flow of a call whose tables were all
+    made anew."""
+    calls = {}
+    for (h, w), seed in ((shape_a, 1), (shape_b, 2)):
+        params = op_point_params(w, op)
+        pair = _pair_of(h, w, seed)
+        calls[h, w] = lambda pair=pair, params=params, h=h, w=w: \
+            dis.dis_flow_batched(*pair, params, w, h, device="cpu")
+    run_a, run_b = calls[shape_a], calls[shape_b]
+    _clear_tables()
+    n = _uploads()
+    cold = run_a()
+    assert _uploads() > n
+    n = _uploads()
+    warm = run_a()
+    assert _uploads() == n
+    run_b()
+    assert _uploads() > n
+    n = _uploads()
+    for run in (run_a, run_b, run_a, run_b):
+        run()
+    assert _uploads() == n
+    _clear_tables()
+    assert torch.equal(run_a(), warm) and torch.equal(cold, warm)
 
 
 def test_build_launch_is_where_a_launch_is_counted(monkeypatch):
@@ -201,12 +272,16 @@ def test_every_upload_goes_through_the_helper():
                 path = os.path.join(PKG, sub, name)
                 found += [(f"{sub}/{name}", *c) for c in _host_copies(path)]
     assert found == []
-    sites = (pyramid._resize_mm, patch_solver._template_indices,
-             patch_solver._grid_tables.__wrapped__, patch_solver._gn_plain,
+    sites = (pyramid._resize_matrix.__wrapped__,
+             patch_solver._template_indices.__wrapped__,
+             patch_solver._grid_tables.__wrapped__,
              densify._cover_pair.__wrapped__,
              upscale_kernel._device_tables.__wrapped__, dis._as_batch)
     for fn in sites:
         assert "trace.upload(" in inspect.getsource(fn), fn.__name__
+    # the tables come from the caches, not from the call
+    assert "_resize_matrix(" in inspect.getsource(pyramid._resize_mm)
+    assert "trace.upload(" not in inspect.getsource(patch_solver._gn_plain)
     assert "_as_batch(" in inspect.getsource(mesh._chunks)
 
 

@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      flow, D RGB depth, G gray flow with the forward-backward merge; E
      op-point 3 and F op-point 4 gray flow; H gray flow at patch size 16
      through the 20-parameter form, the unfused GN route; Sintel 1024x436
-     padded to 1024x448; I op-point 4 gray depth): each kernel against its
-     plain PyTorch twin on
+     padded to 1024x448; I op-point 4 gray depth; K op-point 4 gray flow
+     with the merge at batch 16, where only K8 is checked, at every level,
+     L0 included): each kernel against its plain PyTorch twin on
      the card, on the inputs the path hands it (the whole batch), with
      wrapper / plain / library times (CUDA events around back-to-back
      calls) and the bound the card could reach; for every kernel of the
@@ -239,13 +240,13 @@ import torch
 import torch.nn.functional as F
 
 from of_dis_tpu_torch import cli, pipeline, trace
-from of_dis_tpu_torch.kernels import (bilerp_extract, build, gn_fused,
-                                      gn_stages, gn_tiled, i8_dot,
+from of_dis_tpu_torch.kernels import (bilerp_extract, build, fb_splat,
+                                      gn_fused, gn_stages, gn_tiled, i8_dot,
                                       tv_de_inner, tv_of_inner, upscale,
                                       warp)
 from of_dis_tpu_torch.models import dis
 from of_dis_tpu_torch.native import io as native_io
-from of_dis_tpu_torch.ops import patch_solver, pyramid, tv
+from of_dis_tpu_torch.ops import densify, patch_solver, pyramid, tv
 from of_dis_tpu_torch.parallel import mesh as pmesh
 from of_dis_tpu_torch.parallel import spatial
 from of_dis_tpu_torch.params import (DISParams, make_level_spec,
@@ -304,7 +305,17 @@ PATHS = [
                    "warp": 6}),
     dict(name="G", what="flow, gray, forward-backward merge", op=2, nop=2,
          noc=1, batch=64, fbcon=True,
-         launches={"gn_fused": 6, "tv_of_inner": 5, "warp": 5, "upscale": 1}),
+         launches={"gn_fused": 6, "tv_of_inner": 5, "warp": 5, "upscale": 1,
+                   "fb_splat": 3}),
+    # the merge where K8 does its work: op-4, both grids at L5-L0 (L0
+    # 51,300 patches of 12x12 a pair), both merges of a level in one
+    # launch, batch 16 as the benchmark's merge cell; only K8 is held
+    # against its twin here (path F holds the others at op-4)
+    dict(name="K", what="flow, gray, op-4, forward-backward merge", op=4,
+         nop=2, noc=1, batch=16, fbcon=True, plain_pairs=2,
+         check=("fb_splat",),
+         launches={"gn_fused": 4, "gn_tiled": 8, "tv_of_inner": 11,
+                   "warp": 11, "fb_splat": 6}),
     # op-3's settings (16 trips, overlap 0.75, TV on) at patch size 16,
     # levels 4..1: 256 pixels a patch, more than a warp of either GN
     # kernel holds, so every level takes the unfused route
@@ -390,6 +401,14 @@ KERNELS = {
                     replaces="of_dis_tpu/models/dis.py:206",
                     tpu_kernels=["of_dis_tpu/models/dis.py:206 "
                                  "_upscale_cf_pallas"]),
+    "fb_splat": dict(library="fb_splat",
+                     entry=(fb_splat, "backward_splat"),
+                     symbol="of_fb_splat",
+                     source="of_dis_tpu_torch/csrc/fb_splat.cu",
+                     replaces="of_dis_tpu/ops/densify.py:86",
+                     tpu_kernels=["of_dis_tpu/ops/densify.py:86 "
+                                  "aggregate_flow_dense (the backward "
+                                  "merge; XLA, no Pallas kernel)"]),
     # the measurement tools' kernels (phases 9 and 10)
     "i8_dot": dict(library="i8_dot", entry=(i8_dot, "dot_sum"),
                    symbol="of_i8_dot",
@@ -425,6 +444,12 @@ TOL = {
     # px: two taps against the matrix product's sum over every input
     # column, float32 rounding of ~20 px values
     "upscale": 1e-4,
+    # relative to each plane's largest magnitude: the twin groups a
+    # footprint row's two x-taps before its y-tap and adds in float64 in
+    # its matrix products' order, the kernel tap by tap and pixel by
+    # pixel in cell order; their float32 roundings part by one step
+    # (2^-23) at most
+    "fb_splat": 1e-6,
     # every value a small integer: both products exact, in any order
     "i8_dot": 0.0,
     # relative to the stage's largest checksum: the twin sums in the
@@ -579,6 +604,8 @@ PLAIN = {
     "tv_de_inner_single": _single(tv_de_inner._plain),
     "warp": tv.warp_image,
     "upscale": dis.upscale_output,
+    "fb_splat": lambda spec, params, compls: torch.stack(
+        [densify._backward_splat(spec, params, c) for c in compls]),
     "i8_dot": i8_dot._plain,
     "gn_stages": gn_stages._plain,
 }
@@ -903,6 +930,34 @@ def check_upscale(args, kernel_fn):
         bound=bound(nbytes, flops))
 
 
+def check_fb_splat(args, kernel_fn):
+    """One level's merge splats (K8) against the twin on the card, the
+    error relative to each plane's largest magnitude."""
+    spec, params, compls = args
+    o_k = kernel_fn(*args)
+    o_p = PLAIN["fb_splat"](*args)
+    torch.cuda.synchronize()
+    scale = o_p.abs().amax(dim=(0, 1, 3, 4), keepdim=True).clamp(min=1e-30)
+    err = float(((o_k - o_p).abs() / scale).max())
+    if not err <= TOL["fb_splat"]:
+        raise AssertionError(f"fb_splat level {spec.level}: err {err}")
+    nd, (b, n, nop) = len(compls), compls[0].p.shape
+    pix, planes = params.p_samp_s ** 2, 1 + nop
+    # pweight, p and pt read once, the planes written once; four taps x
+    # (1 + nop) multiply-adds a footprint pixel
+    nbytes = 4 * nd * b * (n * (pix + nop + 2)
+                           + planes * spec.height * spec.width)
+    flops = 2.0 * nd * b * n * pix * 4 * planes
+    return dict(
+        shape=f"{nd} x B{b} N{n} psz{params.p_samp_s} -> "
+              f"{planes}x{spec.height}x{spec.width}",
+        max_abs_err=err,
+        wrapper_ms=cuda_ms(lambda: kernel_fn(*args), 5, 10),
+        plain_ms=cuda_ms(lambda: PLAIN["fb_splat"](*args), 2, 1),
+        library_wrapper_ms=None, device_ms=device_ms(kernel_fn, args),
+        library_device_ms=None, bound=bound(nbytes, flops))
+
+
 def epe_ratio(ours, ref):
     """Mean end-point error over the reference's mean magnitude, over the
     trailing parameter axis (2 for flow, 1 for depth)."""
@@ -914,7 +969,8 @@ CHECKS = {"gn_fused": lambda name, args, kw, fn: check_gn(name, args, fn),
           "gn_tiled": lambda name, args, kw, fn: check_gn(name, args, fn),
           "bilerp_extract": lambda name, args, kw, fn: check_extract(args, fn),
           "warp": lambda name, args, kw, fn: check_warp(args, kw, fn),
-          "upscale": lambda name, args, kw, fn: check_upscale(args, fn)}
+          "upscale": lambda name, args, kw, fn: check_upscale(args, fn),
+          "fb_splat": lambda name, args, kw, fn: check_fb_splat(args, fn)}
 
 
 def call_level(name, args, full_w, finest):
@@ -924,6 +980,8 @@ def call_level(name, args, full_w, finest):
     the finest level."""
     if name.startswith("gn_"):
         return args[0].level, args[0].camlr
+    if name == "fb_splat":
+        return args[0].level, 0
     if name == "upscale":
         return finest, 0
     if name == "bilerp_extract":
@@ -1054,8 +1112,11 @@ def run_path(cfg, dev, rows, totals, walls_by_path):
                              f"{cfg['launches']}, at least "
                              f"{cfg.get('at_least', {})}")
     first = {name: len(rs) for name, rs in rows.items()}
-    check_calls(label, calls, wrappers, rows, full_w, params.sc_l,
+    checked = {name: c for name, c in calls.items()
+               if name in cfg.get("check", KERNELS)}
+    check_calls(label, checked, wrappers, rows, full_w, params.sc_l,
                 cfg.get("de_routes"))
+    del calls, checked
     if cfg.get("routes"):
         for level_args in gn_levels:
             check_routes(label, *level_args)

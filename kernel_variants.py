@@ -56,9 +56,9 @@ from of_dis_tpu_torch.params import op_point_params
 from of_dis_tpu_torch.tools import bench_gn_stages, bench_i8_dot, synth
 
 # each kernel's wrapper, its plain twin and the chip_smoke paths that
-# launch it: every call of K1 (24), K6 (11: 7 on E and F, 4 on I), K7 (68),
-# K5 (12) and K3 (38) on the main path; T1 and T2 run on none (their calls
-# are the tools')
+# launch it: every call of K1 (28), K6 (19: 7 on E and F, 4 on I, 8 on K),
+# K7 (68), K5 (12) and K3 (49) on the main path; T1 and T2 run on none
+# (their calls are the tools')
 KERNELS = {"gn_fused": gn_fused.gn_fused,
            "gn_tiled": gn_tiled.gn_tiled,
            "bilerp_extract": bilerp_extract.bilerp_extract,
@@ -73,8 +73,8 @@ TWINS = {"gn_fused": patch_solver._gn_plain,
          "warp": tv.warp_image,
          "i8_dot": i8_dot._plain,
          "gn_stages": gn_stages._plain}
-PATHS = {"gn_fused": "ABCDEFGI", "gn_tiled": "EFI", "bilerp_extract": "H",
-         "tv_de_inner": "BDI", "warp": "ABCDEFGHI", "i8_dot": "",
+PATHS = {"gn_fused": "ABCDEFGIK", "gn_tiled": "EFIK", "bilerp_extract": "H",
+         "tv_de_inner": "BDI", "warp": "ABCDEFGHIK", "i8_dot": "",
          "gn_stages": ""}
 ROUNDS = 2
 

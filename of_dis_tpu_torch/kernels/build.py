@@ -33,7 +33,8 @@ import torch
 from of_dis_tpu_torch import trace
 
 KERNELS = ("gn_fused", "gn_tiled", "bilerp_extract", "tv_of_inner",
-           "tv_de_inner", "warp", "upscale", "i8_dot", "gn_stages")
+           "tv_de_inner", "warp", "upscale", "i8_dot", "gn_stages",
+           "fb_splat")
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "of_dis_tpu_torch"
 # --fmad=false: no fused multiply-add contraction, so each kernel rounds

@@ -9,10 +9,11 @@ then the INTER_LINEAR upscale to full resolution (run_dense.cpp:408-412).
 Everything is natively batched over frame pairs (B, C, H, W). On CUDA the
 GN loop (K1 on small levels, K6 with in-kernel templates on large ones;
 for patches above 12 pixels a side the unfused loop around the extraction
-kernel K7), the warp (K3), the TV loop (K2 for flow, K5 for depth) and the
-final upscale (K4) run as hand-written kernels; on the CPU their plain
-twins run. Entry points take `device="cuda"` by default and raise when CUDA is
-missing unless the caller asks for the CPU.
+kernel K7), the warp (K3), the TV loop (K2 for flow, K5 for depth), the
+merge's splat (K8) and the final upscale (K4) run as hand-written
+kernels; on the CPU their plain twins run. Entry points take
+`device="cuda"` by default and raise when CUDA is missing unless the
+caller asks for the CPU.
 
 Ported: optical flow (nop=2) and depth from stereo (nop=1, the disparity
 of the left camera, sign-clamped to <= 0), each on gray (noc=1) or RGB
@@ -139,9 +140,10 @@ STAGES = ("pconst", "pinit", "poptim", "cflow", "tvopt")
 
 @lru_cache(maxsize=None)
 def _span_keys(sl: int) -> Tuple[str, ...]:
-    """The span keys of scale sl: `L<sl>`, then its stages' (`STAGES`)."""
+    """The span keys of scale sl: `L<sl>`, its stages' (`STAGES`), then
+    `L<sl>.merge`, the merge's splats inside `cflow`."""
     key = f"L{sl}"
-    return (key,) + tuple(f"{key}.{stage}" for stage in STAGES)
+    return (key,) + tuple(f"{key}.{stage}" for stage in STAGES + ("merge",))
 
 
 def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
@@ -153,7 +155,8 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
     package). Returns (B, H/2^sc_l, W/2^sc_l, nop). Spans (`trace`): the
     pyramid, the grid set-up, and per scale `L<sl>` its stages (`STAGES`):
     pconst (templates of the levels whose GN kernel reads them), pinit,
-    poptim, cflow and tvopt."""
+    poptim, cflow and tvopt; with the merge, `L<sl>.merge` inside cflow
+    (kernel K8's splats)."""
     _check_supported(params)
     pad = params.p_samp_s
     fb = params.usefbcon
@@ -193,7 +196,8 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
         # with the merge, the backward grid swaps the images' roles
         src = (ia, dxs_a[sl], dys_a[sl])
         src_bw = (ib, dxs_b[sl], dys_b[sl]) if fb else None
-        key, k_const, k_init, k_optim, k_flow, k_tv = _span_keys(sl)
+        key, k_const, k_init, k_optim, k_flow, k_tv, k_merge = \
+            _span_keys(sl)
         t_level = trace.begin(key, sl)
         t = trace.begin(k_const, sl)
         tpl = templates(spec, src)
@@ -213,13 +217,15 @@ def _dis_flow_core(im_a: torch.Tensor, im_b: torch.Tensor, params: DISParams,
                 spec_bw, params, ia, tpl_bw, p_init_bw, src=src_bw)
         trace.end(k_optim, t)
         t = trace.begin(k_flow, sl)
-        flow = densify.aggregate_flow_dense(spec, params, res, res_bw)
         # no backward flow at the last scale: nothing reads it
         # (oflow.cpp:266)
         bw_next = fb and sl > params.sc_l
-        if bw_next:
-            flow_bw = densify.aggregate_flow_dense(spec_bw, params, res_bw,
-                                                   res)
+        if fb:
+            flow, flow_bw = densify.merge_flows(
+                spec, params, res, res_bw, spec_bw if bw_next else None,
+                span=k_merge)
+        else:
+            flow = densify.aggregate_flow_dense(spec, params, res)
         trace.end(k_flow, t)
         t = trace.begin(k_tv, sl)
         if params.usetvref:

@@ -8,9 +8,11 @@ axis: two contractions against static 0/1 cover matrices.
 
 Backward merge (`usefbcon`): the complementary grid's patches splat their
 NEGATED displacement bilinearly at their converged position
-(patchgrid.cpp:278-375). The positions are run-time values, so the 0/1
-cover matrices become soft one-hot matrices built from them (the two
-bilinear taps of an axis folded in), and the placement is again two
+(patchgrid.cpp:278-375). On CUDA kernel K8 (`kernels/fb_splat.py`)
+gathers each pixel's terms from the patches sorted by anchor cell, in
+float64 and a fixed order; its plain twin `_backward_splat`, which the
+CPU runs, builds soft one-hot matrices from the run-time positions (the
+two bilinear taps of an axis folded in) and places the patches with two
 contractions.
 
 The contractions take float32 values and accumulate in float64, rounded
@@ -19,21 +21,23 @@ alone takes another matrix-product route), so a pair's dense flow would
 depend on the pairs batched with it; in float64 another order moves a sum
 by about 2^-53 of its terms' magnitude, which changes the float32 result
 only where the sum lies that close to a float32 rounding boundary. So a
-batch split gives the same bits in practice, not by construction.
-Neither path scatters or uses atomics: two runs give the same bits. Every
-pixel is finally normalised by its accumulated weight
+batch split gives the same bits in practice, not by construction; K8's
+merge gives them by construction (each pixel sums its own pair's terms in
+one order). Nothing scatters or uses atomics: two runs give the same
+bits. Every pixel is finally normalised by its accumulated weight
 (patchgrid.cpp:377-394).
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from of_dis_tpu_torch import trace
+from of_dis_tpu_torch.kernels import fb_splat
 from of_dis_tpu_torch.ops.patch_solver import PatchResult
 from of_dis_tpu_torch.params import DISParams, LevelSpec
 
@@ -69,11 +73,13 @@ def _cover_matrix(size: int, n_axis: int, off: int, steps: int, psz: int
     return m
 
 
-@lru_cache(maxsize=32)
+@lru_cache(maxsize=128)
 def _cover_pair(spec: LevelSpec, psz: int, device: str):
     """The level's two cover matrices as float64 tensors on `device`: the
     (H, psz, noph) vertical one and the transposed (psz*nopw, W)
-    horizontal one."""
+    horizontal one. Read only; 128 entries hold a call's at two shapes on
+    four devices (op-4 with the merge: 11 a shape, both grids' levels but
+    the last backward one)."""
     u = _cover_matrix(spec.height, spec.noph, spec.offseth, spec.steps, psz)
     v = _cover_matrix(spec.width, spec.nopw, spec.offsetw, spec.steps, psz)
     u4 = trace.upload(u.reshape(spec.height, psz, spec.noph), device,
@@ -149,14 +155,11 @@ def _backward_splat(spec: LevelSpec, params: DISParams, compl: PatchResult
     return out.to(torch.float32)
 
 
-def aggregate_flow_dense(spec: LevelSpec, params: DISParams,
-                         res: PatchResult,
-                         compl_res: Optional[PatchResult] = None
-                         ) -> torch.Tensor:
-    """Dense flow (B, H, W, nop) from per-patch results with fields
-    p (B, N, nop) and pweight (B, P, P, N) (patchgrid.cpp:213-397); with
-    compl_res, the complementary grid's results (pt (B, N, 2) too) are
-    merged in by `_backward_splat`.
+def _dense_sums(spec: LevelSpec, params: DISParams,
+                res: PatchResult) -> torch.Tensor:
+    """(1 + nop, B, H, W) float32: the accumulated weight and weighted
+    parameters of per-patch results with fields p (B, N, nop) and pweight
+    (B, P, P, N), before the normalisation (patchgrid.cpp:223-275).
 
     pweight (P, P, N) with the column-major patch axis N = ix*noph + iy
     reshapes for free to (oy, (ox, ix), iy): the vertical contraction runs
@@ -176,13 +179,54 @@ def aggregate_flow_dense(spec: LevelSpec, params: DISParams,
     # in float64 and rounded once (see the module docstring). Each output
     # sums at most ((psz-1)//steps+1)^2 float32 terms, which float64 holds
     # exactly unless their magnitudes lie more than about 2^24 apart.
-    dense = torch.matmul(torch.einsum("hoy,kbozy->kbhz", u4, fields.double()),
-                         vt).to(torch.float32)
+    return torch.matmul(torch.einsum("hoy,kbozy->kbhz", u4, fields.double()),
+                        vt).to(torch.float32)
+
+
+def _normalise(dense: torch.Tensor,
+               back: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense flow (B, H, W, nop) from `_dense_sums`, with a merge's splat
+    (B, 1 + nop, H, W) added first where one is given: each pixel's
+    weighted parameters over its weight, where that is positive
+    (patchgrid.cpp:377-394)."""
     we = dense[0]
     flow = dense[1:].movedim(0, -1)
-    if compl_res is not None:
-        back = _backward_splat(spec, params, compl_res)
+    if back is not None:
         we = we + back[:, 0]
         flow = flow + back[:, 1:].movedim(1, -1)
     we = we[..., None]
     return torch.where(we > 0, flow / we, flow)
+
+
+def aggregate_flow_dense(spec: LevelSpec, params: DISParams,
+                         res: PatchResult) -> torch.Tensor:
+    """Dense flow (B, H, W, nop) from per-patch results with fields
+    p (B, N, nop) and pweight (B, P, P, N) (patchgrid.cpp:213-397)."""
+    return _normalise(_dense_sums(spec, params, res))
+
+
+def merge_flows(spec: LevelSpec, params: DISParams, res: PatchResult,
+                res_bw: PatchResult, spec_bw: Optional[LevelSpec] = None,
+                span: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward-backward merge of a level (patchgrid.cpp:213-397):
+    (flow, flow_bw), each (B, H, W, nop). `flow` is the forward grid's
+    dense flow with the backward grid's patches (`res_bw`, pt (B, N, 2)
+    too) splat into it; where `spec_bw`, the backward grid's level, is
+    given, `flow_bw` is the backward grid's with the forward grid's
+    patches splat into it, else None. Both grids' sums first, then both
+    splats in one K8 launch (`fb_splat.backward_splat`; the CPU runs the
+    twin `_backward_splat`), inside the span `span` where one is named."""
+    # the splats after both contractions, whose float64 operands are the
+    # level's largest
+    sums = [_dense_sums(spec, params, res)]
+    if spec_bw is not None:
+        sums.append(_dense_sums(spec_bw, params, res_bw))
+    if span is not None:
+        t = trace.begin(span, spec.level)
+    back = fb_splat.backward_splat(spec, params, (res_bw, res)[:len(sums)])
+    if span is not None:
+        trace.end(span, t)
+    flow = _normalise(sums[0], back[0])
+    flow_bw = _normalise(sums[1], back[1]) if spec_bw is not None else None
+    return flow, flow_bw

@@ -80,12 +80,14 @@ class PatchResult(NamedTuple):
     iters: torch.Tensor
 
 
-@lru_cache(maxsize=64)
+@lru_cache(maxsize=128)
 def _grid_tables(spec: LevelSpec, device: str):
     """Static per-level tables on `device`, built once per level and device
     (a level of 51,300 patches costs tens of host milliseconds to list):
     the (N, 2) float32 reference positions and the (N,) row / column
-    indices of each patch's pixel in the next coarser level's flow."""
+    indices of each patch's pixel in the next coarser level's flow. Read
+    only; 128 entries hold a call's at two shapes on four devices (op-4
+    with the merge: 12 a shape, both grids at every level)."""
     xs, ys = (np.asarray(v) for v in grid_points(spec))
     ref = trace.upload(np.stack([xs, ys], axis=1), device, torch.float32)
     return (ref, trace.upload(ys // 2, device),

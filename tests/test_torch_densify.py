@@ -124,7 +124,8 @@ def _merge_both(params, spec, fw, bw):
     args = (tspec, tparams,
             convert.tensors_from_numpy(tps.PatchResult, *fw, np.int32(0)),
             convert.tensors_from_numpy(tps.PatchResult, *bw, np.int32(0)))
-    ours = td.aggregate_flow_dense(*args)
+    ours, none = td.merge_flows(*args)
+    assert none is None
     return ref, ours, args
 
 
@@ -132,7 +133,7 @@ def _merge_both(params, spec, fw, bw):
     (2, 1, (96, 80), False), (2, 0, (40, 56), True),
     (1, 1, (96, 80), False), (1, 0, (40, 56), True)])
 def test_backward_merge_matches_jax(nop, level, size, border):
-    """`aggregate_flow_dense` with the complementary grid's results, flow
+    """`merge_flows` with the complementary grid's results, flow
     and depth: 1e-5 relative to the field's largest value, as the forward
     path (the same soft one-hot contractions, summed in another float32
     order), also with patches on and just outside the validity border."""
@@ -148,7 +149,7 @@ def test_backward_merge_changes_the_result_and_is_repeatable():
     _, merged, args = _merge_both(params, spec, fw, bw)
     forward = td.aggregate_flow_dense(*args[:3])
     assert float((merged - forward).abs().max()) > 0.1
-    assert torch.equal(merged, td.aggregate_flow_dense(*args))
+    assert torch.equal(merged, td.merge_flows(*args)[0])
 
 
 def test_backward_merge_chunks_give_the_unchunked_sums(monkeypatch):
@@ -161,6 +162,21 @@ def test_backward_merge_chunks_give_the_unchunked_sums(monkeypatch):
     monkeypatch.setattr(td, "_MERGE_CHUNK_BYTES",
                         4 * psz * (spec.height + 2 * spec.width) * 100)
     assert td._merge_chunk(n, psz, spec.height, spec.width) == 100 < n
-    chunked = td.aggregate_flow_dense(*args)
+    chunked = td.merge_flows(*args)[0]
     np.testing.assert_allclose(chunked.numpy(), whole.numpy(),
                                atol=1e-6 * float(whole.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("nop", [2, 1])
+def test_merge_flows_both_directions_equal_each_alone(nop):
+    """With the backward grid's level given, `merge_flows` makes both
+    flows in one pass; each equals its direction merged alone, bit for
+    bit (the same sums, the same splats)."""
+    params, spec, fw, bw = _merge_case(nop, 1, (96, 80), 11 + nop, True)
+    _, _, (tspec, tparams, res, res_bw) = _merge_both(params, spec, fw, bw)
+    tspec_bw = dataclasses.replace(tspec, camlr=1)
+    flow, flow_bw = td.merge_flows(tspec, tparams, res, res_bw, tspec_bw)
+    assert torch.equal(flow, td.merge_flows(tspec, tparams, res, res_bw)[0])
+    alone_bw, _ = td.merge_flows(tspec_bw, tparams, res_bw, res)
+    assert torch.equal(flow_bw, alone_bw)
+    assert float((flow_bw - flow).abs().max()) > 0.1

@@ -31,7 +31,7 @@ WRAPPERS = {"gn_fused": "gn_fused", "gn_tiled": "gn_tiled",
             "tv_of_inner": "of_inner",
             "tv_de_inner": "de_inner", "warp": "warp_image_batched",
             "upscale": "upscale_batched", "i8_dot": "dot_sum",
-            "gn_stages": "gn_stages"}
+            "gn_stages": "gn_stages", "fb_splat": "backward_splat"}
 
 
 def _modules():

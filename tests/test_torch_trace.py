@@ -11,6 +11,7 @@ and device by the table caches (a warm call makes none), and the
 benchmark's four counter readers divide what they should."""
 
 import ast
+import dataclasses
 import importlib.util
 import inspect
 import os
@@ -156,9 +157,12 @@ def test_no_profiler_no_records_and_the_counters_count(pair):
 
 
 # op-2 at the goldens' size (K1 at every level, the box-mean first level,
-# the upscale) and op-4 at 128x96 (K1 at L2-L1, K6 at L0, levels to L0);
-# each with a second, smaller shape.
-WARM_CASES = [(2, (160, 192), (128, 160)), (4, (96, 128), (64, 96))]
+# the upscale), op-4 at 128x96 (K1 at L2-L1, K6 at L0, levels to L0) and
+# op-2 with the forward-backward merge (both grids' tables, K8); each with
+# a second, smaller shape.
+WARM_CASES = [(2, False, (160, 192), (128, 160)),
+              (4, False, (96, 128), (64, 96)),
+              (2, True, (160, 192), (128, 160))]
 
 
 def _pair_of(h, w, seed):
@@ -167,16 +171,16 @@ def _pair_of(h, w, seed):
     return a, torch.roll(a, (1, 2), (-2, -1))
 
 
-@pytest.mark.parametrize("op,shape_a,shape_b", WARM_CASES,
-                         ids=["op2", "op4"])
-def test_warm_calls_upload_nothing(op, shape_a, shape_b):
+@pytest.mark.parametrize("op,fb,shape_a,shape_b", WARM_CASES,
+                         ids=["op2", "op4", "op2_fb"])
+def test_warm_calls_upload_nothing(op, fb, shape_a, shape_b):
     """A shape's first call uploads its tables; every later call of the
     shape, alternating with another shape, uploads none; and a warm call's
     flow equals, bit for bit, the flow of a call whose tables were all
     made anew."""
     calls = {}
     for (h, w), seed in ((shape_a, 1), (shape_b, 2)):
-        params = op_point_params(w, op)
+        params = dataclasses.replace(op_point_params(w, op), usefbcon=fb)
         pair = _pair_of(h, w, seed)
         calls[h, w] = lambda pair=pair, params=params, h=h, w=w: \
             dis.dis_flow_batched(*pair, params, w, h, device="cpu")
